@@ -16,8 +16,14 @@ dense math, for cross-package parity) or per-step draws from a
 known-region and forward draws and an unnormalized posterior (Gumbel-max is
 shift-invariant), as the JAX key path does.
 
-Not ported: mixed prompt lengths in one batch, the guidance interval,
-geometry buckets and the quantized fused heads/tail.
+A W8A8 model (``ops/quant.quantize_nar``) takes the serving route: folded
+quantized heads (``fold_quant_heads``) and, on the generator path, kernel K6
+(``heads_diffusion_tail``), which fuses the heads GEMM, CFG, posterior and
+Gumbel-max and draws on the same uniforms as the dense tail. The injected
+uniform path keeps the dense tail, as the JAX package does.
+
+Not ported: mixed prompt lengths in one batch, the guidance interval and
+geometry buckets.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ import torch
 
 from mars5_tts_tpu.config import DSH
 
-from ..models.nar import ResidualTransformer
+from ..models.nar import (ResidualTransformer, fold_quant_heads, nar_heads_folded,
+                          nar_heads_prequant)
+from ..ops.kernels.diffusion_tail import heads_diffusion_tail, tail_scalars
 from .multinomial import MultinomialDiffusion, log_sample_categorical
 from .schedule import build_step_plan
 
@@ -43,14 +51,16 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                              diff: MultinomialDiffusion, T: int, dsh: DSH = DSH(),
                              retain_quant0: bool = True,
                              generator: torch.Generator | None = None,
-                             uniforms=None, x_init=None):
+                             uniforms=None, x_init=None, fused_heads_tail: bool = True):
     """Run the whole inpainting trajectory.
 
     batch: (c_text (bs, Lt), c_codes (bs, Lc, 8), c_texts_length (bs,),
     c_codes_length (bs,), x (bs, Lx, 8) with L0 = AR codes,
     x_padding_mask (bs, Lx)), numpy arrays or tensors.
     Returns the (bs, Lx, 8) int64 grid on the model's device, deep-clone
-    prompt frames cropped.
+    prompt frames cropped. ``fused_heads_tail=False`` runs a W8A8 model's
+    generator path through the folded heads and the dense tail instead of
+    K6 (the same draws, for checking the kernel's route).
     """
     dev = model.text_embed.weight.device
     c_text, c_codes, ctl, ccl, x, xpm = batch
@@ -94,13 +104,13 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     t_lasts, is_reverse, cs = build_step_plan(T, dsh.jump_len, dsh.jump_n_sample)
     out = _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x_cur, x_known,
                       xpm, x_quant0, t_lasts, is_reverse, cs, uniforms, generator,
-                      offset, retain_quant0)
+                      offset, retain_quant0, fused_heads_tail)
     return out[:, offset:offset + lx]
 
 
 def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                 x_quant0, t_lasts, is_reverse, cs, uniforms, generator, offset,
-                retain_quant0):
+                retain_quant0, fused_heads_tail):
     dev = x.device
     bs, _, n_lanes = x.shape
     K = diff.num_classes
@@ -131,12 +141,21 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
     cp_all = c_padding[None].expand(T, rows, lc).reshape(T * rows, lc)
     memory_all = model.tfm.encoder(c_all, key_padding_mask=cp_all).reshape(T, rows, lc, dim)
 
+    # W8A8: the heads' LN affines folded into requantized head weights
+    folded = fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized else None
+    use_k6 = folded is not None and use_key and fused_heads_tail
+
+    def decoder_out(x, t_last):
+        """Decoder output on the generated frames, (rows, l_gen, dim)."""
+        xr = torch.cat([x, x]) if cfg_batched else x
+        return model.decoder_apply(xr, xpm_rows, t_dec_all[t_last][None].expand(rows, dim),
+                                   memory_all[t_last], c_padding, q_tail_start=offset)
+
     def x0_logits(x, t_last):
         """CFG-combined f32 x0 logits on the generated frames, lanes 1.."""
-        xr = torch.cat([x, x]) if cfg_batched else x
-        out = model.decoder_apply(xr, xpm_rows, t_dec_all[t_last][None].expand(rows, dim),
-                                  memory_all[t_last], c_padding, q_tail_start=offset)
-        logits = model.heads(out, lanes=range(1, n_lanes)).float()
+        out = decoder_out(x, t_last)
+        logits = (nar_heads_folded(folded, out) if folded is not None
+                  else model.heads(out, lanes=range(1, n_lanes))).float()
         if cfg_batched:
             return w * logits[:bs] + (1.0 - w) * logits[bs:]
         return logits
@@ -145,19 +164,25 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         return torch.rand(shape, generator=generator, device=dev)
 
     def reverse(x, i, t):
-        log_x0 = torch.log_softmax(x0_logits(x, t) / dsh.x_0_temp, dim=-1)
-        log_pred = diff.q_posterior_indexed(log_x0, x[:, offset:, 1:], t,
-                                            normalize=not use_key)
-        # the reference never forwards last_greedy to its reverse step, so
-        # t = 0 samples too
+        if use_k6:
+            x8, xs = nar_heads_prequant(decoder_out(x, t))
+            unknown = heads_diffusion_tail(
+                x8, xs, folded, rand(bs, l_gen, n_lanes - 1, K), x[:, offset:, 1:],
+                tail_scalars(diff, t), w=w, temp=dsh.x_0_temp)
+        else:
+            log_x0 = torch.log_softmax(x0_logits(x, t) / dsh.x_0_temp, dim=-1)
+            log_pred = diff.q_posterior_indexed(log_x0, x[:, offset:, 1:], t,
+                                                normalize=not use_key)
+            # the reference never forwards last_greedy to its reverse step, so
+            # t = 0 samples too
+            unknown = log_sample_categorical(
+                log_pred, rand(*log_pred.shape) if use_key else uniforms[i, 0][:, offset:, 1:])
         if use_key:
-            unknown = log_sample_categorical(log_pred, rand(*log_pred.shape))
             kp = diff.q_pred_indexed_sample(x_known[:, :offset], t,
                                             rand(bs, offset, n_lanes, 2))
             kl = diff.q_pred_indexed_sample(x_known[:, offset:, :1], t,
                                             rand(bs, l_gen, 1, 2))
         else:
-            unknown = log_sample_categorical(log_pred, uniforms[i, 0][:, offset:, 1:])
             kp = log_sample_categorical(diff.q_pred_indexed(x_known[:, :offset], t),
                                         uniforms[i, 1][:, :offset])
             kl = log_sample_categorical(diff.q_pred_indexed(x_known[:, offset:, :1], t),

@@ -11,6 +11,10 @@ Parameters of the JAX package reach the port through
 re-implementations of its ``convert_codeclm_back`` / ``convert_nar_back``.
 Encodec and Vocos take the JAX pytree directly (``encodec_from_pytree``,
 ``vocos_from_pytree``).
+
+A NAR pytree quantized by the JAX package's ``quantize_nar`` (per-row
+``{"q", "s"}`` leaves) converts to a state dict with ``<weight>.q`` /
+``<weight>.s`` entries, which ``load_nar`` loads into a W8A8 model.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.quant import QuantWeight, set_weight
 from .ar import CodecLM, CodecLMConfig
 from .nar import ResidualTransformer, ResidualTransformerConfig
 
@@ -109,9 +114,14 @@ def load_codeclm(sd, cfg: CodecLMConfig, dtype=torch.float32, device="cpu") -> C
 
 def load_nar(sd, cfg: ResidualTransformerConfig, dtype=torch.float32,
              device="cpu") -> ResidualTransformer:
-    """A ResidualTransformer holding a reference-layout state dict."""
-    return _load(ResidualTransformer(cfg), {k: _np(v) for k, v in sd.items()},
-                 dtype, device)
+    """A ResidualTransformer holding a reference-layout state dict; weights
+    given as ``<name>.q`` / ``<name>.s`` load as W8A8 ``QuantWeight``s."""
+    model = ResidualTransformer(cfg)
+    for key in sd:
+        if key.endswith(".q"):
+            owner, name = key[:-2].rsplit(".", 1)
+            set_weight(model.get_submodule(owner), name, QuantWeight.empty(*sd[key].shape))
+    return _load(model, {k: _np(v) for k, v in sd.items()}, dtype, device)
 
 
 # --- the JAX package's parameter pytrees, in reference naming ----------------
@@ -122,27 +132,38 @@ def _flat3(w):
     return w.reshape(3 * w.shape[1], *w.shape[2:])
 
 
+def _weight(out: dict, key: str, leaf, i, fn=lambda a: a) -> None:
+    """Entry ``i`` of a stacked weight, through ``fn``, under ``key``; a
+    quantized leaf ({"q", "s"}) gives ``key.q`` and ``key.s``."""
+    if isinstance(leaf, dict):
+        out[key + ".q"], out[key + ".s"] = fn(_np(leaf["q"][i])), fn(_np(leaf["s"][i]))
+    else:
+        out[key] = fn(_np(leaf[i]))
+
+
 def _stack_to_sd(stack, prefix: str, n_layers: int, out: dict) -> None:
     layers = stack["layers"]
     for i in range(n_layers):
         pre = f"{prefix}.layers.{i}"
         g = lambda k: _np(layers[k][i])
-        out[f"{pre}.self_attn.in_proj_weight"] = _flat3(g("sa_in_w"))
+        _weight(out, f"{pre}.self_attn.in_proj_weight", layers["sa_in_w"], i, _flat3)
         out[f"{pre}.self_attn.in_proj_bias"] = _flat3(g("sa_in_b"))
-        out[f"{pre}.self_attn.out_proj.weight"] = g("sa_out_w")
+        _weight(out, f"{pre}.self_attn.out_proj.weight", layers["sa_out_w"], i)
         out[f"{pre}.self_attn.out_proj.bias"] = g("sa_out_b")
-        wv = g("WV")
-        out[f"{pre}.activation.W.weight"] = wv[: wv.shape[0] // 2]
-        out[f"{pre}.activation.V.weight"] = wv[wv.shape[0] // 2:]
-        out[f"{pre}.linear2.weight"] = g("lin2_w")
+        _weight(out, f"{pre}.activation.W.weight", layers["WV"], i,
+                lambda a: a[: a.shape[0] // 2])
+        _weight(out, f"{pre}.activation.V.weight", layers["WV"], i,
+                lambda a: a[a.shape[0] // 2:])
+        _weight(out, f"{pre}.linear2.weight", layers["lin2_w"], i)
         out[f"{pre}.linear2.bias"] = g("lin2_b")
         for n in ("norm1", "norm2"):
             out[f"{pre}.{n}.weight"] = g(f"{n}_w")
             out[f"{pre}.{n}.bias"] = g(f"{n}_b")
         if "ca_in_w" in layers:
-            out[f"{pre}.multihead_attn.in_proj_weight"] = _flat3(g("ca_in_w"))
+            _weight(out, f"{pre}.multihead_attn.in_proj_weight", layers["ca_in_w"], i,
+                    _flat3)
             out[f"{pre}.multihead_attn.in_proj_bias"] = _flat3(g("ca_in_b"))
-            out[f"{pre}.multihead_attn.out_proj.weight"] = g("ca_out_w")
+            _weight(out, f"{pre}.multihead_attn.out_proj.weight", layers["ca_out_w"], i)
             out[f"{pre}.multihead_attn.out_proj.bias"] = g("ca_out_b")
             out[f"{pre}.norm3.weight"] = g("norm3_w")
             out[f"{pre}.norm3.bias"] = g("norm3_b")
@@ -177,7 +198,8 @@ def codeclm_reference_state_dict(params, cfg: CodecLMConfig) -> dict:
 
 
 def nar_reference_state_dict(params, cfg: ResidualTransformerConfig) -> dict:
-    """JAX NAR pytree -> reference ``ResidualTransformer`` state dict."""
+    """JAX NAR pytree -> reference ``ResidualTransformer`` state dict (with
+    ``.q`` / ``.s`` entries where the pytree went through ``quantize_nar``)."""
     sd = {"text_embed.weight": _np(params["text_embed"]),
           "cond_pos_embedding.alpha": _np(params["cond_pos_alpha"]),
           "pos_embedding.alpha": _np(params["pos_alpha"]),
@@ -198,6 +220,6 @@ def nar_reference_state_dict(params, cfg: ResidualTransformerConfig) -> dict:
     for i in range(cfg.pred_quant_levels):
         sd[f"residual_decoder.{i}.0.weight"] = _np(rd["ln_w"][i])
         sd[f"residual_decoder.{i}.0.bias"] = _np(rd["ln_b"][i])
-        sd[f"residual_decoder.{i}.1.weight"] = _np(rd["lin_w"][i])
+        _weight(sd, f"residual_decoder.{i}.1.weight", rd["lin_w"], i)
         sd[f"residual_decoder.{i}.1.bias"] = _np(rd["lin_b"][i])
     return sd

@@ -10,6 +10,11 @@ gone, the FFN lives in ``activation.{W,V}`` (silu(x W^T) * x V^T) and
     decoder:  x += self_attn(norm1(x)); x += cross_attn(norm2(x), mem); x += ff(norm3(x))
 
 and each stack ends with a LayerNorm (eps 4e-5).
+
+Weights may be W8A8 (``ops/quant.py``). A quantized decoder layer runs the
+serving path of the JAX package's ``decoder_layer_fused``
+(:meth:`DecoderLayer.forward_w8a8`); a quantized encoder layer runs unfused
+W8A8 products.
 """
 
 from __future__ import annotations
@@ -18,8 +23,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.attention import linear, torch_mha
+from ..ops.attention import sdpa, torch_mha
+from ..ops.kernels import mha as mha_kernel
+from ..ops.kernels.nar_fused import fused_ffn, fused_linear
 from ..ops.norms import layer_norm
+from ..ops.quant import is_quantized, linear_any, linear_w8a8
 
 LAYERNORM_EPS = 4e-5
 
@@ -60,7 +68,7 @@ class SwiGLU(nn.Module):
         self.V = nn.Linear(dim, hidden, bias=False)
 
     def forward(self, x):
-        return F.silu(linear(x, self.W.weight)) * linear(x, self.V.weight)
+        return F.silu(linear_any(x, self.W.weight)) * linear_any(x, self.V.weight)
 
 
 class EncoderLayer(nn.Module):
@@ -73,7 +81,7 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(dim)
 
     def ff(self, h):
-        return linear(self.activation(h), self.linear2.weight, self.linear2.bias)
+        return linear_any(self.activation(h), self.linear2.weight, self.linear2.bias)
 
     def forward(self, x, key_padding_mask=None):
         h = self.norm1(x)
@@ -87,12 +95,62 @@ class DecoderLayer(EncoderLayer):
         self.multihead_attn = MultiheadAttention(dim, nhead)
         self.norm3 = LayerNorm(dim)
 
+    @property
+    def is_quantized(self) -> bool:
+        return is_quantized(self.activation.W.weight)
+
     def forward(self, x, memory, tgt_key_padding_mask=None,
                 memory_key_padding_mask=None):
+        if self.is_quantized:
+            return self.forward_w8a8(x, memory, tgt_key_padding_mask,
+                                     memory_key_padding_mask)
         h = self.norm1(x)
         x = x + self.self_attn(h, h, tgt_key_padding_mask)
         x = x + self.multihead_attn(self.norm2(x), memory, memory_key_padding_mask)
         return x + self.ff(self.norm3(x))
+
+    def forward_w8a8(self, x, memory, tgt_key_padding_mask=None,
+                     memory_key_padding_mask=None, q_start: int = 0):
+        """The W8A8 layer with the JAX package's default fused sites
+        (``decoder_layer_fused``): qkv through K3 with the LN1 prologue, K1
+        self-attention, the self-attention out-projection unfused, the
+        cross-attention q through K3 with the LN2 prologue, plain
+        cross-attention over the unfused K/V projection of the memory, its
+        out-projection unfused, and the FFN through K4. The JAX package takes
+        the fused sites on a TPU only from 1024 rows up, for launch overhead
+        there; the port always takes them (the same math).
+
+        ``q_start > 0``: everything after the K/V projection runs on rows
+        ``[q_start:]`` only, and the layer returns (B, L - q_start, D).
+        """
+        b, l, d = x.shape
+        sa, ca = self.self_attn, self.multihead_attn
+        nh = sa.nhead
+        hd = d // nh
+        w = sa.in_proj_weight
+        qkv = fused_linear(x, (w.q, w.s), ln=(self.norm1.weight, self.norm1.bias),
+                           bias=sa.in_proj_bias, eps=self.norm1.eps)
+        q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, l, nh, hd) for i in range(3))
+        if q_start:
+            q, x = q[:, q_start:], x[:, q_start:]
+            l -= q_start
+        a = mha_kernel.mha(q, k, v, tgt_key_padding_mask).reshape(b, l, d)
+        x = x + linear_any(a, sa.out_proj.weight, sa.out_proj.bias)
+
+        w = ca.in_proj_weight
+        hq = fused_linear(x, (w.q[:d], w.s[:d]), ln=(self.norm2.weight, self.norm2.bias),
+                          bias=ca.in_proj_bias[:d], eps=self.norm2.eps)
+        kv = linear_w8a8(memory, w.q[d:], w.s[d:], ca.in_proj_bias[d:])
+        lk = kv.shape[1]
+        mask = (None if memory_key_padding_mask is None
+                else ~memory_key_padding_mask[:, None, None, :])
+        c = sdpa(hq.reshape(b, l, nh, hd), kv[..., :d].reshape(b, lk, nh, hd),
+                 kv[..., d:].reshape(b, lk, nh, hd), mask)
+        x = x + linear_any(c.reshape(b, l, d), ca.out_proj.weight, ca.out_proj.bias)
+
+        W, V, l2 = self.activation.W.weight, self.activation.V.weight, self.linear2.weight
+        return fused_ffn(x, (self.norm3.weight, self.norm3.bias), (W.q, W.s), (V.q, V.s),
+                         (l2.q, l2.s), self.linear2.bias, eps=self.norm3.eps)
 
 
 class TransformerEncoder(nn.Module):
@@ -118,9 +176,15 @@ class TransformerDecoder(nn.Module):
     def forward(self, x, memory, tgt_key_padding_mask=None,
                 memory_key_padding_mask=None, q_tail_start: int = 0):
         """Stacked decoder layers + final LayerNorm. ``q_tail_start > 0`` returns
-        only rows from that index on, (B, L - q_tail_start, D)."""
-        for layer in self.layers:
+        only rows from that index on, (B, L - q_tail_start, D); a W8A8 stack
+        then runs its last layer past the K/V projection on those rows only."""
+        last = self.layers[-1]
+        sliced = bool(q_tail_start) and last.is_quantized
+        for layer in self.layers[:-1] if sliced else self.layers:
             x = layer(x, memory, tgt_key_padding_mask, memory_key_padding_mask)
+        if sliced:
+            return self.norm(last.forward_w8a8(x, memory, tgt_key_padding_mask,
+                                               memory_key_padding_mask, q_tail_start))
         x = self.norm(x)
         return x[:, q_tail_start:] if q_tail_start else x
 

@@ -1,5 +1,5 @@
 """ResidualTransformer, the NAR multinomial-diffusion denoiser
-(counterpart of ``mars5_tts_tpu/models/nar.py``, unfolded bf16/f32 heads).
+(counterpart of ``mars5_tts_tpu/models/nar.py``).
 
 Encoder-decoder transformer (8 encoder / 16 decoder layers, dim 1024, 16
 heads, SwiGLU 3072). Encoder input: [speaker vector] ++ text embeddings with
@@ -7,6 +7,10 @@ sine positions plus the encoder timestep MLP; decoder input: chunked embedding
 of x_t with sine positions plus the decoder timestep MLP; output: 8
 LayerNorm(eps 1e-5) -> Linear heads, returned as (bs, L, lanes, n_quant).
 Parameter names follow the reference ``ResidualTransformer`` state dict.
+
+The W8A8 serving path (``ops/quant.quantize_nar``) folds the heads' LayerNorm
+affines into the quantized head weights (``fold_quant_heads``): one normalise,
+one activation quant and one GEMM over all requested lanes.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from torch.nn import functional as F
 
 from ..ops.attention import linear
 from ..ops.embeddings import timestep_embedding
+from ..ops.quant import int8_matmul, is_quantized, linear_any, quantize_act
 from ..utils.masks import length_to_mask
 from .ar import ChunkedEmbedding, SinePositionalEmbedding
 from .layers import LayerNorm, TransformerDecoder, TransformerEncoder, init_params_
@@ -93,6 +98,10 @@ class ResidualTransformer(nn.Module):
         self.residual_decoder = nn.ModuleList(_head(cfg)
                                               for _ in range(cfg.pred_quant_levels))
 
+    @property
+    def is_quantized(self) -> bool:
+        return is_quantized(self.residual_decoder[0][1].weight)
+
     def spk_embedding(self, c_codes, c_codes_length):
         """(bs, S, 8) reference codes and (bs,) lengths -> (bs, dim)."""
         bs, sl = c_codes.shape[:2]
@@ -147,7 +156,7 @@ class ResidualTransformer(nn.Module):
         outs = []
         for i in lanes:
             ln, lin = self.residual_decoder[i]
-            outs.append(linear(ln(out), lin.weight, lin.bias))
+            outs.append(linear_any(ln(out), lin.weight, lin.bias))
         return torch.stack(outs, dim=2)
 
     def forward(self, c_text, c_codes, c_texts_length, c_codes_length, x,
@@ -162,3 +171,44 @@ class ResidualTransformer(nn.Module):
         init_params_(self, generator, embedding_names=(
             "text_embed.", "ref_embedder.", "residual_encoder.", "spk_identity_emb."))
         return self
+
+
+def fold_quant_heads(model: ResidualTransformer, lanes: tuple) -> dict:
+    """Fold the quantized heads' LayerNorm affines into their weights.
+
+    Every head normalises the same decoder output and differs only in its
+    affine (w_i, b_i), so LN_i(out) @ W_i^T + c_i = n @ (W_i * w_i)^T +
+    (W_i @ b_i + c_i) with n the plain normalisation. Returns {"q" (n_lanes,
+    n_quant, dim) int8, "s" f32, "b" f32}: the folded weights requantized per
+    output row (a once-per-trajectory precompute).
+    """
+    heads = [model.residual_decoder[i] for i in lanes]
+    q = torch.stack([h[1].weight.q for h in heads])
+    s = torch.stack([h[1].weight.s for h in heads])
+    lnw = torch.stack([h[0].weight.float() for h in heads])
+    lnb = torch.stack([h[0].bias.float() for h in heads])
+    bias = torch.stack([h[1].bias.float() for h in heads])
+    wf = q.float() * s[..., None]
+    wfold = wf * lnw[:, None, :]
+    bfold = torch.einsum("lnd,ld->ln", wf, lnb) + bias
+    s2 = wfold.abs().amax(dim=-1).clamp_min(1e-12) / 127.0
+    q2 = torch.round(wfold / s2[..., None]).clamp(-127, 127).to(torch.int8)
+    return {"q": q2, "s": s2, "b": bfold}
+
+
+def nar_heads_prequant(out, eps: float = 1e-5):
+    """The heads' shared LayerNorm (no affine; rounded to out's dtype) and
+    per-row int8 quant: (x8 int8, xs f32 (..., 1)), the input of K6."""
+    xf = out.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return quantize_act(((xf - mean) * torch.rsqrt(var + eps)).to(out.dtype))
+
+
+def nar_heads_folded(folded: dict, out, eps: float = 1e-5):
+    """Folded W8A8 heads: (bs, L, n_lanes, n_quant) logits in out's dtype."""
+    xq, xs = nar_heads_prequant(out, eps)
+    n, nq, d = folded["q"].shape
+    y = int8_matmul(xq, folded["q"].reshape(n * nq, d)).float()
+    y = y * (xs * folded["s"].reshape(-1)) + folded["b"].reshape(-1)
+    return y.reshape(*out.shape[:2], n, nq).to(out.dtype)

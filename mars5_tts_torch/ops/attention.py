@@ -10,6 +10,7 @@ import math
 import torch
 
 from .kernels import mha as mha_kernel
+from .quant import linear_any
 
 NEG_INF = float("-inf")
 
@@ -54,7 +55,8 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
     """torch ``nn.MultiheadAttention`` forward (batch_first).
 
     in_w (3D, D) / in_b (3D,) are torch's fused in-projection; out_w/out_b the
-    out-projection. key_padding_mask (B, Lk) bool, True = ignore. Attention
+    out-projection (either may be a ``QuantWeight`` for self-attention, which
+    then runs W8A8). key_padding_mask (B, Lk) bool, True = ignore. Attention
     with Lq == Lk >= 512 runs kernel K1 on CUDA tensors and plain ``sdpa``
     otherwise.
     """
@@ -62,7 +64,7 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
     b, lq = q_in.shape[:2]
     lk = kv_in.shape[1]
     if q_in is kv_in:
-        qkv = linear(q_in, in_w, in_b)
+        qkv = linear_any(q_in, in_w, in_b)
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     else:
         q = linear(q_in, in_w[:d], in_b[:d])
@@ -76,7 +78,7 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
     else:
         mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
         out = sdpa(q, k, v, mask)
-    return linear(out.reshape(b, lq, d), out_w, out_b)
+    return linear_any(out.reshape(b, lq, d), out_w, out_b)
 
 
 def banded_causal_mask(length: int, window: int, device=None, dtype=torch.float32):

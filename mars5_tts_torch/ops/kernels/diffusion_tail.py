@@ -1,0 +1,154 @@
+"""Folded-heads GEMM + diffusion tail in one kernel, K6
+``heads_diffusion_tail`` (``csrc/diffusion_tail.cu``), its plain twin and the
+per-step posterior scalars.
+
+Replaces the TPU kernel
+``mars5_tts_tpu/ops/pallas/diffusion_tail.py::_heads_tail_kernel`` (entry
+``heads_diffusion_tail``): for each generated frame and lane, the folded int8
+head logits of the cond and uncond rows (rounded to bf16), the f32 CFG
+combine, the tempered log-softmax, the RePaint posterior
+log_add_exp(log_x0 + a, b1) (log_x0 itself at t = 0) plus the two-scalar x_t
+leg, and a Gumbel-max draw from the given uniforms; only the indices leave
+the kernel.
+
+What bounds it on an H100: at the bench shape (2 CFG rows x 750 frames x 7
+lanes x 1025 classes, D = 1024) one call reads 21.5 MB of uniforms (the main
+memory traffic) and does 11 G int8 MACs against 7 MB of folded weights. The
+TPU block held 128 frames x 1152 classes f32; a Hopper block holds 16 frames
+of one lane: their int8 activations (cond and uncond) in shared memory, the
+(16 x 1025) f32 tempered logits after the combine (66 KB), and walks the
+classes in 8-wide tiles with ``mma.sync.m16n8k32``. The log-sum-exp must be
+final before the Gumbel argmax (the hot/cold select and the noise are not
+monotone in the logit), so a second pass over the tile takes max, sum and
+argmax per frame, one warp per frame. The uniforms are read unpadded (the
+1152-class padding was a TPU lane layout). Drawing them in the kernel
+(Philox) is later work.
+
+``heads_diffusion_tail`` takes the twin only for CPU tensors. For CUDA tensors
+it launches the kernel or raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..quant import int8_matmul
+from . import build
+
+SOURCES = ("diffusion_tail.cu",)
+MAX_CLASSES = 2048   # the (16 frames x classes) f32 tile must fit in shared memory
+MAX_DIM = 2048
+
+# Launches of the CUDA kernel in this process (reset with reset_launch_count).
+launch_count = 0
+
+
+def reset_launch_count() -> None:
+    global launch_count
+    launch_count = 0
+
+
+def tail_scalars(diff, t: int) -> torch.Tensor:
+    """(8,) f32 [a, b1, hot, cold, is_t0, use_gumbel = 1, 0, 0] for reverse
+    step t, with the float ops of ``MultinomialDiffusion.q_posterior_indexed``."""
+    tm1 = max(t - 1, 0)
+    a = diff.log_cumprod_alpha[tm1]
+    b1 = diff.log_1_min_cumprod_alpha[tm1] - diff.log_num_classes
+    hot, cold = diff._hot_cold(diff.log_alpha[t],
+                               diff.log_1_min_alpha[t] - diff.log_num_classes)
+    rest = torch.tensor([float(t == 0), 1.0, 0.0, 0.0], device=a.device)
+    return torch.cat([torch.stack([a, b1, hot, cold]), rest])
+
+
+def tail_scores(x8, xs, folded, u0, x_t, scalars, *, w: float, temp: float):
+    """The plain version's per-class scores (bs, L, n, K), whose argmax K6
+    returns; arguments as ``heads_diffusion_tail_ref``."""
+    from ...diffusion.multinomial import log_add_exp
+
+    rows, length, d = x8.shape
+    bs = u0.shape[0]
+    n, nq, _ = folded["q"].shape
+    y = int8_matmul(x8, folded["q"].reshape(n * nq, d)).float()
+    y = y * (xs * folded["s"].reshape(-1)) + folded["b"].reshape(-1)
+    z = y.to(torch.bfloat16).float().reshape(rows, length, n, nq)
+    z = w * z[:bs] + (1.0 - w) * z[bs:] if rows == 2 * bs else z
+    log_x0 = torch.log_softmax(z / temp, dim=-1)
+    a, b1, hot, cold, is_t0, use_g = scalars[:6]
+    lev = torch.where(is_t0 > 0.5, log_x0, log_add_exp(log_x0 + a, b1))
+    col = torch.arange(nq, device=x8.device)
+    un = lev + torch.where(col == x_t[..., None], hot, cold)
+    g = -torch.log(torch.clamp(-torch.log(torch.clamp(u0, min=1e-7)), min=1e-7))
+    return un + g * use_g
+
+
+def heads_diffusion_tail_ref(x8, xs, folded, u0, x_t, scalars, *, w: float,
+                             temp: float):
+    """Plain version of K6.
+
+    x8 (rows, L, D) int8 and xs (rows, L, 1) f32: the normalised, quantised
+    decoder output (``nar_heads_prequant``), cond rows then uncond rows when
+    rows = 2 * bs; folded: ``fold_quant_heads`` dict, q (n, K, D) int8, s/b
+    (n, K) f32; u0 (bs, L, n, K) f32 uniforms; x_t (bs, L, n) current
+    indices; scalars from ``tail_scalars``. Returns (bs, L, n) int64: ties
+    go to the lowest class.
+    """
+    return torch.argmax(tail_scores(x8, xs, folded, u0, x_t, scalars, w=w, temp=temp),
+                        dim=-1)
+
+
+def _lib():
+    lib = build.load("diffusion_tail", SOURCES)
+    fn = lib.mars5_heads_diffusion_tail
+    if fn.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # x8, xs, q, s, b, u0, x_t, scalars, out, bs, rows, L, n_lanes, K, D,
+        # w, temp, stream
+        fn.argtypes = [vp] * 9 + [i] * 6 + [f, f, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def heads_diffusion_tail(x8, xs, folded, u0, x_t, scalars, *, w: float, temp: float):
+    """K6: sampled x_{t-1} indices (bs, L, n_lanes) int64 for the generated
+    lanes; arguments as ``heads_diffusion_tail_ref``.
+
+    CPU tensors take the twin; CUDA tensors launch the kernel and raise on
+    what it does not take (D a multiple of 32, K <= 2048)."""
+    if x8.device.type == "cpu":
+        return heads_diffusion_tail_ref(x8, xs, folded, u0, x_t, scalars, w=w, temp=temp)
+    if x8.device.type != "cuda":
+        raise ValueError(f"heads_diffusion_tail: unsupported device {x8.device}")
+    rows, length, d = x8.shape
+    q, s, b = folded["q"], folded["s"], folded["b"]
+    n, nq, dq = q.shape
+    bs = u0.shape[0]
+    if x8.dtype != torch.int8 or q.dtype != torch.int8 or dq != d:
+        raise ValueError("heads_diffusion_tail: x8 and q must be int8 with one width D")
+    if d % 32 or d > MAX_DIM or nq > MAX_CLASSES:
+        raise ValueError(f"heads_diffusion_tail kernel needs D a multiple of 32 "
+                         f"(<= {MAX_DIM}) and K <= {MAX_CLASSES}, got D {d}, K {nq}")
+    if rows not in (bs, 2 * bs) or xs.shape != (rows, length, 1):
+        raise ValueError("heads_diffusion_tail: x8/xs rows must be bs or 2 * bs")
+    if u0.shape != (bs, length, n, nq) or x_t.shape != (bs, length, n):
+        raise ValueError(f"heads_diffusion_tail: u0 must be {(bs, length, n, nq)} and "
+                         f"x_t {(bs, length, n)}")
+    for t in (xs, s, b, u0, scalars):
+        if t.dtype != torch.float32:
+            raise ValueError("heads_diffusion_tail: xs, s, b, u0, scalars must be f32")
+    if scalars.shape != (8,):
+        raise ValueError("heads_diffusion_tail: scalars must be (8,)")
+    args = [t.contiguous() for t in (x8, xs, q, s, b, u0)]
+    args += [x_t.to(torch.int64).contiguous(), scalars.contiguous()]
+    out = torch.empty((bs, length, n), dtype=torch.int64, device=x8.device)
+    fn = _lib()
+    with torch.cuda.device(x8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[a.data_ptr() for a in args], out.data_ptr(), bs, rows, length, n,
+                 nq, d, float(w) if rows == 2 * bs else 1.0, float(temp), stream)
+    if err != 0:
+        raise RuntimeError(f"heads_diffusion_tail kernel launch failed: cudaError {err}")
+    global launch_count
+    launch_count += 1
+    return out

@@ -1,12 +1,17 @@
 """Mars5TTS, the public synthesis API
-(counterpart of ``mars5_tts_tpu/pipeline.py``, bf16/f32 backends).
+(counterpart of ``mars5_tts_tpu/pipeline.py``).
 
 tokenize -> Encodec-encode the reference -> speech-BPE its L0 codes -> deep or
 shallow prompt -> AR decode -> parse -> NAR diffusion -> Vocos -> silence
 trim, step for step as the JAX package (and the reference) does it.
 
-Not ported yet: ``tts_batch``, the quantized backends, ``use_kv_cache=False``,
-the guidance interval and geometry buckets.
+NAR backends: ``"bf16"`` (the model as loaded) or ``"int8"`` (W8A8 with
+per-row scales, ``ops/quant.quantize_nar``, served through kernels K1, K3,
+K4 and K6). The AR runs as loaded.
+
+Not ported yet: ``tts_batch``, the quantized AR backends, grouped NAR
+quantization, ``use_kv_cache=False``, the guidance interval and geometry
+buckets.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from .models.convert import (infer_codeclm_config, infer_nar_config, load_codecl
 from .models.encodec import EncodecConfig, EncodecEncoder, encodec_from_pytree
 from .models.nar import ResidualTransformer, ResidualTransformerConfig
 from .models.vocos import Vocos, VocosConfig, vocos_from_pytree
+from .ops.quant import quantize_nar
 from .utils.profiling import StageTimer
 
 
@@ -42,9 +48,11 @@ class Mars5TTS:
                  nar_cfg: Optional[ResidualTransformerConfig] = None,
                  encodec_cfg: Optional[EncodecConfig] = None,
                  vocos_cfg: Optional[VocosConfig] = None,
-                 device="cpu", dtype=torch.float32):
+                 device="cpu", dtype=torch.float32, nar_backend: str = "bf16"):
         """From reference-layout checkpoints ({'vocab', 'model'[, 'config']}),
-        with Encodec/Vocos given as the JAX package's parameter pytrees."""
+        with Encodec/Vocos given as the JAX package's parameter pytrees.
+        ``nar_backend="int8"`` quantizes the NAR after loading, unless its
+        checkpoint is already quantized."""
         texttok, speechtok = load_tokenizers(ar_ckpt)
         n_vocab = len(texttok.vocab) + len(speechtok.vocab)
         if ar_cfg is None:
@@ -58,7 +66,8 @@ class Mars5TTS:
         encodec = (encodec_from_pytree(encodec_params, encodec_cfg)
                    if encodec_params is not None else None)
         vocos = vocos_from_pytree(vocos_params, vocos_cfg) if vocos_params is not None else None
-        self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device)
+        self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
+                    nar_backend)
 
     @classmethod
     def from_local(cls, ar_path, nar_path, **kwargs) -> "Mars5TTS":
@@ -68,14 +77,27 @@ class Mars5TTS:
     @classmethod
     def from_params(cls, codeclm: CodecLM, codecnar: ResidualTransformer, *,
                     texttok, speechtok, encodec: Optional[EncodecEncoder] = None,
-                    vocos: Optional[Vocos] = None, device=None) -> "Mars5TTS":
-        """From already-built port modules and tokenizer objects."""
+                    vocos: Optional[Vocos] = None, device=None,
+                    nar_backend: str = "bf16") -> "Mars5TTS":
+        """From already-built port modules and tokenizer objects. With
+        ``nar_backend="int8"`` a bf16/f32 ``codecnar`` is quantized into a new
+        module (the given one is left as it was); a quantized one is used as
+        it is."""
         self = cls.__new__(cls)
         device = device or codeclm.embed.weight.device
-        self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device)
+        self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
+                    nar_backend)
         return self
 
-    def _setup(self, codeclm, codecnar, texttok, speechtok, encodec, vocos, device):
+    def _setup(self, codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
+               nar_backend):
+        if nar_backend not in ("bf16", "int8"):
+            raise ValueError(f"unknown nar_backend {nar_backend!r}")
+        if nar_backend == "int8" and not codecnar.is_quantized:
+            codecnar = quantize_nar(codecnar)
+        elif nar_backend == "bf16" and codecnar.is_quantized:
+            raise ValueError("a quantized NAR needs nar_backend='int8'")
+        self.nar_backend = nar_backend
         self.device = torch.device(device)
 
         def ready(m):

@@ -142,3 +142,152 @@ def test_ar_generate_on_gpu_matches_cpu(dev):
     got = ar_generate(gpu, prompt, spk, sampling=s, uniforms=u)
     assert K.launch_count - n0 == cfg.n_spk_layers
     np.testing.assert_array_equal(got[0], want[0])
+
+
+def _fused_eq(got, want, exact_frac=0.95):
+    """The JAX kernel tests' bound (tests/test_nar_fused.py _assert_fused_eq)."""
+    g, w = got.float(), want.float()
+    peak = max(w.abs().max().item(), 1.0)
+    d = (g - w).abs()
+    assert torch.isfinite(g).all()
+    assert d.max().item() <= 0.02 * peak, d.max().item()
+    assert (g == w).float().mean().item() > exact_frac
+    assert d.mean().item() < 2e-3 * peak
+
+
+def _qw(n, k, g, dev):
+    from mars5_tts_torch.ops.quant import quantize_weight
+    return quantize_weight(torch.randn((n, k), generator=g, device=dev) * 0.05)
+
+
+@pytest.mark.parametrize("m,k,n,variant", [(300, 256, 192, "ln_bias"), (70, 1024, 3072, "ln_bias"),
+                                           (2400, 1024, 1024, "residual"), (17, 128, 64, "plain")])
+def test_fused_linear_kernel_matches_ref(dev, m, k, n, variant):
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x = torch.randn((1, m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = _qw(n, k, g, dev)
+    kw = {}
+    if variant == "ln_bias":
+        kw = dict(ln=(1 + 0.1 * torch.randn(k, generator=g, device=dev),
+                      0.1 * torch.randn(k, generator=g, device=dev)),
+                  bias=0.1 * torch.randn(n, generator=g, device=dev))
+    elif variant == "residual":
+        kw = dict(bias=0.1 * torch.randn(n, generator=g, device=dev),
+                  residual=torch.randn((1, m, n), generator=g, device=dev).to(torch.bfloat16))
+    n0 = F.fused_linear_launches
+    out = F.fused_linear(x, w, **kw)
+    torch.cuda.synchronize()
+    assert F.fused_linear_launches == n0 + 1 and out.shape == (1, m, n)
+    _fused_eq(out, F.fused_linear_ref(x, w, **kw))
+
+
+@pytest.mark.parametrize("m,k,f", [(200, 256, 384), (2400, 1024, 3072)])
+def test_fused_ffn_kernel_matches_ref(dev, m, k, f):
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn((2, m // 2, k), generator=g, device=dev).to(torch.bfloat16)
+    ln = (1 + 0.1 * torch.randn(k, generator=g, device=dev),
+          0.1 * torch.randn(k, generator=g, device=dev))
+    args = (x, ln, _qw(f, k, g, dev), _qw(f, k, g, dev), _qw(k, f, g, dev),
+            0.1 * torch.randn(k, generator=g, device=dev))
+    n0 = F.fused_ffn_launches
+    out = F.fused_ffn(*args)
+    torch.cuda.synchronize()
+    assert F.fused_ffn_launches == n0 + 1
+    _fused_eq(out, F.fused_ffn_ref(*args))
+
+
+def test_w8a8_kernels_reject_what_they_do_not_take(dev):
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    x = torch.zeros((1, 8, 256), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        F.fused_linear(x, _qw(100, 256, None, dev))          # N not a multiple of 64
+    with pytest.raises(ValueError):
+        F.fused_linear(x.float(), _qw(64, 256, None, dev))   # f32 activations
+    with pytest.raises(ValueError):
+        F.fused_linear(x[..., :200], _qw(64, 200, None, dev))  # K not a multiple of 128
+
+
+@pytest.mark.parametrize("rows,length,t", [(2, 750, 0), (2, 70, 100), (1, 33, 199)])
+def test_heads_tail_kernel_matches_ref(dev, rows, length, t):
+    """Indices equal to the twin's except where its two best scores lie
+    within 1e-5 of each other."""
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import nar_heads_prequant
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    g = torch.Generator(device=dev).manual_seed(rows * 1000 + length)
+    d, n, kc = 1024, 7, 1025
+    x8, xs = nar_heads_prequant(torch.randn((rows, length, d), generator=g,
+                                            device=dev).to(torch.bfloat16))
+    wf = torch.randn((n, kc, d), generator=g, device=dev) * 0.03
+    s = wf.abs().amax(-1) / 127.0
+    folded = {"q": torch.round(wf / s[..., None]).clamp(-127, 127).to(torch.int8), "s": s,
+              "b": 0.1 * torch.randn((n, kc), generator=g, device=dev)}
+    u0 = torch.rand((1, length, n, kc), generator=g, device=dev)
+    x_t = torch.randint(0, kc, (1, length, n), generator=g, device=dev)
+    args = (x8, xs, folded, u0, x_t, D.tail_scalars(MultinomialDiffusion(kc, 200, device=dev), t))
+    n0 = D.launch_count
+    got = D.heads_diffusion_tail(*args, w=3.0, temp=0.7)
+    torch.cuda.synchronize()
+    assert D.launch_count == n0 + 1
+    want = D.heads_diffusion_tail_ref(*args, w=3.0, temp=0.7)
+    top2 = torch.topk(D.tail_scores(*args, w=3.0, temp=0.7), 2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 1e-5
+    assert not bool(((got != want) & ~near_tie).any())
+
+
+def test_w8a8_nar_trajectory_on_gpu(dev):
+    """A small W8A8 NAR (head_dim 64) over a >= 512-frame deep-clone sequence:
+    every reverse step runs K1, K3 (twice a layer), K4 and, on the generator
+    path, K6 once. Under shared uniforms the GPU grid agrees with the CPU
+    twins' on at least 96% of the cells (LN sum order may flip an int8
+    activation, as between the port and the JAX package), and on the
+    generator path the K6 route agrees with the dense route as closely."""
+    import copy
+
+    from mars5_tts_tpu.config import DSH
+    from mars5_tts_torch.diffusion.engine import perform_simple_inference
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.diffusion.schedule import build_step_plan
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D, mha as K, nar_fused as F
+    from mars5_tts_torch.ops.quant import quantize_nar
+
+    cfg = ResidualTransformerConfig(n_text_vocab=64, dim=128, nhead=2, enc_layers=1,
+                                    dec_layers=2, n_spk_layers=1, t_emb_dim=64,
+                                    hidden_dim=256)
+    cpu = quantize_nar(ResidualTransformer(cfg).init_(torch.Generator().manual_seed(0))
+                       .to(torch.bfloat16).eval())
+    gpu = copy.deepcopy(cpu).to(dev)
+    T, lc, lx = 3, 500, 30
+    r = np.random.default_rng(0)
+    x = np.repeat(r.integers(0, 1024, lx)[None, :, None], 8, axis=2)
+    batch = (r.integers(0, 64, (1, 9)), r.integers(0, 1024, (1, lc, 8)), np.asarray([9]),
+             np.asarray([lc]), x, np.zeros((1, lx), bool))
+    dsh = DSH(x_0_temp=0.7, guidance_w=3.0, deep_clone=True, q0_override_steps=1)
+    u = r.random((len(build_step_plan(T)[0]), 2, 1, lc + lx, 8, 1025)).astype(np.float32)
+    x_init = r.integers(0, 1025, x.shape)
+    want = perform_simple_inference(cpu, batch, MultinomialDiffusion(1025, T), T, dsh,
+                                    uniforms=u, x_init=x_init)
+    n0 = (K.launch_count, F.fused_linear_launches, F.fused_ffn_launches, D.launch_count)
+    got = perform_simple_inference(gpu, batch, MultinomialDiffusion(1025, T, device=dev),
+                                   T, dsh, uniforms=u, x_init=x_init)
+    torch.cuda.synchronize()
+    n1 = (K.launch_count, F.fused_linear_launches, F.fused_ffn_launches, D.launch_count)
+    L = cfg.dec_layers
+    assert tuple(b - a for a, b in zip(n0, n1)) == (L * T, 2 * L * T, L * T, 0)
+    assert (got.cpu() == want).float().mean().item() >= 0.96
+    diff = MultinomialDiffusion(1025, T, device=dev)
+    grids = []
+    for fused in (True, False):
+        k6 = D.launch_count
+        grids.append(perform_simple_inference(
+            gpu, batch, diff, T, dsh, generator=torch.Generator(device=dev).manual_seed(1),
+            fused_heads_tail=fused))
+        assert D.launch_count - k6 == (T if fused else 0)
+    assert (grids[0] == grids[1]).float().mean().item() >= 0.96

@@ -175,6 +175,40 @@ def test_from_params_matches_from_local(tmp_path):
     np.testing.assert_array_equal(out_a[1], out_b[1])
 
 
+def test_mars5tts_int8_nar_backend(tmp_path):
+    """``nar_backend="int8"``: a W8A8 NAR (the bf16 module given to
+    ``from_params`` is left as it was), seeded and reproducible synthesis with
+    finite audio, and an unknown backend refused."""
+    from mars5_tts_tpu.config import InferenceConfig
+    from mars5_tts_torch import Mars5TTS
+
+    cfgs, params = tiny_models()
+    ar_path, nar_path = write_checkpoints(tmp_path)
+    tts = Mars5TTS.from_local(ar_path, nar_path, encodec_params=params["encodec"],
+                              vocos_params=params["vocos"], nar_backend="int8")
+    assert tts.nar_backend == "int8" and tts.codecnar.is_quantized
+    ref = (np.random.default_rng(7).standard_normal(8 * 60) * 0.1).astype(np.float32)
+    cfg = InferenceConfig(timesteps=5, generate_max_len_override=320, trim_db=200)
+    runs = [tts.tts("hi there", ref, ref_transcript="ok", cfg=cfg, seed=s) for s in (3, 3)]
+    codes, audio = runs[0]
+    assert len(audio) > 0 and audio.dtype == np.float32 and np.isfinite(audio).all()
+    assert 0 <= int(tts.last_grid.min()) and int(tts.last_grid.max()) <= 1024
+    np.testing.assert_array_equal(runs[1][0], codes)
+    np.testing.assert_array_equal(runs[1][1], audio)
+
+    ar, nar, enc, voc = _ports()
+    texttok, speechtok, _, _ = make_tokenizers()
+    kw = dict(texttok=texttok, speechtok=speechtok, encodec=enc, vocos=voc)
+    q = Mars5TTS.from_params(ar, nar, nar_backend="int8", **kw)
+    assert q.codecnar.is_quantized and not nar.is_quantized
+    assert Mars5TTS.from_params(ar, q.codecnar, nar_backend="int8", **kw).codecnar is q.codecnar
+    for bad in ("int4", "fp8"):
+        with pytest.raises(ValueError):
+            Mars5TTS.from_params(ar, nar, nar_backend=bad, **kw)
+    with pytest.raises(ValueError):
+        Mars5TTS.from_params(ar, q.codecnar, nar_backend="bf16", **kw)
+
+
 _BLOCKED = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None
@@ -183,14 +217,20 @@ _BLOCKED = textwrap.dedent("""
     from mars5_tts_torch import Mars5TTS
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
-    from mars5_tts_torch.ops.kernels import build, mha
+    from mars5_tts_torch.ops.kernels import build, diffusion_tail, mha, nar_fused
+    from mars5_tts_torch.ops.quant import quantize_nar
     g = torch.Generator().manual_seed(0)
     ar = CodecLM(CodecLMConfig.tiny(64)).init_(g).eval()
-    nar = ResidualTransformer(ResidualTransformerConfig.tiny()).init_(g).eval()
+    nar = quantize_nar(ResidualTransformer(ResidualTransformerConfig.tiny()).init_(g).eval())
     with torch.no_grad():
         y = ar(torch.zeros((1, 5), dtype=torch.long),
                spk_codes=torch.zeros((1, 4, 8), dtype=torch.long))
     assert y.shape == (1, 5, 64) and torch.isfinite(y).all()
+    with torch.no_grad():
+        z = nar(torch.zeros((1, 3), dtype=torch.long), torch.zeros((1, 4, 8), dtype=torch.long),
+                torch.tensor([3]), torch.tensor([4]), torch.zeros((1, 6, 8), dtype=torch.long),
+                torch.zeros((1, 6), dtype=torch.bool), torch.tensor([2]))
+    assert nar.is_quantized and z.shape == (1, 6, 8, 1025) and torch.isfinite(z).all()
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                    if sys.modules[m] is not None)
     print("forward ok")
@@ -199,6 +239,8 @@ _BLOCKED = textwrap.dedent("""
     q = torch.randn(1, 5, 2, 64)
     assert torch.equal(mha.mha(q, q, q), mha.mha_ref(q, q, q))
     assert not build._loaded and mha.launch_count == 0
+    assert nar_fused.fused_linear_launches == nar_fused.fused_ffn_launches == 0
+    assert diffusion_tail.launch_count == 0
     print("kernel module ok")
 """)
 
