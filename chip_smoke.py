@@ -4,19 +4,24 @@
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: compiles the three CUDA libraries from ``mars5_tts_torch/csrc`` for
+2. Build: compiles the five CUDA libraries from ``mars5_tts_torch/csrc`` for
    sm_90a into ``build/kernels/``, one nvcc each, all at once.
 3. Kernels against their plain PyTorch twins on the card, at the main paths'
    shapes, with stated error bounds and CUDA-event timings: K1 attention,
    K3 fused_linear (qkv, caq and residual variants), K4 fused_ffn, K6
-   heads_diffusion_tail (w = 3, at t = 0 and a middle t).
+   heads_diffusion_tail (w = 3, at t = 0 and a middle t), K2
+   fused_decode_layers (W8 and W4 at the released AR widths, window 2001,
+   positions 600 and 1900) and K8 head4_logits (1536 -> 24,000).
 4. Main paths: ``Mars5TTS`` at the released widths (AR 26 x 1536, NAR 8 + 16 x
-   1024, Encodec, Vocos) with seeded random weights and a bf16 AR, serving
-   deep-clone ``tts()`` requests with 7 s references (525 prompt frames, so
-   the NAR self-attention runs kernel K1), 200 diffusion steps, CFG w = 3:
-   one request with the bf16 NAR, then two (the first a warm-up) with
-   ``nar_backend="int8"``, whose every reverse step runs K1, K3, K4 and K6.
-   Each path's launch counts are reset before it and read after it.
+   1024, Encodec, Vocos) with seeded random weights, serving deep-clone
+   ``tts()`` requests with 7 s references (525 prompt frames, so the NAR
+   self-attention runs kernel K1), 200 diffusion steps, CFG w = 3: the bf16
+   AR with the bf16 NAR, then with ``nar_backend="int8"`` (every reverse step
+   runs K1, K3, K4 and K6); then the production path, ``ar_backend="fused4"``
+   with the int8 NAR, twice (the first builds the pack and warms up; every
+   decode step runs K2), ``ar_backend="fused"`` once, and ``fused4`` with
+   ``head4=True`` once (every decode step also runs K8). Each request's
+   launch counts are reset before it and read after it.
 
 Prints one JSON line with the kernels' results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -44,7 +49,11 @@ STEPS = 200
 M_ROWS, DIM, FFN = 2400, 1024, 3072
 GEN_LEN, LANES, CLASSES = 750, 7, 1025
 LIBS = {"mha": ("mha.cu",), "nar_fused": ("nar_fused.cu",),
-        "diffusion_tail": ("diffusion_tail.cu",)}
+        "diffusion_tail": ("diffusion_tail.cu",),
+        "decode_layer": ("decode_layer.cu", "gemv_s8.cuh"), "head4": ("head4.cu", "gemv_s8.cuh")}
+AR_MAX_LEN = 2000                   # K2 check: window min(3000, 2001)
+AR_POSITIONS = (600, 1900)
+HBM_BYTES_S = 3.35e12               # H100 SXM data sheet
 
 
 def cuda_ms(fn, n=30, warmup=5):
@@ -219,9 +228,109 @@ def check_heads_tail(gen, dev):
     return res
 
 
+def fused_bound_f32(got, want):
+    """``fused_bound`` without its exact-fraction clause, for f32 outputs: one
+    moved int8 rounding changes every later value a little, so an exact
+    fraction says nothing there (kernel and twin sum in f64 and agree bit for
+    bit when the card rounds exp, sqrt and division as PyTorch's kernels do):
+    |diff| <= 0.02 x max(peak, 1), mean |diff| < 2e-3 x max(peak, 1)."""
+    import torch
+    g, w = got.float(), want.float()
+    peak = max(w.abs().max().item(), 1.0)
+    diff = (g - w).abs()
+    stats = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+             "exact_frac": (g == w).float().mean().item()}
+    ok = (stats["max_abs_err"] <= 0.02 * peak and stats["mean_abs_err"] < 2e-3 * peak
+          and bool(torch.isfinite(g).all()))
+    return ok, stats
+
+
+def pack_bytes(fp):
+    return sum(fp[k].numel() * fp[k].element_size()
+               for k in ("wqkv", "sqkv", "wo", "so", "w13", "s13", "w2", "s2"))
+
+
+def check_decode_layer(ar, gen, dev):
+    """K2 at the released AR widths, W8 and W4, on the model's own packs and
+    random int8 rings, at two positions: h, k_new and v_new against the twin."""
+    import torch
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    res = {}
+    for wbits in (8, 4):
+        fp, dims = prepare_fused(ar, AR_MAX_LEN, wbits)
+        shape = (dims.n_layers, dims.window, dims.dim)
+        (ck, ks), (cv, vs) = (D.quantize_kv_rows(torch.randn(shape, generator=gen, device=dev)
+                                                 * 0.1) for _ in range(2))
+        kvs = torch.stack([ks, vs], dim=1).contiguous()
+        eps = ar.cfg.norm_eps
+        nbytes = pack_bytes(fp)
+        for pos in AR_POSITIONS:
+            x = fp["embed"][pos].to(torch.bfloat16)[None]
+            args = (fp, x, pos, ck, cv, kvs)
+            got = D.fused_decode_layers(*args, dims=dims, norm_eps=eps)
+            want = D.fused_step_ref(*args, dims=dims, norm_eps=eps)
+            torch.cuda.synchronize()
+            st = {"max_abs_err": 0.0, "mean_abs_err": 0.0}
+            ok = True
+            for name, a, b in zip(("h", "k_new", "v_new"), got, want):
+                o, s1 = fused_bound_f32(a, b)
+                ok &= o
+                st[name] = s1
+                st["max_abs_err"] = max(st["max_abs_err"], s1["max_abs_err"])
+                st["mean_abs_err"] = max(st["mean_abs_err"], s1["mean_abs_err"])
+            st.update(ms=cuda_ms(lambda: D.fused_decode_layers(*args, dims=dims, norm_eps=eps),
+                                 n=50),
+                      plain_ms=cuda_ms(lambda: D.fused_step_ref(*args, dims=dims, norm_eps=eps),
+                                       n=5, warmup=1),
+                      pack_mb=nbytes / 1e6, wbits=wbits, pos=pos)
+            st["pack_gb_s"] = nbytes / (st["ms"] * 1e-3) / 1e9
+            print(f"K2 W{wbits} ({dims.n_layers} x {dims.dim}, hidden {dims.hidden}, window "
+                  f"{dims.window}) pos={pos}: h max_abs_err={st['h']['max_abs_err']:.3e} "
+                  f"(exact {st['h']['exact_frac']:.3f}), k_new {st['k_new']['max_abs_err']:.3e}, "
+                  f"v_new {st['v_new']['max_abs_err']:.3e}; bound=fused_eq without the exact "
+                  f"fraction (f32) within={ok} | kernel {st['ms'] * 1e3:.1f} us, plain "
+                  f"{st['plain_ms'] * 1e3:.1f} us; pack {st['pack_mb']:.1f} MB -> "
+                  f"{st['pack_gb_s']:.0f} GB/s ({100 * st['pack_gb_s'] * 1e9 / HBM_BYTES_S:.1f}% "
+                  f"of 3.35 TB/s)", flush=True)
+            if not ok:
+                raise RuntimeError(f"K2 W{wbits} pos={pos}: error above its bound")
+            res[(wbits, pos)] = st
+        del fp, ck, cv, kvs
+    return res
+
+
+def check_head4(ar, gen, dev):
+    """K8 at 1536 -> 24,000 on the model's own head against its twin: the int32
+    sums are exact and the epilogue the same ops, bound 1e-5 x peak."""
+    import torch
+    from mars5_tts_torch.ops.kernels import head4 as H
+
+    wp, ws = H.pack_head4(ar.ar.output.weight)
+    x = torch.randn((1, ar.cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    n = ar.cfg.n_vocab
+    got = H.head4_logits(x, wp, ws, n_vocab=n)
+    want = H.head4_logits_ref(x, wp, ws, n_vocab=n)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    st = {"max_abs_err": err, "exact": bool(torch.equal(got, want)),
+          "ms": cuda_ms(lambda: H.head4_logits(x, wp, ws, n_vocab=n), n=50),
+          "plain_ms": cuda_ms(lambda: H.head4_logits_ref(x, wp, ws, n_vocab=n), n=20)}
+    nbytes = wp.numel() + ws.numel() * 4
+    print(f"K8 head4 (1, {ar.cfg.dim}) -> {n}: max_abs_err={err:.3e} (bitwise equal: "
+          f"{st['exact']}) bound=1e-5 x peak ({1e-5 * peak:.3e}) within={err <= 1e-5 * peak} | "
+          f"kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us; "
+          f"{nbytes / 1e6:.1f} MB -> {nbytes / (st['ms'] * 1e-3) / 1e9:.0f} GB/s", flush=True)
+    if not err <= 1e-5 * peak:
+        raise RuntimeError("K8: error above its bound")
+    return st
+
+
 def build_models(dev, torch):
-    """The released widths with seeded random weights: (AR, NAR, Encodec,
-    Vocos, text and speech tokenizers)."""
+    """The released widths with seeded random weights: a dict of the AR, NAR,
+    Encodec, Vocos and the text and speech tokenizers."""
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
     from mars5_tts_torch.models.encodec import EncodecConfig, EncodecEncoder
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
@@ -248,20 +357,39 @@ def build_models(dev, torch):
     print(f"models: AR {ar.cfg.n_layers}x{ar.cfg.dim}, NAR {nar.cfg.enc_layers}+"
           f"{nar.cfg.dec_layers}x{nar.cfg.dim}, {n_params / 1e6:.0f}M AR+NAR params (bf16)",
           flush=True)
-    return ar, nar, enc, voc, texttok, speechtok
+    return {"ar": ar, "nar": nar, "encodec": enc, "vocos": voc, "texttok": texttok,
+            "speechtok": speechtok}
 
 
 def counts():
-    from mars5_tts_torch.ops.kernels import diffusion_tail as D, mha as K, nar_fused as F
+    from mars5_tts_torch.ops.kernels import (decode_layer as L, diffusion_tail as D,
+                                             head4 as H, mha as K, nar_fused as F)
     return {"mha": K.launch_count, "fused_linear": F.fused_linear_launches,
-            "fused_ffn": F.fused_ffn_launches, "heads_diffusion_tail": D.launch_count}
+            "fused_ffn": F.fused_ffn_launches, "heads_diffusion_tail": D.launch_count,
+            "fused_decode_layers": L.launch_count, "head4_logits": H.launch_count}
 
 
 def reset_counts():
-    from mars5_tts_torch.ops.kernels import diffusion_tail as D, mha as K, nar_fused as F
+    from mars5_tts_torch.ops.kernels import (decode_layer as L, diffusion_tail as D,
+                                             head4 as H, mha as K, nar_fused as F)
     K.reset_launch_count()
     F.reset_launch_counts()
     D.reset_launch_count()
+    L.reset_launch_count()
+    H.reset_launch_count()
+
+
+AR_RUNS = []
+
+
+def record_ar(fn):
+    """``fn`` (an AR engine) that also records each run's sequence length,
+    n_generated and max_len, for the launch and ms-per-token checks."""
+    def run(*args, sampling, **kw):
+        seq, n_gen = fn(*args, sampling=sampling, **kw)
+        AR_RUNS.append((len(seq), n_gen, sampling.max_len))
+        return seq, n_gen
+    return run
 
 
 def serve(tts, label, text, transcript, seed, want):
@@ -279,12 +407,16 @@ def serve(tts, label, text, transcript, seed, want):
     cfg = InferenceConfig(generate_max_len_override=n_text + int(REF_SECONDS * 75)
                           + GEN_FRAMES, timesteps=STEPS)
     reset_counts()
+    AR_RUNS.clear()
     t0 = time.perf_counter()
     codes, audio = tts.tts(text, ref, ref_transcript=transcript, cfg=cfg, seed=seed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
     grid = tts.last_grid
+    (seq_len, n_gen, max_len), = AR_RUNS
+    steps = n_gen - (seq_len >= max_len)     # a decode step follows every token but a last one at max_len
+    want = {k: (v(steps) if callable(v) else v) for k, v in want.items()}
     if not (len(audio) > 0 and np.isfinite(audio).all()):
         raise RuntimeError(f"{label}: tts produced empty or non-finite audio")
     if not (int(grid.min()) >= 0 and int(grid.max()) <= 1024):
@@ -294,11 +426,14 @@ def serve(tts, label, text, transcript, seed, want):
             raise RuntimeError(f"{label}: {name} launched {launches[name]} times, "
                                f"expected {lo}..{hi}")
     timing = tts.last_timing
-    rec = {"path": label, "wall_s": wall, "ar_frames": int(len(codes)),
+    ar_ms = 1e3 * timing["stages_s"]["ar_generate"] / max(n_gen, 1)
+    rec = {"path": label, "wall_s": wall, "ar_frames": int(len(codes)), "ar_tokens": n_gen,
+           "ar_ms_per_token": ar_ms,
            "grid": list(grid.shape), "audio_s": timing["audio_s"], "rtf": timing["rtf"],
-           "launches": launches,
+           "launches": launches, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "stages_s": {k: round(v, 4) for k, v in timing["stages_s"].items()}}
-    print(f"request {label} seed={seed}: {len(codes)} AR frames, grid {tuple(grid.shape)}, "
+    print(f"request {label} seed={seed}: {len(codes)} AR frames ({n_gen} tokens, AR stage "
+          f"{ar_ms:.2f} ms/token incl. prefill), grid {tuple(grid.shape)}, "
           f"audio {timing['audio_s']:.3f} s, total {timing['total_s']:.3f} s, "
           f"RTF {timing['rtf']:.4f}, launches {json.dumps(launches)}; stages "
           + json.dumps(rec["stages_s"]), flush=True)
@@ -344,50 +479,29 @@ def main():
     check_kernel(K, (1, 600, 4, 64), True, torch.float32, gen, dev)
     w8a8 = check_nar_fused(gen, dev)
     k6 = check_heads_tail(gen, dev)
+    models = build_models(dev, torch)
+    k2 = check_decode_layer(models["ar"], gen, dev)
+    k8 = check_head4(models["ar"], gen, dev)
 
-    # -- 4. main paths: bf16 NAR, then the W8A8 NAR (first request warms up)
-    from mars5_tts_torch import Mars5TTS
-    ar, nar, enc, voc, texttok, speechtok = build_models(dev, torch)
-    common = dict(texttok=texttok, speechtok=speechtok, encodec=enc, vocos=voc)
-    layers = nar.cfg.dec_layers
-    torch.cuda.reset_peak_memory_stats(dev)
-    records = [serve(Mars5TTS.from_params(ar, nar, **common), "bf16",
-                     "The quick brown fox jumps over the lazy dog.", "A reference voice.", 11,
-                     {"mha": (layers * STEPS, 10 ** 9)})]
-    peak_bf16 = torch.cuda.max_memory_allocated(dev)
-    t0 = time.perf_counter()
-    tts8 = Mars5TTS.from_params(ar, nar, nar_backend="int8", **common)
-    torch.cuda.synchronize()
-    print(f"quantize_nar: {time.perf_counter() - t0:.2f} s", flush=True)
-    del nar
-    torch.cuda.reset_peak_memory_stats(dev)
-    want8 = {"mha": (layers * STEPS, 10 ** 9),
-             "fused_linear": (2 * layers * STEPS, 2 * layers * STEPS),
-             "fused_ffn": (layers * STEPS, layers * STEPS),
-             "heads_diffusion_tail": (STEPS, STEPS)}
-    int8_launches = {k: 0 for k in want8}
-    for text, transcript, seed in (("Hello from the port of the speech model.",
-                                    "Another sample here.", 12),
-                                   ("The quick brown fox jumps over the lazy dog.",
-                                    "A reference voice.", 11)):
-        records.append(serve(tts8, "int8", text, transcript, seed, want8))
-        for k in int8_launches:
-            int8_launches[k] += records[-1]["launches"][k]
-    print(json.dumps({"requests": records}), flush=True)
-    print(f"peak device memory: bf16 path {peak_bf16 / 2**30:.2f} GiB, int8 path "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    # -- 4. main paths, each request with its launch counts from 0
+    records, main_launches, head4_launches = serve_paths(models, dev)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise RuntimeError("the port pulled in jax")
 
-    def row(name, source, replaces, st):
+    def row(name, source, replaces, st, launches=None):
         return {"name": name, "route": "cuda", "source": f"mars5_tts_torch/csrc/{source}",
-                "replaces": replaces, "launches": int8_launches[name],
+                "replaces": replaces,
+                "launches": main_launches[name] if launches is None else launches,
                 "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"]}
 
     k6_worst = max(k6, key=lambda st: st["max_abs_err"])
+    k2_main = k2[(4, AR_POSITIONS[0])]
     print(json.dumps({"kernels": [
         {**row("mha", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46", main_res),
          "max_abs_err": max(main_res["max_abs_err"], second["max_abs_err"])},
+        {**row("fused_decode_layers", "decode_layer.cu",
+               "mars5_tts_tpu/ops/pallas/decode_layer.py:139", k2_main),
+         "max_abs_err": max(st["max_abs_err"] for st in k2.values())},
         {**row("fused_linear", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:111",
                w8a8["qkv"]),
          "max_abs_err": max(w8a8[v]["max_abs_err"] for v in ("qkv", "caq", "residual"))},
@@ -396,11 +510,73 @@ def main():
         {**row("heads_diffusion_tail", "diffusion_tail.cu",
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:149", k6[-1]),
          "max_abs_err": k6_worst["max_abs_err"]},
+        row("head4_logits", "head4.cu", "mars5_tts_tpu/ops/pallas/head4.py:55", k8,
+            launches=head4_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_paths(models, dev):
+    """Phase 4: every path's requests (the bf16 NAR leaves ``models`` once it
+    is quantized). Returns (records, the launches of the production requests
+    (fused4 AR + int8 NAR) by kernel, K8's launches on the head4 request)."""
+    import torch
+
+    import mars5_tts_torch.pipeline as pipeline
+    from mars5_tts_torch import Mars5TTS
+    pipeline.ar_generate = record_ar(pipeline.ar_generate)
+    pipeline.ar_generate_fused = record_ar(pipeline.ar_generate_fused)
+    ar, nar = models["ar"], models.pop("nar")
+    common = {k: models[k] for k in ("texttok", "speechtok", "encodec", "vocos")}
+    layers = nar.cfg.dec_layers
+    k1_only = {"mha": (layers * STEPS, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
+               "heads_diffusion_tail": (0, 0)}
+    int8 = {"mha": (layers * STEPS, 10 ** 9),
+            "fused_linear": (2 * layers * STEPS, 2 * layers * STEPS),
+            "fused_ffn": (layers * STEPS, layers * STEPS),
+            "heads_diffusion_tail": (STEPS, STEPS)}
+    bf16_ar = {"fused_decode_layers": (0, 0), "head4_logits": (0, 0)}
+    fused_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": (0, 0)}
+    head4_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": lambda n: (n, n)}
+    first = ("The quick brown fox jumps over the lazy dog.", "A reference voice.", 11)
+    second_req = ("Hello from the port of the speech model.", "Another sample here.", 12)
+    torch.cuda.reset_peak_memory_stats(dev)
+    records = [serve(Mars5TTS.from_params(ar, nar, **common), "bf16 AR + bf16 NAR", *first,
+                     {**k1_only, **bf16_ar})]
+    t0 = time.perf_counter()
+    nar8 = Mars5TTS.from_params(ar, nar, nar_backend="int8", **common).codecnar
+    torch.cuda.synchronize()
+    print(f"quantize_nar: {time.perf_counter() - t0:.2f} s", flush=True)
+    del nar
+    torch.cuda.reset_peak_memory_stats(dev)
+    records.append(serve(Mars5TTS.from_params(ar, nar8, nar_backend="int8", **common),
+                         "bf16 AR + int8 NAR", *first, {**int8, **bf16_ar}))
+    prod = Mars5TTS.from_params(ar, nar8, ar_backend="fused4", nar_backend="int8", **common)
+    main_launches = {}
+    for label, req in (("fused4 AR + int8 NAR (warm-up, builds the pack)", second_req),
+                       ("fused4 AR + int8 NAR", first)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        records.append(serve(prod, label, *req, {**int8, **fused_ar}))
+        for k, v in records[-1]["launches"].items():
+            main_launches[k] = main_launches.get(k, 0) + v
+    del prod
+    for label, kw, want_ar in (("fused AR + int8 NAR", dict(ar_backend="fused"), fused_ar),
+                               ("fused4 AR head4 + int8 NAR",
+                                dict(ar_backend="fused4", head4=True), head4_ar)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        tts = Mars5TTS.from_params(ar, nar8, nar_backend="int8", **kw, **common)
+        records.append(serve(tts, label, *first, {**int8, **want_ar}))
+        del tts
+    head4_launches = records[-1]["launches"]["head4_logits"]
+    print(json.dumps({"requests": records}), flush=True)
+    bf16_ms = records[1]["ar_ms_per_token"]
+    print("AR stage ms/token (same call, incl. prefill): " + ", ".join(
+        f"{r['path']}: {r['ar_ms_per_token']:.2f}" for r in records)
+        + f"; fused4 / bf16 AR = {records[3]['ar_ms_per_token'] / bf16_ms:.3f}", flush=True)
+    return records, main_launches, head4_launches
 
 
 if __name__ == "__main__":

@@ -123,6 +123,51 @@ def decode_step(model: CodecLM, token: int, pos: int, cache: RingCache):
     return logits.float()
 
 
+def uniform_stream(uniforms, generator, seed: int, n: int, device):
+    """The AR's uniforms: the given ones (flattened), or ``n`` drawn on
+    ``device`` from ``generator`` (or one seeded with ``seed``)."""
+    if uniforms is not None:
+        return torch.as_tensor(np.asarray(uniforms, np.float32).reshape(-1), device=device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((n,), generator=generator, device=device)
+
+
+def prefill_prompt(model: CodecLM, prompt, spk_codes, window: int):
+    """Prefill over ``prompt`` (1-D ids) with the speaker vector of
+    ``spk_codes`` (S, 8): (all logits incl. the speaker row, per-layer (k, v))."""
+    if len(prompt) + 1 > window:
+        raise ValueError(f"prompt {len(prompt)}+1 exceeds cache window {window}")
+    dev = model.embed.weight.device
+    spk = torch.as_tensor(np.asarray(spk_codes, np.int64), device=dev)[None]
+    tok = torch.as_tensor(prompt, device=dev)[None]
+    return model.prefill(tok, model.spk_embedding(spk))
+
+
+def sample_tokens(logits, prompt, s: ArSampling, uniforms, step):
+    """The decode loop shared by the AR engines: sample from ``logits`` (1, V)
+    with the k-th generated token consuming ``uniforms[k]``, then
+    ``step(token, position)`` gives the next logits. Returns (sequence incl.
+    the prompt and without the closing EOS, n_generated)."""
+    tokens = list(prompt.tolist())
+    counts = torch.zeros((1, logits.shape[-1]), dtype=torch.int32, device=logits.device)
+    n_gen = 0
+    while True:
+        logprobs = filter_logits(logits, s, counts, n_gen)
+        t = int(sample_from_logprobs(logprobs, uniforms[min(n_gen, s.max_len - 1)][None])[0])
+        if t == s.eos_idx or len(tokens) >= s.max_len:
+            break
+        tokens.append(t)
+        n_gen += 1
+        counts[0, t] += 1
+        if n_gen > s.penalty_window and len(tokens) - 1 - s.penalty_window >= 0:
+            counts[0, tokens[len(tokens) - 1 - s.penalty_window]] -= 1
+        if len(tokens) >= s.max_len:
+            break
+        logits = step(t, len(tokens))
+    return np.asarray(tokens, np.int64), n_gen
+
+
 @torch.no_grad()
 def ar_generate(model: CodecLM, prompt, spk_codes, *, sampling: ArSampling,
                 uniforms=None, generator: torch.Generator | None = None,
@@ -140,40 +185,12 @@ def ar_generate(model: CodecLM, prompt, spk_codes, *, sampling: ArSampling,
     dev = model.embed.weight.device
     prompt = np.asarray(prompt, np.int64)
     window = min(cfg.sliding_window, s.max_len + 1)
-    if len(prompt) + 1 > window:
-        raise ValueError(f"prompt {len(prompt)}+1 exceeds cache window {window}")
-    if uniforms is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(seed)
-        uniforms = torch.rand((s.max_len,), generator=generator, device=dev)
-    else:
-        uniforms = torch.as_tensor(np.asarray(uniforms, np.float32).reshape(-1),
-                                   device=dev)
-
-    spk = torch.as_tensor(np.asarray(spk_codes, np.int64), device=dev)[None]
-    tok = torch.as_tensor(prompt, device=dev)[None]
-    all_logits, kvs = model.prefill(tok, model.spk_embedding(spk))
+    all_logits, kvs = prefill_prompt(model, prompt, spk_codes, window)
+    uniforms = uniform_stream(uniforms, generator, seed, s.max_len, dev)
     cache = RingCache(cfg.n_layers, window, cfg.n_kv_heads, cfg.head_dim,
                       kvs[0][0].dtype, dev)
     for li, (k, v) in enumerate(kvs):
         cache.k[li, : k.shape[1]] = k[0]
         cache.v[li, : v.shape[1]] = v[0]
-    logits = all_logits[:, len(prompt)].float()
-
-    tokens = list(prompt.tolist())
-    counts = torch.zeros((1, cfg.n_vocab), dtype=torch.int32, device=dev)
-    n_gen = 0
-    while True:
-        logprobs = filter_logits(logits, s, counts, n_gen)
-        t = int(sample_from_logprobs(logprobs, uniforms[min(n_gen, s.max_len - 1)][None])[0])
-        if t == s.eos_idx or len(tokens) >= s.max_len:
-            break
-        tokens.append(t)
-        n_gen += 1
-        counts[0, t] += 1
-        if n_gen > s.penalty_window and len(tokens) - 1 - s.penalty_window >= 0:
-            counts[0, tokens[len(tokens) - 1 - s.penalty_window]] -= 1
-        if len(tokens) >= s.max_len:
-            break
-        logits = decode_step(model, t, len(tokens), cache)
-    return np.asarray(tokens, np.int64), n_gen
+    return sample_tokens(all_logits[:, len(prompt)].float(), prompt, s, uniforms,
+                         lambda t, pos: decode_step(model, t, pos, cache))

@@ -197,6 +197,50 @@ def codeclm_reference_state_dict(params, cfg: CodecLMConfig) -> dict:
     return sd
 
 
+def fused_pack_from_jax(fp) -> dict:
+    """The JAX package's ``prepare_fused`` bundle (numpy arrays) -> the port's
+    K2 pack (``ops/kernels/decode_layer.build_fused_pack`` layout), with the
+    same integer values and scales.
+
+    The JAX pack is (L * (4d + 3 hidden), d or d/2) rows of [wq | wk | wv |
+    wo | w1 | w3 | w2 transposed] with per-chunk scales; its int4 w2 pairs
+    nibbles along the output axis, the port's along the input axis."""
+    from ..ops.kernels.decode_layer import pack4, unpack4
+
+    an = _np(fp["attn_norms"])[:, 0]
+    L, d = an.shape
+    pack = np.array(_np(fp["pack"]))
+    rpl, pw = pack.shape[0] // L, pack.shape[1]
+    hidden = (rpl - 4 * d) // 3
+    fch = hidden // 2
+    w4 = pw == d // 2
+    g = 2 if w4 else 1
+    P = torch.from_numpy(pack.reshape(L, rpl, pw))
+    S = torch.from_numpy(np.array(_np(fp["scales"])).reshape(L, 10, 2, -1))
+
+    def scales(chunks, rows):
+        return torch.cat([S[:, c, :g, :rows] for c in chunks], dim=-1).contiguous()
+
+    out = {"wqkv": P[:, :3 * d], "sqkv": scales((0, 1, 2), d),
+           "wo": P[:, 3 * d:4 * d], "so": scales((3,), d),
+           "w13": P[:, 4 * d:4 * d + 2 * hidden], "s13": scales((4, 5, 6, 7), fch),
+           "s2": torch.from_numpy(np.array(_np(fp["w2_scales"])[:, 0]))}
+    w2t = P[:, 4 * d + 2 * hidden:]                               # (L, hidden, pw)
+    if w4:
+        lo, hi = unpack4(w2t)                                     # output halves
+        w2 = torch.cat([lo, hi], dim=-1).transpose(1, 2)          # (L, d, hidden)
+        out["w2"] = pack4(w2[..., :fch], w2[..., fch:])
+    else:
+        out["w2"] = w2t.transpose(1, 2)
+    out["attn_norms"] = torch.from_numpy(an.astype(np.float32))
+    out["ffn_norms"] = torch.from_numpy(_np(fp["ffn_norms"])[:, 0].astype(np.float32))
+    for k in ("head_q", "head_s", "head4_p", "head4_s", "final_norm", "embed"):
+        if k in fp:
+            a = _np(fp[k])      # bf16 (a numpy extension type) widens to f32
+            out[k] = torch.from_numpy(np.array(a, np.float32 if a.dtype.kind == "V" else a.dtype))
+    return {k: v.contiguous() for k, v in out.items()}
+
+
 def nar_reference_state_dict(params, cfg: ResidualTransformerConfig) -> dict:
     """JAX NAR pytree -> reference ``ResidualTransformer`` state dict (with
     ``.q`` / ``.s`` entries where the pytree went through ``quantize_nar``)."""

@@ -44,13 +44,15 @@ def library_path(name: str, sources: tuple[str, ...]) -> Path:
 
 
 def build(name: str, sources: tuple[str, ...]) -> Path:
-    """Compile ``sources`` (relative to csrc/) into one shared library."""
+    """Compile ``sources`` (relative to csrc/) into one shared library;
+    headers (``.cuh``) among them count in the library's hash only."""
     out = library_path(name, sources)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(CSRC / s) for s in sources]]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(CSRC / s) for s in sources if s.endswith(".cu")]]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_seconds[name] = time.perf_counter() - t0

@@ -1,5 +1,5 @@
-"""W8A8 quantization of the NAR (counterpart of the NAR half of
-``mars5_tts_tpu/ops/quant.py``).
+"""W8A8 quantization of the NAR, and the quantizers of the AR decode engines
+(counterpart of ``mars5_tts_tpu/ops/quant.py``).
 
 Weights: symmetric int8 per output row, ``w ~= q * s[:, None]``, kept in
 torch's (out, in) layout. Activations: dynamic symmetric int8 per row
@@ -49,19 +49,55 @@ def is_quantized(w) -> bool:
     return isinstance(w, QuantWeight)
 
 
+def div(t, c: float):
+    """``t / c`` as one rounded division on every device, as the JAX package
+    and the kernels compute it (PyTorch's CUDA kernels divide by a Python
+    scalar through its reciprocal, which is one ulp off now and then)."""
+    return t / torch.full((), c, dtype=t.dtype, device=t.device)
+
+
 def quantize_weight(w, levels: int = 127):
     """Per-row symmetric quantization over the last (input) axis:
     w -> (q int8, scale f32 with the last axis dropped)."""
     wf = w.float()
-    scale = wf.abs().amax(dim=-1, keepdim=True) / levels
+    scale = div(wf.abs().amax(dim=-1, keepdim=True), levels)
     q = torch.round(wf / scale.clamp_min(1e-12)).clamp(-levels, levels)
     return q.to(torch.int8), scale.squeeze(-1)
+
+
+def quantize_weight_mse(w, levels: int, ratios=(1.0, 0.9, 0.8, 0.7, 0.6)):
+    """Per-row symmetric quantization over the last axis with a clip search:
+    each row takes the scale ``amax * r / levels`` whose round trip has the
+    smallest squared error (the first ratio wins a tie). The int4 packs use
+    it with ``levels=7``. Returns (q int8, scale f32) like ``quantize_weight``."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=-1, keepdim=True)
+    best_err = best_scale = None
+    for r in ratios:
+        scale = (amax * (r / levels)).clamp_min(1e-12)
+        q = torch.round(wf / scale).clamp(-levels, levels)
+        err = (q * scale - wf).square().sum(dim=-1, keepdim=True)
+        if best_err is None:
+            best_err, best_scale = err, scale
+        else:
+            take = err < best_err
+            best_err = torch.where(take, err, best_err)
+            best_scale = torch.where(take, scale, best_scale)
+    q = torch.round(wf / best_scale).clamp(-levels, levels)
+    return q.to(torch.int8), best_scale.squeeze(-1)
+
+
+def linear_q8(x, q, s):
+    """Weight-only int8 product ``x @ (q * s).T``: f32 sums, the f32 rescale,
+    one rounding to x's dtype. The AR output head of the quantized decode
+    engines."""
+    return ((x.float() @ q.float().t()) * s).to(x.dtype)
 
 
 def quantize_act(x):
     """Dynamic per-row int8: (x int8, row scale f32 (..., 1))."""
     xf = x.float()
-    xs = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    xs = div(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8), 127.0)
     return torch.round(xf / xs).clamp(-127, 127).to(torch.int8), xs
 
 

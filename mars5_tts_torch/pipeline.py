@@ -5,13 +5,16 @@ tokenize -> Encodec-encode the reference -> speech-BPE its L0 codes -> deep or
 shallow prompt -> AR decode -> parse -> NAR diffusion -> Vocos -> silence
 trim, step for step as the JAX package (and the reference) does it.
 
-NAR backends: ``"bf16"`` (the model as loaded) or ``"int8"`` (W8A8 with
-per-row scales, ``ops/quant.quantize_nar``, served through kernels K1, K3,
-K4 and K6). The AR runs as loaded.
+AR backends: ``"bf16"`` (the model as loaded), ``"fused"`` (W8A8) or
+``"fused4"`` (W4A8, nibble-packed), the quantized engine of
+``models/ar_decode_fused.py`` through kernel K2, with ``head4=True`` (fused4
+only) reading the output head as int4 through kernel K8. The quantized pack
+is built at the first request and kept. NAR backends: ``"bf16"`` (the model
+as loaded) or ``"int8"`` (W8A8 with per-row scales,
+``ops/quant.quantize_nar``, served through kernels K1, K3, K4 and K6).
 
-Not ported yet: ``tts_batch``, the quantized AR backends, grouped NAR
-quantization, ``use_kv_cache=False``, the guidance interval and geometry
-buckets.
+Not ported yet: ``tts_batch``, grouped NAR quantization,
+``use_kv_cache=False``, the guidance interval and geometry buckets.
 """
 
 from __future__ import annotations
@@ -30,11 +33,13 @@ from .diffusion.engine import perform_simple_inference
 from .diffusion.multinomial import MultinomialDiffusion
 from .models.ar import CodecLM, CodecLMConfig
 from .models.ar_decode import ArSampling, ar_generate, ar_vocab_window
+from .models.ar_decode_fused import ar_generate_fused, prepare_fused
 from .models.convert import (infer_codeclm_config, infer_nar_config, load_codeclm,
                              load_nar)
 from .models.encodec import EncodecConfig, EncodecEncoder, encodec_from_pytree
 from .models.nar import ResidualTransformer, ResidualTransformerConfig
 from .models.vocos import Vocos, VocosConfig, vocos_from_pytree
+from .ops.kernels.decode_layer import make_dims
 from .ops.quant import quantize_nar
 from .utils.profiling import StageTimer
 
@@ -48,11 +53,13 @@ class Mars5TTS:
                  nar_cfg: Optional[ResidualTransformerConfig] = None,
                  encodec_cfg: Optional[EncodecConfig] = None,
                  vocos_cfg: Optional[VocosConfig] = None,
-                 device="cpu", dtype=torch.float32, nar_backend: str = "bf16"):
+                 device="cpu", dtype=torch.float32, ar_backend: str = "bf16",
+                 nar_backend: str = "bf16", head4: bool = False):
         """From reference-layout checkpoints ({'vocab', 'model'[, 'config']}),
         with Encodec/Vocos given as the JAX package's parameter pytrees.
         ``nar_backend="int8"`` quantizes the NAR after loading, unless its
-        checkpoint is already quantized."""
+        checkpoint is already quantized; ``ar_backend`` and ``head4`` as in
+        the module docstring."""
         texttok, speechtok = load_tokenizers(ar_ckpt)
         n_vocab = len(texttok.vocab) + len(speechtok.vocab)
         if ar_cfg is None:
@@ -67,7 +74,7 @@ class Mars5TTS:
                    if encodec_params is not None else None)
         vocos = vocos_from_pytree(vocos_params, vocos_cfg) if vocos_params is not None else None
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-                    nar_backend)
+                    ar_backend, nar_backend, head4)
 
     @classmethod
     def from_local(cls, ar_path, nar_path, **kwargs) -> "Mars5TTS":
@@ -78,19 +85,26 @@ class Mars5TTS:
     def from_params(cls, codeclm: CodecLM, codecnar: ResidualTransformer, *,
                     texttok, speechtok, encodec: Optional[EncodecEncoder] = None,
                     vocos: Optional[Vocos] = None, device=None,
-                    nar_backend: str = "bf16") -> "Mars5TTS":
+                    ar_backend: str = "bf16", nar_backend: str = "bf16",
+                    head4: bool = False) -> "Mars5TTS":
         """From already-built port modules and tokenizer objects. With
         ``nar_backend="int8"`` a bf16/f32 ``codecnar`` is quantized into a new
         module (the given one is left as it was); a quantized one is used as
-        it is."""
+        it is. The quantized AR backends leave ``codeclm`` as it is."""
         self = cls.__new__(cls)
         device = device or codeclm.embed.weight.device
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-                    nar_backend)
+                    ar_backend, nar_backend, head4)
         return self
 
     def _setup(self, codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-               nar_backend):
+               ar_backend, nar_backend, head4):
+        if ar_backend not in ("bf16", "fused", "fused4"):
+            raise ValueError(f"unknown ar_backend {ar_backend!r}")
+        if head4 and ar_backend != "fused4":
+            raise ValueError("head4=True needs ar_backend='fused4'")
+        self.ar_backend, self.head4 = ar_backend, head4
+        self._fused_cache: dict = {}
         if nar_backend not in ("bf16", "int8"):
             raise ValueError(f"unknown nar_backend {nar_backend!r}")
         if nar_backend == "int8" and not codecnar.is_quantized:
@@ -117,6 +131,19 @@ class Mars5TTS:
         self.last_timing: dict = {}
         self.last_grid = None
         self._last_ar_runaway = False
+
+    def _get_fused(self, max_len: int):
+        """The quantized decode pack and dims for ``max_len``, built at first
+        use and kept per ``max_len``; the weights are packed once and shared."""
+        if max_len not in self._fused_cache:
+            wbits = 4 if self.ar_backend == "fused4" else 8
+            if self._fused_cache:
+                fp, _ = next(iter(self._fused_cache.values()))
+                dims = make_dims(self.ar_cfg, max_len, wbits)
+            else:
+                fp, dims = prepare_fused(self.codeclm, max_len, wbits, self.head4)
+            self._fused_cache[max_len] = (fp, dims)
+        return self._fused_cache[max_len]
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -266,8 +293,13 @@ class Mars5TTS:
                 + self.speechtok.special_tokens["<|endofspeech|>"],
                 valid_start=self._valid_window[0], valid_end=self._valid_window[1],
                 max_len=max_len)
-            ar_codes, _ = ar_generate(self.codeclm, prompt, codes_np[0].T,
-                                      sampling=sampling, seed=seed)
+            if self.ar_backend == "bf16":
+                ar_codes, _ = ar_generate(self.codeclm, prompt, codes_np[0].T,
+                                          sampling=sampling, seed=seed)
+            else:
+                fp, dims = self._get_fused(max_len)
+                ar_codes, _ = ar_generate_fused(self.codeclm, fp, dims, prompt,
+                                                codes_np[0].T, sampling=sampling, seed=seed)
             self._last_ar_runaway = len(ar_codes) >= max_len - 1
             if self._last_ar_runaway:
                 logging.warning("[autoregressive generation] output length = %d -- "

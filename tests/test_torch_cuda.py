@@ -291,3 +291,139 @@ def test_w8a8_nar_trajectory_on_gpu(dev):
             fused_heads_tail=fused))
         assert D.launch_count - k6 == (T if fused else 0)
     assert (grids[0] == grids[1]).float().mean().item() >= 0.96
+
+
+def _fused_eq_f32(got, want):
+    """The JAX kernel tests' bound without its exact-fraction clause, for f32
+    outputs: kernel and twin take their sums in f64 and agree bit for bit
+    when the card's exp, sqrt and division round as PyTorch's kernels do
+    (measured on an H100); a moved int8 rounding, which changes every later
+    f32 value by a little, stays within 0.02 x peak, mean 2e-3 x peak."""
+    g, w = got.float(), want.float()
+    peak = max(w.abs().max().item(), 1.0)
+    d = (g - w).abs()
+    assert torch.isfinite(g).all()
+    assert d.max().item() <= 0.02 * peak, d.max().item()
+    assert d.mean().item() < 2e-3 * peak, d.mean().item()
+
+
+def _decode_model(cfg, dev, seed):
+    """A bf16 CodecLM on the card with seeded random weights."""
+    from mars5_tts_torch.models.ar import CodecLM
+
+    with torch.device(dev):
+        return CodecLM(cfg).init_(torch.Generator(device=dev).manual_seed(seed)).to(
+            torch.bfloat16).eval()
+
+
+def _ring(dims, g, dev):
+    """Random int8 K/V rings (L, window, d) with their per-position scales."""
+    from mars5_tts_torch.ops.kernels.decode_layer import quantize_kv_rows
+
+    shape = (dims.n_layers, dims.window, dims.dim)
+    (ck, ks), (cv, vs) = (quantize_kv_rows(torch.randn(shape, generator=g, device=dev) * 0.1)
+                          for _ in range(2))
+    return ck, cv, torch.stack([ks, vs], dim=1).contiguous()
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+@pytest.mark.parametrize("full", [False, True])
+def test_fused_decode_kernel_matches_ref(dev, wbits, full):
+    """K2 against ``fused_step_ref`` on the same pack, ring and token: at a
+    small geometry before and after the ring wraps, and at the released
+    widths (26 x 1536, 24 heads, hidden 3584, window 2001)."""
+    from mars5_tts_torch.models.ar import CodecLMConfig
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    if full:
+        cfg, max_len, positions = CodecLMConfig.mars5(24_000), 2000, (0, 600, 1900)
+    else:
+        cfg = CodecLMConfig(n_vocab=512, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                            n_layers=3, hidden_dim=512, sliding_window=24)
+        max_len, positions = 40, (0, 5, 30)
+    fp, dims = prepare_fused(_decode_model(cfg, dev, wbits), max_len, wbits)
+    g = torch.Generator(device=dev).manual_seed(wbits)
+    ck, cv, kvs = _ring(dims, g, dev)
+    for pos in positions:
+        x = fp["embed"][pos + 7].to(torch.bfloat16)[None]
+        n0 = D.launch_count
+        got = D.fused_decode_layers(fp, x, pos, ck, cv, kvs, dims=dims, norm_eps=cfg.norm_eps)
+        torch.cuda.synchronize()
+        assert D.launch_count == n0 + 1
+        want = D.fused_step_ref(fp, x, pos, ck, cv, kvs, dims=dims, norm_eps=cfg.norm_eps)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            _fused_eq_f32(a, b)
+
+
+def test_fused_decode_kernel_rejects_what_it_does_not_take(dev):
+    from mars5_tts_torch.models.ar import CodecLMConfig
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    cfg = CodecLMConfig(n_vocab=300, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                        n_layers=1, hidden_dim=512, sliding_window=24)
+    fp, dims = prepare_fused(_decode_model(cfg, dev, 0), 40, 8)
+    ck, cv, kvs = _ring(dims, None, dev)
+    x = fp["embed"][:1].to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        D.fused_decode_layers(fp, x.float(), 3, ck, cv, kvs, dims=dims)   # f32 token
+    with pytest.raises(ValueError):
+        D.fused_decode_layers(fp, x, 3, ck[:, :10], cv[:, :10], kvs[..., :10], dims=dims)
+    with pytest.raises(ValueError):
+        D.fused_decode_layers({**fp, "wo": fp["wo"][..., :128]}, x, 3, ck, cv, kvs, dims=dims)
+
+
+@pytest.mark.parametrize("v,k", [(24_000, 1536), (500, 256)])
+def test_head4_kernel_matches_ref(dev, v, k):
+    """K8 against its twin: the int32 sums are exact and the epilogue is the
+    same f32 ops in the same order."""
+    from mars5_tts_torch.ops.kernels import head4 as H
+
+    g = torch.Generator(device=dev).manual_seed(v)
+    wp, ws = H.pack_head4(torch.randn((v, k), generator=g, device=dev) * 0.03)
+    x = torch.randn((1, k), generator=g, device=dev).to(torch.bfloat16)
+    n0 = H.launch_count
+    got = H.head4_logits(x, wp, ws, n_vocab=v)
+    torch.cuda.synchronize()
+    assert H.launch_count == n0 + 1 and got.shape == (1, v)
+    want = H.head4_logits_ref(x, wp, ws, n_vocab=v)
+    peak = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * peak
+
+
+def test_fused_engine_on_gpu(dev):
+    """The quantized engine on the card (fused4 + the int4 head): one K2 and
+    one K8 launch a decode step, tokens in the vocabulary window, and the
+    first step's logits within the kernel bound of the CPU twins'."""
+    import copy
+
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode_fused import (FusedCache, ar_generate_fused,
+                                                        fused_step, prepare_fused)
+    from mars5_tts_torch.ops.kernels import decode_layer as D, head4 as H
+
+    cfg = CodecLMConfig(n_vocab=1283, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                        n_layers=2, hidden_dim=1024, sliding_window=3000, n_spk_layers=1,
+                        spk_hidden_dim=256)
+    cpu = CodecLM(cfg).init_(torch.Generator().manual_seed(3)).to(torch.bfloat16).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    r = np.random.default_rng(3)
+    spk = r.integers(0, 1024, (30, 8))
+    prompt = np.concatenate([r.integers(0, 258, 10), spk[:20, 0] + 258])
+    s = ArSampling(n_phones_gen=10_000, eos_idx=1282, valid_start=258, valid_end=1283,
+                   max_len=len(prompt) + 40)
+    u = r.random(s.max_len).astype(np.float32)
+    fp, dims = prepare_fused(gpu, s.max_len, 4, head4=True)
+    n0 = (D.launch_count, H.launch_count)
+    tokens, n_gen = ar_generate_fused(gpu, fp, dims, prompt, spk, sampling=s, uniforms=u)
+    steps = n_gen - (len(tokens) >= s.max_len)
+    assert (D.launch_count - n0[0], H.launch_count - n0[1]) == (steps, steps)
+    gen = tokens[len(prompt):]
+    assert n_gen > 0 and ((gen >= 257) & (gen < 1283)).all()
+    fpc, _ = prepare_fused(cpu, s.max_len, 4, head4=True)
+    logits = [fused_step(f, dims, cfg, int(prompt[-1]), len(prompt), FusedCache(dims, d))
+              for f, d in ((fp, dev), (fpc, "cpu"))]
+    _fused_eq_f32(logits[0].cpu(), logits[1])

@@ -217,7 +217,8 @@ _BLOCKED = textwrap.dedent("""
     from mars5_tts_torch import Mars5TTS
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
-    from mars5_tts_torch.ops.kernels import build, diffusion_tail, mha, nar_fused
+    from mars5_tts_torch.ops.kernels import build, decode_layer, diffusion_tail, head4, mha, nar_fused
+    from mars5_tts_torch.models.ar_decode_fused import FusedCache, fused_step, prepare_fused
     from mars5_tts_torch.ops.quant import quantize_nar
     g = torch.Generator().manual_seed(0)
     ar = CodecLM(CodecLMConfig.tiny(64)).init_(g).eval()
@@ -241,6 +242,12 @@ _BLOCKED = textwrap.dedent("""
     assert not build._loaded and mha.launch_count == 0
     assert nar_fused.fused_linear_launches == nar_fused.fused_ffn_launches == 0
     assert diffusion_tail.launch_count == 0
+    cfg = CodecLMConfig(n_vocab=64, dim=128, n_heads=2, n_kv_heads=2, head_dim=64, n_layers=1,
+                        hidden_dim=256, sliding_window=16)
+    fp, dims = prepare_fused(CodecLM(cfg).init_(g).eval(), 20, wbits=4, head4=True)
+    logits = fused_step(fp, dims, cfg, 3, 5, FusedCache(dims, "cpu"))
+    assert logits.shape == (1, 64) and torch.isfinite(logits).all()
+    assert decode_layer.launch_count == head4.launch_count == 0 and not build._loaded
     print("kernel module ok")
 """)
 

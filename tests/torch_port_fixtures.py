@@ -73,6 +73,21 @@ def tiny_models(seed: int = 0):
     return cfgs, params
 
 
+@functools.lru_cache(maxsize=None)
+def fused_ar(seed: int = 0):
+    """JAX config and f32 params of an AR the quantized decode engines take
+    (dim 256 = 4 heads x 64, hidden 1024, 2 layers) beside ``tiny_models``'
+    tokenizer vocabulary."""
+    import jax
+
+    from mars5_tts_tpu.models.ar import CodecLMConfig, init_codeclm
+
+    cfg = CodecLMConfig(n_vocab=258 + 1025, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                        n_layers=2, hidden_dim=1024, sliding_window=3000, n_spk_layers=2,
+                        spk_hidden_dim=768)
+    return cfg, jax.tree.map(np.asarray, init_codeclm(jax.random.PRNGKey(seed), cfg))
+
+
 def port_config(jax_cfg, port_cls):
     """The port's config dataclass with the same field values."""
     import dataclasses
