@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: compiles the five CUDA libraries from ``mars5_tts_torch/csrc`` for
-   sm_90a into ``build/kernels/``, one nvcc each, all at once.
+2. Build: compiles the six CUDA libraries from ``mars5_tts_torch/csrc`` for
+   sm_90a into ``build/kernels/``, one nvcc each, all at once
+   (``ops/kernels/build.build_all``).
 3. Kernels against their plain PyTorch twins on the card, at the main paths'
-   shapes, with stated error bounds and CUDA-event timings: K1 attention,
-   K3 fused_linear (qkv, caq and residual variants), K4 fused_ffn, K6
-   heads_diffusion_tail (w = 3, at t = 0 and a middle t), K2
-   fused_decode_layers (W8 and W4 at the released AR widths, window 2001,
-   positions 600 and 1900) and K8 head4_logits (1536 -> 24,000).
+   shapes, with stated error bounds and CUDA-event timings: K1 attention
+   (beside ``scaled_dot_product_attention`` as a yardstick the port never
+   calls), K3 fused_linear (qkv, caq and residual variants), K4 fused_ffn, K6
+   heads_diffusion_tail (w = 3, at t = 0 and a middle t), K5 diffusion_tail
+   (index-identical to K6 and to its twin), K2 fused_decode_layers (W8 and
+   W4 at the released AR widths, window 2001, positions 600 and 1900), K8
+   head4_logits (1536 -> 24,000) and K9 mega_decoder_stack (the int8 NAR
+   decoder's 16 layers at the smoke request's shape: one layer for the
+   exactly-equal share, then all sixteen).
 4. Main paths: ``Mars5TTS`` at the released widths (AR 26 x 1536, NAR 8 + 16 x
    1024, Encodec, Vocos) with seeded random weights, serving deep-clone
    ``tts()`` requests with 7 s references (525 prompt frames, so the NAR
@@ -20,8 +25,15 @@
    runs K1, K3, K4 and K6); then the production path, ``ar_backend="fused4"``
    with the int8 NAR, twice (the first builds the pack and warms up; every
    decode step runs K2), ``ar_backend="fused"`` once, and ``fused4`` with
-   ``head4=True`` once (every decode step also runs K8). Each request's
-   launch counts are reset before it and read after it.
+   ``head4=True`` once (every decode step also runs K8); then fused4 + int8
+   with ``nar_mega=True`` (K9 once a reverse step in place of K1, K3 and K4
+   in the decoder) and with ``nar_tail="split"`` (the folded heads, then K5,
+   in place of K6). Each request's launch counts are reset before it and
+   read after it.
+
+Every kernel's row carries its bound: the larger of the bytes it must move
+over 3.35 TB/s and its operations over the H100 SXM peak for their type
+(int8 1,979 TOP/s, bf16 989 TFLOP/s), from the inputs of this run.
 
 Prints one JSON line with the kernels' results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -33,7 +45,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,12 +59,25 @@ STEPS = 200
 # frames, 750 generated frames, model dim 1024, FFN 3072, 7 lanes x 1025
 M_ROWS, DIM, FFN = 2400, 1024, 3072
 GEN_LEN, LANES, CLASSES = 750, 7, 1025
-LIBS = {"mha": ("mha.cu",), "nar_fused": ("nar_fused.cu",),
-        "diffusion_tail": ("diffusion_tail.cu",),
-        "decode_layer": ("decode_layer.cu", "gemv_s8.cuh"), "head4": ("head4.cu", "gemv_s8.cuh")}
 AR_MAX_LEN = 2000                   # K2 check: window min(3000, 2001)
 AR_POSITIONS = (600, 1900)
 HBM_BYTES_S = 3.35e12               # H100 SXM data sheet
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
+# K9 at the smoke request's shape: 7 s reference = 525 prompt frames + up to
+# 200 generated, two CFG rows; 66 encoder tokens (the deep-clone text + speaker)
+MEGA_L, MEGA_LK = 725, 66
+
+
+def bound(nbytes, **ops):
+    """(bound_ms, bound_by): the larger of moving ``nbytes`` at the HBM rate
+    and doing ``ops`` (type -> count) at each type's peak."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[k] for k, n in ops.items())
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def cuda_ms(fn, n=30, warmup=5):
@@ -89,20 +113,29 @@ def check_kernel(K, shape, masked, dtype, gen, dev):
         raise RuntimeError(f"K1 {shape}: non-finite output")
     diff = (out.float() - ref.float()).abs()
     if dtype == torch.bfloat16:
-        bound = K.bf16_row_bound(ref)
+        tol = K.bf16_row_bound(ref)
         bound_txt = "2 bf16 ulp of each row's peak"
     else:
-        bound = torch.full_like(diff, 1e-5) * ref.float().abs().max().clamp_min(1.0)
+        tol = torch.full_like(diff, 1e-5) * ref.float().abs().max().clamp_min(1.0)
         bound_txt = "1e-5 x max(1, peak)"
-    ok = bool((diff <= bound).all())
+    ok = bool((diff <= tol).all())
     res = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
            "ms": cuda_ms(lambda: K.mha(q, k, v, mask)),
            "plain_ms": cuda_ms(lambda: K.mha_ref(q, k, v, mask))}
+    keys = l * b if mask is None else int((~mask).sum())
+    res["bound_ms"], res["bound_by"] = bound(nbytes(q, k, v, out, mask),
+                                             bf16=4 * h * l * d * keys)
+    if dtype == torch.bfloat16:     # the library yardstick, never called by the port
+        import torch.nn.functional as Fn
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        am = None if mask is None else ~mask[:, None, None, :]
+        res["library_ms"] = cuda_ms(lambda: Fn.scaled_dot_product_attention(qt, kt, vt, am))
     print(f"K1 {tuple(shape)} {str(dtype).split('.')[-1]} mask={masked}: "
           f"max_abs_err={res['max_abs_err']:.3e} mean_abs_err={res['mean_abs_err']:.3e} "
-          f"bound={bound_txt} (max {bound.max().item():.3e}) within={ok} | "
-          f"kernel {res['ms'] * 1e3:.1f} us, plain {res['plain_ms'] * 1e3:.1f} us",
-          flush=True)
+          f"bound={bound_txt} (max {tol.max().item():.3e}) within={ok} | "
+          f"kernel {res['ms'] * 1e3:.1f} us, plain {res['plain_ms'] * 1e3:.1f} us, "
+          f"sdpa {res.get('library_ms', float('nan')) * 1e3:.1f} us, roofline "
+          f"{res['bound_ms'] * 1e3:.1f} us ({res['bound_by']})", flush=True)
     if not ok:
         raise RuntimeError(f"K1 {shape}: error above its bound")
     return res
@@ -129,18 +162,20 @@ def rand_qweight(n, k, gen, dev):
     return quantize_weight(torch.randn((n, k), generator=gen, device=dev) * 0.03)
 
 
-def check_w8a8(name, run, twin):
-    """One K3/K4 variant against its twin, with CUDA-event times."""
+def check_w8a8(name, run, twin, moved, int8_ops):
+    """One K3/K4 variant against its twin, with CUDA-event times; ``moved``
+    the bytes it must move, ``int8_ops`` its operations."""
     import torch
     out = run()
     ref = twin()
     torch.cuda.synchronize()
     ok, st = fused_bound(out, ref)
     st.update(ms=cuda_ms(run), plain_ms=cuda_ms(twin))
+    st["bound_ms"], st["bound_by"] = bound(moved + nbytes(out), int8=int8_ops)
     print(f"{name}: max_abs_err={st['max_abs_err']:.3e} mean_abs_err={st['mean_abs_err']:.3e} "
           f"exact={st['exact_frac']:.4f} bound=fused_eq(0.02 peak, >95% exact, mean<2e-3 peak) "
-          f"within={ok} | kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us",
-          flush=True)
+          f"within={ok} | kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us, "
+          f"roofline {st['bound_ms'] * 1e3:.1f} us ({st['bound_by']})", flush=True)
     if not ok:
         raise RuntimeError(f"{name}: error above its bound")
     return st
@@ -162,23 +197,27 @@ def check_nar_fused(gen, dev):
     res["qkv"] = check_w8a8(
         "K3 qkv (2, 1200, 1024) -> 3072, LN + bias",
         lambda: F.fused_linear(x, qkv_w, ln=ln, bias=qkv_b),
-        lambda: F.fused_linear_ref(x, qkv_w, ln=ln, bias=qkv_b))
+        lambda: F.fused_linear_ref(x, qkv_w, ln=ln, bias=qkv_b),
+        nbytes(x, *qkv_w, qkv_b, *ln), 2 * M_ROWS * 3 * DIM * DIM)
     res["caq"] = check_w8a8(
         "K3 caq (2, 1200, 1024) -> 1024, LN + bias",
         lambda: F.fused_linear(x, sq_w, ln=ln, bias=sq_b),
-        lambda: F.fused_linear_ref(x, sq_w, ln=ln, bias=sq_b))
+        lambda: F.fused_linear_ref(x, sq_w, ln=ln, bias=sq_b),
+        nbytes(x, *sq_w, sq_b, *ln), 2 * M_ROWS * DIM * DIM)
     a = (x * 0.5).contiguous()
     res["residual"] = check_w8a8(
         "K3 residual (2, 1200, 1024) -> 1024, bias + residual",
         lambda: F.fused_linear(a, sq_w, bias=sq_b, residual=x),
-        lambda: F.fused_linear_ref(a, sq_w, bias=sq_b, residual=x))
+        lambda: F.fused_linear_ref(a, sq_w, bias=sq_b, residual=x),
+        nbytes(a, *sq_w, sq_b, x), 2 * M_ROWS * DIM * DIM)
     w, v = rand_qweight(FFN, DIM, gen, dev), rand_qweight(FFN, DIM, gen, dev)
     l2 = rand_qweight(DIM, FFN, gen, dev)
     l2_b = 0.1 * torch.randn(DIM, generator=gen, device=dev)
     res["ffn"] = check_w8a8(
         "K4 ffn (2, 1200, 1024), F 3072",
         lambda: F.fused_ffn(x, ln, w, v, l2, l2_b),
-        lambda: F.fused_ffn_ref(x, ln, w, v, l2, l2_b))
+        lambda: F.fused_ffn_ref(x, ln, w, v, l2, l2_b),
+        nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * M_ROWS * 3 * DIM * FFN)
     return res
 
 
@@ -186,10 +225,14 @@ def check_heads_tail(gen, dev):
     """K6 at the bench shape, w = 3, at t = 0 and a middle t: indices equal to
     the twin's except where the twin's two best scores lie within 1e-5.
     ``max_abs_err`` is the largest shortfall of the twin's score at the
-    kernel's index below the twin's best score (0 where they agree)."""
+    kernel's index below the twin's best score (0 where they agree). K5 on
+    the folded heads' bf16 logits of the same decoder output, uniforms and
+    x_t: indices equal to K6's and to its own twin's, exactly (its
+    ``max_abs_err`` measured as K6's). Returns (K6 results, K5 results), one
+    per t."""
     import torch
     from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
-    from mars5_tts_torch.models.nar import nar_heads_prequant
+    from mars5_tts_torch.models.nar import nar_heads_folded, nar_heads_prequant
     from mars5_tts_torch.ops.kernels import diffusion_tail as D
 
     out = torch.randn((2, GEN_LEN, DIM), generator=gen, device=dev).to(torch.bfloat16)
@@ -200,7 +243,8 @@ def check_heads_tail(gen, dev):
               "b": 0.1 * torch.randn((LANES, CLASSES), generator=gen, device=dev)}
     diff = MultinomialDiffusion(CLASSES, timesteps=STEPS, device=dev)
     x_t = torch.randint(0, CLASSES, (1, GEN_LEN, LANES), generator=gen, device=dev)
-    res = []
+    res, res5 = [], []
+    logits = nar_heads_folded(folded, out)
     for t in (0, STEPS // 2):
         u0 = torch.rand((1, GEN_LEN, LANES, CLASSES), generator=gen, device=dev)
         scal = D.tail_scalars(diff, t)
@@ -222,10 +266,35 @@ def check_heads_tail(gen, dev):
               f"{st['mismatches']} of {got.numel()} (twin near-ties within 1e-5: "
               f"{st['near_ties']}, mismatches outside them: {bad}) | kernel "
               f"{st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us", flush=True)
+        st["bound_ms"], st["bound_by"] = bound(
+            nbytes(x8, xs, *folded.values(), u0, x_t, scal, got),
+            int8=2 * x8.shape[0] * GEN_LEN * LANES * CLASSES * DIM)
         if bad or got.min() < 0 or got.max() >= CLASSES:
             raise RuntimeError(f"K6 t={t}: indices differ from the twin outside near-ties")
         res.append(st)
-    return res
+
+        tail_args = (logits, u0, x_t, scal)
+        got5 = D.diffusion_tail(*tail_args, w=3.0, temp=0.7)
+        want5 = D.diffusion_tail_ref(*tail_args, w=3.0, temp=0.7)
+        torch.cuda.synchronize()
+        scores5 = D.logit_scores(*tail_args, w=3.0, temp=0.7)
+        st5 = {"vs_k6": int((got5 != got).sum()), "vs_twin": int((got5 != want5).sum()),
+               "max_abs_err": (scores5.amax(-1) - scores5.gather(-1, got5[..., None])[..., 0])
+               .max().item(),
+               "ms": cuda_ms(lambda: D.diffusion_tail(*tail_args, w=3.0, temp=0.7)),
+               "plain_ms": cuda_ms(lambda: D.diffusion_tail_ref(*tail_args, w=3.0, temp=0.7)),
+               "heads_ms": cuda_ms(lambda: nar_heads_folded(folded, out))}
+        st5["bound_ms"], st5["bound_by"] = bound(nbytes(*tail_args, got5))
+        print(f"K5 tail (2, 750, 7, 1025) bf16 logits w=3 t={t}: index mismatches against "
+              f"K6 {st5['vs_k6']}, against its twin {st5['vs_twin']} of {got5.numel()} "
+              f"(bound: 0) | kernel {st5['ms'] * 1e3:.1f} us, plain {st5['plain_ms'] * 1e3:.1f} "
+              f"us, roofline {st5['bound_ms'] * 1e3:.1f} us ({st5['bound_by']}); the folded "
+              f"heads before it (torch._int_mm + epilogue) {st5['heads_ms'] * 1e3:.1f} us",
+              flush=True)
+        if st5["vs_k6"] or st5["vs_twin"]:
+            raise RuntimeError(f"K5 t={t}: indices differ from K6 or from the twin")
+        res5.append(st5)
+    return res, res5
 
 
 def fused_bound_f32(got, want):
@@ -286,6 +355,10 @@ def check_decode_layer(ar, gen, dev):
                                        n=5, warmup=1),
                       pack_mb=nbytes / 1e6, wbits=wbits, pos=pos)
             st["pack_gb_s"] = nbytes / (st["ms"] * 1e-3) / 1e9
+            slots = min(pos, dims.window)        # ring rows the attention reads
+            ring = dims.n_layers * slots * (2 * dims.dim + 8)
+            st["bound_ms"], st["bound_by"] = bound(
+                nbytes + ring, int8=2 * nbytes * (2 if wbits == 4 else 1))
             print(f"K2 W{wbits} ({dims.n_layers} x {dims.dim}, hidden {dims.hidden}, window "
                   f"{dims.window}) pos={pos}: h max_abs_err={st['h']['max_abs_err']:.3e} "
                   f"(exact {st['h']['exact_frac']:.3f}), k_new {st['k_new']['max_abs_err']:.3e}, "
@@ -319,6 +392,7 @@ def check_head4(ar, gen, dev):
           "ms": cuda_ms(lambda: H.head4_logits(x, wp, ws, n_vocab=n), n=50),
           "plain_ms": cuda_ms(lambda: H.head4_logits_ref(x, wp, ws, n_vocab=n), n=20)}
     nbytes = wp.numel() + ws.numel() * 4
+    st["bound_ms"], st["bound_by"] = bound(nbytes + x.numel() * 2 + n * 4, int8=2 * n * x.shape[1])
     print(f"K8 head4 (1, {ar.cfg.dim}) -> {n}: max_abs_err={err:.3e} (bitwise equal: "
           f"{st['exact']}) bound=1e-5 x peak ({1e-5 * peak:.3e}) within={err <= 1e-5 * peak} | "
           f"kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us; "
@@ -326,6 +400,109 @@ def check_head4(ar, gen, dev):
     if not err <= 1e-5 * peak:
         raise RuntimeError("K8: error above its bound")
     return st
+
+
+def check_mega(dec, gen, dev):
+    """K9 on the int8 NAR decoder (16 x 1024, F 3072) at the smoke request's
+    shape, both key-padding masks on: one layer against the twin within the
+    JAX kernel tests' fused bound, with the exactly-equal share of its bf16
+    outputs reported (>= 99.9% expected, as K3/K4 reach), then all sixteen
+    within 0.03 x max|twin| (tests/test_nar_mega.py)."""
+    import dataclasses
+
+    import torch
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    mp = M.build_mega_pack(dec)
+    d = mp.dims
+    x = torch.randn((2, MEGA_L, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    mem = torch.randn((2, MEGA_LK, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    tm = torch.zeros((2, MEGA_L), dtype=torch.bool, device=dev)
+    tm[-1, MEGA_L - MEGA_L // 6:] = True
+    mm = torch.zeros((2, MEGA_LK), dtype=torch.bool, device=dev)
+    mm[-1, MEGA_LK - 5:] = True
+    one = M.MegaPack(dataclasses.replace(d, n_layers=1), mp.pack[:1], mp.svec[:1], mp.bvec[:1],
+                     mp.lnvec[:1])
+    got1 = M.mega_decoder_stack(one, x, mem, tm, mm)
+    want1 = M.mega_decoder_stack_ref(one, x, mem, tm, mm)
+    torch.cuda.synchronize()
+    ok1, st1 = fused_bound(got1, want1)
+    # the same layer with two of its three residual branches zeroed: which
+    # segment's sums part kernel and twin
+    segments = {}
+    for seg, off in (("ffn only", (1, 4)), ("self-attention only", (4, 6)),
+                     ("cross-attention only", (1, 6))):
+        z = M.MegaPack(one.dims, one.pack.clone(), one.svec, one.bvec.clone(), one.lnvec)
+        for c in off:
+            z.weight(0, c).zero_()
+            z.bias(0, c).zero_()
+        g, w = M.mega_decoder_stack(z, x, mem, tm, mm), M.mega_decoder_stack_ref(z, x, mem, tm, mm)
+        segments[seg] = (g == w).float().mean().item()
+    st1["segments_exact"] = segments
+    got = M.mega_decoder_stack(mp, x, mem, tm, mm)
+    want = M.mega_decoder_stack_ref(mp, x, mem, tm, mm)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    peak = want.float().abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and diff.max().item() <= 0.03 * peak
+    st = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+          "exact_frac": (got == want).float().mean().item(), "one_layer": st1,
+          "ms": cuda_ms(lambda: M.mega_decoder_stack(mp, x, mem, tm, mm), n=10, warmup=2),
+          "plain_ms": cuda_ms(lambda: M.mega_decoder_stack_ref(mp, x, mem, tm, mm), n=3,
+                              warmup=1),
+          "kernels_per_call": 1 + 9 * d.n_layers}
+    rows, mk = 2 * MEGA_L, 2 * MEGA_LK
+    D, F = d.dim, d.hidden
+    int8_ops = d.n_layers * (2 * rows * (6 * D * D + 3 * F * D) + 2 * mk * 2 * D * D)
+    flops = d.n_layers * 4 * d.nhead * MEGA_L * d.head_dim * (int((~tm).sum()) + int((~mm).sum()))
+    st["bound_ms"], st["bound_by"] = bound(
+        nbytes(x, mem, tm, mm, mp.pack, mp.svec, mp.bvec, mp.lnvec, got), int8=int8_ops,
+        bf16=flops)
+    st["phase_ms"] = mega_phases(lambda: M.mega_decoder_stack(mp, x, mem, tm, mm),
+                                 d.n_layers)
+    print(f"K9 mega_decoder_stack (2, {MEGA_L}, {D}) over memory (2, {MEGA_LK}, {D}), "
+          f"{d.n_layers} x (F {F}), masks on: 1 layer max_abs_err={st1['max_abs_err']:.3e} "
+          f"exact={st1['exact_frac']:.5f} bound=fused_eq within={ok1}; {d.n_layers} layers "
+          f"max_abs_err={st['max_abs_err']:.3e} (peak {peak:.3f}) exact={st['exact_frac']:.4f} "
+          f"bound=0.03 x peak within={ok} | kernel {st['ms']:.3f} ms "
+          f"({st['kernels_per_call']} launches from one C call), plain {st['plain_ms']:.3f} ms, "
+          f"roofline {st['bound_ms']:.3f} ms ({st['bound_by']}); pack "
+          f"{mp.pack.numel() / 1e6:.1f} MB", flush=True)
+    print("K9 one layer, exactly-equal share with two residual branches zeroed: "
+          + json.dumps(st1["segments_exact"]) + "; device time by phase over one call "
+          "(torch.profiler, ms): " + json.dumps(st["phase_ms"]), flush=True)
+    if not (ok1 and ok):
+        raise RuntimeError("K9: error above its bound")
+    return st
+
+
+MEGA_PHASES = ("qkv", "self-attention", "sa_out", "ca_q", "ca_kv", "cross-attention", "ca_out",
+               "WV", "lin2")
+
+
+def mega_phases(run, n_layers):
+    """Device ms of each K9 phase summed over the layers of one call, from
+    the profiler's kernel records in launch order (the memory quant, then
+    nine a layer); None when the profiler records no device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if any(k in e.name for k in ("w8a8_gemm_kernel", "attn_kernel",
+                                                "quant_rows_kernel"))),
+                  key=lambda e: e.time_range.start)
+    if len(kern) != 1 + len(MEGA_PHASES) * n_layers:
+        return None
+    out = {"memory quant": kern[0].time_range.elapsed_us() / 1e3}
+    for i, e in enumerate(kern[1:]):
+        name = MEGA_PHASES[i % len(MEGA_PHASES)]
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
 
 
 def build_models(dev, torch):
@@ -363,20 +540,24 @@ def build_models(dev, torch):
 
 def counts():
     from mars5_tts_torch.ops.kernels import (decode_layer as L, diffusion_tail as D,
-                                             head4 as H, mha as K, nar_fused as F)
+                                             head4 as H, mha as K, nar_fused as F,
+                                             nar_mega as M)
     return {"mha": K.launch_count, "fused_linear": F.fused_linear_launches,
             "fused_ffn": F.fused_ffn_launches, "heads_diffusion_tail": D.launch_count,
+            "diffusion_tail": D.tail_launch_count, "mega_decoder_stack": M.launch_count,
             "fused_decode_layers": L.launch_count, "head4_logits": H.launch_count}
 
 
 def reset_counts():
     from mars5_tts_torch.ops.kernels import (decode_layer as L, diffusion_tail as D,
-                                             head4 as H, mha as K, nar_fused as F)
+                                             head4 as H, mha as K, nar_fused as F,
+                                             nar_mega as M)
     K.reset_launch_count()
     F.reset_launch_counts()
     D.reset_launch_count()
     L.reset_launch_count()
     H.reset_launch_count()
+    M.reset_launch_count()
 
 
 AR_RUNS = []
@@ -462,8 +643,7 @@ def main():
     # -- 2. build: one nvcc per library, all started together
     from mars5_tts_torch.ops.kernels import build, mha as K
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBS)) as pool:
-        libs = dict(zip(LIBS, pool.map(lambda kv: build.build(*kv), LIBS.items())))
+    libs = build.build_all()
     build_s = time.perf_counter() - t0
     for name, lib in libs.items():
         regs = [ln.strip() for ln in build.build_log.get(name, "").splitlines()
@@ -478,21 +658,25 @@ def main():
     second = check_kernel(K, SECOND_SHAPE, False, torch.bfloat16, gen, dev)
     check_kernel(K, (1, 600, 4, 64), True, torch.float32, gen, dev)
     w8a8 = check_nar_fused(gen, dev)
-    k6 = check_heads_tail(gen, dev)
+    k6, k5 = check_heads_tail(gen, dev)
     models = build_models(dev, torch)
     k2 = check_decode_layer(models["ar"], gen, dev)
     k8 = check_head4(models["ar"], gen, dev)
 
     # -- 4. main paths, each request with its launch counts from 0
-    records, main_launches, head4_launches = serve_paths(models, dev)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise RuntimeError("the port pulled in jax")
+    records, main_launches, path_launches, nar8 = serve_paths(models, dev)
+    # K9 on the served NAR's own int8 decoder weights
+    k9 = check_mega(nar8.tfm.decoder, gen, dev)
+    if any(m.split(".")[0] in ("jax", "mars5_tts_tpu") for m in sys.modules):
+        raise RuntimeError("the port pulled in jax or the JAX package")
 
     def row(name, source, replaces, st, launches=None):
         return {"name": name, "route": "cuda", "source": f"mars5_tts_torch/csrc/{source}",
                 "replaces": replaces,
                 "launches": main_launches[name] if launches is None else launches,
-                "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"]}
+                "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+                "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+                "library_ms": st.get("library_ms")}
 
     k6_worst = max(k6, key=lambda st: st["max_abs_err"])
     k2_main = k2[(4, AR_POSITIONS[0])]
@@ -511,7 +695,12 @@ def main():
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:149", k6[-1]),
          "max_abs_err": k6_worst["max_abs_err"]},
         row("head4_logits", "head4.cu", "mars5_tts_tpu/ops/pallas/head4.py:55", k8,
-            launches=head4_launches),
+            launches=path_launches["head4_logits"]),
+        row("diffusion_tail", "diffusion_tail.cu",
+            "mars5_tts_tpu/ops/pallas/diffusion_tail.py:41", k5[-1],
+            launches=path_launches["diffusion_tail"]),
+        row("mega_decoder_stack", "nar_mega.cu", "mars5_tts_tpu/ops/pallas/nar_mega.py:251", k9,
+            launches=path_launches["mega_decoder_stack"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -522,7 +711,8 @@ def main():
 def serve_paths(models, dev):
     """Phase 4: every path's requests (the bf16 NAR leaves ``models`` once it
     is quantized). Returns (records, the launches of the production requests
-    (fused4 AR + int8 NAR) by kernel, K8's launches on the head4 request)."""
+    (fused4 AR + int8 NAR) by kernel, the launches of K8, K5 and K9 on the
+    requests of their own paths, the int8 NAR)."""
     import torch
 
     import mars5_tts_torch.pipeline as pipeline
@@ -533,11 +723,17 @@ def serve_paths(models, dev):
     common = {k: models[k] for k in ("texttok", "speechtok", "encodec", "vocos")}
     layers = nar.cfg.dec_layers
     k1_only = {"mha": (layers * STEPS, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
-               "heads_diffusion_tail": (0, 0)}
+               "heads_diffusion_tail": (0, 0), "diffusion_tail": (0, 0),
+               "mega_decoder_stack": (0, 0)}
     int8 = {"mha": (layers * STEPS, 10 ** 9),
             "fused_linear": (2 * layers * STEPS, 2 * layers * STEPS),
             "fused_ffn": (layers * STEPS, layers * STEPS),
-            "heads_diffusion_tail": (STEPS, STEPS)}
+            "heads_diffusion_tail": (STEPS, STEPS), "diffusion_tail": (0, 0),
+            "mega_decoder_stack": (0, 0)}
+    # K9 in place of the decoder's K1, K3 and K4; K5 in place of K6
+    mega = {**int8, "mha": (0, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
+            "mega_decoder_stack": (STEPS, STEPS)}
+    split = {**int8, "heads_diffusion_tail": (0, 0), "diffusion_tail": (STEPS, STEPS)}
     bf16_ar = {"fused_decode_layers": (0, 0), "head4_logits": (0, 0)}
     fused_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": (0, 0)}
     head4_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": lambda n: (n, n)}
@@ -570,13 +766,35 @@ def serve_paths(models, dev):
         tts = Mars5TTS.from_params(ar, nar8, nar_backend="int8", **kw, **common)
         records.append(serve(tts, label, *first, {**int8, **want_ar}))
         del tts
-    head4_launches = records[-1]["launches"]["head4_logits"]
+    path_launches = {"head4_logits": records[-1]["launches"]["head4_logits"]}
+    default = records[3]                     # fused4 + int8, the same request
+    for label, kw, want_nar, name in (
+            ("fused4 AR + int8 NAR, nar_mega=True", dict(nar_mega=True), mega,
+             "mega_decoder_stack"),
+            ("fused4 AR + int8 NAR, nar_tail='split'", dict(nar_tail="split"), split,
+             "diffusion_tail")):
+        torch.cuda.reset_peak_memory_stats(dev)
+        tts = Mars5TTS.from_params(ar, nar8, ar_backend="fused4", nar_backend="int8", **kw,
+                                   **common)
+        rec = serve(tts, label, *first, {**want_nar, **fused_ar})
+        del tts
+        records.append(rec)
+        path_launches[name] = rec["launches"][name]
+        if name == "mega_decoder_stack":     # K1 is left for the speaker encoders only
+            k1 = default["launches"]["mha"] - layers * STEPS
+            if rec["launches"]["mha"] != k1:
+                raise RuntimeError(f"{label}: K1 launched {rec['launches']['mha']} times, "
+                                   f"expected {k1}")
+        nar_ms = [1e3 * r["stages_s"]["nar_diffusion"] / STEPS for r in (rec, default)]
+        print(f"{label}: NAR {nar_ms[0]:.2f} ms a step against {nar_ms[1]:.2f} for the default "
+              f"int8 route in this call; stages {json.dumps(rec['stages_s'])} against "
+              f"{json.dumps(default['stages_s'])}", flush=True)
     print(json.dumps({"requests": records}), flush=True)
     bf16_ms = records[1]["ar_ms_per_token"]
     print("AR stage ms/token (same call, incl. prefill): " + ", ".join(
         f"{r['path']}: {r['ar_ms_per_token']:.2f}" for r in records)
         + f"; fused4 / bf16 AR = {records[3]['ar_ms_per_token'] / bf16_ms:.3f}", flush=True)
-    return records, main_launches, head4_launches
+    return records, main_launches, path_launches, nar8
 
 
 if __name__ == "__main__":

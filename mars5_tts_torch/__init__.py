@@ -3,10 +3,10 @@
 Same synthesis (Encodec encode, AR codec LM, CFG multinomial-diffusion NAR,
 Vocos vocode) with ``nn.Module`` models, explicit devices and explicit
 ``torch.Generator`` randomness. The JAX package stays the reference; this
-package imports none of its jax modules.
+package imports nothing of it.
 """
 
-from mars5_tts_tpu.config import DSH, InferenceConfig
+from .config import DSH, InferenceConfig
 
 __all__ = ["DSH", "InferenceConfig", "Mars5TTS"]
 

@@ -17,10 +17,19 @@ known-region and forward draws and an unnormalized posterior (Gumbel-max is
 shift-invariant), as the JAX key path does.
 
 A W8A8 model (``ops/quant.quantize_nar``) takes the serving route: folded
-quantized heads (``fold_quant_heads``) and, on the generator path, kernel K6
-(``heads_diffusion_tail``), which fuses the heads GEMM, CFG, posterior and
-Gumbel-max and draws on the same uniforms as the dense tail. The injected
-uniform path keeps the dense tail, as the JAX package does.
+quantized heads (``fold_quant_heads``) and, on the generator path, one of
+three tails that draw on the same uniforms:
+
+* ``"heads"``: kernel K6 (``heads_diffusion_tail``) fuses the heads GEMM,
+  CFG, posterior and Gumbel-max (the JAX default);
+* ``"split"``: the folded heads (``nar_heads_folded``), then kernel K5
+  (``diffusion_tail``) on their bf16 logits (JAX ``MARS5_FUSED_HEADTAIL=0``);
+* ``"dense"``: the folded heads and the dense PyTorch tail (JAX
+  ``MARS5_FUSED_TAIL=0``).
+
+The injected uniform path keeps the dense tail, as the JAX package does.
+``mega=True`` runs the W8A8 decoder stack through kernel K9 (JAX
+``MARS5_NAR_MEGA=1``).
 
 Not ported: mixed prompt lengths in one batch, the guidance interval and
 geometry buckets.
@@ -31,13 +40,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mars5_tts_tpu.config import DSH
-
+from ..config import DSH
 from ..models.nar import (ResidualTransformer, fold_quant_heads, nar_heads_folded,
                           nar_heads_prequant)
-from ..ops.kernels.diffusion_tail import heads_diffusion_tail, tail_scalars
+from ..ops.kernels.diffusion_tail import diffusion_tail, heads_diffusion_tail, tail_scalars
+from ..ops.kernels.nar_mega import build_mega_pack
 from .multinomial import MultinomialDiffusion, log_sample_categorical
 from .schedule import build_step_plan
+
+
+TAILS = ("heads", "split", "dense")
 
 
 def _as(x, dtype, device):
@@ -51,17 +63,22 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                              diff: MultinomialDiffusion, T: int, dsh: DSH = DSH(),
                              retain_quant0: bool = True,
                              generator: torch.Generator | None = None,
-                             uniforms=None, x_init=None, fused_heads_tail: bool = True):
+                             uniforms=None, x_init=None, tail: str = "heads",
+                             mega: bool = False):
     """Run the whole inpainting trajectory.
 
     batch: (c_text (bs, Lt), c_codes (bs, Lc, 8), c_texts_length (bs,),
     c_codes_length (bs,), x (bs, Lx, 8) with L0 = AR codes,
     x_padding_mask (bs, Lx)), numpy arrays or tensors.
     Returns the (bs, Lx, 8) int64 grid on the model's device, deep-clone
-    prompt frames cropped. ``fused_heads_tail=False`` runs a W8A8 model's
-    generator path through the folded heads and the dense tail instead of
-    K6 (the same draws, for checking the kernel's route).
+    prompt frames cropped. ``tail`` ("heads", "split" or "dense") picks a
+    W8A8 model's tail on the generator path and ``mega`` its decoder stack
+    route, as in the module docstring.
     """
+    if tail not in TAILS:
+        raise ValueError(f"unknown tail {tail!r}; expected one of {TAILS}")
+    if mega and not model.is_quantized:
+        raise ValueError("mega=True needs a W8A8 model")
     dev = model.text_embed.weight.device
     c_text, c_codes, ctl, ccl, x, xpm = batch
     c_text, c_codes, ctl, ccl, x = (_as(v, torch.long, dev)
@@ -104,13 +121,13 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     t_lasts, is_reverse, cs = build_step_plan(T, dsh.jump_len, dsh.jump_n_sample)
     out = _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x_cur, x_known,
                       xpm, x_quant0, t_lasts, is_reverse, cs, uniforms, generator,
-                      offset, retain_quant0, fused_heads_tail)
+                      offset, retain_quant0, tail, mega)
     return out[:, offset:offset + lx]
 
 
 def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                 x_quant0, t_lasts, is_reverse, cs, uniforms, generator, offset,
-                retain_quant0, fused_heads_tail):
+                retain_quant0, tail, mega):
     dev = x.device
     bs, _, n_lanes = x.shape
     K = diff.num_classes
@@ -143,13 +160,15 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
 
     # W8A8: the heads' LN affines folded into requantized head weights
     folded = fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized else None
-    use_k6 = folded is not None and use_key and fused_heads_tail
+    kernel_tail = tail if folded is not None and use_key else "dense"
+    mega_pack = build_mega_pack(model.tfm.decoder) if mega else None
 
     def decoder_out(x, t_last):
         """Decoder output on the generated frames, (rows, l_gen, dim)."""
         xr = torch.cat([x, x]) if cfg_batched else x
         return model.decoder_apply(xr, xpm_rows, t_dec_all[t_last][None].expand(rows, dim),
-                                   memory_all[t_last], c_padding, q_tail_start=offset)
+                                   memory_all[t_last], c_padding, q_tail_start=offset,
+                                   mega=mega_pack)
 
     def x0_logits(x, t_last):
         """CFG-combined f32 x0 logits on the generated frames, lanes 1.."""
@@ -164,11 +183,15 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         return torch.rand(shape, generator=generator, device=dev)
 
     def reverse(x, i, t):
-        if use_k6:
+        if kernel_tail == "heads":
             x8, xs = nar_heads_prequant(decoder_out(x, t))
             unknown = heads_diffusion_tail(
                 x8, xs, folded, rand(bs, l_gen, n_lanes - 1, K), x[:, offset:, 1:],
                 tail_scalars(diff, t), w=w, temp=dsh.x_0_temp)
+        elif kernel_tail == "split":
+            unknown = diffusion_tail(
+                nar_heads_folded(folded, decoder_out(x, t)), rand(bs, l_gen, n_lanes - 1, K),
+                x[:, offset:, 1:], tail_scalars(diff, t), w=w, temp=dsh.x_0_temp)
         else:
             log_x0 = torch.log_softmax(x0_logits(x, t) / dsh.x_0_temp, dim=-1)
             log_pred = diff.q_posterior_indexed(log_x0, x[:, offset:, 1:], t,

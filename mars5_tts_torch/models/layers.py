@@ -14,7 +14,9 @@ and each stack ends with a LayerNorm (eps 4e-5).
 Weights may be W8A8 (``ops/quant.py``). A quantized decoder layer runs the
 serving path of the JAX package's ``decoder_layer_fused``
 (:meth:`DecoderLayer.forward_w8a8`); a quantized encoder layer runs unfused
-W8A8 products.
+W8A8 products. Given a ``MegaPack``, a quantized decoder stack runs whole
+through kernel K9 (``ops/kernels/nar_mega.py``), the JAX ``MARS5_NAR_MEGA``
+route.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch.nn import functional as F
 from ..ops.attention import sdpa, torch_mha
 from ..ops.kernels import mha as mha_kernel
 from ..ops.kernels.nar_fused import fused_ffn, fused_linear
+from ..ops.kernels.nar_mega import mega_decoder_stack
 from ..ops.norms import layer_norm
 from ..ops.quant import is_quantized, linear_any, linear_w8a8
 
@@ -174,10 +177,19 @@ class TransformerDecoder(nn.Module):
         self.norm = LayerNorm(dim)
 
     def forward(self, x, memory, tgt_key_padding_mask=None,
-                memory_key_padding_mask=None, q_tail_start: int = 0):
+                memory_key_padding_mask=None, q_tail_start: int = 0, mega=None):
         """Stacked decoder layers + final LayerNorm. ``q_tail_start > 0`` returns
         only rows from that index on, (B, L - q_tail_start, D); a W8A8 stack
-        then runs its last layer past the K/V projection on those rows only."""
+        then runs its last layer past the K/V projection on those rows only.
+
+        ``mega``: this stack's ``build_mega_pack``; the layers then run as one
+        K9 call over every row (as the JAX package's mega route does), the
+        final LayerNorm after it, and the slice last."""
+        if mega is not None:
+            x = self.norm(mega_decoder_stack(mega, x, memory, tgt_key_padding_mask,
+                                             memory_key_padding_mask,
+                                             eps=self.layers[0].norm1.eps))
+            return x[:, q_tail_start:] if q_tail_start else x
         last = self.layers[-1]
         sliced = bool(q_tail_start) and last.is_quantized
         for layer in self.layers[:-1] if sliced else self.layers:

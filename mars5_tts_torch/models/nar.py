@@ -127,14 +127,15 @@ class ResidualTransformer(nn.Module):
         return self.cond_pos_embedding(c), c_padding
 
     def decoder_apply(self, x, x_padding_mask, t_dec, memory, c_padding,
-                      q_tail_start: int = 0):
+                      q_tail_start: int = 0, mega=None):
         """Decoder stream and stack over a precomputed encoder memory;
-        returns (bs, Lx - q_tail_start, dim)."""
+        returns (bs, Lx - q_tail_start, dim). ``mega``: the decoder's
+        ``build_mega_pack``, to run the stack through kernel K9."""
         h = self.pos_embedding(self.residual_encoder(x))
         h = h + t_dec[:, None]
         return self.tfm.decoder(h, memory, tgt_key_padding_mask=x_padding_mask,
                                 memory_key_padding_mask=c_padding,
-                                q_tail_start=q_tail_start)
+                                q_tail_start=q_tail_start, mega=mega)
 
     def backbone(self, c_text, c_codes, c_texts_length, c_codes_length, x,
                  x_padding_mask, t, drop_cond=None, spk=None):

@@ -3,7 +3,8 @@
 Each library is compiled from ``mars5_tts_torch/csrc`` for ``sm_90a`` into
 ``build/kernels/`` at the repository root, named by a hash of its sources and
 flags, so an edited source never loads a stale binary. Nothing is compiled
-when a module is imported: the first launch builds.
+when a module is imported: the first launch builds, or ``build_all`` builds
+every library at once, one nvcc each, in parallel.
 """
 
 from __future__ import annotations
@@ -14,12 +15,23 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Every library: its sources under csrc/ (headers count in the hash only).
+LIBRARIES = {
+    "mha": ("mha.cu",),
+    "nar_fused": ("nar_fused.cu", "w8a8_gemm.cuh"),
+    "nar_mega": ("nar_mega.cu", "w8a8_gemm.cuh"),
+    "diffusion_tail": ("diffusion_tail.cu",),
+    "decode_layer": ("decode_layer.cu", "gemv_s8.cuh"),
+    "head4": ("head4.cu", "gemv_s8.cuh"),
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}
@@ -68,3 +80,9 @@ def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name, sources)))
     return _loaded[name]
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every library of ``LIBRARIES``, one nvcc each, all at once."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return dict(zip(LIBRARIES, pool.map(lambda kv: build(*kv), LIBRARIES.items())))

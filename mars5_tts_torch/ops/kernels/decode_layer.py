@@ -61,7 +61,7 @@ from ..quant import div, int8_matmul, quantize_act, quantize_weight, quantize_we
 from ..rope import apply_rope_halfsplit, rope_angles
 from . import build
 
-SOURCES = ("decode_layer.cu", "gemv_s8.cuh")
+SOURCES = build.LIBRARIES["decode_layer"]
 HEAD_DIM = 64          # the attention kernel's head width
 MAX_ROW_BYTES = 4096   # a weight row a warp holds in registers (16 B x 8 a lane)
 

@@ -1,6 +1,7 @@
-"""Folded-heads GEMM + diffusion tail in one kernel, K6
-``heads_diffusion_tail`` (``csrc/diffusion_tail.cu``), its plain twin and the
-per-step posterior scalars.
+"""The diffusion tail, K5 ``diffusion_tail``, and the folded-heads GEMM +
+diffusion tail in one kernel, K6 ``heads_diffusion_tail``
+(``csrc/diffusion_tail.cu``), their plain twins and the per-step posterior
+scalars.
 
 Replaces the TPU kernel
 ``mars5_tts_tpu/ops/pallas/diffusion_tail.py::_heads_tail_kernel`` (entry
@@ -24,8 +25,19 @@ argmax per frame, one warp per frame. The uniforms are read unpadded (the
 1152-class padding was a TPU lane layout). Drawing them in the kernel
 (Philox) is later work.
 
-``heads_diffusion_tail`` takes the twin only for CPU tensors. For CUDA tensors
-it launches the kernel or raises; nothing falls back.
+K5 replaces ``mars5_tts_tpu/ops/pallas/diffusion_tail.py::_tail_kernel``
+(entry ``diffusion_tail``), the second program of the JAX two-program chain
+(``MARS5_FUSED_HEADTAIL=0``): the same tail from the bf16 head logits that
+``models/nar.nar_heads_folded`` computes. It is bound by memory: at the bench
+shape it reads 21.5 MB of logits and 21.5 MB of uniforms (13 us at 3.35 TB/s).
+A block stages 16 frames of one lane, combined and tempered, in shared memory
+and runs the very ``__device__`` tail of K6, so K5 is K6 without the heads GEMM
+and picks the same indices from the same logits. The class axis is read
+unpadded (the TPU's 1152-lane padding and its -1e30 bias do not carry over).
+
+``diffusion_tail`` and ``heads_diffusion_tail`` take their twins only for
+CPU tensors. For CUDA tensors they launch the kernel or raise; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -34,20 +46,22 @@ import ctypes
 
 import torch
 
-from ..quant import int8_matmul
+from ..quant import div, int8_matmul
 from . import build
 
-SOURCES = ("diffusion_tail.cu",)
+SOURCES = build.LIBRARIES["diffusion_tail"]
 MAX_CLASSES = 2048   # the (16 frames x classes) f32 tile must fit in shared memory
 MAX_DIM = 2048
 
-# Launches of the CUDA kernel in this process (reset with reset_launch_count).
+# Launches of the CUDA kernels in this process (reset with reset_launch_count):
+# K6 in launch_count, K5 in tail_launch_count.
 launch_count = 0
+tail_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+    global launch_count, tail_launch_count
+    launch_count = tail_launch_count = 0
 
 
 def tail_scalars(diff, t: int) -> torch.Tensor:
@@ -65,19 +79,30 @@ def tail_scalars(diff, t: int) -> torch.Tensor:
 def tail_scores(x8, xs, folded, u0, x_t, scalars, *, w: float, temp: float):
     """The plain version's per-class scores (bs, L, n, K), whose argmax K6
     returns; arguments as ``heads_diffusion_tail_ref``."""
-    from ...diffusion.multinomial import log_add_exp
-
     rows, length, d = x8.shape
-    bs = u0.shape[0]
     n, nq, _ = folded["q"].shape
     y = int8_matmul(x8, folded["q"].reshape(n * nq, d)).float()
     y = y * (xs * folded["s"].reshape(-1)) + folded["b"].reshape(-1)
-    z = y.to(torch.bfloat16).float().reshape(rows, length, n, nq)
-    z = w * z[:bs] + (1.0 - w) * z[bs:] if rows == 2 * bs else z
-    log_x0 = torch.log_softmax(z / temp, dim=-1)
+    return logit_scores(y.to(torch.bfloat16).reshape(rows, length, n, nq), u0, x_t, scalars,
+                        w=w, temp=temp)
+
+
+def logit_scores(logits, u0, x_t, scalars, *, w: float, temp: float):
+    """The per-class scores (bs, L, n, K) of the tail from head logits (rows,
+    L, n, K), whose argmax K5 returns; arguments as ``diffusion_tail_ref``."""
+    from ...diffusion.multinomial import log_add_exp
+
+    bs, nq = u0.shape[0], logits.shape[-1]
+    z = logits.float()
+    z = w * z[:bs] + (1.0 - w) * z[bs:] if z.shape[0] == 2 * bs else z
+    # log-softmax with the denominator summed in f64 and rounded once, as the
+    # kernels sum it: the same f32 value in any order
+    e = div(z, temp)
+    e = e - e.amax(dim=-1, keepdim=True)
+    log_x0 = e - torch.log(e.exp().double().sum(dim=-1, keepdim=True).float())
     a, b1, hot, cold, is_t0, use_g = scalars[:6]
     lev = torch.where(is_t0 > 0.5, log_x0, log_add_exp(log_x0 + a, b1))
-    col = torch.arange(nq, device=x8.device)
+    col = torch.arange(nq, device=z.device)
     un = lev + torch.where(col == x_t[..., None], hot, cold)
     g = -torch.log(torch.clamp(-torch.log(torch.clamp(u0, min=1e-7)), min=1e-7))
     return un + g * use_g
@@ -98,16 +123,77 @@ def heads_diffusion_tail_ref(x8, xs, folded, u0, x_t, scalars, *, w: float,
                         dim=-1)
 
 
-def _lib():
+def diffusion_tail_ref(logits, u0, x_t, scalars, *, w: float, temp: float):
+    """Plain version of K5.
+
+    logits (rows, L, n, K): the folded heads' logits (``nar_heads_folded``),
+    cond rows then uncond rows when rows = 2 * bs (the CFG combine runs in
+    f32; ``w`` counts only then); u0, x_t and scalars as
+    ``heads_diffusion_tail_ref``. Returns (bs, L, n) int64: ties go to the
+    lowest class.
+    """
+    return torch.argmax(logit_scores(logits, u0, x_t, scalars, w=w, temp=temp), dim=-1)
+
+
+def _lib(entry):
     lib = build.load("diffusion_tail", SOURCES)
-    fn = lib.mars5_heads_diffusion_tail
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # x8, xs, q, s, b, u0, x_t, scalars, out, bs, rows, L, n_lanes, K, D,
-        # w, temp, stream
-        fn.argtypes = [vp] * 9 + [i] * 6 + [f, f, vp]
+        if entry == "mars5_heads_diffusion_tail":
+            # x8, xs, q, s, b, u0, x_t, scalars, out, bs, rows, L, n_lanes, K,
+            # D, w, temp, stream
+            fn.argtypes = [vp] * 9 + [i] * 6 + [f, f, vp]
+        else:
+            # logits, u0, x_t, scalars, out, bs, rows, L, n_lanes, K, w, temp,
+            # stream
+            fn.argtypes = [vp] * 5 + [i] * 5 + [f, f, vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_tail_args(u0, x_t, scalars, bs, rows, length, n, nq, what):
+    if rows not in (bs, 2 * bs):
+        raise ValueError(f"{what}: rows must be bs or 2 * bs")
+    if tuple(u0.shape) != (bs, length, n, nq) or tuple(x_t.shape) != (bs, length, n):
+        raise ValueError(f"{what}: u0 must be {(bs, length, n, nq)} and x_t "
+                         f"{(bs, length, n)}")
+    if u0.dtype != torch.float32 or scalars.dtype != torch.float32:
+        raise ValueError(f"{what}: u0 and scalars must be f32")
+    if scalars.shape != (8,):
+        raise ValueError(f"{what}: scalars must be (8,)")
+
+
+def diffusion_tail(logits, u0, x_t, scalars, *, w: float, temp: float):
+    """K5: sampled x_{t-1} indices (bs, L, n_lanes) int64 from the folded
+    heads' logits; arguments as ``diffusion_tail_ref``.
+
+    CPU tensors take the twin; CUDA tensors launch the kernel and raise on
+    what it does not take (bf16 logits, K <= 2048)."""
+    if logits.device.type == "cpu":
+        return diffusion_tail_ref(logits, u0, x_t, scalars, w=w, temp=temp)
+    if logits.device.type != "cuda":
+        raise ValueError(f"diffusion_tail: unsupported device {logits.device}")
+    if logits.dtype != torch.bfloat16 or logits.ndim != 4:
+        raise ValueError("diffusion_tail kernel takes bf16 logits (rows, L, n, K)")
+    rows, length, n, nq = logits.shape
+    bs = u0.shape[0]
+    if nq > MAX_CLASSES:
+        raise ValueError(f"diffusion_tail kernel takes K <= {MAX_CLASSES}, got {nq}")
+    _check_tail_args(u0, x_t, scalars, bs, rows, length, n, nq, "diffusion_tail")
+    args = [logits.contiguous(), u0.contiguous(), x_t.to(torch.int64).contiguous(),
+            scalars.contiguous()]
+    out = torch.empty((bs, length, n), dtype=torch.int64, device=logits.device)
+    fn = _lib("mars5_diffusion_tail")
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[a.data_ptr() for a in args], out.data_ptr(), bs, rows, length, n, nq,
+                 float(w) if rows == 2 * bs else 1.0, float(temp), stream)
+    if err != 0:
+        raise RuntimeError(f"diffusion_tail kernel launch failed: cudaError {err}")
+    global tail_launch_count
+    tail_launch_count += 1
+    return out
 
 
 def heads_diffusion_tail(x8, xs, folded, u0, x_t, scalars, *, w: float, temp: float):
@@ -129,20 +215,16 @@ def heads_diffusion_tail(x8, xs, folded, u0, x_t, scalars, *, w: float, temp: fl
     if d % 32 or d > MAX_DIM or nq > MAX_CLASSES:
         raise ValueError(f"heads_diffusion_tail kernel needs D a multiple of 32 "
                          f"(<= {MAX_DIM}) and K <= {MAX_CLASSES}, got D {d}, K {nq}")
-    if rows not in (bs, 2 * bs) or xs.shape != (rows, length, 1):
-        raise ValueError("heads_diffusion_tail: x8/xs rows must be bs or 2 * bs")
-    if u0.shape != (bs, length, n, nq) or x_t.shape != (bs, length, n):
-        raise ValueError(f"heads_diffusion_tail: u0 must be {(bs, length, n, nq)} and "
-                         f"x_t {(bs, length, n)}")
-    for t in (xs, s, b, u0, scalars):
+    if xs.shape != (rows, length, 1):
+        raise ValueError("heads_diffusion_tail: xs must be (rows, L, 1)")
+    _check_tail_args(u0, x_t, scalars, bs, rows, length, n, nq, "heads_diffusion_tail")
+    for t in (xs, s, b):
         if t.dtype != torch.float32:
-            raise ValueError("heads_diffusion_tail: xs, s, b, u0, scalars must be f32")
-    if scalars.shape != (8,):
-        raise ValueError("heads_diffusion_tail: scalars must be (8,)")
+            raise ValueError("heads_diffusion_tail: xs, s, b must be f32")
     args = [t.contiguous() for t in (x8, xs, q, s, b, u0)]
     args += [x_t.to(torch.int64).contiguous(), scalars.contiguous()]
     out = torch.empty((bs, length, n), dtype=torch.int64, device=x8.device)
-    fn = _lib()
+    fn = _lib("mars5_heads_diffusion_tail")
     with torch.cuda.device(x8.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*[a.data_ptr() for a in args], out.data_ptr(), bs, rows, length, n,

@@ -27,7 +27,7 @@ from ..quant import int8_matmul, quantize_act, quantize_weight_mse
 from . import build
 from .decode_layer import MAX_ROW_BYTES, pack4, unpack4
 
-SOURCES = ("head4.cu", "gemv_s8.cuh")
+SOURCES = build.LIBRARIES["head4"]
 
 # Launches of the CUDA kernel in this process (reset with reset_launch_count).
 launch_count = 0

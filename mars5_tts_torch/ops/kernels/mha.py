@@ -31,7 +31,7 @@ from . import build
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
-SOURCES = ("mha.cu",)
+SOURCES = build.LIBRARIES["mha"]
 
 # Launches of the CUDA kernel in this process (reset with reset_launch_count).
 launch_count = 0

@@ -45,7 +45,7 @@ import torch
 from ..quant import int8_matmul, quantize_act
 from . import build
 
-SOURCES = ("nar_fused.cu",)
+SOURCES = build.LIBRARIES["nar_fused"]
 K_CHUNK = 128        # the kernel streams weights in 128-deep k chunks
 TILE_N = 64          # output columns per weight tile
 MAX_K = 3072         # a 64-row block's int8 A tile must fit in shared memory

@@ -11,7 +11,12 @@ AR backends: ``"bf16"`` (the model as loaded), ``"fused"`` (W8A8) or
 only) reading the output head as int4 through kernel K8. The quantized pack
 is built at the first request and kept. NAR backends: ``"bf16"`` (the model
 as loaded) or ``"int8"`` (W8A8 with per-row scales,
-``ops/quant.quantize_nar``, served through kernels K1, K3, K4 and K6).
+``ops/quant.quantize_nar``, served through kernels K1, K3, K4 and K6). The
+int8 NAR takes two more routes: ``nar_mega=True`` runs its decoder stack
+through kernel K9 (the JAX ``MARS5_NAR_MEGA=1``), and ``nar_tail`` picks the
+tail of each reverse step: ``"heads"`` (K6, the default), ``"split"`` (the
+folded heads, then K5; JAX ``MARS5_FUSED_HEADTAIL=0``) or ``"dense"`` (the
+folded heads and the PyTorch tail; JAX ``MARS5_FUSED_TAIL=0``).
 
 Not ported yet: ``tts_batch``, grouped NAR quantization,
 ``use_kv_cache=False``, the guidance interval and geometry buckets.
@@ -25,12 +30,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mars5_tts_tpu.audio.trim import trim
-from mars5_tts_tpu.config import DSH, InferenceConfig
-from mars5_tts_tpu.hub import load_checkpoint, load_tokenizers
-
-from .diffusion.engine import perform_simple_inference
+from .audio.trim import trim
+from .config import DSH, InferenceConfig
+from .diffusion.engine import TAILS, perform_simple_inference
 from .diffusion.multinomial import MultinomialDiffusion
+from .hub import load_checkpoint, load_tokenizers
 from .models.ar import CodecLM, CodecLMConfig
 from .models.ar_decode import ArSampling, ar_generate, ar_vocab_window
 from .models.ar_decode_fused import ar_generate_fused, prepare_fused
@@ -40,6 +44,7 @@ from .models.encodec import EncodecConfig, EncodecEncoder, encodec_from_pytree
 from .models.nar import ResidualTransformer, ResidualTransformerConfig
 from .models.vocos import Vocos, VocosConfig, vocos_from_pytree
 from .ops.kernels.decode_layer import make_dims
+from .ops.kernels.nar_mega import mega_supported
 from .ops.quant import quantize_nar
 from .utils.profiling import StageTimer
 
@@ -54,12 +59,13 @@ class Mars5TTS:
                  encodec_cfg: Optional[EncodecConfig] = None,
                  vocos_cfg: Optional[VocosConfig] = None,
                  device="cpu", dtype=torch.float32, ar_backend: str = "bf16",
-                 nar_backend: str = "bf16", head4: bool = False):
+                 nar_backend: str = "bf16", head4: bool = False, nar_mega: bool = False,
+                 nar_tail: str = "heads"):
         """From reference-layout checkpoints ({'vocab', 'model'[, 'config']}),
         with Encodec/Vocos given as the JAX package's parameter pytrees.
         ``nar_backend="int8"`` quantizes the NAR after loading, unless its
-        checkpoint is already quantized; ``ar_backend`` and ``head4`` as in
-        the module docstring."""
+        checkpoint is already quantized; ``ar_backend``, ``head4``,
+        ``nar_mega`` and ``nar_tail`` as in the module docstring."""
         texttok, speechtok = load_tokenizers(ar_ckpt)
         n_vocab = len(texttok.vocab) + len(speechtok.vocab)
         if ar_cfg is None:
@@ -74,7 +80,7 @@ class Mars5TTS:
                    if encodec_params is not None else None)
         vocos = vocos_from_pytree(vocos_params, vocos_cfg) if vocos_params is not None else None
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-                    ar_backend, nar_backend, head4)
+                    ar_backend, nar_backend, head4, nar_mega, nar_tail)
 
     @classmethod
     def from_local(cls, ar_path, nar_path, **kwargs) -> "Mars5TTS":
@@ -86,7 +92,8 @@ class Mars5TTS:
                     texttok, speechtok, encodec: Optional[EncodecEncoder] = None,
                     vocos: Optional[Vocos] = None, device=None,
                     ar_backend: str = "bf16", nar_backend: str = "bf16",
-                    head4: bool = False) -> "Mars5TTS":
+                    head4: bool = False, nar_mega: bool = False,
+                    nar_tail: str = "heads") -> "Mars5TTS":
         """From already-built port modules and tokenizer objects. With
         ``nar_backend="int8"`` a bf16/f32 ``codecnar`` is quantized into a new
         module (the given one is left as it was); a quantized one is used as
@@ -94,11 +101,11 @@ class Mars5TTS:
         self = cls.__new__(cls)
         device = device or codeclm.embed.weight.device
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-                    ar_backend, nar_backend, head4)
+                    ar_backend, nar_backend, head4, nar_mega, nar_tail)
         return self
 
     def _setup(self, codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-               ar_backend, nar_backend, head4):
+               ar_backend, nar_backend, head4, nar_mega, nar_tail):
         if ar_backend not in ("bf16", "fused", "fused4"):
             raise ValueError(f"unknown ar_backend {ar_backend!r}")
         if head4 and ar_backend != "fused4":
@@ -111,7 +118,14 @@ class Mars5TTS:
             codecnar = quantize_nar(codecnar)
         elif nar_backend == "bf16" and codecnar.is_quantized:
             raise ValueError("a quantized NAR needs nar_backend='int8'")
-        self.nar_backend = nar_backend
+        if nar_tail not in TAILS:
+            raise ValueError(f"unknown nar_tail {nar_tail!r}")
+        if (nar_mega or nar_tail != "heads") and nar_backend != "int8":
+            raise ValueError("nar_mega and nar_tail need nar_backend='int8'")
+        if nar_mega and not mega_supported(codecnar.tfm.decoder):
+            raise ValueError("nar_mega=True: the NAR decoder's geometry does not fit kernel "
+                             "K9 (head dim 64, D and F multiples of 128 up to 3072)")
+        self.nar_backend, self.nar_mega, self.nar_tail = nar_backend, nar_mega, nar_tail
         self.device = torch.device(device)
 
         def ready(m):
@@ -219,7 +233,8 @@ class Mars5TTS:
                 (np.asarray(text_tokens, np.int64)[None], c_codes,
                  np.asarray([len(text_tokens)]), np.asarray([c_codes.shape[1]]), x,
                  np.zeros((1, x.shape[1]), bool)),
-                diff, T, dsh, retain_quant0=True, generator=gen)
+                diff, T, dsh, retain_quant0=True, generator=gen, tail=self.nar_tail,
+                mega=self.nar_mega)
             skip_front = raw_prompt_len if cfg.deep_clone else 0
             self.last_grid = grid[0, skip_front:]
 

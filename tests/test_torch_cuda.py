@@ -87,7 +87,7 @@ def test_nar_trajectory_on_gpu_matches_cpu(dev):
     uniforms and initial noise the grid equals the CPU run's."""
     import copy
 
-    from mars5_tts_tpu.config import DSH
+    from mars5_tts_torch.config import DSH
     from mars5_tts_torch.diffusion.engine import perform_simple_inference
     from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
     from mars5_tts_torch.diffusion.schedule import build_step_plan
@@ -250,7 +250,7 @@ def test_w8a8_nar_trajectory_on_gpu(dev):
     generator path the K6 route agrees with the dense route as closely."""
     import copy
 
-    from mars5_tts_tpu.config import DSH
+    from mars5_tts_torch.config import DSH
     from mars5_tts_torch.diffusion.engine import perform_simple_inference
     from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
     from mars5_tts_torch.diffusion.schedule import build_step_plan
@@ -284,12 +284,12 @@ def test_w8a8_nar_trajectory_on_gpu(dev):
     assert (got.cpu() == want).float().mean().item() >= 0.96
     diff = MultinomialDiffusion(1025, T, device=dev)
     grids = []
-    for fused in (True, False):
+    for route in ("heads", "dense"):
         k6 = D.launch_count
         grids.append(perform_simple_inference(
             gpu, batch, diff, T, dsh, generator=torch.Generator(device=dev).manual_seed(1),
-            fused_heads_tail=fused))
-        assert D.launch_count - k6 == (T if fused else 0)
+            tail=route))
+        assert D.launch_count - k6 == (T if route == "heads" else 0)
     assert (grids[0] == grids[1]).float().mean().item() >= 0.96
 
 
@@ -427,3 +427,168 @@ def test_fused_engine_on_gpu(dev):
     logits = [fused_step(f, dims, cfg, int(prompt[-1]), len(prompt), FusedCache(dims, d))
               for f, d in ((fp, dev), (fpc, "cpu"))]
     _fused_eq_f32(logits[0].cpu(), logits[1])
+
+
+def _mega_decoder(dim, nhead, hidden, n_layers, dev, seed):
+    """A W8A8 NAR decoder stack on the card, bf16, with LN affines and biases
+    moved off 1 / 0."""
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.quant import quantize_nar
+
+    cfg = ResidualTransformerConfig(n_text_vocab=64, dim=dim, nhead=nhead, enc_layers=1,
+                                    dec_layers=n_layers, n_spk_layers=1, t_emb_dim=64,
+                                    hidden_dim=hidden)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        nar = ResidualTransformer(cfg).init_(g)
+        with torch.no_grad():
+            for name, p in nar.tfm.decoder.named_parameters():
+                if p.ndim == 1:
+                    p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
+        return quantize_nar(nar.to(torch.bfloat16)).tfm.decoder
+
+
+def _mega_inputs(d, l, lk, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((2, l, d), generator=g, device=dev).to(torch.bfloat16)
+    mem = torch.randn((2, lk, d), generator=g, device=dev).to(torch.bfloat16)
+    tm = torch.zeros((2, l), dtype=torch.bool, device=dev)
+    tm[1, l - l // 6:] = True
+    mm = torch.zeros((2, lk), dtype=torch.bool, device=dev)
+    mm[0, lk - 4:] = True
+    return x, mem, tm, mm
+
+
+@pytest.mark.parametrize("dim,nhead,hidden,n_layers,l,lk", [
+    (256, 4, 768, 2, 100, 19),           # the CPU tests' geometry
+    (1024, 16, 3072, 1, 725, 66),         # released widths, one layer
+    (1024, 16, 3072, 16, 725, 66),        # the whole stack at the smoke shape
+])
+def test_mega_kernel_matches_ref(dev, dim, nhead, hidden, n_layers, l, lk):
+    """K9 against ``mega_decoder_stack_ref`` on the same pack and inputs:
+    within 0.03 x max|twin| (tests/test_nar_mega.py), one layer also within
+    the fused bound with most bf16 elements exactly equal."""
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    mp = M.build_mega_pack(_mega_decoder(dim, nhead, hidden, n_layers, dev, n_layers))
+    x, mem, tm, mm = _mega_inputs(dim, l, lk, dev, l)
+    n0 = M.launch_count
+    got = M.mega_decoder_stack(mp, x, mem, tm, mm)
+    torch.cuda.synchronize()
+    assert M.launch_count == n0 + 1 and got.shape == x.shape and got.dtype == torch.bfloat16
+    want = M.mega_decoder_stack_ref(mp, x, mem, tm, mm)
+    d = (got.float() - want.float()).abs()
+    assert torch.isfinite(got).all()
+    assert d.max().item() <= 0.03 * want.float().abs().max().item(), d.max().item()
+    if n_layers == 1:
+        _fused_eq(got, want)
+
+
+def test_mega_kernel_rejects_what_it_does_not_take(dev):
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    dec = _mega_decoder(256, 4, 768, 1, dev, 0)
+    mp = M.build_mega_pack(dec)
+    x, mem, tm, mm = _mega_inputs(256, 40, 9, dev, 0)
+    with pytest.raises(ValueError):
+        M.mega_decoder_stack(mp, x.float(), mem)                     # f32 stream
+    with pytest.raises(ValueError):
+        M.mega_decoder_stack(mp, x, mem[..., :128])                  # memory width
+    with pytest.raises(ValueError):
+        M.mega_decoder_stack(mp, x, mem, tm[:, :10])                 # mask shape
+    with pytest.raises(ValueError):
+        M.mega_decoder_stack(M.MegaPack(mp.dims, mp.pack[:, :100], mp.svec, mp.bvec,
+                                        mp.lnvec), x, mem)           # malformed pack
+    with pytest.raises(ValueError):                                  # head dim 32
+        M.build_mega_pack(_mega_decoder(256, 8, 768, 1, dev, 0))
+
+
+@pytest.mark.parametrize("rows,length,t", [(2, 750, 0), (2, 70, 100), (1, 33, 199)])
+def test_tail_kernel_equals_heads_kernel_and_ref(dev, rows, length, t):
+    """K5 on the folded heads' bf16 logits picks exactly K6's indices from the
+    same decoder output, and exactly its twin's."""
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import nar_heads_folded, nar_heads_prequant
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    g = torch.Generator(device=dev).manual_seed(rows * 100 + length)
+    d, n, kc = 1024, 7, 1025
+    out = torch.randn((rows, length, d), generator=g, device=dev).to(torch.bfloat16)
+    wf = torch.randn((n, kc, d), generator=g, device=dev) * 0.03
+    s = wf.abs().amax(-1) / 127.0
+    folded = {"q": torch.round(wf / s[..., None]).clamp(-127, 127).to(torch.int8), "s": s,
+              "b": 0.1 * torch.randn((n, kc), generator=g, device=dev)}
+    u0 = torch.rand((1, length, n, kc), generator=g, device=dev)
+    x_t = torch.randint(0, kc, (1, length, n), generator=g, device=dev)
+    scal = D.tail_scalars(MultinomialDiffusion(kc, 200, device=dev), t)
+    x8, xs = nar_heads_prequant(out)
+    k6 = D.heads_diffusion_tail(x8, xs, folded, u0, x_t, scal, w=3.0, temp=0.7)
+    logits = nar_heads_folded(folded, out)
+    n0 = D.tail_launch_count
+    got = D.diffusion_tail(logits, u0, x_t, scal, w=3.0, temp=0.7)
+    torch.cuda.synchronize()
+    assert D.tail_launch_count == n0 + 1
+    assert torch.equal(got, k6)
+    assert torch.equal(got, D.diffusion_tail_ref(logits, u0, x_t, scal, w=3.0, temp=0.7))
+
+
+def test_tail_kernel_rejects_what_it_does_not_take(dev):
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    logits = torch.zeros((2, 8, 7, 1025), dtype=torch.bfloat16, device=dev)
+    u0 = torch.rand((1, 8, 7, 1025), device=dev)
+    x_t = torch.zeros((1, 8, 7), dtype=torch.long, device=dev)
+    scal = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError):
+        D.diffusion_tail(logits.float(), u0, x_t, scal, w=3.0, temp=0.7)   # f32 logits
+    with pytest.raises(ValueError):
+        D.diffusion_tail(logits, u0[:, :4], x_t, scal, w=3.0, temp=0.7)    # u0 shape
+    with pytest.raises(ValueError):
+        D.diffusion_tail(logits[:, :, :, :1000], u0[..., :1000].contiguous(), x_t,
+                         scal[:4], w=3.0, temp=0.7)                        # scalars shape
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 8, 7, 2100), dtype=torch.bfloat16, device=dev)
+        D.diffusion_tail(big, torch.rand((1, 8, 7, 2100), device=dev), x_t, scal, w=1.0,
+                         temp=0.7)                                         # K > 2048
+
+
+def test_mega_and_split_routes_on_gpu(dev):
+    """A small W8A8 NAR (D 128, head dim 64) over a deep-clone sequence on the
+    card, generator path: ``mega=True`` runs K9 once a reverse step and none
+    of K3/K4 in the decoder; ``tail="split"`` runs K5 once a step in place of
+    K6 and gives K6's grid exactly."""
+    import copy
+
+    from mars5_tts_torch.config import DSH
+    from mars5_tts_torch.diffusion.engine import perform_simple_inference
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D, nar_fused as F, nar_mega as M
+    from mars5_tts_torch.ops.quant import quantize_nar
+
+    cfg = ResidualTransformerConfig(n_text_vocab=64, dim=128, nhead=2, enc_layers=1,
+                                    dec_layers=2, n_spk_layers=1, t_emb_dim=64,
+                                    hidden_dim=256)
+    cpu = quantize_nar(ResidualTransformer(cfg).init_(torch.Generator().manual_seed(0))
+                       .to(torch.bfloat16).eval())
+    gpu = copy.deepcopy(cpu).to(dev)
+    T, lc, lx = 4, 300, 40
+    r = np.random.default_rng(4)
+    x = np.repeat(r.integers(0, 1024, lx)[None, :, None], 8, axis=2)
+    batch = (r.integers(0, 64, (1, 9)), r.integers(0, 1024, (1, lc, 8)), np.asarray([9]),
+             np.asarray([lc]), x, np.zeros((1, lx), bool))
+    dsh = DSH(x_0_temp=0.7, guidance_w=3.0, deep_clone=True, q0_override_steps=1)
+    diff = MultinomialDiffusion(1025, T, device=dev)
+    grids = {}
+    for route, kw in (("heads", {}), ("split", dict(tail="split")), ("mega", dict(mega=True))):
+        n0 = (M.launch_count, F.fused_linear_launches, D.launch_count, D.tail_launch_count)
+        grids[route] = perform_simple_inference(
+            gpu, batch, diff, T, dsh, generator=torch.Generator(device=dev).manual_seed(1), **kw)
+        torch.cuda.synchronize()
+        n1 = (M.launch_count, F.fused_linear_launches, D.launch_count, D.tail_launch_count)
+        want = {"heads": (0, 2 * 2 * T, T, 0), "split": (0, 2 * 2 * T, 0, T),
+                "mega": (T, 0, T, 0)}[route]
+        assert tuple(b - a for a, b in zip(n0, n1)) == want, route
+    assert torch.equal(grids["split"], grids["heads"])
+    assert (grids["mega"] == grids["heads"]).float().mean().item() >= 0.5
+    assert int(grids["mega"].min()) >= 0 and int(grids["mega"].max()) <= 1024

@@ -1,11 +1,15 @@
-"""Kernel K6 ``heads_diffusion_tail`` (its plain twin), the per-step
-posterior scalars and the W8A8 diffusion engine, against the JAX package.
+"""Kernels K6 ``heads_diffusion_tail`` and K5 ``diffusion_tail`` (their
+plain twins), the per-step posterior scalars and the W8A8 diffusion engine,
+against the JAX package.
 
 * ``tail_scalars`` is bit-identical to the JAX package's.
-* The twin picks the same indices as the JAX Pallas kernel in interpret mode
-  at t = 0, a middle t and T - 1, with and without CFG.
-* On the generator path the K6 route and the folded-heads dense route give
-  identical grids (the same draws, the same float ops).
+* The K6 twin picks the same indices as the JAX Pallas kernel in interpret
+  mode at t = 0, a middle t and T - 1, with and without CFG; so does the K5
+  twin against the JAX ``diffusion_tail`` on the same bf16 logits, and the
+  K5 twin on the folded heads' logits picks the K6 twin's indices.
+* On the generator path the K6 route, the split route (folded heads, then
+  K5) and the folded-heads dense route give identical grids (the same draws,
+  the same float ops).
 * Under one injected uniform stream, on the same ``quantize_nar`` weights
   carried across by the converter, the port's W8A8 trajectory gives the grid
   of the JAX package's (its fused decoder kernels in interpret mode) when the
@@ -99,10 +103,91 @@ def test_heads_tail_twin_matches_pallas(folded_heads, w, step):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("w", [3.0, 1.0])
+@pytest.mark.parametrize("step", [0, T // 2])
+def test_tail_twin_matches_pallas(w, step):
+    """K5's twin against the JAX two-program chain's second program, on the
+    same bf16 logits (padded to 1152 classes with -1e30 for the JAX kernel)."""
+    from mars5_tts_tpu.diffusion.multinomial import MultinomialDiffusion as JDiff
+    from mars5_tts_tpu.ops.pallas.diffusion_tail import diffusion_tail, tail_scalars
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.ops.kernels import diffusion_tail as P
+
+    bs, L = 1, 64
+    rows = 2 * bs if w != 1.0 else bs
+    r = np.random.default_rng(step * 10 + int(w) + 100)
+    logits = jnp.asarray(r.standard_normal((rows, L, NL, K)).astype(np.float32) * 3,
+                         jnp.bfloat16)
+    u0 = r.random((bs, L, NL, K)).astype(np.float32)
+    xt = r.integers(0, K, (bs, L, NL)).astype(np.int32)
+    jd = JDiff(K, timesteps=T)
+    yp = jnp.pad(logits, ((0, 0), (0, 0), (0, 0), (0, KP - K)), constant_values=-1e30)
+    u0p = np.pad(u0, ((0, 0), (0, 0), (0, 0), (0, KP - K))).reshape(bs, L, NL * KP)
+    ref = diffusion_tail(yp.reshape(rows, L, NL * KP), jnp.asarray(u0p), jnp.asarray(xt),
+                         tail_scalars(jd, jnp.int32(step), jd.log_num_classes),
+                         n_classes=K, w=w, temp=0.7, bl=64, interpret=True)
+    got = P.diffusion_tail(t(np.asarray(logits.astype(jnp.float32))).bfloat16(), t(u0), t(xt),
+                           P.tail_scalars(MultinomialDiffusion(K, T), step), w=w, temp=0.7)
+    assert got.dtype == torch.int64 and got.shape == (bs, L, NL)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("step", [0, T - 1])
+def test_tail_twin_on_folded_logits_equals_heads_twin(folded_heads, step):
+    """The split chain (``nar_heads_folded`` -> K5 twin) and the K6 twin pick
+    the same indices from the same decoder output and uniforms."""
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import nar_heads_folded, nar_heads_prequant
+    from mars5_tts_torch.ops.kernels import diffusion_tail as P
+
+    cfg, fj = folded_heads
+    folded = {k: t(np.asarray(v)[:, :K]) for k, v in fj.items()}
+    r = np.random.default_rng(step + 7)
+    out = t(r.standard_normal((2, 48, cfg.dim)).astype(np.float32) * 2).bfloat16()
+    u0 = t(r.random((1, 48, NL, K)).astype(np.float32))
+    xt = t(r.integers(0, K, (1, 48, NL)))
+    scal = P.tail_scalars(MultinomialDiffusion(K, T), step)
+    x8, xs = nar_heads_prequant(out)
+    want = P.heads_diffusion_tail(x8, xs, folded, u0, xt, scal, w=3.0, temp=0.7)
+    logits = nar_heads_folded(folded, out)
+    assert logits.dtype == torch.bfloat16
+    got = P.diffusion_tail(logits, u0, xt, scal, w=3.0, temp=0.7)
+    assert torch.equal(got, want)
+
+
 def _batch(rng, gen=24, n_prompt=15, text_len=9):
     x = np.repeat(rng.integers(0, 1024, gen)[None, :, None], 8, axis=2)
     return (rng.integers(0, 258, (1, text_len)), rng.integers(0, 1024, (1, n_prompt, 8)),
             np.asarray([text_len]), np.asarray([n_prompt]), x, np.zeros((1, gen), bool))
+
+
+def test_generator_path_split_route_equals_heads_route(monkeypatch):
+    """bf16 W8A8 tiny NAR, seeded generator: the split route (folded heads,
+    then K5, once per reverse step) gives the K6 route's grid."""
+    from mars5_tts_torch.config import DSH
+    from mars5_tts_torch.diffusion import engine
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.ops.quant import quantize_nar
+    from tests.torch_port_fixtures import port_nar
+
+    cfgs, params = tiny_models()
+    nar = quantize_nar(port_nar(cfgs["nar"], params["nar"]).to(torch.bfloat16))
+    calls = {"diffusion_tail": [], "heads_diffusion_tail": []}
+    for name, c in calls.items():
+        fn = getattr(engine, name)
+        monkeypatch.setattr(engine, name, lambda *a, _c=c, _f=fn, **k: _c.append(1) or _f(*a, **k))
+    batch = _batch(np.random.default_rng(3))
+    dsh = DSH(x_0_temp=0.7, guidance_w=3.0, deep_clone=True, q0_override_steps=2)
+    steps = 5
+    grids = [engine.perform_simple_inference(
+        nar, batch, MultinomialDiffusion(K, steps), steps, dsh,
+        generator=torch.Generator().manual_seed(9), tail=route)
+        for route in ("split", "heads")]
+    assert len(calls["diffusion_tail"]) == len(calls["heads_diffusion_tail"]) == steps
+    assert torch.equal(grids[0], grids[1])
+    with pytest.raises(ValueError):
+        engine.perform_simple_inference(nar, batch, MultinomialDiffusion(K, steps), steps, dsh,
+                                        tail="fused")
 
 
 def test_generator_path_k6_route_equals_dense_route(monkeypatch):
@@ -126,8 +211,8 @@ def test_generator_path_k6_route_equals_dense_route(monkeypatch):
     steps = 6
     grids = [engine.perform_simple_inference(
         nar, batch, MultinomialDiffusion(K, steps), steps, dsh,
-        generator=torch.Generator().manual_seed(5), fused_heads_tail=fused)
-        for fused in (True, False)]
+        generator=torch.Generator().manual_seed(5), tail=route)
+        for route in ("heads", "dense")]
     assert len(calls) == steps
     assert grids[0].shape == (1, 24, 8)
     assert torch.equal(grids[0], grids[1])

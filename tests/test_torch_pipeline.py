@@ -210,14 +210,22 @@ def test_mars5tts_int8_nar_backend(tmp_path):
 
 
 _BLOCKED = textwrap.dedent("""
+    import dataclasses
     import sys
     sys.modules["jax"] = None
+    sys.modules["mars5_tts_tpu"] = None
+    import numpy as np
     import torch
+    torch.set_num_threads(1)
     import mars5_tts_torch
-    from mars5_tts_torch import Mars5TTS
+    from mars5_tts_torch import InferenceConfig, Mars5TTS
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.encodec import EncodecConfig, EncodecEncoder
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
-    from mars5_tts_torch.ops.kernels import build, decode_layer, diffusion_tail, head4, mha, nar_fused
+    from mars5_tts_torch.models.vocos import Vocos, VocosConfig
+    from mars5_tts_torch.ops.kernels import (build, decode_layer, diffusion_tail, head4, mha,
+                                             nar_fused, nar_mega)
+    from mars5_tts_torch.text import CodebookTokenizer, GPT4_SPLIT_PATTERN, RegexTokenizer
     from mars5_tts_torch.models.ar_decode_fused import FusedCache, fused_step, prepare_fused
     from mars5_tts_torch.ops.quant import quantize_nar
     g = torch.Generator().manual_seed(0)
@@ -232,9 +240,33 @@ _BLOCKED = textwrap.dedent("""
                 torch.tensor([3]), torch.tensor([4]), torch.zeros((1, 6, 8), dtype=torch.long),
                 torch.zeros((1, 6), dtype=torch.bool), torch.tensor([2]))
     assert nar.is_quantized and z.shape == (1, 6, 8, 1025) and torch.isfinite(z).all()
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+    assert not any(m == "jax" or m.startswith(("jax.", "mars5_tts_tpu")) for m in sys.modules
                    if sys.modules[m] is not None)
     print("forward ok")
+    texttok = RegexTokenizer(GPT4_SPLIT_PATTERN)
+    texttok.train("dummy corpus", 256)
+    texttok.register_special_tokens({"<|startoftext|>": 256, "<|endoftext|>": 257})
+    speechtok = CodebookTokenizer(GPT4_SPLIT_PATTERN, codebook_size=1024)
+    speechtok.train(" ".join(str(i % 7) for i in range(50)), 1024)
+    speechtok.register_special_tokens({"<|endofspeech|>": 1024})
+    big = ResidualTransformerConfig(259, dim=256, nhead=4, enc_layers=1, dec_layers=1,
+                                    n_spk_layers=1, t_emb_dim=64, hidden_dim=256)
+    tts = Mars5TTS.from_params(
+        CodecLM(dataclasses.replace(CodecLMConfig.tiny(1283), sliding_window=3000)).init_(g).eval(),
+        ResidualTransformer(big).init_(g).eval(), texttok=texttok, speechtok=speechtok,
+        encodec=EncodecEncoder(EncodecConfig(dimension=16, n_filters=4, ratios=(4, 2))).init_(g),
+        vocos=Vocos(VocosConfig(input_channels=16, dim=16, intermediate_dim=32, num_layers=2,
+                                n_fft=64, hop_length=16)).init_(g),
+        nar_backend="int8", nar_mega=True,
+        nar_tail="split")
+    ref = (np.random.default_rng(0).standard_normal(8 * 60) * 0.1).astype(np.float32)
+    codes, audio = tts.tts("hi", ref, ref_transcript="ok", cfg=InferenceConfig(
+        timesteps=3, generate_max_len_override=300, trim_db=200), seed=2)
+    assert len(audio) > 0 and np.isfinite(audio).all()
+    assert nar_mega.launch_count == diffusion_tail.tail_launch_count == 0
+    assert "mars5_tts_tpu" not in {m.split(".")[0] for m in sys.modules
+                                   if sys.modules[m] is not None}
+    print("pipeline ok")
     # importing the kernel module built nothing; CPU tensors take the twin
     assert not build._loaded and mha.launch_count == 0
     q = torch.randn(1, 5, 2, 64)
@@ -263,6 +295,31 @@ def blocked_run():
 
 def test_port_imports_and_runs_with_jax_blocked(blocked_run):
     assert "forward ok" in blocked_run.stdout, blocked_run.stderr
+    assert "pipeline ok" in blocked_run.stdout, blocked_run.stderr
+
+
+def _imported_modules(path):
+    import ast
+
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No file of ``mars5_tts_torch/`` and nothing in ``chip_smoke.py``
+    imports ``mars5_tts_tpu`` (or jax), at any place in the file."""
+    import glob
+
+    files = glob.glob(os.path.join(REPO, "mars5_tts_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 30
+    bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in ("mars5_tts_tpu", "jax", "jaxlib")]
+    assert not bad, bad
 
 
 def test_kernel_module_imports_without_nvcc(blocked_run):
