@@ -48,37 +48,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
+
+using namespace mars5;
 
 constexpr int kFR = 16;          // frames per block (one m16 tile)
 constexpr int kThreads = 128;
 constexpr int kMaxK = 2048;
 constexpr int kMaxD = 2048;
 constexpr int kMaxSmem = 2 * kFR * (kMaxD + 16) + kFR * (kMaxK + 12) * 4 + 2 * kFR * 4;
-
-__device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ double warp_sum_d(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // What the tail reads and writes besides the tempered logits.
 struct Tail {
@@ -107,7 +87,7 @@ __device__ void tail_rows(const float* S, int s_stride, int f0, int h, int b, co
     m = warp_max(m);
     double sum = 0.0;
     for (int c = lane; c < p.K; c += 32) sum += (double)expf(__fsub_rn(srow[c], m));
-    const float lse = logf((float)warp_sum_d(sum));
+    const float lse = logf((float)warp_sum(sum));
     const long long pos = ((long long)b * p.L + f) * p.n_lanes + h;
     const long long xt = p.xt[pos];
     const float* urow = p.u0 + pos * p.K;

@@ -21,6 +21,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace mars5 {
 
 constexpr int kMaxChunks = 8;  // 16-byte chunks of one weight row a lane holds (<= 4096 B a row)
@@ -42,17 +44,6 @@ __device__ __forceinline__ int lo_nibbles(uint32_t w) {
 }
 __device__ __forceinline__ int hi_nibbles(uint32_t w) {
   return (int)__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Block-wide reductions for a block of kWarps warps; every thread gets the

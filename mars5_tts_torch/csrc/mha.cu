@@ -29,9 +29,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
 
-constexpr int kD = 64;          // head dim supported
+using namespace mars5;
+
+constexpr int kD = 64;         // head dim supported
 constexpr int kBM = 64;         // query rows per block (16 per warp)
 constexpr int kBN = 64;         // keys per shared-memory tile
 constexpr int kLds = kD + 8;    // padded smem row (bf16): conflict-free fragment reads
@@ -40,24 +44,6 @@ constexpr int kThreads = 128;
 struct Strides {
   long long b, l, h;            // element strides of the batch, sequence, head axes
 };
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // One block = (64 query rows, one head, one batch row); 4 warps, 16 rows each.
 // Fragment layouts follow the PTX m16n8k16 tables: lane = 4*g + t holds

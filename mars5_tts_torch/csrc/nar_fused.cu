@@ -15,8 +15,8 @@
 //   scales; bias (N,) f32; residual and out (M, N) bf16.
 //
 // Numerics (those of the TPU kernels): LN in f32 (mean, then the mean of
-// squared deviations, (x - mean) * rsqrt(var + eps), * w + b), rounded to
-// bf16 and back; xs = max(amax, 1e-8) / 127 and q = rint(x / xs) clipped to
+// squared deviations, (x - mean) / sqrt(var + eps), * w + b), rounded to
+// bf16 and back, the two means summed in f64 and rounded once; xs = max(amax, 1e-8) / 127 and q = rint(x / xs) clipped to
 // +-127 (round half to even, true division); the int32 product is exact;
 // the rescale acc * (xs * s), the bias add in f32, the bf16 cast, then the
 // residual added in bf16. Products and sums of the epilogue use __fmul_rn /
@@ -57,7 +57,7 @@ extern "C" int mars5_w8a8_gemm(int mode, const void* x, const void* ln_w, const 
          static_cast<const float*>(ws), static_cast<const int8_t*>(vq),
          static_cast<const float*>(vs), static_cast<const float*>(bias),
          static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
-         M, N, K, tiles_per_block, eps, 0, nullptr, nullptr};
+         M, N, K, tiles_per_block, eps, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == 1) return (int)launch<true, 1>(p, st);
   return (int)(has_ln ? launch<true, 0>(p, st) : launch<false, 0>(p, st));

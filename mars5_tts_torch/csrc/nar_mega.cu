@@ -27,8 +27,7 @@
 //   (B L, D), ckv (B Lk, 2D), u (B L, F) bf16; mem8 (B Lk, D) int8, ms (B Lk)
 //   f32.
 //
-// Numerics: the GEMM sites are those of K3/K4 (w8a8_gemm.cuh) with the LN
-// statistics summed in f64 and rounded once. Both attentions are full-row
+// Numerics: the GEMM sites are those of K3/K4 (w8a8_gemm.cuh). Both attentions are full-row
 // softmax, s = q.k in f32 (bf16 mma), p = exp2((s - max s) * scale*log2e),
 // the row sum of p in f64 rounded once, p rounded to bf16 before PV (f32
 // accumulation), o / sum last: the twin's mega_decoder_stack_ref.
@@ -57,23 +56,6 @@ constexpr int kQB = 64;          // queries per attention block (16 per warp)
 constexpr int kKB = 64;          // keys per shared-memory tile
 constexpr int kLd = kHD + 8;     // padded smem row (bf16): conflict-free fragment reads
 constexpr int kAThreads = 128;
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 struct AttnArgs {
   const __nv_bfloat16* q;        // row r of batch b at q + (b Lq + r) q_row + h 64
@@ -250,7 +232,7 @@ Args gemm_args(const void* x, const float* ln_w, const float* ln_b, const int8_t
                int K, float eps) {
   return Args{static_cast<const __nv_bfloat16*>(x), ln_w, ln_b, wq, ws, nullptr, nullptr, bias,
               static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out), M, N, K,
-              tiles_per_block(M, N), eps, 1, nullptr, nullptr};
+              tiles_per_block(M, N), eps, nullptr, nullptr};
 }
 
 cudaError_t attention(const void* q, const void* k, const void* v, long long q_row,

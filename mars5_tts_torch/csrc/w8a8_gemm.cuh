@@ -12,10 +12,10 @@
 //   residual itself: each element is read and written by one thread).
 //
 // Numerics (those of the TPU kernels): LN in f32 (mean, then the mean of
-// squared deviations, (x - mean) * rsqrt(var + eps), * w + b), rounded to
-// bf16 and back; with Args.stat64 the two means are summed in f64 and
-// rounded once and the inverse deviation is 1 / sqrt, each correctly
-// rounded. xs = max(amax, 1e-8) / 127 and q = rint(x / xs) clipped to +-127
+// squared deviations, (x - mean) / sqrt(var + eps), * w + b), rounded to
+// bf16 and back, with the two means summed in f64 and rounded once (the same
+// f32 value in any order, as in the plain twins) and the inverse deviation a
+// correctly rounded 1 / sqrt. xs = max(amax, 1e-8) / 127 and q = rint(x / xs) clipped to +-127
 // (round half to even, true division); the int32 product is exact; the
 // rescale acc * (xs * s), the bias add in f32, the bf16 cast, then the
 // residual added in bf16. Products and sums of the epilogue use __fmul_rn /
@@ -37,7 +37,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
+
+using namespace mars5;
 
 constexpr int kBM = 64;                 // rows per block: 4 warps x 16
 constexpr int kBN = 64;                 // weight rows per tile
@@ -48,14 +52,6 @@ constexpr int kMaxK = 3072;
 constexpr int kSmemB = 2 * kBN * kBStride;
 constexpr int kMaxSmem = kBM * (kMaxK + 16) + kSmemB + kBM * 4;
 
-__device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -63,22 +59,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ double warp_sum_d(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -104,9 +84,8 @@ struct Args {
   __nv_bfloat16* out;
   int M, N, K, tiles_per_block;
   float eps;
-  // K9 only: LN statistics summed in f64 and rounded once (stat64), and an A
-  // operand given already quantized (a8 (M, K) int8 with row scales a8s)
-  int stat64;
+  // K9 only: an A operand given already quantized (a8 (M, K) int8 with row
+  // scales a8s)
   const int8_t* a8;
   const float* a8s;
 };
@@ -134,7 +113,7 @@ __device__ void quantize_row(const Args& p, int row, int8_t* arow, float* xs_out
   const __nv_bfloat16* xr = p.x + (long long)row * K;
   float v[8];
   float mean = 0.f, rstd = 1.f;
-  if (kLN && p.stat64) {
+  if (kLN) {
     // f64 sums rounded to f32 once: the same value in any order
     double s = 0.0;
     for (int c = lane * 8; c < K; c += 256) {
@@ -142,7 +121,7 @@ __device__ void quantize_row(const Args& p, int row, int8_t* arow, float* xs_out
 #pragma unroll
       for (int j = 0; j < 8; ++j) s += (double)v[j];
     }
-    mean = __fdiv_rn((float)warp_sum_d(s), (float)K);
+    mean = __fdiv_rn((float)warp_sum(s), (float)K);
     double sq = 0.0;
     for (int c = lane * 8; c < K; c += 256) {
       load8(xr + c, v);
@@ -152,26 +131,8 @@ __device__ void quantize_row(const Args& p, int row, int8_t* arow, float* xs_out
         sq += (double)__fmul_rn(d, d);
       }
     }
-    const float var = __fdiv_rn((float)warp_sum_d(sq), (float)K);
+    const float var = __fdiv_rn((float)warp_sum(sq), (float)K);
     rstd = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, p.eps)));
-  } else if (kLN) {
-    float s = 0.f;
-    for (int c = lane * 8; c < K; c += 256) {
-      load8(xr + c, v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s += v[j];
-    }
-    mean = warp_sum(s) / (float)K;
-    float sq = 0.f;
-    for (int c = lane * 8; c < K; c += 256) {
-      load8(xr + c, v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = __fsub_rn(v[j], mean);
-        sq = __fadd_rn(sq, __fmul_rn(d, d));
-      }
-    }
-    rstd = rsqrtf(__fadd_rn(warp_sum(sq) / (float)K, p.eps));
   }
   float amax = 0.f;
   for (int c = lane * 8; c < K; c += 256) {

@@ -28,8 +28,8 @@ three tails that draw on the same uniforms:
   ``MARS5_FUSED_TAIL=0``).
 
 The injected uniform path keeps the dense tail, as the JAX package does.
-``mega=True`` runs the W8A8 decoder stack through kernel K9 (JAX
-``MARS5_NAR_MEGA=1``).
+``mega``, the stack's ``build_mega_pack``, runs the W8A8 decoder stack
+through kernel K9 (JAX ``MARS5_NAR_MEGA=1``).
 
 Not ported: mixed prompt lengths in one batch, the guidance interval and
 geometry buckets.
@@ -44,7 +44,7 @@ from ..config import DSH
 from ..models.nar import (ResidualTransformer, fold_quant_heads, nar_heads_folded,
                           nar_heads_prequant)
 from ..ops.kernels.diffusion_tail import diffusion_tail, heads_diffusion_tail, tail_scalars
-from ..ops.kernels.nar_mega import build_mega_pack
+from ..ops.kernels.nar_mega import MegaPack
 from .multinomial import MultinomialDiffusion, log_sample_categorical
 from .schedule import build_step_plan
 
@@ -64,7 +64,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                              retain_quant0: bool = True,
                              generator: torch.Generator | None = None,
                              uniforms=None, x_init=None, tail: str = "heads",
-                             mega: bool = False):
+                             mega: MegaPack | None = None):
     """Run the whole inpainting trajectory.
 
     batch: (c_text (bs, Lt), c_codes (bs, Lc, 8), c_texts_length (bs,),
@@ -72,13 +72,13 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     x_padding_mask (bs, Lx)), numpy arrays or tensors.
     Returns the (bs, Lx, 8) int64 grid on the model's device, deep-clone
     prompt frames cropped. ``tail`` ("heads", "split" or "dense") picks a
-    W8A8 model's tail on the generator path and ``mega`` its decoder stack
-    route, as in the module docstring.
+    W8A8 model's tail on the generator path and ``mega`` (a ``MegaPack``)
+    its decoder stack route, as in the module docstring.
     """
     if tail not in TAILS:
         raise ValueError(f"unknown tail {tail!r}; expected one of {TAILS}")
-    if mega and not model.is_quantized:
-        raise ValueError("mega=True needs a W8A8 model")
+    if mega is not None and not model.is_quantized:
+        raise ValueError("mega needs a W8A8 model")
     dev = model.text_embed.weight.device
     c_text, c_codes, ctl, ccl, x, xpm = batch
     c_text, c_codes, ctl, ccl, x = (_as(v, torch.long, dev)
@@ -161,14 +161,13 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
     # W8A8: the heads' LN affines folded into requantized head weights
     folded = fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized else None
     kernel_tail = tail if folded is not None and use_key else "dense"
-    mega_pack = build_mega_pack(model.tfm.decoder) if mega else None
 
     def decoder_out(x, t_last):
         """Decoder output on the generated frames, (rows, l_gen, dim)."""
         xr = torch.cat([x, x]) if cfg_batched else x
         return model.decoder_apply(xr, xpm_rows, t_dec_all[t_last][None].expand(rows, dim),
                                    memory_all[t_last], c_padding, q_tail_start=offset,
-                                   mega=mega_pack)
+                                   mega=mega)
 
     def x0_logits(x, t_last):
         """CFG-combined f32 x0 logits on the generated frames, lanes 1.."""

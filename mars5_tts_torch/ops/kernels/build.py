@@ -25,12 +25,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Every library: its sources under csrc/ (headers count in the hash only).
 LIBRARIES = {
-    "mha": ("mha.cu",),
-    "nar_fused": ("nar_fused.cu", "w8a8_gemm.cuh"),
-    "nar_mega": ("nar_mega.cu", "w8a8_gemm.cuh"),
-    "diffusion_tail": ("diffusion_tail.cu",),
-    "decode_layer": ("decode_layer.cu", "gemv_s8.cuh"),
-    "head4": ("head4.cu", "gemv_s8.cuh"),
+    "mha": ("mha.cu", "warp_mma.cuh"),
+    "nar_fused": ("nar_fused.cu", "w8a8_gemm.cuh", "warp_mma.cuh"),
+    "nar_mega": ("nar_mega.cu", "w8a8_gemm.cuh", "warp_mma.cuh"),
+    "diffusion_tail": ("diffusion_tail.cu", "warp_mma.cuh"),
+    "decode_layer": ("decode_layer.cu", "gemv_s8.cuh", "warp_mma.cuh"),
+    "head4": ("head4.cu", "gemv_s8.cuh", "warp_mma.cuh"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

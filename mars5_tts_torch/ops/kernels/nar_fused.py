@@ -29,8 +29,9 @@ own row amax, runs lin2 and adds bias and residual. No wgmma or TMA yet.
 Numerics, as in the TPU kernels: LN in f32, rounded to bf16 and back;
 ``xs = max(amax, 1e-8) / 127``, ``rint(x / xs)`` clipped to +-127; the rescale
 ``acc * (xs * s)``, the bias in f32, the bf16 cast, then the residual added
-in bf16. The integer GEMM is exact; kernel and twin differ only through the
-f32 sum order of the LN statistics and ``expf`` in the sigmoid.
+in bf16. The integer GEMM is exact and the LN statistics are summed in f64
+and rounded once, in kernel and twin alike, so the two differ only through
+``expf`` in the sigmoid.
 
 ``fused_linear``/``fused_ffn`` take the twins only for CPU tensors. For CUDA
 tensors they launch the kernel or raise; nothing falls back.
@@ -42,7 +43,7 @@ import ctypes
 
 import torch
 
-from ..quant import int8_matmul, quantize_act
+from ..quant import div, int8_matmul, quantize_act
 from . import build
 
 SOURCES = build.LIBRARIES["nar_fused"]
@@ -62,11 +63,20 @@ def reset_launch_counts() -> None:
 
 # --------------------------------------------------------------- plain twins
 
+def _sum(x):
+    """f32 sum over the last axis, accumulated in f64 and rounded once: the
+    same f32 value in any order, so the kernels' reductions give it too."""
+    return x.double().sum(dim=-1, keepdim=True).float()
+
+
 def _ln_bf16_f32(xf, w, b, eps):
-    """LayerNorm in f32, rounded to bf16 and back (``_ln_bf16_f32``)."""
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
+    """LayerNorm in f32, rounded to bf16 and back (``_ln_bf16_f32``), with
+    f64-summed statistics and a correctly rounded 1 / sqrt."""
+    k = xf.shape[-1]
+    mean = div(_sum(xf), k)
+    d = xf - mean
+    var = div(_sum(d * d), k)
+    y = d * (1.0 / torch.sqrt(var + eps))
     return (y * w.float() + b.float()).to(torch.bfloat16).float()
 
 

@@ -53,9 +53,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..quant import div, int8_matmul, is_quantized, quantize_act
+from ..quant import int8_matmul, is_quantized, quantize_act
 from . import build
-from .nar_fused import _silu_mul_bf16
+from .nar_fused import _ln_bf16_f32 as _ln, _silu_mul_bf16, _sum
 
 SOURCES = build.LIBRARIES["nar_mega"]
 HEAD_DIM = 64
@@ -173,8 +173,9 @@ def mega_supported(decoder) -> bool:
 
 
 def build_mega_pack(decoder) -> MegaPack:
-    """The stacked quantized decoder layers as one operand bundle (built once
-    per trajectory, on the weights' device)."""
+    """The stacked quantized decoder layers as one operand bundle, on the
+    weights' device (``Mars5TTS`` builds it at its first request and keeps
+    it)."""
     if not mega_supported(decoder):
         raise ValueError("the decoder stack does not fit the mega kernel (W8A8 per-row "
                          "weights, head dim 64, D and F multiples of 128 up to 3072)")
@@ -200,22 +201,6 @@ def build_mega_pack(decoder) -> MegaPack:
 
 
 # --------------------------------------------------------------- plain twin
-
-def _sum(x):
-    """f32 sum over the last axis, accumulated in f64 and rounded once: the
-    same f32 value in any order, so the kernel's reductions give it too."""
-    return x.double().sum(dim=-1, keepdim=True).float()
-
-
-def _ln(xf, w, b, eps):
-    """LayerNorm in f32 with f64-summed statistics, rounded to bf16 and back."""
-    k = xf.shape[-1]
-    mean = div(_sum(xf), k)
-    d = xf - mean
-    var = div(_sum(d * d), k)
-    y = d * (1.0 / torch.sqrt(var + eps))
-    return (y * w + b).to(torch.bfloat16).float()
-
 
 def _gemm(xf, w, s, b=None):
     """quant -> exact int8 GEMM -> ``acc * (xs * s) [+ b]`` in f32."""

@@ -13,7 +13,8 @@ is built at the first request and kept. NAR backends: ``"bf16"`` (the model
 as loaded) or ``"int8"`` (W8A8 with per-row scales,
 ``ops/quant.quantize_nar``, served through kernels K1, K3, K4 and K6). The
 int8 NAR takes two more routes: ``nar_mega=True`` runs its decoder stack
-through kernel K9 (the JAX ``MARS5_NAR_MEGA=1``), and ``nar_tail`` picks the
+through kernel K9 (the JAX ``MARS5_NAR_MEGA=1``; its operand pack is built
+at the first request and kept), and ``nar_tail`` picks the
 tail of each reverse step: ``"heads"`` (K6, the default), ``"split"`` (the
 folded heads, then K5; JAX ``MARS5_FUSED_HEADTAIL=0``) or ``"dense"`` (the
 folded heads and the PyTorch tail; JAX ``MARS5_FUSED_TAIL=0``).
@@ -44,28 +45,35 @@ from .models.encodec import EncodecConfig, EncodecEncoder, encodec_from_pytree
 from .models.nar import ResidualTransformer, ResidualTransformerConfig
 from .models.vocos import Vocos, VocosConfig, vocos_from_pytree
 from .ops.kernels.decode_layer import make_dims
-from .ops.kernels.nar_mega import mega_supported
+from .ops.kernels.nar_mega import build_mega_pack, mega_supported
 from .ops.quant import quantize_nar
 from .utils.profiling import StageTimer
 
 
+def default_device() -> torch.device:
+    """The card when PyTorch sees one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 class Mars5TTS:
     """AR codec LM + NAR diffusion refiner + Encodec encoder + Vocos vocoder,
-    all on one ``device``."""
+    all on one ``device`` (the card unless the caller asks for the CPU)."""
 
     def __init__(self, ar_ckpt: dict, nar_ckpt: dict, *, encodec_params=None,
                  vocos_params=None, ar_cfg: Optional[CodecLMConfig] = None,
                  nar_cfg: Optional[ResidualTransformerConfig] = None,
                  encodec_cfg: Optional[EncodecConfig] = None,
                  vocos_cfg: Optional[VocosConfig] = None,
-                 device="cpu", dtype=torch.float32, ar_backend: str = "bf16",
+                 device=None, dtype=torch.float32, ar_backend: str = "bf16",
                  nar_backend: str = "bf16", head4: bool = False, nar_mega: bool = False,
                  nar_tail: str = "heads"):
         """From reference-layout checkpoints ({'vocab', 'model'[, 'config']}),
         with Encodec/Vocos given as the JAX package's parameter pytrees.
-        ``nar_backend="int8"`` quantizes the NAR after loading, unless its
-        checkpoint is already quantized; ``ar_backend``, ``head4``,
-        ``nar_mega`` and ``nar_tail`` as in the module docstring."""
+        ``device`` defaults to ``default_device()``. ``nar_backend="int8"``
+        quantizes the NAR after loading, unless its checkpoint is already
+        quantized; ``ar_backend``, ``head4``, ``nar_mega`` and ``nar_tail`` as
+        in the module docstring."""
+        device = torch.device(device) if device is not None else default_device()
         texttok, speechtok = load_tokenizers(ar_ckpt)
         n_vocab = len(texttok.vocab) + len(speechtok.vocab)
         if ar_cfg is None:
@@ -84,7 +92,8 @@ class Mars5TTS:
 
     @classmethod
     def from_local(cls, ar_path, nar_path, **kwargs) -> "Mars5TTS":
-        """From local .safetensors/.pt checkpoints in the reference layout."""
+        """From local .safetensors/.pt checkpoints in the reference layout;
+        ``kwargs`` as ``__init__`` (``device`` defaults to the card)."""
         return cls(load_checkpoint(ar_path), load_checkpoint(nar_path), **kwargs)
 
     @classmethod
@@ -97,7 +106,8 @@ class Mars5TTS:
         """From already-built port modules and tokenizer objects. With
         ``nar_backend="int8"`` a bf16/f32 ``codecnar`` is quantized into a new
         module (the given one is left as it was); a quantized one is used as
-        it is. The quantized AR backends leave ``codeclm`` as it is."""
+        it is. The quantized AR backends leave ``codeclm`` as it is. The
+        device defaults to that of ``codeclm``'s weights."""
         self = cls.__new__(cls)
         device = device or codeclm.embed.weight.device
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
@@ -112,6 +122,7 @@ class Mars5TTS:
             raise ValueError("head4=True needs ar_backend='fused4'")
         self.ar_backend, self.head4 = ar_backend, head4
         self._fused_cache: dict = {}
+        self._mega_pack = None
         if nar_backend not in ("bf16", "int8"):
             raise ValueError(f"unknown nar_backend {nar_backend!r}")
         if nar_backend == "int8" and not codecnar.is_quantized:
@@ -158,6 +169,13 @@ class Mars5TTS:
                 fp, dims = prepare_fused(self.codeclm, max_len, wbits, self.head4)
             self._fused_cache[max_len] = (fp, dims)
         return self._fused_cache[max_len]
+
+    def _get_mega(self):
+        """The K9 operand bundle of the int8 NAR decoder, built at the first
+        ``nar_mega`` request and kept (None without ``nar_mega``)."""
+        if self.nar_mega and self._mega_pack is None:
+            self._mega_pack = build_mega_pack(self.codecnar.tfm.decoder)
+        return self._mega_pack
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -234,7 +252,7 @@ class Mars5TTS:
                  np.asarray([len(text_tokens)]), np.asarray([c_codes.shape[1]]), x,
                  np.zeros((1, x.shape[1]), bool)),
                 diff, T, dsh, retain_quant0=True, generator=gen, tail=self.nar_tail,
-                mega=self.nar_mega)
+                mega=self._get_mega())
             skip_front = raw_prompt_len if cfg.deep_clone else 0
             self.last_grid = grid[0, skip_front:]
 

@@ -554,7 +554,7 @@ def test_tail_kernel_rejects_what_it_does_not_take(dev):
 
 def test_mega_and_split_routes_on_gpu(dev):
     """A small W8A8 NAR (D 128, head dim 64) over a deep-clone sequence on the
-    card, generator path: ``mega=True`` runs K9 once a reverse step and none
+    card, generator path: ``mega`` (the pack) runs K9 once a reverse step and none
     of K3/K4 in the decoder; ``tail="split"`` runs K5 once a step in place of
     K6 and gives K6's grid exactly."""
     import copy
@@ -580,7 +580,9 @@ def test_mega_and_split_routes_on_gpu(dev):
     dsh = DSH(x_0_temp=0.7, guidance_w=3.0, deep_clone=True, q0_override_steps=1)
     diff = MultinomialDiffusion(1025, T, device=dev)
     grids = {}
-    for route, kw in (("heads", {}), ("split", dict(tail="split")), ("mega", dict(mega=True))):
+    routes = (("heads", {}), ("split", dict(tail="split")),
+              ("mega", dict(mega=M.build_mega_pack(gpu.tfm.decoder))))
+    for route, kw in routes:
         n0 = (M.launch_count, F.fused_linear_launches, D.launch_count, D.tail_launch_count)
         grids[route] = perform_simple_inference(
             gpu, batch, diff, T, dsh, generator=torch.Generator(device=dev).manual_seed(1), **kw)

@@ -15,7 +15,7 @@ L = 100, Lk = 19, with both key-padding masks.
 * The per-layer W8A8 stack agrees with the mega stack within 0.05 x max
   (cross-attention is the flash form in K9, the documented divergence).
 * Masked rows do not reach valid rows.
-* The W8A8 trajectory with ``mega=True`` against the JAX engine with
+* The W8A8 trajectory with the mega pack against the JAX engine with
   ``MARS5_NAR_MEGA_INTERPRET=1`` under shared uniforms, and
   ``Mars5TTS(nar_backend="int8", nar_mega=True)`` against the JAX pipeline
   so set, with shared AR uniforms and NAR draws: L0 identical, at most 4% of
@@ -235,7 +235,7 @@ def _count_calls(monkeypatch, module, name):
 
 def test_mega_trajectory_matches_jax_interpret(monkeypatch):
     """Injected uniforms, T = 4, deep clone with CFG: the port's W8A8 engine
-    with ``mega=True`` (the K9 twin) against the JAX engine running its mega
+    with ``mega`` (the K9 twin) against the JAX engine running its mega
     kernel in interpret mode; both packages take their mega route."""
     from mars5_tts_tpu.config import DSH
     from mars5_tts_tpu.ops.pallas import nar_mega as JM
@@ -246,6 +246,7 @@ def test_mega_trajectory_matches_jax_interpret(monkeypatch):
     from mars5_tts_torch.diffusion.engine import perform_simple_inference
     from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
     from mars5_tts_torch.models import layers
+    from mars5_tts_torch.ops.kernels.nar_mega import build_mega_pack
 
     cfg, pq, port, _ = _nar()
     j_calls = _count_calls(monkeypatch, JM, "mega_decoder_stack")
@@ -269,7 +270,8 @@ def test_mega_trajectory_matches_jax_interpret(monkeypatch):
         _diffusion_scan.clear_cache()
         _diffusion_scan_serving.clear_cache()
     got = perform_simple_inference(port, batch, MultinomialDiffusion(1025, steps), steps, dsh,
-                                   uniforms=uni, x_init=x_init, mega=True).numpy()
+                                   uniforms=uni, x_init=x_init,
+                                   mega=build_mega_pack(port.tfm.decoder)).numpy()
     assert j_calls and len(p_calls) == steps      # JAX traces its step once
     assert got.shape == want.shape == (1, 24, 8)
     np.testing.assert_array_equal(got[..., 0], want[..., 0])
@@ -279,8 +281,9 @@ def test_mega_trajectory_matches_jax_interpret(monkeypatch):
 def test_mars5tts_nar_mega_request(monkeypatch):
     """``Mars5TTS(nar_backend="int8", nar_mega=True)``: a seeded request runs
     the stack through K9 (its twin here) once a reverse step, with finite
-    audio and reproducibly; the arguments K9 cannot take are refused."""
-    from mars5_tts_torch import InferenceConfig, Mars5TTS
+    audio and reproducibly, on an operand pack built once for both requests;
+    the arguments K9 cannot take are refused."""
+    from mars5_tts_torch import InferenceConfig, Mars5TTS, pipeline
     from mars5_tts_torch.models import layers
     from mars5_tts_torch.models.encodec import encodec_from_pytree
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
@@ -299,9 +302,11 @@ def test_mars5tts_nar_mega_request(monkeypatch):
     ref = (np.random.default_rng(7).standard_normal(8 * 60) * 0.1).astype(np.float32)
     cfg = InferenceConfig(timesteps=4, generate_max_len_override=320, trim_db=200)
     calls = _count_calls(monkeypatch, layers, "mega_decoder_stack")
+    packs = _count_calls(monkeypatch, pipeline, "build_mega_pack")
     n0 = nar_mega.launch_count
     runs = [tts.tts("hi there", ref, ref_transcript="ok", cfg=cfg, seed=3) for _ in range(2)]
     assert len(calls) == 2 * 4                 # once a reverse step
+    assert len(packs) == 1                     # the pack is kept between requests
     assert nar_mega.launch_count == n0        # CPU tensors take the twin
     codes, audio = runs[0]
     assert len(audio) > 0 and np.isfinite(audio).all()

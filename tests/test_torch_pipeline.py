@@ -136,7 +136,7 @@ def test_mars5tts_from_local_tts_is_seeded(tmp_path):
     cfgs, params = tiny_models()
     ar_path, nar_path = write_checkpoints(tmp_path)
     tts = Mars5TTS.from_local(ar_path, nar_path, encodec_params=params["encodec"],
-                              vocos_params=params["vocos"])
+                              vocos_params=params["vocos"], device="cpu")
     ref = (np.random.default_rng(4).standard_normal(8 * 60) * 0.1).astype(np.float32)
     cfg = InferenceConfig(timesteps=6, generate_max_len_override=320, trim_db=200)
     runs = [tts.tts("hi there", ref, ref_transcript="ok", cfg=cfg, seed=s, max_retries=1)
@@ -155,6 +155,26 @@ def test_mars5tts_from_local_tts_is_seeded(tmp_path):
     assert np.isfinite(shallow[1]).all()
 
 
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``Mars5TTS`` and ``from_local`` run on the card unless the caller asks
+    for the CPU; ``from_params`` follows its modules' device."""
+    import inspect
+
+    from mars5_tts_torch import Mars5TTS, pipeline
+
+    assert inspect.signature(Mars5TTS.__init__).parameters["device"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert pipeline.default_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pipeline.default_device() == torch.device("cpu")
+    ar_path, nar_path = write_checkpoints(tmp_path)
+    assert Mars5TTS.from_local(ar_path, nar_path).device == torch.device("cpu")
+    ar, nar, _, _ = _ports()
+    texttok, speechtok, _, _ = make_tokenizers()
+    assert Mars5TTS.from_params(ar, nar, texttok=texttok,
+                                speechtok=speechtok).device == torch.device("cpu")
+
+
 def test_from_params_matches_from_local(tmp_path):
     from mars5_tts_tpu.config import InferenceConfig
     from mars5_tts_torch import Mars5TTS
@@ -162,7 +182,7 @@ def test_from_params_matches_from_local(tmp_path):
     cfgs, params = tiny_models()
     ar_path, nar_path = write_checkpoints(tmp_path)
     a = Mars5TTS.from_local(ar_path, nar_path, encodec_params=params["encodec"],
-                            vocos_params=params["vocos"])
+                            vocos_params=params["vocos"], device="cpu")
     ar, nar, enc, voc = _ports()
     texttok, speechtok, _, _ = make_tokenizers()
     b = Mars5TTS.from_params(ar, nar, texttok=texttok, speechtok=speechtok, encodec=enc,
@@ -185,7 +205,7 @@ def test_mars5tts_int8_nar_backend(tmp_path):
     cfgs, params = tiny_models()
     ar_path, nar_path = write_checkpoints(tmp_path)
     tts = Mars5TTS.from_local(ar_path, nar_path, encodec_params=params["encodec"],
-                              vocos_params=params["vocos"], nar_backend="int8")
+                              vocos_params=params["vocos"], nar_backend="int8", device="cpu")
     assert tts.nar_backend == "int8" and tts.codecnar.is_quantized
     ref = (np.random.default_rng(7).standard_normal(8 * 60) * 0.1).astype(np.float32)
     cfg = InferenceConfig(timesteps=5, generate_max_len_override=320, trim_db=200)
