@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: compiles the six CUDA libraries from ``mars5_tts_torch/csrc`` for
+2. Build: compiles the seven CUDA libraries from ``mars5_tts_torch/csrc`` for
    sm_90a into ``build/kernels/``, one nvcc each, all at once
    (``ops/kernels/build.build_all``).
 3. Kernels against their plain PyTorch twins on the card, at the main paths'
@@ -13,10 +13,14 @@
    calls), K3 fused_linear (qkv, caq and residual variants), K4 fused_ffn, K6
    heads_diffusion_tail (w = 3, at t = 0 and a middle t), K5 diffusion_tail
    (index-identical to K6 and to its twin), K2 fused_decode_layers (W8 and
-   W4 at the released AR widths, window 2001, positions 600 and 1900), K8
-   head4_logits (1536 -> 24,000) and K9 mega_decoder_stack (the int8 NAR
-   decoder's 16 layers at the smoke request's shape: the first and the last
-   layer alone for the exactly-equal share, then all sixteen).
+   W4 at the released AR widths, window 2001, positions 600 and 1900, then
+   four rows at 600 / 1200 / 1900 / 2400), K8 head4_logits (1536 -> 24,000,
+   one row and four), K7 decode_attention (the bf16 AR's 24 heads of 64 over
+   a 2001-slot ring with the self column: one row at 600 and 1900, four rows
+   at 600 / 1200 / 1900 / 2400, the last wrapped) and K9
+   mega_decoder_stack (the int8 NAR decoder's 16 layers at the smoke
+   request's shape: the first and the last layer alone for the
+   exactly-equal share, then all sixteen).
 4. Main paths: ``Mars5TTS`` at the released widths (AR 26 x 1536, NAR 8 + 16 x
    1024, Encodec, Vocos) with seeded random weights, serving deep-clone
    ``tts()`` requests with 7 s references (525 prompt frames, so the NAR
@@ -28,8 +32,14 @@
    ``head4=True`` once (every decode step also runs K8); then fused4 + int8
    with ``nar_mega=True`` (K9 once a reverse step in place of K1, K3 and K4
    in the decoder) and with ``nar_tail="split"`` (the folded heads, then K5,
-   in place of K6). Each request's launch counts are reset before it and
-   read after it.
+   in place of K6). The bf16 AR runs K7 once a layer a decode step; the
+   quantized AR never does. Then the batched path, ``tts_batch``: three
+   texts with two voices (7 s and 5 s references, so the NAR takes its
+   ragged branch) on fused4 + int8 (K2 once a batched step for all rows, K7
+   0, K6 200), and two texts with one voice on the bf16 AR + int8 NAR (K7 26
+   times a batched step). Each request's AR cap leaves its longest prompt
+   ``GEN_FRAMES`` generated frames. Each request's launch counts are reset
+   before it and read after it.
 
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the H100 SXM peak for their type
@@ -61,6 +71,9 @@ M_ROWS, DIM, FFN = 2400, 1024, 3072
 GEN_LEN, LANES, CLASSES = 750, 7, 1025
 AR_MAX_LEN = 2000                   # K2 check: window min(3000, 2001)
 AR_POSITIONS = (600, 1900)
+BATCH_POSITIONS = (600, 1200, 1900, 2400)     # four rows, the last past the window
+K7_CASES = ((600,), (1900,), BATCH_POSITIONS)
+K2_QUEUED = 4                       # K2 calls device_ms queues: 4 x 131 launches
 HBM_BYTES_S = 3.35e12               # H100 SXM data sheet
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
 # K9 at the smoke request's shape: 7 s reference = 525 prompt frames + up to
@@ -96,6 +109,45 @@ def cuda_ms(fn, n=30, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n=20):
+    """Device milliseconds of one call of ``fn``, the wrapper's host time
+    left out: ``n`` calls queued behind a spin kernel, so the host has
+    queued them all before the card reaches them, and CUDA events time the
+    card alone. Their launches must fit the device's launch queue (about a
+    thousand: a full queue blocks the host until the spin ends), so a K2
+    step of 131 launches is timed ``K2_QUEUED`` calls at a time. None if the
+    host could not queue them within the spin.
+    Phase 3 does not use ``torch.profiler``: once it has traced a process,
+    every later launch costs more host time, which would slow the
+    launch-bound AR of phase 4 (PERF.md, PR 5)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for cycles in (10 ** 8, 10 ** 9):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / n
+    return None
+
+
+def fmt_us(ms):
+    return "not measured" if ms is None else f"{ms * 1e3:.1f} us"
+
+
+def own_generator(dev, seed=5):
+    """A generator of its own for a check added after the others, so their
+    inputs do not depend on it."""
+    import torch
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def check_kernel(K, shape, masked, dtype, gen, dev):
@@ -370,8 +422,69 @@ def check_decode_layer(ar, gen, dev):
             if not ok:
                 raise RuntimeError(f"K2 W{wbits} pos={pos}: error above its bound")
             res[(wbits, pos)] = st
-        del fp, ck, cv, kvs
+        del ck, cv, kvs
+        res[(wbits, "batch")] = check_decode_layer_rows(fp, dims, eps, res[(wbits, 600)],
+                                                        own_generator(dev, wbits), dev)
+        del fp
     return res
+
+
+def check_decode_layer_rows(fp, dims, eps, one_row, gen, dev):
+    """K2 with four rows at ``BATCH_POSITIONS`` (each its own RoPE angles,
+    validity and self column; the last row wrapped) against the twin, within
+    the one-row bound and with the exactly-equal share of each output; each
+    row must equal the kernel's own one-row step bit for bit."""
+    import torch
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    b = len(BATCH_POSITIONS)
+    shape = (dims.n_layers, b, dims.window, dims.dim)
+    (ck, ks), (cv, vs) = (D.quantize_kv_rows(torch.randn(shape, generator=gen, device=dev) * 0.1)
+                          for _ in range(2))
+    kvs = torch.stack([ks, vs], dim=2).contiguous()
+    x = fp["embed"][torch.tensor(BATCH_POSITIONS, device=dev) % fp["embed"].shape[0]].to(
+        torch.bfloat16)
+    args = (fp, x, list(BATCH_POSITIONS), ck, cv, kvs)
+    got = D.fused_decode_layers(*args, dims=dims, norm_eps=eps)
+    want = D.fused_step_ref(*args, dims=dims, norm_eps=eps)
+    torch.cuda.synchronize()
+    st = {"max_abs_err": 0.0, "positions": list(BATCH_POSITIONS), "exact": {}}
+    ok = True
+    for name, a, w in zip(("h", "k_new", "v_new"), got, want):
+        o, s1 = fused_bound_f32(a, w)
+        ok &= o
+        st["max_abs_err"] = max(st["max_abs_err"], s1["max_abs_err"])
+        st["exact"][name] = s1["exact_frac"]
+    rows_equal = all(
+        torch.equal(D.fused_decode_layers(fp, x[i:i + 1], p, ck[:, i].contiguous(),
+                                          cv[:, i].contiguous(), kvs[:, i].contiguous(),
+                                          dims=dims, norm_eps=eps)[0], got[0][i:i + 1])
+        for i, p in enumerate(BATCH_POSITIONS))
+    nbytes = pack_bytes(fp)
+    st.update(ms=cuda_ms(lambda: D.fused_decode_layers(*args, dims=dims, norm_eps=eps), n=50),
+              plain_ms=cuda_ms(lambda: D.fused_step_ref(*args, dims=dims, norm_eps=eps), n=3,
+                               warmup=1),
+              device_ms=device_ms(lambda: D.fused_decode_layers(*args, dims=dims,
+                                                                norm_eps=eps), n=K2_QUEUED))
+    one_args = (fp, x[:1], BATCH_POSITIONS[0], ck[:, 0].contiguous(), cv[:, 0].contiguous(),
+                kvs[:, 0].contiguous())
+    one_device_ms = st["one_row_device_ms"] = device_ms(
+        lambda: D.fused_decode_layers(*one_args, dims=dims, norm_eps=eps), n=K2_QUEUED)
+    ring = dims.n_layers * sum(min(p, dims.window) for p in BATCH_POSITIONS) * (2 * dims.dim + 8)
+    st["bound_ms"], st["bound_by"] = bound(
+        nbytes + ring, int8=2 * b * nbytes * (2 if dims.wbits == 4 else 1))
+    print(f"K2 W{dims.wbits} {b} rows at {BATCH_POSITIONS}: max_abs_err={st['max_abs_err']:.3e} "
+          f"exactly equal h/k_new/v_new {st['exact']['h']:.4f}/{st['exact']['k_new']:.4f}/"
+          f"{st['exact']['v_new']:.4f}; bound=fused_eq without the exact fraction (f32) and "
+          f"each row bitwise equal to its one-row kernel step: within={ok}, rows "
+          f"equal={rows_equal} | kernel {st['ms'] * 1e3:.1f} us ({st['ms'] / one_row['ms']:.2f}x "
+          f"the one-row step at pos 600 in this call), plain {st['plain_ms'] * 1e3:.1f} us, "
+          f"roofline {st['bound_ms'] * 1e3:.1f} us ({st['bound_by']}); device time of its "
+          f"kernels (device_ms): {fmt_us(st['device_ms'])}, row 0 alone "
+          f"{fmt_us(one_device_ms)}", flush=True)
+    if not (ok and rows_equal):
+        raise RuntimeError(f"K2 W{dims.wbits} {b} rows: error above its bound")
+    return st
 
 
 def check_head4(ar, gen, dev):
@@ -399,7 +512,99 @@ def check_head4(ar, gen, dev):
           f"{nbytes / 1e6:.1f} MB -> {nbytes / (st['ms'] * 1e-3) / 1e9:.0f} GB/s", flush=True)
     if not err <= 1e-5 * peak:
         raise RuntimeError("K8: error above its bound")
+    # four rows: one pass over the head for all of them, bitwise equal to the twin
+    xb = torch.randn((len(BATCH_POSITIONS), ar.cfg.dim), generator=own_generator(dev),
+                     device=dev).to(torch.bfloat16)
+    gotb = H.head4_logits(xb, wp, ws, n_vocab=n)
+    wantb = H.head4_logits_ref(xb, wp, ws, n_vocab=n)
+    torch.cuda.synchronize()
+    sb = {"max_abs_err": (gotb - wantb).abs().max().item(), "exact": bool(torch.equal(gotb, wantb)),
+          "ms": cuda_ms(lambda: H.head4_logits(xb, wp, ws, n_vocab=n), n=50),
+          "plain_ms": cuda_ms(lambda: H.head4_logits_ref(xb, wp, ws, n_vocab=n), n=20),
+          "device_ms": device_ms(lambda: H.head4_logits(xb, wp, ws, n_vocab=n))}
+    st["device_ms"] = device_ms(lambda: H.head4_logits(x, wp, ws, n_vocab=n))
+    sb["bound_ms"], sb["bound_by"] = bound(nbytes + xb.numel() * 2 + gotb.numel() * 4,
+                                           int8=2 * n * xb.numel())
+    st["batch"] = sb
+    print(f"K8 head4 {tuple(xb.shape)} -> {n}: max_abs_err={sb['max_abs_err']:.3e} bound=bitwise "
+          f"equal within={sb['exact']} | kernel {sb['ms'] * 1e3:.1f} us ({sb['ms'] / st['ms']:.2f}x "
+          f"the one-row call), plain {sb['plain_ms'] * 1e3:.1f} us, roofline "
+          f"{sb['bound_ms'] * 1e3:.1f} us ({sb['bound_by']}); device time of the wrapper's "
+          f"kernels (device_ms): {fmt_us(sb['device_ms'])}, one row {fmt_us(st['device_ms'])}",
+          flush=True)
+    if not sb["exact"]:
+        raise RuntimeError("K8 four rows: not bitwise equal to the twin")
+    st["max_abs_err"] = max(err, sb["max_abs_err"])
     return st
+
+
+def check_decode_attention(ar_cfg, dev):
+    """K7 at the bf16 AR's decode shapes (its heads over a window-2001 bf16
+    ring, the self column): each case of ``K7_CASES`` against the twin
+    within one bf16 ulp (``one_ulp``), with the exactly-equal share. The
+    library yardstick is ``scaled_dot_product_attention`` over the ring with
+    the self column concatenated and a boolean mask, the concatenation made
+    beforehand; it reads every slot. The bound counts the valid slots' K and
+    V rows. Beside the CUDA-event times (the wrapper's host time included),
+    the device time (``device_ms``) of the kernel and of the library call."""
+    import torch
+    import torch.nn.functional as Fn
+    from mars5_tts_torch.ops.kernels import decode_attention as A
+
+    gen = own_generator(dev, 7)
+    h, d = ar_cfg.n_kv_heads, ar_cfg.head_dim
+    w = min(ar_cfg.sliding_window, AR_MAX_LEN + 1)
+    res = {}
+    for positions in K7_CASES:
+        b = len(positions)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        q, kn, vn = rnd(b, h, d), rnd(b, h, d), rnd(b, h, d)
+        ck, cv = rnd(b, w, h, d), rnd(b, w, h, d)
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        args = (q, ck, cv, pos, kn, vn)
+        n0 = A.launch_count
+        got = A.decode_attention(*args)
+        want = A.decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        if A.launch_count != n0 + 1:
+            raise RuntimeError("K7: the wrapper did not count its launch")
+        diff = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((diff <= A.one_ulp(got, want)).all())
+        valid = A.ring_valid(pos, w, True)
+        kk = torch.cat([ck, kn[:, None]], 1).transpose(1, 2).contiguous()   # (B, H, W + 1, D)
+        vv = torch.cat([cv, vn[:, None]], 1).transpose(1, 2).contiguous()
+        mask = torch.cat([valid, torch.ones((b, 1), dtype=torch.bool, device=dev)], 1)
+        mask = mask[:, None, None]
+        qq = q[:, :, None].contiguous()
+        lib = Fn.scaled_dot_product_attention(qq, kk, vv, mask)[:, :, 0]
+        st = {"max_abs_err": diff.max().item(), "exact_frac": (got == want).float().mean().item(),
+              "library_max_abs_err": (lib.float() - want.float()).abs().max().item(),
+              "ms": cuda_ms(lambda: A.decode_attention(*args), n=50),
+              "plain_ms": cuda_ms(lambda: A.decode_attention_ref(*args), n=10, warmup=2),
+              "library_ms": cuda_ms(lambda: Fn.scaled_dot_product_attention(qq, kk, vv, mask),
+                                    n=50),
+              "device_ms": device_ms(lambda: A.decode_attention(*args)),
+              "library_device_ms": device_ms(
+                  lambda: Fn.scaled_dot_product_attention(qq, kk, vv, mask))}
+        slots = int(valid.sum())
+        st["bound_ms"], st["bound_by"] = bound(
+            nbytes(q, kn, vn, pos, got) + 2 * slots * h * d * ck.element_size(),
+            bf16=4 * h * d * (slots + b))
+        print(f"K7 decode_attention ({b}, {h}, {d}) over ({b}, {w}, {h}, {d}) bf16, self column, "
+              f"positions {positions}: max_abs_err={st['max_abs_err']:.3e} exact="
+              f"{st['exact_frac']:.4f} bound=1 bf16 ulp within={ok} | kernel "
+              f"{st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us, sdpa "
+              f"{st['library_ms'] * 1e3:.1f} us (max diff to the twin "
+              f"{st['library_max_abs_err']:.3e}), roofline {st['bound_ms'] * 1e3:.2f} us "
+              f"({st['bound_by']}, {slots} valid slots); device time (device_ms): kernel "
+              f"{fmt_us(st['device_ms'])}, sdpa {fmt_us(st['library_device_ms'])}",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"K7 positions {positions}: error above its bound")
+        res[positions] = st
+    return res
 
 
 def check_mega(dec, gen, dev):
@@ -551,38 +756,58 @@ def build_models(dev, torch):
 
 
 def counts():
-    from mars5_tts_torch.ops.kernels import (decode_layer as L, diffusion_tail as D,
-                                             head4 as H, mha as K, nar_fused as F,
-                                             nar_mega as M)
+    from mars5_tts_torch.ops.kernels import (decode_attention as A, decode_layer as L,
+                                             diffusion_tail as D, head4 as H, mha as K,
+                                             nar_fused as F, nar_mega as M)
     return {"mha": K.launch_count, "fused_linear": F.fused_linear_launches,
             "fused_ffn": F.fused_ffn_launches, "heads_diffusion_tail": D.launch_count,
             "diffusion_tail": D.tail_launch_count, "mega_decoder_stack": M.launch_count,
-            "fused_decode_layers": L.launch_count, "head4_logits": H.launch_count}
+            "fused_decode_layers": L.launch_count, "head4_logits": H.launch_count,
+            "decode_attention": A.launch_count}
 
 
 def reset_counts():
-    from mars5_tts_torch.ops.kernels import (decode_layer as L, diffusion_tail as D,
-                                             head4 as H, mha as K, nar_fused as F,
-                                             nar_mega as M)
+    from mars5_tts_torch.ops.kernels import (decode_attention as A, decode_layer as L,
+                                             diffusion_tail as D, head4 as H, mha as K,
+                                             nar_fused as F, nar_mega as M)
     K.reset_launch_count()
     F.reset_launch_counts()
     D.reset_launch_count()
     L.reset_launch_count()
     H.reset_launch_count()
     M.reset_launch_count()
+    A.reset_launch_count()
 
 
 AR_RUNS = []
 
 
 def record_ar(fn):
-    """``fn`` (an AR engine) that also records each run's sequence length,
-    n_generated and max_len, for the launch and ms-per-token checks."""
+    """``fn`` (an AR engine, one-row or batched) that also records each
+    run's rows as (sequence length, n_generated) and its max_len, for the
+    launch and ms-per-step checks."""
     def run(*args, sampling, **kw):
-        seq, n_gen = fn(*args, sampling=sampling, **kw)
-        AR_RUNS.append((len(seq), n_gen, sampling.max_len))
-        return seq, n_gen
+        out = fn(*args, sampling=sampling, **kw)
+        rows = out if isinstance(out, list) else [out]
+        AR_RUNS.append(([(len(seq), n_gen) for seq, n_gen in rows], sampling.max_len))
+        return out
     return run
+
+
+def decode_steps(rows, max_len):
+    """The decode steps of one AR run: a step follows every sampled token but
+    the last one of the longest-running row (an EOS, or a token at max_len)."""
+    return max(n_gen - (seq_len >= max_len) for seq_len, n_gen in rows)
+
+
+def check_launches(label, launches, want, steps):
+    """Each kernel's launches within ``want`` (name -> (low, high), or a
+    function of the decode steps giving it)."""
+    for name, v in want.items():
+        lo, hi = v(steps) if callable(v) else v
+        if not lo <= launches[name] <= hi:
+            raise RuntimeError(f"{label}: {name} launched {launches[name]} times, "
+                               f"expected {lo}..{hi}")
 
 
 def serve(tts, label, text, transcript, seed, want):
@@ -607,17 +832,13 @@ def serve(tts, label, text, transcript, seed, want):
     wall = time.perf_counter() - t0
     launches = counts()
     grid = tts.last_grid
-    (seq_len, n_gen, max_len), = AR_RUNS
-    steps = n_gen - (seq_len >= max_len)     # a decode step follows every token but a last one at max_len
-    want = {k: (v(steps) if callable(v) else v) for k, v in want.items()}
+    (rows, max_len), = AR_RUNS
+    (_, n_gen), = rows
     if not (len(audio) > 0 and np.isfinite(audio).all()):
         raise RuntimeError(f"{label}: tts produced empty or non-finite audio")
     if not (int(grid.min()) >= 0 and int(grid.max()) <= 1024):
         raise RuntimeError(f"{label}: grid codes outside [0, 1024]")
-    for name, (lo, hi) in want.items():
-        if not lo <= launches[name] <= hi:
-            raise RuntimeError(f"{label}: {name} launched {launches[name]} times, "
-                               f"expected {lo}..{hi}")
+    check_launches(label, launches, want, decode_steps(rows, max_len))
     timing = tts.last_timing
     ar_ms = 1e3 * timing["stages_s"]["ar_generate"] / max(n_gen, 1)
     rec = {"path": label, "wall_s": wall, "ar_frames": int(len(codes)), "ar_tokens": n_gen,
@@ -629,6 +850,62 @@ def serve(tts, label, text, transcript, seed, want):
           f"{ar_ms:.2f} ms/token incl. prefill), grid {tuple(grid.shape)}, "
           f"audio {timing['audio_s']:.3f} s, total {timing['total_s']:.3f} s, "
           f"RTF {timing['rtf']:.4f}, launches {json.dumps(launches)}; stages "
+          + json.dumps(rec["stages_s"]), flush=True)
+    return rec
+
+
+def serve_batch(tts, label, texts, transcripts, ref_seconds, seed, want):
+    """One deep-clone ``tts_batch`` request with the counts at 0 before it:
+    one voice a text when ``ref_seconds`` is a list (``transcripts`` then a
+    matching list), else one shared voice. Checks each row's audio, the
+    grid and the launches as ``serve`` does, against the decode steps of the
+    one batched AR run."""
+    import numpy as np
+    import torch
+    from mars5_tts_torch import InferenceConfig
+
+    rng = np.random.default_rng(seed)
+    per_row = isinstance(ref_seconds, list)
+    secs = ref_seconds if per_row else [ref_seconds]
+    voices = {s: (rng.standard_normal(int(s * tts.sr)) * 0.1).astype(np.float32)
+              for s in dict.fromkeys(secs)}          # rows of one length share a voice
+    refs = [voices[s] for s in secs]
+    row_tr = transcripts if per_row else [transcripts] * len(texts)
+    n_text = max(len(tts.texttok.encode("<|startoftext|>" + tr + " " + text + "<|endoftext|>",
+                                        allowed_special="all"))
+                 for tr, text in zip(row_tr, texts))
+    cfg = InferenceConfig(generate_max_len_override=n_text + int(max(secs) * 75) + GEN_FRAMES,
+                          timesteps=STEPS)
+    reset_counts()
+    AR_RUNS.clear()
+    t0 = time.perf_counter()
+    outs = tts.tts_batch(texts, refs if per_row else refs[0], ref_transcript=transcripts,
+                         cfg=cfg, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    grid = tts.last_grid
+    (rows, max_len), = AR_RUNS
+    steps = decode_steps(rows, max_len)
+    if len(outs) != len(texts) or not all(len(c) > 0 and len(a) > 0 and np.isfinite(a).all()
+                                          for c, a in outs):
+        raise RuntimeError(f"{label}: tts_batch produced an empty or non-finite row")
+    if not (int(grid.min()) >= 0 and int(grid.max()) <= 1024):
+        raise RuntimeError(f"{label}: grid codes outside [0, 1024]")
+    check_launches(label, launches, want, steps)
+    timing = tts.last_timing
+    rec = {"path": label, "wall_s": wall, "rows": len(texts),
+           "ar_frames": [int(len(c)) for c, _ in outs], "ar_tokens": [n for _, n in rows],
+           "ar_steps": steps, "ar_ms_per_step": 1e3 * timing["stages_s"]["ar_generate"] / (steps + 1),
+           "nar_ms_per_step": 1e3 * timing["stages_s"]["nar_diffusion"] / STEPS,
+           "grid": list(grid.shape), "audio_s": timing["audio_s"], "rtf": timing["rtf"],
+           "launches": launches, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "stages_s": {k: round(v, 4) for k, v in timing["stages_s"].items()}}
+    print(f"request {label} seed={seed}: {len(texts)} rows, AR tokens {rec['ar_tokens']} in "
+          f"{steps} batched steps ({rec['ar_ms_per_step']:.2f} ms a step incl. prefill), NAR "
+          f"{rec['nar_ms_per_step']:.2f} ms a step, grid {tuple(grid.shape)}, audio "
+          f"{timing['audio_s']:.3f} s in all, total {timing['total_s']:.3f} s, RTF "
+          f"{timing['rtf']:.4f}, launches {json.dumps(launches)}; stages "
           + json.dumps(rec["stages_s"]), flush=True)
     return rec
 
@@ -674,6 +951,7 @@ def main():
     models = build_models(dev, torch)
     k2 = check_decode_layer(models["ar"], gen, dev)
     k8 = check_head4(models["ar"], gen, dev)
+    k7 = check_decode_attention(models["ar"].cfg, dev)
 
     # -- 4. main paths, each request with its launch counts from 0
     records, main_launches, path_launches, nar8 = serve_paths(models, dev)
@@ -692,12 +970,18 @@ def main():
 
     k6_worst = max(k6, key=lambda st: st["max_abs_err"])
     k2_main = k2[(4, AR_POSITIONS[0])]
+
+    def batched(st):
+        keys = ("positions", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "device_ms", "one_row_device_ms", "library_ms", "library_device_ms")
+        return {k: st[k] for k in keys if k in st}
     print(json.dumps({"kernels": [
         {**row("mha", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46", main_res),
          "max_abs_err": max(main_res["max_abs_err"], second["max_abs_err"])},
         {**row("fused_decode_layers", "decode_layer.cu",
                "mars5_tts_tpu/ops/pallas/decode_layer.py:139", k2_main),
-         "max_abs_err": max(st["max_abs_err"] for st in k2.values())},
+         "max_abs_err": max(st["max_abs_err"] for st in k2.values()),
+         "batch4": {f"W{wb}": batched(k2[(wb, "batch")]) for wb in (4, 8)}},
         {**row("fused_linear", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:111",
                w8a8["qkv"]),
          "max_abs_err": max(w8a8[v]["max_abs_err"] for v in ("qkv", "caq", "residual"))},
@@ -706,8 +990,15 @@ def main():
         {**row("heads_diffusion_tail", "diffusion_tail.cu",
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:149", k6[-1]),
          "max_abs_err": k6_worst["max_abs_err"]},
-        row("head4_logits", "head4.cu", "mars5_tts_tpu/ops/pallas/head4.py:55", k8,
-            launches=path_launches["head4_logits"]),
+        {**row("head4_logits", "head4.cu", "mars5_tts_tpu/ops/pallas/head4.py:55", k8,
+               launches=path_launches["head4_logits"]),
+         "device_ms": k8["device_ms"], "batch4": batched(k8["batch"])},
+        {**row("decode_attention", "decode_attention.cu",
+               "mars5_tts_tpu/ops/pallas/decode_attention.py:32", k7[K7_CASES[0]],
+               launches=path_launches["decode_attention"]),
+         "max_abs_err": max(st["max_abs_err"] for st in k7.values()),
+         "device_ms": k7[K7_CASES[0]]["device_ms"],
+         "cases": {",".join(map(str, p)): batched(st) for p, st in k7.items()}},
         row("diffusion_tail", "diffusion_tail.cu",
             "mars5_tts_tpu/ops/pallas/diffusion_tail.py:41", k5[-1],
             launches=path_launches["diffusion_tail"]),
@@ -723,15 +1014,18 @@ def main():
 def serve_paths(models, dev):
     """Phase 4: every path's requests (the bf16 NAR leaves ``models`` once it
     is quantized). Returns (records, the launches of the production requests
-    (fused4 AR + int8 NAR) by kernel, the launches of K8, K5 and K9 on the
-    requests of their own paths, the int8 NAR)."""
+    (fused4 AR + int8 NAR) by kernel, the launches of K8, K5, K9 and K7 on
+    the requests of their own paths (K7: the bf16 ``tts_batch``), the int8
+    NAR)."""
     import torch
 
     import mars5_tts_torch.pipeline as pipeline
     from mars5_tts_torch import Mars5TTS
-    pipeline.ar_generate = record_ar(pipeline.ar_generate)
-    pipeline.ar_generate_fused = record_ar(pipeline.ar_generate_fused)
+    for name in ("ar_generate", "ar_generate_fused", "ar_generate_batched",
+                 "ar_generate_fused_batched"):
+        setattr(pipeline, name, record_ar(getattr(pipeline, name)))
     ar, nar = models["ar"], models.pop("nar")
+    ar_layers = ar.cfg.n_layers
     common = {k: models[k] for k in ("texttok", "speechtok", "encodec", "vocos")}
     layers = nar.cfg.dec_layers
     k1_only = {"mha": (layers * STEPS, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
@@ -746,11 +1040,15 @@ def serve_paths(models, dev):
     mega = {**int8, "mha": (0, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
             "mega_decoder_stack": (STEPS, STEPS)}
     split = {**int8, "heads_diffusion_tail": (0, 0), "diffusion_tail": (STEPS, STEPS)}
-    bf16_ar = {"fused_decode_layers": (0, 0), "head4_logits": (0, 0)}
-    fused_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": (0, 0)}
-    head4_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": lambda n: (n, n)}
+    # K7 once a layer a decode step on the bf16 AR, never on the quantized one
+    bf16_ar = {"fused_decode_layers": (0, 0), "head4_logits": (0, 0),
+               "decode_attention": lambda n: (ar_layers * n, ar_layers * n)}
+    fused_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": (0, 0),
+                "decode_attention": (0, 0)}
+    head4_ar = {**fused_ar, "head4_logits": lambda n: (n, n)}
     first = ("The quick brown fox jumps over the lazy dog.", "A reference voice.", 11)
     second_req = ("Hello from the port of the speech model.", "Another sample here.", 12)
+    batch_texts = (first[0], second_req[0], "A third line, read in the first voice.")
     torch.cuda.reset_peak_memory_stats(dev)
     records = [serve(Mars5TTS.from_params(ar, nar, **common), "bf16 AR + bf16 NAR", *first,
                      {**k1_only, **bf16_ar})]
@@ -770,6 +1068,12 @@ def serve_paths(models, dev):
         records.append(serve(prod, label, *req, {**int8, **fused_ar}))
         for k, v in records[-1]["launches"].items():
             main_launches[k] = main_launches.get(k, 0) + v
+    # the batched path on the same pipeline: the pack is shared, dims for 3 rows
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch_records = [serve_batch(
+        prod, "tts_batch x3, two voices (7 s, 5 s, 7 s): fused4 AR + int8 NAR", batch_texts,
+        [first[1], second_req[1], first[1]], [REF_SECONDS, 5.0, REF_SECONDS], 13,
+        {**int8, **fused_ar})]
     del prod
     for label, kw, want_ar in (("fused AR + int8 NAR", dict(ar_backend="fused"), fused_ar),
                                ("fused4 AR head4 + int8 NAR",
@@ -801,12 +1105,21 @@ def serve_paths(models, dev):
         print(f"{label}: NAR {nar_ms[0]:.2f} ms a step against {nar_ms[1]:.2f} for the default "
               f"int8 route in this call; stages {json.dumps(rec['stages_s'])} against "
               f"{json.dumps(default['stages_s'])}", flush=True)
-    print(json.dumps({"requests": records}), flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tts = Mars5TTS.from_params(ar, nar8, nar_backend="int8", **common)
+    batch_records.append(serve_batch(
+        tts, "tts_batch x2, one voice (7 s): bf16 AR + int8 NAR", batch_texts[:2], first[1],
+        REF_SECONDS, 14, {**int8, **bf16_ar}))
+    del tts
+    path_launches["decode_attention"] = batch_records[-1]["launches"]["decode_attention"]
+    print(json.dumps({"requests": records + batch_records}), flush=True)
     bf16_ms = records[1]["ar_ms_per_token"]
     print("AR stage ms/token (same call, incl. prefill): " + ", ".join(
         f"{r['path']}: {r['ar_ms_per_token']:.2f}" for r in records)
-        + f"; fused4 / bf16 AR = {records[3]['ar_ms_per_token'] / bf16_ms:.3f}", flush=True)
-    return records, main_launches, path_launches, nar8
+        + f"; fused4 / bf16 AR = {records[3]['ar_ms_per_token'] / bf16_ms:.3f}; tts_batch AR "
+        "ms a batched step: " + ", ".join(
+            f"{r['path']}: {r['ar_ms_per_step']:.2f}" for r in batch_records), flush=True)
+    return records + batch_records, main_launches, path_launches, nar8
 
 
 if __name__ == "__main__":

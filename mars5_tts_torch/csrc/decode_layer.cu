@@ -1,16 +1,17 @@
 // Quantized AR decode step for Hopper (sm_90a): kernel K2 fused_decode_layers.
 //
 // Replaces the TPU kernel mars5_tts_tpu/ops/pallas/decode_layer.py::
-// _make_kernel (entry fused_decode_layers) at batch 1: one generated token
-// through every layer of the AR backbone, W8A8 (wbits 8) or W4A8 (wbits 4,
-// nibble-packed), ring attention over an int8 KV cache.
+// _make_kernel (entry fused_decode_layers): one generated token of each of
+// B = 1..8 rows through every layer of the AR backbone, W8A8 (wbits 8) or
+// W4A8 (wbits 4, nibble-packed), ring attention over an int8 KV cache, each
+// row at its own position.
 //
 // The TPU kernel was one program that double-buffered weight chunks through
 // VMEM. Here one C entry, mars5_fused_decode, issues a fixed sequence of
-// small kernels on the caller's stream: a copy of the embedded row into h,
+// small kernels on the caller's stream: a copy of the embedded rows into h,
 // then per layer
 //   1. gemv<RMS>   h -> RMSNorm -> int8 -> wqkv                 -> q|k|v (f32)
-//   2. attention   one block per head: RoPE on q and the new k, per-head q
+//   2. attention   one block per (head, row): RoPE on q and the new k, per-head q
 //                  quant, int8 scores over the valid ring slots, the self
 //                  column, p * vs quant, the int8 PV product
 //   3. gemv<VEC>   attn -> int8 -> wo, h += result
@@ -18,16 +19,19 @@
 //   5. gemv<SILU>  silu(w1x) * w3x -> int8 -> w2 (both halves summed in int32),
 //                  h += result
 // Each GEMV launches two blocks an SM; every block computes the prologue (the
-// whole-row RMS and amax) from device memory itself instead of taking it
-// from an extra launch (the row is 6-14 KB and sits in L2), with its first
-// weight rows already loading, then walks its rows.
+// whole-row RMS and amax of each of the B rows) from device memory itself
+// instead of taking it from an extra launch (a row is 6-14 KB and sits in
+// L2), with its first weight rows already loading, then walks its weight
+// rows, each loaded into registers once and dotted with all B activation
+// rows: the weight stream does not grow with B.
 //
-// What bounds it: the weight stream (675 MB a token at W8, 337 MB at W4 at
-// the released widths) plus the int8 K/V of the valid slots; the GEMVs are
+// What bounds it: the weight stream (675 MB a step at W8, 337 MB at W4 at
+// the released widths, for any B) plus the int8 K/V of each row's valid
+// slots; the GEMVs are
 // far below the tensor cores' break-even, so they use __dp4a on CUDA cores,
 // one warp per output row with 16-byte streaming loads. Attention reads only
 // the valid slots (the slot-validity mask would zero the rest) and skips the
-// V rows whose quantized probability is 0. 1 + 5 x n_layers launches a token;
+// V rows whose quantized probability is 0. 1 + 5 x n_layers launches a step;
 // a persistent kernel, CUDA graphs, wgmma and TMA are later work.
 //
 // Numerics, those of fused_step_emulation: xs = max(amax, 1e-8) / 127, q =
@@ -60,58 +64,64 @@ constexpr int kRowsPerBlock = kWarps;  // rows a block takes per pass, one a war
 constexpr int kHeadDim = 64;
 constexpr int kAttnThreads = 512;
 constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kMaxBatch = 8;
 
 enum Prologue { kRms = 0, kVec = 1, kSilu = 2 };
 
 struct GemvArgs {
   const int8_t* w;     // (N, K) int8, or (N, K/2) packed int4
   const float* s;      // W8 and single-scale W4: (N,); split W4: (2, N)
-  const float* src;    // kRms: h (K); kVec: attn (K); kSilu: w1x | w3x (2K)
+  const float* src;    // B rows of kRms: h (K); kVec: attn (K); kSilu: w1x | w3x (2K)
   const float* norm;   // kRms: RMSNorm weight (K)
-  float* out;          // (N): stored, or added to when resid
-  int N, K;
+  float* out;          // (B, N): stored, or added to when resid
+  int N, K, B;
   float eps;
   int resid;
 };
 
-// The activation row every block quantizes into shared memory: x8 (K bytes)
-// and its scale. `act` (K floats) keeps the f32 values between the passes.
+// The B activation rows every block quantizes into shared memory: x8 (B x K
+// bytes) and their scales xs (B). `act` (K floats) keeps one row's f32
+// values between the passes.
 template <int kPro>
-__device__ void prologue(const GemvArgs& p, float* act, int8_t* x8, float* xs_out,
+__device__ void prologue(const GemvArgs& p, float* act, int8_t* x8, float* xs,
                          float* red, double* dred) {
   const int tid = threadIdx.x, K = p.K;
-  float amax = 0.f;
-  if (kPro == kRms) {  // r = 1 / sqrt(sum(x * x) / K + eps)
-    double ss = 0.0;
-    for (int c = tid; c < K; c += kThreads) {
-      const float v = p.src[c];
-      ss += (double)__fmul_rn(v, v);
+  for (int b = 0; b < p.B; ++b) {
+    const float* src = p.src + (long long)b * (kPro == kSilu ? 2 * K : K);
+    float amax = 0.f;
+    if (kPro == kRms) {  // r = 1 / sqrt(sum(x * x) / K + eps)
+      double ss = 0.0;
+      for (int c = tid; c < K; c += kThreads) {
+        const float v = src[c];
+        ss += (double)__fmul_rn(v, v);
+      }
+      const float mean = __fdiv_rn(block_sum<kWarps>(ss, dred), (float)K);
+      const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(mean, p.eps)));
+      for (int c = tid; c < K; c += kThreads) {
+        const float a = __fmul_rn(__fmul_rn(src[c], r), p.norm[c]);
+        act[c] = a;
+        amax = fmaxf(amax, fabsf(a));
+      }
+    } else if (kPro == kVec) {
+      for (int c = tid; c < K; c += kThreads) {
+        const float a = src[c];
+        act[c] = a;
+        amax = fmaxf(amax, fabsf(a));
+      }
+    } else {  // silu(a) * b, silu(a) = a * (1 / (1 + exp(-a)))
+      for (int c = tid; c < K; c += kThreads) {
+        const float a = src[c], g = src[K + c];
+        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
+        const float u = __fmul_rn(__fmul_rn(a, sig), g);
+        act[c] = u;
+        amax = fmaxf(amax, fabsf(u));
+      }
     }
-    const float mean = __fdiv_rn(block_sum<kWarps>(ss, dred), (float)K);
-    const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(mean, p.eps)));
-    for (int c = tid; c < K; c += kThreads) {
-      const float a = __fmul_rn(__fmul_rn(p.src[c], r), p.norm[c]);
-      act[c] = a;
-      amax = fmaxf(amax, fabsf(a));
-    }
-  } else if (kPro == kVec) {
-    for (int c = tid; c < K; c += kThreads) {
-      const float a = p.src[c];
-      act[c] = a;
-      amax = fmaxf(amax, fabsf(a));
-    }
-  } else {  // silu(a) * b, silu(a) = a * (1 / (1 + exp(-a)))
-    for (int c = tid; c < K; c += kThreads) {
-      const float a = p.src[c], b = p.src[K + c];
-      const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-a)));
-      const float u = __fmul_rn(__fmul_rn(a, sig), b);
-      act[c] = u;
-      amax = fmaxf(amax, fabsf(u));
-    }
+    const float scale = row_scale(block_max<kWarps>(amax, red));
+    int8_t* xb = x8 + (long long)b * K;
+    for (int c = tid; c < K; c += kThreads) xb[c] = (int8_t)quant127(act[c], scale);
+    if (tid == 0) xs[b] = scale;
   }
-  const float xs = row_scale(block_max<kWarps>(amax, red));
-  for (int c = tid; c < K; c += kThreads) x8[c] = (int8_t)quant127(act[c], xs);
-  if (tid == 0) *xs_out = xs;
   __syncthreads();
 }
 
@@ -125,7 +135,7 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_kernel(GemvArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kWarps];
   __shared__ double dred[kWarps];
-  __shared__ float xs_sh;
+  __shared__ float xs[kMaxBatch];
   float* act = reinterpret_cast<float*>(smem);
   int8_t* x8 = reinterpret_cast<int8_t*>(act + p.K);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -136,46 +146,49 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_kernel(GemvArgs p) {
   int row = blockIdx.x * kWarps + warp;
   RowRegs cur;
   if (row < p.N) load_row(cur, p.w + (long long)row * row_bytes, n_chunks, lane);
-  prologue<kPro>(p, act, x8, &xs_sh, red, dred);
-  const float xs = xs_sh;
+  prologue<kPro>(p, act, x8, xs, red, dred);
 
   for (; row < p.N; row += stride) {
     RowRegs next;
     if (row + stride < p.N)
       load_row(next, p.w + (long long)(row + stride) * row_bytes, n_chunks, lane);
-    float v;
-    if (kW4) {
-      int ya = 0, yb = 0;
-      dot_s4(cur, x8, row_bytes, n_chunks, lane, ya, yb);
-      if (kSplit) {
-        ya = warp_isum(ya);
-        yb = warp_isum(yb);
-        v = __fmul_rn(__fadd_rn(__fmul_rn((float)ya, p.s[row]),
-                                __fmul_rn((float)yb, p.s[p.N + row])), xs);
+    for (int b = 0; b < p.B; ++b) {  // the row in registers, dotted with every activation row
+      const int8_t* xb = x8 + (long long)b * p.K;
+      float v;
+      if (kW4) {
+        int ya = 0, yb = 0;
+        dot_s4(cur, xb, row_bytes, n_chunks, lane, ya, yb);
+        if (kSplit) {
+          ya = warp_isum(ya);
+          yb = warp_isum(yb);
+          v = __fmul_rn(__fadd_rn(__fmul_rn((float)ya, p.s[row]),
+                                  __fmul_rn((float)yb, p.s[p.N + row])), xs[b]);
+        } else {
+          v = __fmul_rn(__fmul_rn((float)warp_isum(ya + yb), xs[b]), p.s[row]);
+        }
       } else {
-        v = __fmul_rn(__fmul_rn((float)warp_isum(ya + yb), xs), p.s[row]);
+        v = __fmul_rn(__fmul_rn((float)warp_isum(dot_s8(cur, xb, n_chunks, lane)), xs[b]),
+                      p.s[row]);
       }
-    } else {
-      v = __fmul_rn(__fmul_rn((float)warp_isum(dot_s8(cur, x8, n_chunks, lane)), xs),
-                    p.s[row]);
+      float* o = p.out + (long long)b * p.N + row;
+      if (lane == 0) *o = p.resid ? __fadd_rn(*o, v) : v;
     }
-    if (lane == 0) p.out[row] = p.resid ? __fadd_rn(p.out[row], v) : v;
     cur = next;
   }
 }
 
 struct AttnArgs {
-  const float* qkv;               // (3d) q | k | v before RoPE
-  const float* cos;               // (32)
-  const float* sin;               // (32)
-  const int8_t* ck;               // (w_pad, d) this layer
+  const float* qkv;               // (B, 3d) q | k | v before RoPE
+  const float* cos;               // (B, 32)
+  const float* sin;               // (B, 32)
+  const int* pos;                 // (B,)
+  const int8_t* ck;               // (B, w_pad, d) this layer
   const int8_t* cv;
-  const float* ks;                // (w_pad) per-position scales
-  const float* vs;
-  float* k_new;                   // (d) this layer
+  const float* kv_scales;         // (B, 2, w_pad) this layer: K scales, V scales
+  float* k_new;                   // (B, d) this layer
   float* v_new;
-  float* attn;                    // (d)
-  int d, window, pos;
+  float* attn;                    // (B, d)
+  int d, window, w_pad;
 };
 
 // rope of column c (0..63) of one head: x * cos + (+-pair) * sin
@@ -185,11 +198,12 @@ __device__ __forceinline__ float rope64(const float* x, int c, const float* cos,
   return __fadd_rn(__fmul_rn(x[c], cos[i]), __fmul_rn(pr, sin[i]));
 }
 
-// One block per head (kAttnThreads threads); dynamic shared memory: scores
-// (n floats) then pv8 (n bytes). The slot loops load two slots a thread
-// before using either, and the PV product gives each group of 4 lanes one
-// slot's 64-byte V row (16 columns a lane), so many loads are in flight.
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
+// One block per (head, row) (kAttnThreads threads, grid (n_heads, B));
+// dynamic shared memory: scores (n floats) then pv8 (n bytes). The slot
+// loops load two slots a thread before using either, and the PV product
+// gives each group of 4 lanes one slot's 64-byte V row (16 columns a lane),
+// so many loads are in flight.
+__global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float qf[kHeadDim], kf[kHeadDim], vf[kHeadDim];
   __shared__ __align__(16) int8_t q8[kHeadDim];
@@ -198,8 +212,18 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
   __shared__ float bc[2];
   __shared__ int pv_acc[kAttnWarps][kHeadDim];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int base = blockIdx.x * kHeadDim, d = p.d;
-  const int n = min(p.pos + 1, p.window), cur = p.pos % p.window;
+  const int base = blockIdx.x * kHeadDim, d = a.d, b = blockIdx.y;
+  struct {  // row b's view
+    const float *qkv, *cos, *sin;
+    const int8_t *ck, *cv;
+    const float *ks, *vs;
+    float *k_new, *v_new, *attn;
+  } p = {a.qkv + (long long)b * 3 * d, a.cos + b * 32, a.sin + b * 32,
+         a.ck + (long long)b * a.w_pad * d, a.cv + (long long)b * a.w_pad * d,
+         a.kv_scales + (long long)b * 2 * a.w_pad, a.kv_scales + (long long)(2 * b + 1) * a.w_pad,
+         a.k_new + (long long)b * d, a.v_new + (long long)b * d, a.attn + (long long)b * d};
+  const int pos = a.pos[b];
+  const int n = min(pos + 1, a.window), cur = pos % a.window;
   const float scale = 1.f / sqrtf((float)kHeadDim);
   float* sc = reinterpret_cast<float*>(smem);
   int8_t* pv8 = reinterpret_cast<int8_t*>(sc + n);
@@ -329,8 +353,8 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
   }
 }
 
-__global__ void load_x_kernel(const __nv_bfloat16* x, float* h, int d) {
-  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < d; c += gridDim.x * blockDim.x)
+__global__ void load_x_kernel(const __nv_bfloat16* x, float* h, int n) {
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < n; c += gridDim.x * blockDim.x)
     h[c] = __bfloat162float(x[c]);
 }
 
@@ -349,7 +373,7 @@ int sm_count() {
 // once per block and every SM streams its share of the rows.
 template <int kPro, bool kW4, bool kSplit>
 cudaError_t gemv(const GemvArgs& p, cudaStream_t st) {
-  const size_t smem = (size_t)p.K * 5;  // act floats + x8 bytes
+  const size_t smem = (size_t)p.K * (4 + p.B);  // act floats + B rows of x8 bytes
   const int blocks = min((p.N + kRowsPerBlock - 1) / kRowsPerBlock, 2 * sm_count());
   gemv_kernel<kPro, kW4, kSplit><<<blocks, kThreads, smem, st>>>(p);
   return cudaGetLastError();
@@ -363,64 +387,66 @@ cudaError_t gemv_w(int wbits, bool split, const GemvArgs& p, cudaStream_t st) {
 
 }  // namespace
 
-extern "C" int mars5_fused_decode(int wbits, int L, int d, int hidden, int n_heads, int window,
-                                  int w_pad, int pos, float eps, const void* x, const void* cos,
-                                  const void* sin, const void* wqkv, const void* sqkv,
-                                  const void* wo, const void* so, const void* w13,
-                                  const void* s13, const void* w2, const void* s2,
-                                  const void* attn_norms, const void* ffn_norms,
-                                  const void* cache_k, const void* cache_v, const void* kv_scales,
-                                  void* h, void* k_new, void* v_new, void* scratch,
-                                  void* stream) {
+extern "C" int mars5_fused_decode(int wbits, int B, int L, int d, int hidden, int n_heads,
+                                  int window, int w_pad, float eps, const void* x,
+                                  const void* pos, const void* cos, const void* sin,
+                                  const void* wqkv, const void* sqkv, const void* wo,
+                                  const void* so, const void* w13, const void* s13,
+                                  const void* w2, const void* s2, const void* attn_norms,
+                                  const void* ffn_norms, const void* cache_k,
+                                  const void* cache_v, const void* kv_scales, void* h,
+                                  void* k_new, void* v_new, void* scratch, void* stream) {
   const int div = wbits == 4 ? 2 : 1, g = wbits == 4 ? 2 : 1;
-  if ((wbits != 8 && wbits != 4) || L <= 0 || d != n_heads * kHeadDim || window <= 0 ||
-      w_pad < window || pos < 0 || (d / div) % 16 || (hidden / div) % 16 ||
-      d / div > 16 * 32 * kMaxChunks || hidden / div > 16 * 32 * kMaxChunks ||
-      (size_t)window * 5 > 40 * 1024)
+  if ((wbits != 8 && wbits != 4) || B < 1 || B > kMaxBatch || L <= 0 ||
+      d != n_heads * kHeadDim || window <= 0 || w_pad < window || (d / div) % 16 ||
+      (hidden / div) % 16 || d / div > 16 * 32 * kMaxChunks ||
+      hidden / div > 16 * 32 * kMaxChunks ||
+      (size_t)max(d, hidden) * (4 + B) > 48 * 1024 || (size_t)window * 5 > 40 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* hf = static_cast<float*>(h);
-  float* qkv = static_cast<float*>(scratch);
-  float* attn = qkv + 3 * d;
-  float* ab = attn + d;
+  float* qkv = static_cast<float*>(scratch);  // (B, 3d)
+  float* attn = qkv + (long long)B * 3 * d;   // (B, d)
+  float* ab = attn + (long long)B * d;        // (B, 2 hidden)
 
-  load_x_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), hf, d);
+  load_x_kernel<<<(B * d + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), hf, B * d);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const size_t attn_smem = (size_t)window * 5;
+  const long long ring = (long long)B * w_pad * d;  // one layer's K (or V) ring bytes
   for (int l = 0; l < L; ++l) {
     const float* an = static_cast<const float*>(attn_norms) + (long long)l * d;
     const float* fn = static_cast<const float*>(ffn_norms) + (long long)l * d;
     GemvArgs pq{static_cast<const int8_t*>(wqkv) + (long long)l * 3 * d * (d / div),
                 static_cast<const float*>(sqkv) + (long long)l * g * 3 * d, hf, an, qkv,
-                3 * d, d, eps, 0};
+                3 * d, d, B, eps, 0};
     if ((e = gemv_w<kRms>(wbits, true, pq, st)) != cudaSuccess) return (int)e;
 
     AttnArgs pa{qkv, static_cast<const float*>(cos), static_cast<const float*>(sin),
-                static_cast<const int8_t*>(cache_k) + (long long)l * w_pad * d,
-                static_cast<const int8_t*>(cache_v) + (long long)l * w_pad * d,
-                static_cast<const float*>(kv_scales) + (long long)l * 2 * w_pad,
-                static_cast<const float*>(kv_scales) + (long long)l * 2 * w_pad + w_pad,
-                static_cast<float*>(k_new) + (long long)l * d,
-                static_cast<float*>(v_new) + (long long)l * d, attn, d, window, pos};
-    attention_kernel<<<n_heads, kAttnThreads, attn_smem, st>>>(pa);
+                static_cast<const int*>(pos),
+                static_cast<const int8_t*>(cache_k) + l * ring,
+                static_cast<const int8_t*>(cache_v) + l * ring,
+                static_cast<const float*>(kv_scales) + (long long)l * B * 2 * w_pad,
+                static_cast<float*>(k_new) + (long long)l * B * d,
+                static_cast<float*>(v_new) + (long long)l * B * d, attn, d, window, w_pad};
+    attention_kernel<<<dim3(n_heads, B), kAttnThreads, attn_smem, st>>>(pa);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
     GemvArgs po{static_cast<const int8_t*>(wo) + (long long)l * d * (d / div),
                 static_cast<const float*>(so) + (long long)l * g * d, attn, nullptr, hf,
-                d, d, eps, 1};
+                d, d, B, eps, 1};
     if ((e = gemv_w<kVec>(wbits, true, po, st)) != cudaSuccess) return (int)e;
 
     GemvArgs pf{static_cast<const int8_t*>(w13) + (long long)l * 2 * hidden * (d / div),
                 static_cast<const float*>(s13) + (long long)l * g * 2 * hidden, hf, fn, ab,
-                2 * hidden, d, eps, 0};
+                2 * hidden, d, B, eps, 0};
     if ((e = gemv_w<kRms>(wbits, true, pf, st)) != cudaSuccess) return (int)e;
 
     GemvArgs p2{static_cast<const int8_t*>(w2) + (long long)l * d * (hidden / div),
                 static_cast<const float*>(s2) + (long long)l * d, ab, nullptr, hf,
-                d, hidden, eps, 1};
+                d, hidden, B, eps, 1};
     if ((e = gemv_w<kSilu>(wbits, false, p2, st)) != cudaSuccess) return (int)e;
   }
   return 0;

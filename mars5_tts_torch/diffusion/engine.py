@@ -1,5 +1,5 @@
 """NAR diffusion inference: RePaint inpainting over the 8-codebook grid
-(counterpart of ``mars5_tts_tpu/diffusion/engine.py``, static-offset path).
+(counterpart of ``mars5_tts_tpu/diffusion/engine.py``).
 
 Each reverse step predicts x0 logits for the generated frames (lanes 1..7),
 combines cond and uncond rows with classifier-free guidance (both run as one
@@ -8,6 +8,15 @@ known region (the deep-clone prompt frames and the AR-pinned L0 lane) is
 re-noised from ``x_known`` and taken verbatim at t = 0. Forward (re-noise)
 steps appear only when RePaint resampling is on. L0 is re-pinned to the AR
 codes while ``t > q0_override_steps``.
+
+Deep clone puts each row's prompt frames ahead of its generated frames.
+When every row has the same prompt length (the static-offset path) the
+model's heads, the posterior and the draws cover the generated frames only.
+Rows with different prompt lengths (the ragged path, several voices in one
+batch) are laid out ``[prompt_r; gen; pad]`` at their solo positions; the
+model and the known-region draws then cover the whole grid, composited with
+a ``position < prompt_r`` mask, and each row is cropped at its own offset,
+so a row's result is that of its solo run.
 
 Randomness is either an injected ``uniforms`` stream of shape
 ``(n_steps, 2, bs, L, 8, K)`` (index 0: unknown region, 1: known region;
@@ -31,8 +40,7 @@ The injected uniform path keeps the dense tail, as the JAX package does.
 ``mega``, the stack's ``build_mega_pack``, runs the W8A8 decoder stack
 through kernel K9 (JAX ``MARS5_NAR_MEGA=1``).
 
-Not ported: mixed prompt lengths in one batch, the guidance interval and
-geometry buckets.
+Not ported: the guidance interval and geometry buckets.
 """
 
 from __future__ import annotations
@@ -71,7 +79,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     c_codes_length (bs,), x (bs, Lx, 8) with L0 = AR codes,
     x_padding_mask (bs, Lx)), numpy arrays or tensors.
     Returns the (bs, Lx, 8) int64 grid on the model's device, deep-clone
-    prompt frames cropped. ``tail`` ("heads", "split" or "dense") picks a
+    prompt frames cropped (each row at its own prompt length). ``tail`` ("heads", "split" or "dense") picks a
     W8A8 model's tail on the generator path and ``mega`` (a ``MegaPack``)
     its decoder stack route, as in the module docstring.
     """
@@ -88,13 +96,15 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     if tuple(getattr(dsh, "guidance_interval", (0.0, 1.0))) != (0.0, 1.0):
         raise NotImplementedError("guidance_interval is not ported")
     offset = 0
+    offsets = None                  # (bs,) prompt lengths of a ragged batch
     if dsh.deep_clone:
-        lengths = set(ccl.tolist())
-        if len(lengths) != 1:
-            raise NotImplementedError("rows with different prompt lengths are not ported")
-        offset = lengths.pop()
-        if c_codes.shape[1] != offset:
-            raise ValueError("deep clone needs unpadded c_codes")
+        lengths = ccl.tolist()
+        if len(set(lengths)) > 1:
+            offsets = lengths
+        else:
+            offset = lengths[0]
+            if c_codes.shape[1] != offset:
+                raise ValueError("deep clone needs unpadded c_codes")
 
     use_key = uniforms is None
     if use_key and generator is None:
@@ -115,19 +125,35 @@ def perform_simple_inference(model: ResidualTransformer, batch,
         xpm = torch.cat([torch.zeros((bs, offset), dtype=torch.bool, device=dev), xpm],
                         dim=-1)
         x_quant0 = torch.cat([c_codes[..., 0], x_quant0], dim=-1)
+    elif offsets is not None:       # [prompt_r; gen; pad] per row
+        length = max(offsets) + lx
+        grids = [torch.zeros((bs, length, x.shape[2]), dtype=torch.long, device=dev)
+                 for _ in range(2)]
+        pad = torch.ones((bs, length), dtype=torch.bool, device=dev)
+        for r, lc in enumerate(offsets):
+            for g, src in zip(grids, (x_cur, x_known)):
+                g[r, :lc] = c_codes[r, :lc]
+                g[r, lc:lc + lx] = src[r]
+            pad[r, :lc] = False
+            pad[r, lc:lc + lx] = xpm[r]
+        x_cur, x_known = grids
+        xpm = pad
+        x_quant0 = x_cur[..., 0].clone()
     if not use_key:
         uniforms = torch.as_tensor(np.asarray(uniforms, np.float32), device=dev)
 
     t_lasts, is_reverse, cs = build_step_plan(T, dsh.jump_len, dsh.jump_n_sample)
     out = _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x_cur, x_known,
                       xpm, x_quant0, t_lasts, is_reverse, cs, uniforms, generator,
-                      offset, retain_quant0, tail, mega)
+                      offset, retain_quant0, tail, mega, offsets)
+    if offsets is not None:         # each row's generated frames at its own offset
+        return torch.stack([out[r, lc:lc + lx] for r, lc in enumerate(offsets)])
     return out[:, offset:offset + lx]
 
 
 def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                 x_quant0, t_lasts, is_reverse, cs, uniforms, generator, offset,
-                retain_quant0, tail, mega):
+                retain_quant0, tail, mega, offsets=None):
     dev = x.device
     bs, _, n_lanes = x.shape
     K = diff.num_classes
@@ -136,6 +162,9 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
     use_key = uniforms is None
     w = dsh.guidance_w
     cfg_batched = w != 1
+    if offsets is not None:         # the known region of a ragged batch, (bs, L, 1)
+        known_mask = (torch.arange(x.shape[1], device=dev)[None]
+                      < torch.as_tensor(offsets, device=dev)[:, None])[..., None]
 
     # loop invariants: the speaker vector once per CFG row, and the encoder
     # memory of every timestep in one batched forward (the encoder depends on
@@ -199,6 +228,15 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
             # t = 0 samples too
             unknown = log_sample_categorical(
                 log_pred, rand(*log_pred.shape) if use_key else uniforms[i, 0][:, offset:, 1:])
+        if offsets is not None:     # known draws over the whole grid, composited
+            if use_key:
+                known = diff.q_pred_indexed_sample(x_known, t, rand(*x.shape, 2))
+            else:
+                known = log_sample_categorical(diff.q_pred_indexed(x_known, t), uniforms[i, 1])
+            if t == 0:
+                known = x_known
+            rest = torch.where(known_mask, known[..., 1:], unknown)
+            return torch.cat([known[..., :1], rest], dim=2)
         if use_key:
             kp = diff.q_pred_indexed_sample(x_known[:, :offset], t,
                                             rand(bs, offset, n_lanes, 2))

@@ -57,12 +57,15 @@ class VocosConfig:
 
 def codes_to_features(codebook_weights, codes, bins: int = 1024):
     """(K, T) or (K, B, T) codes -> (B, C, T): the sum of codebook k's rows
-    ``[k * bins, (k + 1) * bins)``."""
+    ``[k * bins, (k + 1) * bins)``. A row index past the table (the pad code
+    1024 in the last codebook, which the diffusion may draw) is clamped to
+    the last row, as the JAX package's gather clamps it."""
     if codes.ndim == 2:
         codes = codes[:, None]
     k = codes.shape[0]
     offsets = (torch.arange(k, device=codes.device) * bins).reshape(k, 1, 1)
-    return codebook_weights[codes + offsets].sum(dim=0).transpose(1, 2)
+    idx = (codes + offsets).clamp(max=codebook_weights.shape[0] - 1)
+    return codebook_weights[idx].sum(dim=0).transpose(1, 2)
 
 
 def _norm(x, eps):

@@ -31,6 +31,7 @@ LIBRARIES = {
     "diffusion_tail": ("diffusion_tail.cu", "warp_mma.cuh"),
     "decode_layer": ("decode_layer.cu", "gemv_s8.cuh", "warp_mma.cuh"),
     "head4": ("head4.cu", "gemv_s8.cuh", "warp_mma.cuh"),
+    "decode_attention": ("decode_attention.cu", "warp_mma.cuh"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

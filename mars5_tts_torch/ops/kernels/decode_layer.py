@@ -3,8 +3,10 @@
 both read.
 
 Replaces the TPU kernel ``mars5_tts_tpu/ops/pallas/decode_layer.py::
-_make_kernel`` (entry ``fused_decode_layers``) at batch 1: one generated
-token through every layer of the AR backbone. Per layer: RMSNorm, per-token
+_make_kernel`` (entry ``fused_decode_layers``): one generated token of each
+of B = 1..8 rows through every layer of the AR backbone, each row at its own
+position (its own RoPE angles, ring validity and self column), the weight
+stream shared by the rows. Per layer: RMSNorm, per-token
 int8 activation quant, the W8A8 (``wbits=8``) or W4A8 (``wbits=4``,
 nibble-packed) q/k/v projections, the half-split RoPE on a flat row, ring
 attention over an int8 KV cache with per-position scales and an explicit
@@ -24,12 +26,13 @@ axis; the integer sums are exact, so pairing along the input axis gives the
 same result (``models/convert.fused_pack_from_jax`` converts its pack).
 
 What bounds K2 on an H100: the weight stream. At the released widths
-(26 x 1536, hidden 3584) the pack is 675 MB a token at W8 and 337 MB at W4,
-plus the int8 K/V of the positions so far (3 KB a position and layer). The
-products are GEMVs (one activation row), far below the tensor cores'
-break-even, so the kernel streams each weight row once with 16-byte loads,
-one warp per output row, and multiplies with ``__dp4a``. See the CUDA
-source for the launch sequence.
+(26 x 1536, hidden 3584) the pack is 675 MB a step at W8 and 337 MB at W4,
+whatever the number of rows, plus the int8 K/V of each row's positions so
+far (3 KB a position and layer). The products are GEMVs (B <= 8 activation
+rows), far below the tensor cores' break-even, so the kernel streams each
+weight row once with 16-byte loads, one warp per output row, and dots it
+with every activation row with ``__dp4a``. See the CUDA source for the
+launch sequence.
 
 Numerics, those of ``fused_step_emulation``: ``xs = max(amax, 1e-8) / 127``
 and ``q = rint(x / xs)`` clipped to +-127; the W8 rescale ``(acc * xs) *
@@ -45,6 +48,11 @@ exact. Against the JAX package, whose XLA sums run in f32 in its own order
 and whose ``cos``/``sin`` differ in the last ulp, one int8 rounding can move
 now and then (ROADMAP C).
 
+The rows are independent: row b of a batched step is the step of row b
+alone (the JAX ``fused_step_emulation_batched`` is per-row emulations).
+Caches are (L, B, W_pad, d) int8 with scales (L, B, 2, W_pad) (row 0 K, row
+1 V); a one-row step also takes the (L, W_pad, d) / (L, 2, W_pad) forms.
+
 ``fused_decode_layers`` takes the twin only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
 """
@@ -59,11 +67,14 @@ import torch
 
 from ..quant import div, int8_matmul, quantize_act, quantize_weight, quantize_weight_mse
 from ..rope import apply_rope_halfsplit, rope_angles
+from ...utils.device import ints_on_device
 from . import build
 
 SOURCES = build.LIBRARIES["decode_layer"]
 HEAD_DIM = 64          # the attention kernel's head width
 MAX_ROW_BYTES = 4096   # a weight row a warp holds in registers (16 B x 8 a lane)
+MAX_BATCH = 8          # activation rows a step takes
+GEMV_SMEM = 48 * 1024  # a GEMV block's shared memory: K f32 + B x K int8 + B scales
 
 # Launches of the CUDA kernel in this process (reset with reset_launch_count).
 launch_count = 0
@@ -85,14 +96,18 @@ class FusedDims:
     head_dim: int
     window: int      # ring slots: min(sliding_window, max_len + 1)
     wbits: int = 8   # 8 (int8 weights) or 4 (nibble-packed int4)
+    batch: int = 1   # rows the batched engine decodes a step (<= MAX_BATCH)
 
 
-def make_dims(cfg, max_len: int, wbits: int = 8) -> FusedDims:
-    """The geometry for ``cfg`` decoding up to ``max_len`` tokens. The pack
-    needs dim = n_heads * head_dim, a multiple of 128, and hidden / 2 a
-    multiple of 128 (the JAX pack's constraints)."""
+def make_dims(cfg, max_len: int, wbits: int = 8, batch: int = 1) -> FusedDims:
+    """The geometry for ``cfg`` decoding up to ``max_len`` tokens in
+    ``batch`` rows. The pack (batch-independent) needs dim = n_heads *
+    head_dim, a multiple of 128, and hidden / 2 a multiple of 128 (the JAX
+    pack's constraints)."""
     if wbits not in (4, 8):
         raise ValueError(f"wbits must be 8 or 4, got {wbits}")
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"the fused decode batch must be in [1, {MAX_BATCH}], got {batch}")
     if cfg.dim != cfg.n_heads * cfg.head_dim or cfg.n_kv_heads != cfg.n_heads:
         raise ValueError("the fused decode step needs dim = n_heads * head_dim "
                          "and n_kv_heads = n_heads")
@@ -101,7 +116,8 @@ def make_dims(cfg, max_len: int, wbits: int = 8) -> FusedDims:
                          f"got dim {cfg.dim}, hidden {cfg.hidden_dim}")
     return FusedDims(n_layers=cfg.n_layers, dim=cfg.dim, hidden=cfg.hidden_dim,
                      n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                     window=min(cfg.sliding_window, max_len + 1), wbits=wbits)
+                     window=min(cfg.sliding_window, max_len + 1), wbits=wbits,
+                     batch=batch)
 
 
 # ------------------------------------------------------------------ the pack
@@ -171,8 +187,28 @@ def quantize_kv_rows(x):
 def rope_flat(pos: int, dims: FusedDims, device):
     """(cos, sin), each (head_dim / 2,) f32, of position ``pos``: the angles of
     the JAX package's flat layout ``[cos | cos]`` per head, kept once."""
-    cos, sin = rope_angles(torch.tensor([pos], device=device), dims.head_dim)
+    cos, sin = rope_angles(torch.full((1,), pos, device=device), dims.head_dim)
     return cos[0], sin[0]
+
+
+def rope_rows(positions, dims: FusedDims, device):
+    """(cos, sin), each (B, head_dim / 2): ``rope_flat`` of each row."""
+    cs = [rope_flat(p, dims, device) for p in positions]
+    return torch.stack([c for c, _ in cs]), torch.stack([s for _, s in cs])
+
+
+def positions_of(pos, rows: int) -> list[int]:
+    """``pos`` (an int or ``rows`` ints) as a list of ``rows`` ints."""
+    p = [int(v) for v in torch.as_tensor(pos).reshape(-1).tolist()]
+    return p * rows if len(p) == 1 else p
+
+
+def as_batched(cache_k, cache_v, kv_scales):
+    """The (L, B, W_pad, d) / (L, B, 2, W_pad) forms of a cache, from the
+    one-row (L, W_pad, d) / (L, 2, W_pad) forms (views)."""
+    if cache_k.ndim == 3:
+        return cache_k[:, None], cache_v[:, None], kv_scales[:, None]
+    return cache_k, cache_v, kv_scales
 
 
 # --------------------------------------------------------------- plain twin
@@ -241,38 +277,43 @@ def _attention(q, k_new, v, ck, cv, ks, vs, valid, dims: FusedDims):
 
 
 @torch.no_grad()
-def fused_step_ref(fp, x, pos: int, cache_k, cache_v, kv_scales, *, dims: FusedDims,
+def fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, *, dims: FusedDims,
                    norm_eps: float = 1e-5):
-    """Plain version of K2 (the JAX package's ``fused_step_emulation`` at
-    batch 1, ``quantized=True``).
+    """Plain version of K2 (the JAX package's ``fused_step_emulation_batched``,
+    one ``fused_step_emulation`` with ``quantized=True`` a row).
 
-    x (1, d) embedded token (bf16); cache_k/cache_v (L, W_pad, d) int8 with
-    W_pad >= window (slots past the window are ignored); kv_scales
-    (L, 2, W_pad) f32 (row 0 K, row 1 V). Returns (h (1, d) f32 before the
-    final norm, k_new (L, 1, d) f32 roped, v_new (L, 1, d) f32)."""
+    x (B, d) embedded tokens (bf16); pos an int or B ints; cache_k/cache_v
+    (L, B, W_pad, d) int8 with W_pad >= window (slots past the window are
+    ignored); kv_scales (L, B, 2, W_pad) f32 (row 0 K, row 1 V); one row may
+    pass (L, W_pad, d) / (L, 2, W_pad). Returns (h (B, d) f32 before the
+    final norm, k_new (L, B, d) f32 roped, v_new (L, B, d) f32)."""
     w4 = dims.wbits == 4
-    cos, sin = rope_flat(pos, dims, x.device)
-    valid = _ring_valid(pos, dims.window, cache_k.shape[1], x.device)
-    h = x.float().reshape(1, dims.dim)
+    B, d = x.shape[0], dims.dim
+    cache_k, cache_v, kv_scales = as_batched(cache_k, cache_v, kv_scales)
+    positions = positions_of(pos, B)
+    cos, sin = rope_rows(positions, dims, x.device)
+    cos, sin = cos[:, None], sin[:, None]                       # (B, 1, Dh/2)
+    valid = [_ring_valid(p, dims.window, cache_k.shape[2], x.device) for p in positions]
+    h = x.float().reshape(B, d)
     k_news, v_news = [], []
-    d = dims.dim
+    heads = (B, dims.n_heads, dims.head_dim)
     for l in range(dims.n_layers):
         xq, xs = _rms_quant(h, fp["attn_norms"][l], norm_eps)
         qkv = _dot(xq, xs, fp["wqkv"][l], fp["sqkv"][l], w4)
-        heads = (1, dims.n_heads, dims.head_dim)
-        q = apply_rope_halfsplit(qkv[:, :d].reshape(heads), cos, sin).reshape(1, d)
-        k = apply_rope_halfsplit(qkv[:, d:2 * d].reshape(heads), cos, sin).reshape(1, d)
+        q = apply_rope_halfsplit(qkv[:, :d].reshape(heads), cos, sin).reshape(B, d)
+        k = apply_rope_halfsplit(qkv[:, d:2 * d].reshape(heads), cos, sin).reshape(B, d)
         v = qkv[:, 2 * d:]
         k_news.append(k)
         v_news.append(v)
-        attn = _attention(q, k, v, cache_k[l], cache_v[l], kv_scales[l, 0], kv_scales[l, 1],
-                          valid, dims)
+        attn = torch.cat([_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], cache_k[l, b],
+                                     cache_v[l, b], kv_scales[l, b, 0], kv_scales[l, b, 1],
+                                     valid[b], dims) for b in range(B)])
         aq, as_ = quantize_act(attn)
         h = h + _dot(aq, as_, fp["wo"][l], fp["so"][l], w4)
         xq, xs = _rms_quant(h, fp["ffn_norms"][l], norm_eps)
         ab = _dot(xq, xs, fp["w13"][l], fp["s13"][l], w4)
-        a, b = ab[:, :dims.hidden], ab[:, dims.hidden:]
-        uq, us = quantize_act(a * (1.0 / (1.0 + torch.exp(-a))) * b)
+        a, b_ = ab[:, :dims.hidden], ab[:, dims.hidden:]
+        uq, us = quantize_act(a * (1.0 / (1.0 + torch.exp(-a))) * b_)
         h = h + _int_sum_w2(uq, fp["w2"][l], w4).float() * us * fp["s2"][l]
     return h, torch.stack(k_news), torch.stack(v_news)
 
@@ -284,10 +325,10 @@ def _lib():
     fn = lib.mars5_fused_decode
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        # wbits, L, d, hidden, n_heads, window, w_pad, pos, eps, x, cos, sin,
+        # wbits, B, L, d, hidden, n_heads, window, w_pad, eps, x, pos, cos, sin,
         # wqkv, sqkv, wo, so, w13, s13, w2, s2, attn_norms, ffn_norms,
         # cache_k, cache_v, kv_scales, h, k_new, v_new, scratch, stream
-        fn.argtypes = [i] * 8 + [ctypes.c_float] + [vp] * 21
+        fn.argtypes = [i] * 8 + [ctypes.c_float] + [vp] * 22
         fn.restype = ctypes.c_int
     return fn
 
@@ -318,44 +359,55 @@ def check_pack(fp, dims: FusedDims) -> None:
         _need(fp[name], dtype, shape, name)
 
 
-def fused_decode_layers(fp, x, pos: int, cache_k, cache_v, kv_scales, *,
+def fused_decode_layers(fp, x, pos, cache_k, cache_v, kv_scales, *,
                         dims: FusedDims, norm_eps: float = 1e-5):
-    """K2: one decode token through every layer -> (h (1, d) f32, k_new
-    (L, 1, d) f32, v_new (L, 1, d) f32); arguments as ``fused_step_ref``.
+    """K2: one decode token of each of B rows through every layer -> (h (B, d)
+    f32, k_new (L, B, d) f32, v_new (L, B, d) f32); arguments as
+    ``fused_step_ref``.
 
     CPU tensors take ``fused_step_ref``. CUDA tensors launch the kernel and
-    raise on what it does not take: x bf16 (1, d), head_dim 64, weight rows
-    of at most 4096 bytes, a pack as ``build_fused_pack`` makes it."""
+    raise on what it does not take: x bf16 (B, d) with 1 <= B <= 8,
+    positions >= 0, head_dim 64, weight rows of at most 4096 bytes, a pack as
+    ``build_fused_pack`` makes it."""
     if x.device.type == "cpu":
         return fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, dims=dims,
                               norm_eps=norm_eps)
     L, d, f = dims.n_layers, dims.dim, dims.hidden
+    B = x.shape[0]
     if dims.head_dim != HEAD_DIM:
         raise ValueError(f"fused_decode_layers kernel takes head_dim {HEAD_DIM}, "
                          f"got {dims.head_dim}")
     if max(d, f) // (2 if dims.wbits == 4 else 1) > MAX_ROW_BYTES:
         raise ValueError(f"fused_decode_layers kernel takes weight rows of at most "
                          f"{MAX_ROW_BYTES} bytes")
-    if not 0 <= pos:
-        raise ValueError(f"fused_decode_layers: negative position {pos}")
-    w_pad = cache_k.shape[1]
+    if not 1 <= B <= MAX_BATCH or max(d, f) * (4 + B) + 4 * B > GEMV_SMEM:
+        raise ValueError(f"fused_decode_layers kernel takes 1..{MAX_BATCH} rows with "
+                         f"max(d, hidden) x (4 + rows) + 4 x rows <= {GEMV_SMEM} bytes, "
+                         f"got {B} rows")
+    positions = positions_of(pos, B)
+    if len(positions) != B or min(positions) < 0:
+        raise ValueError(f"fused_decode_layers: need {B} positions >= 0, got {positions}")
+    cache_k, cache_v, kv_scales = as_batched(cache_k, cache_v, kv_scales)
+    w_pad = cache_k.shape[2]
     if w_pad < dims.window:
         raise ValueError(f"fused_decode_layers: cache of {w_pad} slots < window {dims.window}")
-    _need(x, torch.bfloat16, (1, d), "x")
-    _need(cache_k, torch.int8, (L, w_pad, d), "cache_k")
-    _need(cache_v, torch.int8, (L, w_pad, d), "cache_v")
-    _need(kv_scales, torch.float32, (L, 2, w_pad), "kv_scales")
+    _need(x, torch.bfloat16, (B, d), "x")
+    _need(cache_k, torch.int8, (L, B, w_pad, d), "cache_k")
+    _need(cache_v, torch.int8, (L, B, w_pad, d), "cache_v")
+    _need(kv_scales, torch.float32, (L, B, 2, w_pad), "kv_scales")
     check_pack(fp, dims)
-    cos, sin = rope_flat(pos, dims, x.device)
-    h = torch.empty((1, d), dtype=torch.float32, device=x.device)
-    k_new = torch.empty((L, 1, d), dtype=torch.float32, device=x.device)
+    cos, sin = rope_rows(positions, dims, x.device)
+    cos, sin = cos.contiguous(), sin.contiguous()
+    pos_t = ints_on_device(positions, x.device, torch.int32)
+    h = torch.empty((B, d), dtype=torch.float32, device=x.device)
+    k_new = torch.empty((L, B, d), dtype=torch.float32, device=x.device)
     v_new = torch.empty_like(k_new)
-    scratch = torch.empty(4 * d + 2 * f, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(B * (4 * d + 2 * f), dtype=torch.float32, device=x.device)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(dims.wbits, L, d, f, dims.n_heads, dims.window, w_pad, pos, norm_eps,
-                 x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        err = fn(dims.wbits, B, L, d, f, dims.n_heads, dims.window, w_pad, norm_eps,
+                 x.data_ptr(), pos_t.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                  *(fp[k].data_ptr() for k in ("wqkv", "sqkv", "wo", "so", "w13", "s13",
                                               "w2", "s2", "attn_norms", "ffn_norms")),
                  cache_k.data_ptr(), cache_v.data_ptr(), kv_scales.data_ptr(),

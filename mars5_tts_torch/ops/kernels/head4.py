@@ -9,9 +9,10 @@ nibble column c + K/2, one int4 scale per output row and half (chosen by the
 int4 clip search), per-row int8 activations. ``Mars5TTS(ar_backend="fused4",
 head4=True)`` serves through it.
 
-What bounds it on an H100: the weight stream, 18.4 MB a token at 24,000 x
-1536, for one activation row; one warp per vocabulary row streams its packed
-row once and multiplies with ``__dp4a``.
+What bounds it on an H100: the weight stream, 18.4 MB a step at 24,000 x
+1536, for up to 8 activation rows (the batched engine's rows share it); one
+warp per vocabulary row streams its packed row once and dots it with every
+row with ``__dp4a``.
 
 ``head4_logits`` takes the twin only for CPU tensors. For CUDA tensors it
 launches the kernel or raises; nothing falls back.
@@ -25,7 +26,7 @@ import torch
 
 from ..quant import int8_matmul, quantize_act, quantize_weight_mse
 from . import build
-from .decode_layer import MAX_ROW_BYTES, pack4, unpack4
+from .decode_layer import MAX_BATCH, MAX_ROW_BYTES, pack4, unpack4
 
 SOURCES = build.LIBRARIES["head4"]
 
@@ -66,27 +67,28 @@ def _lib():
     fn = lib.mars5_head4_logits
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp]   # x8, xs, wp, ws, out, V, K, ws_stride, stream
+        # x8, xs, wp, ws, out, B, V, K, ws_stride, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def head4_logits(x, wp, ws, *, n_vocab: int):
-    """K8: (1, K) activations -> (1, n_vocab) f32 through the int4 head
+    """K8: (B, K) activations -> (B, n_vocab) f32 through the int4 head
     (``pack_head4`` output; more rows than n_vocab are allowed and dropped).
 
     CPU tensors take ``head4_logits_ref``. CUDA tensors launch the kernel:
-    one activation row, K a multiple of 32 and at most 8192, int8 wp
+    1 to 8 activation rows, K a multiple of 32 and at most 8192, int8 wp
     (V, K/2) and f32 ws (2, V), all contiguous; anything else raises."""
     if x.device.type == "cpu":
         return head4_logits_ref(x, wp, ws, n_vocab=n_vocab)
     V, kh = wp.shape
-    K = x.shape[-1]
-    if x.ndim != 2 or x.shape[0] != 1 or not x.is_cuda:
-        raise ValueError(f"head4_logits kernel takes one CUDA row (1, K), got "
+    B, K = x.shape[0], x.shape[-1]
+    if x.ndim != 2 or not 1 <= B <= MAX_BATCH or not x.is_cuda:
+        raise ValueError(f"head4_logits kernel takes 1..{MAX_BATCH} CUDA rows (B, K), got "
                          f"{tuple(x.shape)} on {x.device}")
     if K % 32 or kh != K // 2 or kh > MAX_ROW_BYTES or n_vocab > V:
-        raise ValueError(f"head4_logits kernel: x (1, {K}) needs K a multiple of 32, "
+        raise ValueError(f"head4_logits kernel: x ({B}, {K}) needs K a multiple of 32, "
                          f"K/2 <= {MAX_ROW_BYTES} and wp (>= n_vocab, K/2); got wp "
                          f"{tuple(wp.shape)}")
     if (wp.dtype != torch.int8 or ws.dtype != torch.float32 or ws.shape != (2, V)
@@ -97,11 +99,11 @@ def head4_logits(x, wp, ws, *, n_vocab: int):
     x8, xs = quantize_act(x)
     x8 = x8.contiguous()
     xs = xs.contiguous()
-    out = torch.empty((1, V), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, V), dtype=torch.float32, device=x.device)
     fn = _lib()
     with torch.cuda.device(x.device):
         err = fn(x8.data_ptr(), xs.data_ptr(), wp.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                 V, K, V, torch.cuda.current_stream().cuda_stream)
+                 B, V, K, V, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"head4 kernel launch failed: cudaError {err}")
     global launch_count

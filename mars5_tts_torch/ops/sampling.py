@@ -6,6 +6,7 @@ for the diffusion. Given the same uniforms, both packages pick the same ids.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
@@ -26,16 +27,21 @@ def freq_presence_penalty(logits, counts, alpha_frequency: float,
     return logits - c * alpha_frequency - (c > 0).to(logits.dtype) * alpha_presence
 
 
-def early_eos_penalty(logits, n_generated: int, estimated_gen_length: int,
-                      decay: float, factor: float, eos_index: int):
-    """Subtract ``factor * max(est - n, 1)**decay`` (f32) from the EOS logit
-    while ``n_generated <= estimated_gen_length``."""
-    if n_generated > estimated_gen_length:
+def early_eos_penalty(logits, n_generated, estimated_gen_length, decay: float,
+                      factor: float, eos_index: int):
+    """Subtract ``factor * max(est - n, 1)**decay`` (f32) from each row's EOS
+    logit while its ``n_generated <= estimated_gen_length``; ``n_generated``
+    and ``estimated_gen_length`` are ints or (B,) host arrays."""
+    n = np.broadcast_to(np.asarray(n_generated, np.int64), logits.shape[:1])
+    est = np.broadcast_to(np.asarray(estimated_gen_length, np.int64), logits.shape[:1])
+    apply = n <= est
+    if not apply.any():
         return logits
-    pen = torch.tensor(max(estimated_gen_length - n_generated, 1), dtype=torch.float32)
-    modifier = (factor * pen ** decay).to(logits.device, logits.dtype)
+    pen = torch.as_tensor(np.maximum(est - n, 1), dtype=torch.float32)
+    modifier = (factor * pen ** decay).to(logits.dtype)
     logits = logits.clone()
-    logits[:, eos_index] -= modifier
+    for i in np.flatnonzero(apply):     # a host scalar a row: no host-to-device copy
+        logits[int(i), eos_index] -= modifier[i].item()
     return logits
 
 

@@ -4,6 +4,11 @@
 tokenize -> Encodec-encode the reference -> speech-BPE its L0 codes -> deep or
 shallow prompt -> AR decode -> parse -> NAR diffusion -> Vocos -> silence
 trim, step for step as the JAX package (and the reference) does it.
+``tts_batch`` runs several texts at once, with one shared voice or one voice
+a text: one Encodec encode per distinct reference, one batched AR decode
+(per-row prompts, speaker codes, cursors and EOS estimates), one NAR
+diffusion over the padded rows (rows with different reference lengths take
+the engine's ragged branch), batched Vocos.
 
 AR backends: ``"bf16"`` (the model as loaded), ``"fused"`` (W8A8) or
 ``"fused4"`` (W4A8, nibble-packed), the quantized engine of
@@ -19,12 +24,13 @@ tail of each reverse step: ``"heads"`` (K6, the default), ``"split"`` (the
 folded heads, then K5; JAX ``MARS5_FUSED_HEADTAIL=0``) or ``"dense"`` (the
 folded heads and the PyTorch tail; JAX ``MARS5_FUSED_TAIL=0``).
 
-Not ported yet: ``tts_batch``, grouped NAR quantization,
-``use_kv_cache=False``, the guidance interval and geometry buckets.
+Not ported yet: grouped NAR quantization, ``use_kv_cache=False``, the
+guidance interval and geometry buckets.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Optional
 
@@ -37,13 +43,13 @@ from .diffusion.engine import TAILS, perform_simple_inference
 from .diffusion.multinomial import MultinomialDiffusion
 from .hub import load_checkpoint, load_tokenizers
 from .models.ar import CodecLM, CodecLMConfig
-from .models.ar_decode import ArSampling, ar_generate, ar_vocab_window
-from .models.ar_decode_fused import ar_generate_fused, prepare_fused
+from .models.ar_decode import ArSampling, ar_generate, ar_generate_batched, ar_vocab_window
+from .models.ar_decode_fused import ar_generate_fused, ar_generate_fused_batched, prepare_fused
 from .models.convert import (infer_codeclm_config, infer_nar_config, load_codeclm,
                              load_nar)
 from .models.encodec import EncodecConfig, EncodecEncoder, encodec_from_pytree
 from .models.nar import ResidualTransformer, ResidualTransformerConfig
-from .models.vocos import Vocos, VocosConfig, vocos_from_pytree
+from .models.vocos import Vocos, VocosConfig, codes_to_features, vocos_from_pytree
 from .ops.kernels.decode_layer import make_dims
 from .ops.kernels.nar_mega import build_mega_pack, mega_supported
 from .ops.quant import quantize_nar
@@ -157,9 +163,11 @@ class Mars5TTS:
         self.last_grid = None
         self._last_ar_runaway = False
 
-    def _get_fused(self, max_len: int):
+    def _get_fused(self, max_len: int, batch: int = 1):
         """The quantized decode pack and dims for ``max_len``, built at first
-        use and kept per ``max_len``; the weights are packed once and shared."""
+        use and kept per ``max_len``; the weights are packed once and shared.
+        The pack does not depend on ``batch``: batched callers get it with
+        dims for their rows."""
         if max_len not in self._fused_cache:
             wbits = 4 if self.ar_backend == "fused4" else 8
             if self._fused_cache:
@@ -168,7 +176,8 @@ class Mars5TTS:
             else:
                 fp, dims = prepare_fused(self.codeclm, max_len, wbits, self.head4)
             self._fused_cache[max_len] = (fp, dims)
-        return self._fused_cache[max_len]
+        fp, dims = self._fused_cache[max_len]
+        return fp, dataclasses.replace(dims, batch=batch)
 
     def _get_mega(self):
         """The K9 operand bundle of the int8 NAR decoder, built at the first
@@ -237,22 +246,9 @@ class Mars5TTS:
         with timer.stage("nar_diffusion"):
             c_codes = prompt_codec.transpose(1, 2)
             x = np.repeat(gen_codes[None, :, None], 8, axis=2)
-            T = cfg.timesteps or self.default_T
-            diff = MultinomialDiffusion(self.diffusion_n_classes, timesteps=T,
-                                        device=self.device)
-            dsh = DSH(last_greedy=True, x_0_temp=cfg.x_0_temp,
-                      guidance_w=cfg.nar_guidance_w, deep_clone=cfg.deep_clone,
-                      jump_len=1, jump_n_sample=1,
-                      q0_override_steps=cfg.q0_override_steps,
-                      enable_kevin_scaled_inference=True, progress=False)
-            gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-            grid = perform_simple_inference(
-                self.codecnar,
-                (np.asarray(text_tokens, np.int64)[None], c_codes,
-                 np.asarray([len(text_tokens)]), np.asarray([c_codes.shape[1]]), x,
-                 np.zeros((1, x.shape[1]), bool)),
-                diff, T, dsh, retain_quant0=True, generator=gen, tail=self.nar_tail,
-                mega=self._get_mega())
+            grid = self._nar((np.asarray(text_tokens, np.int64)[None], c_codes,
+                              np.asarray([len(text_tokens)]), np.asarray([c_codes.shape[1]]),
+                              x, np.zeros((1, x.shape[1]), bool)), cfg, seed)
             skip_front = raw_prompt_len if cfg.deep_clone else 0
             self.last_grid = grid[0, skip_front:]
 
@@ -264,6 +260,32 @@ class Mars5TTS:
 
         self.last_timing = timer.report(audio_seconds=len(audio) / self.sr)
         return gen_codes, audio
+
+    def _sampling(self, cfg: InferenceConfig, n_phones_gen: int) -> ArSampling:
+        max_len = cfg.generate_max_len_override if cfg.generate_max_len_override > 1 else 2000
+        return ArSampling(
+            temperature=cfg.temperature, top_k=cfg.top_k, top_p=cfg.top_p,
+            typical_p=cfg.typical_p, alpha_frequency=cfg.freq_penalty,
+            alpha_presence=cfg.presence_penalty, penalty_window=cfg.rep_penalty_window,
+            eos_penalty_decay=cfg.eos_penalty_decay,
+            eos_penalty_factor=cfg.eos_penalty_factor, n_phones_gen=n_phones_gen,
+            eos_idx=len(self.texttok.vocab) + self.speechtok.special_tokens["<|endofspeech|>"],
+            valid_start=self._valid_window[0], valid_end=self._valid_window[1],
+            max_len=max_len)
+
+    def _nar(self, batch, cfg: InferenceConfig, seed: int):
+        """The NAR diffusion over ``batch`` (the engine's tuple), generator
+        seeded with ``seed + 1``; returns the (bs, Lx, 8) grid."""
+        T = cfg.timesteps or self.default_T
+        diff = MultinomialDiffusion(self.diffusion_n_classes, timesteps=T, device=self.device)
+        dsh = DSH(last_greedy=True, x_0_temp=cfg.x_0_temp, guidance_w=cfg.nar_guidance_w,
+                  deep_clone=cfg.deep_clone, jump_len=1, jump_n_sample=1,
+                  q0_override_steps=cfg.q0_override_steps,
+                  enable_kevin_scaled_inference=True, progress=False)
+        gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        return perform_simple_inference(self.codecnar, batch, diff, T, dsh, retain_quant0=True,
+                                        generator=gen, tail=self.nar_tail,
+                                        mega=self._get_mega())
 
     def _synthesize_codes(self, text, ref_audio, ref_transcript, cfg, seed, timer):
         """Text and reference prep, AR decode and parse. Returns
@@ -312,20 +334,9 @@ class Mars5TTS:
             first_codec_idx = prompt.shape[-1] - n_speech_inp + 1
 
         with timer.stage("ar_generate"):
-            max_len = (cfg.generate_max_len_override
-                       if cfg.generate_max_len_override > 1 else 2000)
-            sampling = ArSampling(
-                temperature=cfg.temperature, top_k=cfg.top_k, top_p=cfg.top_p,
-                typical_p=cfg.typical_p, alpha_frequency=cfg.freq_penalty,
-                alpha_presence=cfg.presence_penalty,
-                penalty_window=cfg.rep_penalty_window,
-                eos_penalty_decay=cfg.eos_penalty_decay,
-                eos_penalty_factor=cfg.eos_penalty_factor,
-                n_phones_gen=round(cfg.eos_estimated_gen_length_factor * len(text)),
-                eos_idx=len(self.texttok.vocab)
-                + self.speechtok.special_tokens["<|endofspeech|>"],
-                valid_start=self._valid_window[0], valid_end=self._valid_window[1],
-                max_len=max_len)
+            sampling = self._sampling(cfg, round(cfg.eos_estimated_gen_length_factor
+                                                 * len(text)))
+            max_len = sampling.max_len
             if self.ar_backend == "bf16":
                 ar_codes, _ = ar_generate(self.codeclm, prompt, codes_np[0].T,
                                           sampling=sampling, seed=seed)
@@ -344,3 +355,124 @@ class Mars5TTS:
             decoded = self.speechtok.decode_int(out[first_codec_idx:].tolist())
             gen_codes = np.asarray([s for s in decoded if isinstance(s, int)], np.int64)
         return text_tokens, prompt_codec, raw_prompt_len, gen_codes
+
+    @torch.inference_mode()
+    def tts_batch(self, texts, ref_audio, ref_transcript=None,
+                  cfg: Optional[InferenceConfig] = None, seed: int = 0):
+        """Synthesize several ``texts`` with one shared voice (``ref_audio``
+        one waveform) or one voice a text (a list of ``len(texts)``
+        waveforms, ``ref_transcript`` then a matching list). Returns one
+        ``(ar_codes (Lgen,) int64 L0 ids, waveform (T,) float32 24 kHz)`` per
+        text, as ``tts`` does; ``last_timing`` is over the total audio.
+
+        The AR runs the quantized batched engine (K2, one call a step for all
+        rows) for 2 to 8 rows with ``ar_backend="fused"``/``"fused4"``, and
+        the bf16 batched engine (K7) otherwise: the routing of the JAX
+        package's ``tts_batch``, kept as its semantics, not a device fallback.
+        The AR draws from ``seed``, the diffusion from ``seed + 1``.
+        """
+        cfg = cfg or InferenceConfig()
+        if not cfg.use_kv_cache:
+            raise NotImplementedError("use_kv_cache=False is not ported")
+        timer = StageTimer(sync=self._sync)
+        n = len(texts)
+        per_row_refs = isinstance(ref_audio, (list, tuple))
+        refs = list(ref_audio) if per_row_refs else [ref_audio]
+        if per_row_refs and len(refs) != n:
+            raise ValueError(f"{len(refs)} reference audios != {n} texts")
+        if isinstance(ref_transcript, (list, tuple)):
+            transcripts = list(ref_transcript)
+            if len(transcripts) != len(refs):
+                raise ValueError("per-row transcripts must match ref_audio")
+        else:
+            transcripts = [ref_transcript] * len(refs)
+        if cfg.deep_clone and any(t is None for t in transcripts):
+            raise AssertionError(
+                "Inference config deep clone is set to true, but reference "
+                "transcript not specified! Please specify the transcript of the "
+                "prompt, or set deep_clone=False in the inference `cfg` argument.")
+
+        with timer.stage("encode_reference"):
+            codec_per_ref = [self.encode_reference(r).cpu().numpy() for r in refs]
+        row = (lambda per_ref: per_ref) if per_row_refs else (lambda per_ref: per_ref[:1] * n)
+        row_codec = row(codec_per_ref)                  # (1, n_q, S_i) a row
+        row_transcript = row(transcripts)
+        skip_fronts = [c.shape[-1] if cfg.deep_clone else 0 for c in row_codec]
+
+        with timer.stage("tokenize"):
+            row_speech = row([[p + len(self.texttok.vocab) for p in self.speechtok.encode(
+                " ".join(str(t) for t in c[0, 0].tolist()).strip())] for c in codec_per_ref])
+            prompts, first_codec_idxs, text_rows, est_lens = [], [], [], []
+            for text, tr, speech in zip(texts, row_transcript, row_speech):
+                if cfg.deep_clone:
+                    tokens = self.texttok.encode("<|startoftext|>" + tr + " " + str(text).strip()
+                                                 + "<|endoftext|>", allowed_special="all")
+                    prompt = tokens + speech
+                    n_speech_inp = len(speech)
+                else:
+                    tokens = self.texttok.encode("<|startoftext|>" + text.strip()
+                                                 + "<|endoftext|>", allowed_special="all")
+                    prompt, n_speech_inp = tokens, 0
+                prompts.append(np.asarray(prompt, np.int64))
+                first_codec_idxs.append(len(prompt) - n_speech_inp + 1)
+                text_rows.append(tokens)
+                est_lens.append(round(cfg.eos_estimated_gen_length_factor * len(text)))
+
+        with timer.stage("ar_generate"):
+            sampling = self._sampling(cfg, max(est_lens))
+            spk_list = [c[0].T for c in row_codec]
+            if self.ar_backend != "bf16" and 2 <= n <= 8:
+                fp, dims = self._get_fused(sampling.max_len, batch=n)
+                outs = ar_generate_fused_batched(self.codeclm, fp, dims, prompts, spk_list,
+                                                 sampling=sampling, seed=seed,
+                                                 est_lens=est_lens)
+            else:
+                outs = ar_generate_batched(self.codeclm, prompts, spk_list, sampling=sampling,
+                                           seed=seed, est_lens=est_lens)
+
+        with timer.stage("parse_ar"):
+            rows = []
+            for (seq, _), fci in zip(outs, first_codec_idxs):
+                toks = np.clip(seq - len(self.texttok.vocab), 0, None)[fci:].tolist()
+                rows.append(np.asarray([s for s in self.speechtok.decode_int(toks)
+                                        if isinstance(s, int)], np.int64))
+
+        with timer.stage("nar_diffusion"):
+            lt = max(len(r) for r in text_rows)
+            lx = max(max(len(r) for r in rows), 1)
+            lc = max(c.shape[-1] for c in row_codec)
+            c_text = np.zeros((n, lt), np.int64)
+            x = np.zeros((n, lx, 8), np.int64)
+            xpm = np.ones((n, lx), bool)
+            c_codes = np.zeros((n, lc, 8), np.int64)
+            for i, (tr, r, c) in enumerate(zip(text_rows, rows, row_codec)):
+                c_text[i, : len(tr)] = tr
+                x[i, : len(r)] = r[:, None]
+                xpm[i, : len(r)] = False
+                c_codes[i, : c.shape[-1]] = c[0].T
+            grid = self._nar((c_text, c_codes, np.asarray([len(t) for t in text_rows]),
+                              np.asarray([c.shape[-1] for c in row_codec]), x, xpm),
+                             cfg, seed)
+            # each row's own prompt crop, left-aligned for batched vocoding
+            out_lens = [max(len(r) - sk, 0) for r, sk in zip(rows, skip_fronts)]
+            grid_out = torch.zeros((n, max(max(out_lens), 1), 8), dtype=torch.long,
+                                   device=grid.device)
+            for i, (r, sk) in enumerate(zip(rows, skip_fronts)):
+                grid_out[i, : out_lens[i]] = grid[i, sk: len(r)]
+            self.last_grid = grid_out
+
+        with timer.stage("vocode"):
+            if self.vocos is None:
+                raise RuntimeError("Vocos vocoder parameters were not provided")
+            feats = codes_to_features(self.vocos.codebook_weights, grid_out.permute(2, 0, 1),
+                                      bins=self.vocos.cfg.codebook_size)
+            audio = self.vocos.decode(feats, 1).cpu().numpy()
+
+        with timer.stage("trim"):
+            hop = self.vocos.cfg.hop_length
+            results = [(r, trim(audio[i, : out_lens[i] * hop], top_db=cfg.trim_db)[0])
+                       for i, r in enumerate(rows)]
+
+        self.last_timing = timer.report(
+            audio_seconds=sum(len(w) for _, w in results) / self.sr)
+        return results

@@ -594,3 +594,160 @@ def test_mega_and_split_routes_on_gpu(dev):
     assert torch.equal(grids["split"], grids["heads"])
     assert (grids["mega"] == grids["heads"]).float().mean().item() >= 0.5
     assert int(grids["mega"].min()) >= 0 and int(grids["mega"].max()) <= 1024
+
+
+def _ring_inputs(b, w, h, dtype, dev, seed, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    return r(b, h, 64), r(b, w, h, 64), r(b, w, h, 64), r(b, h, 64), r(b, h, 64)
+
+
+@pytest.mark.parametrize("b,w,h,positions", [
+    (1, 2001, 24, (600,)),                      # bf16 AR decode, released widths
+    (4, 2001, 24, (600, 1200, 1900, 2400)),     # batched rows, the last wrapped
+    (2, 64, 4, (5, 100)),
+    (3, 7, 2, (0, 6, 7)),                       # first step, last unwrapped, wrapped
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("self_column", [True, False])
+def test_decode_attention_kernel_matches_ref(dev, b, w, h, positions, dtype, self_column):
+    """K7 against ``decode_attention_ref``: within one ulp of the dtype (the
+    f64 sums round once in both; only an f64 sum landing on the other side of
+    an f32 rounding boundary can part them), and poisoned invalid slots do
+    not reach the output."""
+    from mars5_tts_torch.ops.kernels import decode_attention as A
+
+    q, ck, cv, kn, vn = _ring_inputs(b, w, h, dtype, dev, w + b)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    new = (kn, vn) if self_column else ()
+    n0 = A.launch_count
+    got = A.decode_attention(q, ck, cv, pos, *new)
+    torch.cuda.synchronize()
+    assert A.launch_count == n0 + 1 and got.shape == q.shape and got.dtype == dtype
+    want = A.decode_attention_ref(q, ck, cv, pos, *new)
+    assert torch.isfinite(got).all()
+    assert ((got.float() - want.float()).abs() <= A.one_ulp(got, want)).all()
+    valid = A.ring_valid(pos, w, self_column)
+    ck2, cv2 = ck.clone(), cv.clone()
+    ck2[~valid] = 1e3
+    cv2[~valid] = -1e3
+    assert torch.equal(A.decode_attention(q, ck2, cv2, pos, *new), got)
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(dev):
+    from mars5_tts_torch.ops.kernels import decode_attention as A
+
+    q, ck, cv, kn, vn = _ring_inputs(2, 16, 2, torch.bfloat16, dev, 0)
+    pos = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        A.decode_attention(q[..., :32], ck[..., :32], cv[..., :32], pos)   # head dim 32
+    with pytest.raises(ValueError):
+        A.decode_attention(q, ck.transpose(1, 2).contiguous().transpose(1, 2), cv, pos)
+    with pytest.raises(ValueError):
+        A.decode_attention(q.half(), ck.half(), cv.half(), pos)
+    with pytest.raises(ValueError):
+        A.decode_attention(q, ck, cv, pos, kn)
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+@pytest.mark.parametrize("full", [False, True])
+def test_fused_decode_kernel_batched_matches_ref(dev, wbits, full):
+    """K2 with B rows, each at its own position on both sides of the ring's
+    wrap, against ``fused_step_ref``; each row also equals its one-row step."""
+    from mars5_tts_torch.models.ar import CodecLMConfig
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    if full:
+        cfg, max_len, positions = CodecLMConfig.mars5(24_000), 2000, (600, 1200, 1900, 2400)
+    else:
+        cfg = CodecLMConfig(n_vocab=512, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                            n_layers=3, hidden_dim=512, sliding_window=24)
+        max_len, positions = 40, (5, 30, 17, 0, 23, 24, 40, 2)
+    fp, dims = prepare_fused(_decode_model(cfg, dev, wbits), max_len, wbits)
+    b = len(positions)
+    g = torch.Generator(device=dev).manual_seed(wbits)
+    shape = (dims.n_layers, b, dims.window, dims.dim)
+    (ck, ks), (cv, vs) = (D.quantize_kv_rows(torch.randn(shape, generator=g, device=dev) * 0.1)
+                          for _ in range(2))
+    kvs = torch.stack([ks, vs], dim=2).contiguous()
+    x = fp["embed"][torch.arange(b, device=dev) * 3 + 7].to(torch.bfloat16)
+    n0 = D.launch_count
+    got = D.fused_decode_layers(fp, x, positions, ck, cv, kvs, dims=dims, norm_eps=cfg.norm_eps)
+    torch.cuda.synchronize()
+    assert D.launch_count == n0 + 1
+    want = D.fused_step_ref(fp, x, positions, ck, cv, kvs, dims=dims, norm_eps=cfg.norm_eps)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        _fused_eq_f32(a, w)
+    for i in (0, b - 1):
+        one = D.fused_decode_layers(fp, x[i:i + 1], positions[i], ck[:, i].contiguous(),
+                                    cv[:, i].contiguous(), kvs[:, i].contiguous(), dims=dims,
+                                    norm_eps=cfg.norm_eps)
+        assert torch.equal(one[0], got[0][i:i + 1])
+        assert torch.equal(one[1], got[1][:, i:i + 1])
+
+
+@pytest.mark.parametrize("b", [3, 8])
+def test_head4_kernel_batched_matches_ref(dev, b):
+    from mars5_tts_torch.ops.kernels import head4 as H
+
+    g = torch.Generator(device=dev).manual_seed(b)
+    wp, ws = H.pack_head4(torch.randn((24_000, 1536), generator=g, device=dev) * 0.03)
+    x = torch.randn((b, 1536), generator=g, device=dev).to(torch.bfloat16)
+    got = H.head4_logits(x, wp, ws, n_vocab=24_000)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 24_000)
+    assert torch.equal(got, H.head4_logits_ref(x, wp, ws, n_vocab=24_000))
+    assert torch.equal(got[1:2], H.head4_logits(x[1:2], wp, ws, n_vocab=24_000))
+    with pytest.raises(ValueError):
+        H.head4_logits(torch.zeros((9, 1536), dtype=torch.bfloat16, device=dev), wp, ws,
+                       n_vocab=24_000)
+
+
+def test_batched_ar_engines_on_gpu(dev):
+    """The bf16 AR engine on the card runs K7 once a layer a step, for every
+    row; its tokens equal the CPU run's for an f32 model. The quantized
+    engine runs K2 (and K8) once a step for all rows."""
+    import copy
+
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate_batched
+    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused_batched, prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_attention as A, decode_layer as D, head4 as H
+
+    cfg = CodecLMConfig(n_vocab=1283, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                        n_layers=2, hidden_dim=1024, sliding_window=3000, n_spk_layers=1,
+                        spk_hidden_dim=256)
+    cpu = CodecLM(cfg).init_(torch.Generator().manual_seed(5)).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    r = np.random.default_rng(5)
+    spks = [r.integers(0, 1024, (n, 8)) for n in (30, 21, 25)]
+    prompts = [np.concatenate([r.integers(0, 258, 6 + 3 * i), spks[i][:15, 0] + 258])
+               for i in range(3)]
+    s = ArSampling(n_phones_gen=30, eos_idx=1282, valid_start=258, valid_end=1283,
+                   max_len=max(len(p) for p in prompts) + 30)
+    u = r.random((s.max_len, 3)).astype(np.float32)
+    est = [5, 30, 12]
+    want = ar_generate_batched(cpu, prompts, spks, sampling=s, uniforms=u, est_lens=est)
+    n0 = A.launch_count
+    got = ar_generate_batched(gpu, prompts, spks, sampling=s, uniforms=u, est_lens=est)
+    steps = max(n - (len(t) >= s.max_len) for t, n in got)
+    assert A.launch_count - n0 == cfg.n_layers * steps
+    for (tg, ng), (tw, nw) in zip(got, want):
+        np.testing.assert_array_equal(tg, tw)
+        assert ng == nw
+
+    gpu16 = copy.deepcopy(cpu).to(torch.bfloat16).to(dev)
+    fp, dims = prepare_fused(gpu16, s.max_len, 4, head4=True, batch=3)
+    n0 = (D.launch_count, H.launch_count, A.launch_count)
+    outs = ar_generate_fused_batched(gpu16, fp, dims, prompts, spks, sampling=s, uniforms=u,
+                                     est_lens=est)
+    steps = max(n - (len(t) >= s.max_len) for t, n in outs)
+    assert (D.launch_count - n0[0], H.launch_count - n0[1], A.launch_count - n0[2]) == (
+        steps, steps, 0)
+    for (t, n), p in zip(outs, prompts):
+        gen = t[len(p):]
+        assert len(gen) == n and ((gen >= 257) & (gen < 1283)).all()

@@ -300,6 +300,81 @@ def test_head4_twin_matches_jax():
     np.testing.assert_allclose(got.numpy(), kernel, rtol=0, atol=1e-5 * peak)
 
 
+def _batched_inputs(jdims, positions):
+    """Random int8 rings of B rows (the JAX batched test's), B embedded
+    tokens in the JAX 8-row block, and the scales in the JAX (L, 2B, W_pad)
+    and the port's (L, B, 2, W_pad) layouts."""
+    from mars5_tts_tpu.ops.pallas.decode_layer import quantize_kv_rows
+
+    b = len(positions)
+    caches = []
+    for seed in (2, 3):
+        c = np.random.default_rng(seed).standard_normal(
+            (jdims.n_layers, b, jdims.w_pad, jdims.dim)) * 0.1
+        c[:, :, jdims.window:] = 0
+        caches.append(quantize_kv_rows(jnp.asarray(c, jnp.float32)))
+    (ck, ks), (cv, vs) = caches
+    x = jax.random.normal(jax.random.PRNGKey(1), (8, jdims.dim), jnp.bfloat16).at[b:].set(0)
+    return x, ck, cv, jnp.concatenate([ks, vs], axis=1), jnp.stack([ks, vs], axis=2)
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+@pytest.mark.parametrize("positions", [                 # both sides of the wrap (window 24)
+    (5, 30, 17), (23, 24, 2), (9, 40), (0, 3, 11, 23, 24, 29, 35, 39)])
+def test_batched_step_twin_matches_jax_emulation(wbits, positions, monkeypatch):
+    """K2's twin with 2, 3 and 8 rows against ``fused_step_emulation_batched``:
+    within ``fused_eq`` as it stands, and with the JAX RoPE angles and
+    self-score sum within the JAX kernel tests' 1e-5 / 1e-6; each row equals
+    the twin's one-row step."""
+    import dataclasses
+
+    from mars5_tts_tpu.ops.pallas.decode_layer import fused_step_emulation_batched
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    fp, jdims = jax_fused(wbits)
+    jdims = dataclasses.replace(jdims, batch=len(positions))
+    x, ck, cv, kvs_j, kvs_p = _batched_inputs(jdims, positions)
+    h_e, k_e, v_e = (np.asarray(a) for a in fused_step_emulation_batched(
+        fp, x, jnp.asarray(positions, jnp.int32), ck, cv, kvs_j, dims=jdims,
+        norm_eps=CFG.norm_eps))
+    b = len(positions)
+    dims = port_fused(wbits)[1]
+    args = (converted(wbits), t(x.astype(jnp.float32))[:b].bfloat16(), list(positions),
+            t(ck), t(cv), t(kvs_p))
+    h, k, v = (a.numpy() for a in D.fused_decode_layers(*args, dims=dims,
+                                                        norm_eps=CFG.norm_eps))
+    assert h.shape == (b, 256) and k.shape == v.shape == (CFG.n_layers, b, 256)
+    for got, want in ((h, h_e[:b]), (k, k_e[:, :b]), (v, v_e[:, :b])):
+        fused_eq(got, want)
+    for i in range(b):
+        one = D.fused_step_ref(args[0], args[1][i:i + 1], positions[i], args[3][:, i],
+                               args[4][:, i], args[5][:, i], dims=dims, norm_eps=CFG.norm_eps)
+        np.testing.assert_array_equal(one[0].numpy(), h[i:i + 1])
+        np.testing.assert_array_equal(one[1].numpy(), k[:, i:i + 1])
+    monkeypatch.setattr(D, "_self_scores", _jax_self_scores)
+    monkeypatch.setattr(D, "rope_flat", _jax_rope_flat)
+    h, k, v = D.fused_decode_layers(*args, dims=dims, norm_eps=CFG.norm_eps)
+    np.testing.assert_allclose(h.numpy(), h_e[:b], rtol=0, atol=H_ATOL)
+    np.testing.assert_allclose(k.numpy(), k_e[:, :b], rtol=0, atol=KV_ATOL)
+    np.testing.assert_allclose(v.numpy(), v_e[:, :b], rtol=0, atol=KV_ATOL)
+
+
+def test_head4_twin_three_rows_equals_jax_emulation():
+    from mars5_tts_tpu.ops.pallas import head4 as JH
+    from mars5_tts_torch.ops.kernels.head4 import head4_logits, head4_logits_ref
+
+    rng = np.random.default_rng(3)
+    x = jnp.asarray(rng.standard_normal((3, 256)), jnp.bfloat16)
+    wp, ws = JH.pack_head4(jnp.asarray((rng.standard_normal((500, 256)) * 0.05)
+                                       .astype(np.float32)), bn=128)
+    want = np.asarray(JH.head4_logits_emulation(x, wp, ws, n_vocab=500))
+    xt = t(x.astype(jnp.float32)).bfloat16()
+    got = head4_logits_ref(xt, t(wp), t(ws), n_vocab=500)
+    assert got.shape == (3, 500)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(head4_logits(xt, t(wp), t(ws), n_vocab=500).numpy(), want)
+
+
 # --------------------------------------------------------------- the engine
 
 @pytest.mark.parametrize("wbits", [8, 4])
@@ -435,3 +510,74 @@ def test_backend_arguments(monkeypatch):
     fp60, fp61 = tts._fused_cache[60][0], tts._fused_cache[61][0]
     assert fp60 is fp61 and "head4_p" in fp60 and "head_q" not in fp60
     assert tts._fused_cache[61][1].window == 62
+
+
+def _batched_case(seed):
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(10, 510, n) for n in (seed - 190, 6, 13)]
+    spks = [rng.integers(0, 1024, (n, 8)) for n in (20, 9, 14)]
+    return prompts, spks, rng.random((MAX_LEN, 3)).astype(np.float32), [3, 100, seed - 190]
+
+
+def _batched_engines(wbits, seed, monkeypatch, eager=False):
+    """(JAX tokens, port tokens, port one-row tokens) of ``_batched_case``:
+    ``ar_generate_fused_batched`` of both packages (the JAX engine in
+    emulation, jitted unless ``eager``) under one (max_len, 3) stream, the
+    port's step with the JAX RoPE angles and self-score sum."""
+    import dataclasses
+
+    from mars5_tts_tpu.models import ar_decode as JA
+    from mars5_tts_tpu.models.ar_decode_fused import ar_generate_fused_batched as j_generate
+    from mars5_tts_torch.models import ar_decode as PA
+    from mars5_tts_torch.models.ar_decode_fused import (ar_generate_fused,
+                                                        ar_generate_fused_batched)
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    monkeypatch.setattr(D, "_self_scores", _jax_self_scores)
+    monkeypatch.setattr(D, "rope_flat", _jax_rope_flat)
+    params = jax.tree.map(jnp.asarray, models()[0])
+    fp, jdims = jax_fused(wbits)
+    pfp, dims = port_fused(wbits)
+    if wbits == 4:
+        pfp = {**pfp, **{k: converted(4)[k] for k in BACKBONE}}   # the same int4 values
+    prompts, spks, u, est = _batched_case(seed)
+    with jax.disable_jit(eager):
+        outs_j = j_generate(params, fp, CFG, dataclasses.replace(jdims, batch=3), prompts, spks,
+                            uniforms=u, est_lens=est, sampling=JA.ArSampling(**SAMPLING),
+                            interpret=None)
+    outs_p = ar_generate_fused_batched(models()[1], pfp, dataclasses.replace(dims, batch=3),
+                                       prompts, spks, uniforms=u, est_lens=est,
+                                       sampling=PA.ArSampling(**SAMPLING))
+    solo = [ar_generate_fused(models()[1], pfp, dims, prompts[i], spks[i], uniforms=u[:, i],
+                              sampling=PA.ArSampling(**{**SAMPLING, "n_phones_gen": est[i]}))
+            for i in range(3)]
+    return outs_j, outs_p, solo
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_batched_generation_token_identical_to_jax(wbits, monkeypatch):
+    """Three rows with their own prompt and speaker lengths and early-EOS
+    estimates, seeds 200, 201, 203: the port's tokens equal the jitted JAX
+    engine's, and each row its one-row run. With the port's own RoPE angles
+    and self-score sum one int8 rounding moves in W8 at seed 201, row 2
+    (ROADMAP C), so the step takes the JAX ones. Seeds 202 (W4) and 204 are
+    not in this list: there the jitted JAX engine parts from its own eager
+    trace at a nucleus cutoff (XLA rewrites the f32 filter ops), and the
+    port follows the eager trace (the next test)."""
+    for seed in (200, 201, 203):
+        outs_j, outs_p, solo = _batched_engines(wbits, seed, monkeypatch)
+        for i, ((tj, nj), (tp, n_p), (ts, ns)) in enumerate(zip(outs_j, outs_p, solo)):
+            np.testing.assert_array_equal(tp, tj, err_msg=f"seed {seed} row {i}")
+            np.testing.assert_array_equal(ts, tp, err_msg=f"seed {seed} row {i} solo")
+            assert n_p == nj == ns
+
+
+def test_batched_generation_follows_the_eager_jax_trace(monkeypatch):
+    """Seed 204, W8: the JAX engine run op by op (``jax.disable_jit``) and
+    the port give the same tokens in every row, where the jitted JAX engine
+    parts at row 2's 11th draw."""
+    outs_j, outs_p, solo = _batched_engines(8, 204, monkeypatch, eager=True)
+    for i, ((tj, nj), (tp, n_p), (ts, _)) in enumerate(zip(outs_j, outs_p, solo)):
+        np.testing.assert_array_equal(tp, np.asarray(tj), err_msg=f"row {i}")
+        np.testing.assert_array_equal(ts, tp, err_msg=f"row {i} solo")
+        assert n_p == nj

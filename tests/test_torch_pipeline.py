@@ -71,6 +71,25 @@ def test_vocos_audio_close():
     np.testing.assert_allclose(got, ref, atol=AUDIO_ATOL)
 
 
+def test_vocos_pad_code_matches_jax():
+    """The pad code 1024, which the diffusion may draw, in codebooks 0 and 7:
+    JAX's gather clamps the flat index past the table to its last row, and
+    the port does the same (codebook 0's 1024 reads codebook 1's row 0 in
+    both)."""
+    from mars5_tts_tpu.models.vocos import vocos_vocode
+
+    cfgs, params = tiny_models()
+    voc = _ports()[3]
+    tokens = np.random.default_rng(4).integers(0, 1024, (9, 8))
+    tokens[2, 0] = tokens[5, 7] = tokens[6, 7] = 1024
+    vocos = {k: jnp.asarray(v) if k == "codebook_weights" else v
+             for k, v in params["vocos"].items()}      # a device array, as the pipeline holds
+    ref = np.asarray(vocos_vocode(vocos, cfgs["vocos"], jnp.asarray(tokens)))
+    got = voc.vocode(torch.from_numpy(tokens)).numpy()
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=AUDIO_ATOL)
+
+
 def test_stage_chain_identical():
     """bench.py's run_once chain (Encodec -> AR -> NAR -> Vocos) through both
     packages with shared uniforms: same AR tokens and grid, close audio."""
@@ -243,8 +262,8 @@ _BLOCKED = textwrap.dedent("""
     from mars5_tts_torch.models.encodec import EncodecConfig, EncodecEncoder
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
     from mars5_tts_torch.models.vocos import Vocos, VocosConfig
-    from mars5_tts_torch.ops.kernels import (build, decode_layer, diffusion_tail, head4, mha,
-                                             nar_fused, nar_mega)
+    from mars5_tts_torch.ops.kernels import (build, decode_attention, decode_layer,
+                                             diffusion_tail, head4, mha, nar_fused, nar_mega)
     from mars5_tts_torch.text import CodebookTokenizer, GPT4_SPLIT_PATTERN, RegexTokenizer
     from mars5_tts_torch.models.ar_decode_fused import FusedCache, fused_step, prepare_fused
     from mars5_tts_torch.ops.quant import quantize_nar
@@ -287,6 +306,14 @@ _BLOCKED = textwrap.dedent("""
     assert "mars5_tts_tpu" not in {m.split(".")[0] for m in sys.modules
                                    if sys.modules[m] is not None}
     print("pipeline ok")
+    refs = [ref, ref[: 8 * 44]]
+    outs = tts.tts_batch(["hi", "yo there"], refs, ref_transcript=["ok", "no"],
+                         cfg=InferenceConfig(timesteps=2, generate_max_len_override=300,
+                                             trim_db=200), seed=3)
+    assert len(outs) == 2 and all(len(w) > 0 and np.isfinite(w).all() for _, w in outs)
+    assert decode_attention.launch_count == 0 and not build._loaded
+    assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+    print("tts_batch ok")
     # importing the kernel module built nothing; CPU tensors take the twin
     assert not build._loaded and mha.launch_count == 0
     q = torch.randn(1, 5, 2, 64)
@@ -316,6 +343,7 @@ def blocked_run():
 def test_port_imports_and_runs_with_jax_blocked(blocked_run):
     assert "forward ok" in blocked_run.stdout, blocked_run.stderr
     assert "pipeline ok" in blocked_run.stdout, blocked_run.stderr
+    assert "tts_batch ok" in blocked_run.stdout, blocked_run.stderr
 
 
 def _imported_modules(path):
