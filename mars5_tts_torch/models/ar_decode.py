@@ -114,9 +114,11 @@ def decode_step(model: CodecLM, tokens, pos, cache: RingCache):
     cos, sin = rope_angles(pos_t, cfg.head_dim)
     cos, sin = cos[:, None, None], sin[:, None, None]        # (B, 1, 1, D/2)
     slots = torch.remainder(pos_t.long(), cache.window)
+    top = max(np.asarray(pos).reshape(-1).tolist())        # sizes K7's clusters
     for li, layer in enumerate(model.ar.layers):
         q, k, v = layer.qkv(x, cos, sin)
-        attn = decode_attention(q[:, 0], cache.k[li], cache.v[li], pos_t, k[:, 0], v[:, 0])
+        attn = decode_attention(q[:, 0], cache.k[li], cache.v[li], pos_t, k[:, 0], v[:, 0],
+                                max_pos=top)
         cache.k[li, rows, slots] = k[:, 0]
         cache.v[li, rows, slots] = v[:, 0]
         x = layer.finish(x, attn[:, None])

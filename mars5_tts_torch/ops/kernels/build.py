@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Every library: its sources under csrc/ (headers count in the hash only).
 LIBRARIES = {
-    "mha": ("mha.cu", "warp_mma.cuh"),
+    "mha": ("mha.cu", "hopper.cuh", "warp_mma.cuh"),
     "nar_fused": ("nar_fused.cu", "w8a8_gemm.cuh", "warp_mma.cuh"),
     "nar_mega": ("nar_mega.cu", "w8a8_gemm.cuh", "warp_mma.cuh"),
     "diffusion_tail": ("diffusion_tail.cu", "warp_mma.cuh"),
@@ -81,6 +81,25 @@ def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name, sources)))
     return _loaded[name]
+
+
+def call(device, fn, *args) -> None:
+    """Calls the C entry ``fn`` with ``args`` and the current stream of
+    ``device`` appended, with ``device`` the current device (switched only
+    when it is not); raises on a nonzero cudaError. The stream is read as
+    the raw handle PyTorch's own kernel launchers take
+    (``torch.cuda.current_stream()`` builds a Stream object at each call)."""
+    import torch
+
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    if idx == cur:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError {err}")
 
 
 def build_all() -> dict[str, Path]:

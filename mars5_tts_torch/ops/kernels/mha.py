@@ -7,14 +7,13 @@ self-attention and the speaker encoders' self-attention at 512 frames and up.
 What bounds it on an H100: at the NAR shape (2, 1200, 16, 64) one call moves
 about 20 MB (q, k, v and the output, bf16) and does
 2*2*2*1200^2*16*64 ~ 11.8 GFLOP, about 600 FLOP per byte, so it is bound by
-compute, not memory. The TPU kernel held a whole row of keys in VMEM; a Hopper
-block cannot, so the kernel gives each block 64 queries of one head, walks the
-keys in 64-wide shared-memory tiles with an online softmax and keeps the
-output tile in f32 registers until one final normalization; the score matrix
-never reaches device memory. This first version uses ``mma.sync`` (bf16) or
-CUDA-core FMAs (f32) with no wgmma or TMA: a CUDA-core version would be bound
-by FMA throughput at ~0.2 ms a call at best, and the NAR makes 3,200 calls per
-utterance, which is why later work moves it to wgmma.
+the tensor cores, which only wgmma drives at their rate. The TPU kernel held
+a whole row of keys in VMEM; a Hopper CTA cannot, so the bf16 kernel gives
+each CTA 192 queries of one head (three consumer warpgroups) and streams
+128-key K/V tiles through a two-stage shared-memory ring, loaded by TMA from
+4-D tensor maps over the caller's views while the consumers run both
+products on wgmma with an online softmax; the score matrix never reaches
+device memory. The f32 kernel (off the default path) runs on CUDA cores.
 
 ``mha`` takes ``mha_ref`` only for CPU tensors. For CUDA tensors it launches
 the kernel or raises; nothing falls back.
@@ -81,55 +80,92 @@ def _lib():
     return fn
 
 
-def _kernel_view(x):
-    """x itself when the kernel can read it in place (unit stride on D, 16-byte
-    aligned rows), else a contiguous copy."""
+def tensor_map_encode_us(q, k, v, reps: int = 1000) -> float:
+    """Host microseconds the bf16 kernel's entry spends encoding one call's
+    three tensor maps, averaged over ``reps`` encodes (bf16 views on the
+    card, as ``mha`` takes them)."""
+    fn = build.load("mha", SOURCES).mars5_mha_encode_us
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, vp, vp, i, i, i, i] + [ll] * 9 + [i]
+    fn.restype = ctypes.c_double
+    b, lq, lk, h, _, *strides = launch_args(q, k, v)
+    us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, lq, lk, h, *strides, reps)
+    if us < 0:
+        raise RuntimeError("mha: encoding the tensor maps failed")
+    return us
+
+
+def tensor_map_strides(x):
+    """The element strides (batch, sequence, head) under which the kernel
+    reads ``x`` (B, L, H, 64) in place: TMA's tensor maps take a unit stride
+    on the head dim, every other stride a multiple of 16 bytes and a 16-byte
+    aligned base; the f32 kernel's 16-byte loads take the same. A size-1
+    axis is never stepped, so its stride is replaced by a qualifying one.
+    Raises ValueError naming what a view breaks (``.contiguous()`` always
+    qualifies)."""
+    shape, st = x.shape, x.stride()
+    if len(shape) != 4 or shape[3] != HEAD_DIM:
+        raise ValueError(f"mha: expected (B, L, H, {HEAD_DIM}), got {tuple(shape)}")
+    if st[3] != 1:
+        raise ValueError(f"mha: the head dim must have unit stride, got strides {st}")
+    (b, l, h), (sb, sl, sh) = shape[:3], st[:3]
+    span = max(b * sb if b > 1 else 0, l * sl if l > 1 else 0, h * sh if h > 1 else 0,
+               HEAD_DIM)
+    sb, sl, sh = (sb if b > 1 else span), (sl if l > 1 else span), (sh if h > 1 else span)
     per16 = 16 // x.element_size()
-    ok = (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-          and all(s % per16 == 0 for s in x.stride()[:3]))
-    return x if ok else x.contiguous()
+    if sb % per16 or sl % per16 or sh % per16:
+        raise ValueError(f"mha: strides {st} are not multiples of 16 bytes")
+    if x.data_ptr() % 16:
+        raise ValueError("mha: the view does not start on a 16-byte boundary")
+    return sb, sl, sh
+
+
+def launch_args(q, k, v, key_padding_mask=None):
+    """The kernel's arguments after the pointers: (B, Lq, Lk, H, D, the three
+    views' strides); raises ValueError on anything the kernel does not take
+    (head dim, dtype, shapes, devices, mask, views)."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    dt = q.dtype
+    if d != HEAD_DIM:
+        raise ValueError(f"mha kernel supports head_dim {HEAD_DIM}, got {d}")
+    if dt is not torch.bfloat16 and dt is not torch.float32:
+        raise ValueError(f"mha kernel takes bf16 or f32, got {dt}")
+    if k.dtype is not dt or v.dtype is not dt:
+        raise ValueError("mha: q, k and v must share a dtype")
+    if k.shape != (b, lk, h, d) or v.shape != (b, lk, h, d):
+        raise ValueError(f"mha: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("mha: q, k and v must be on one device")
+    if key_padding_mask is not None and (key_padding_mask.dtype is not torch.bool
+                                         or key_padding_mask.shape != (b, lk)):
+        raise ValueError("mha: key_padding_mask must be bool (B, Lk)")
+    return (b, lq, lk, h, d, *tensor_map_strides(q), *tensor_map_strides(k),
+            *tensor_map_strides(v))
 
 
 def mha(q, k, v, key_padding_mask=None):
     """Attention of q (B, Lq, H, D) over k/v (B, Lk, H, D) -> (B, Lq, H, D).
 
     CPU tensors take ``mha_ref``; CUDA tensors launch the kernel (bf16 or
-    f32, D = 64) and raise on anything it does not take.
+    f32, D = 64, views as ``tensor_map_strides`` takes them) and raise on
+    anything it does not take (``launch_args``).
     """
     if q.device.type == "cpu":
         return mha_ref(q, k, v, key_padding_mask)
     if q.device.type != "cuda":
         raise ValueError(f"mha: unsupported device {q.device}")
-    b, lq, h, d = q.shape
-    lk = k.shape[1]
-    if d != HEAD_DIM:
-        raise ValueError(f"mha kernel supports head_dim {HEAD_DIM}, got {d}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"mha kernel takes bf16 or f32, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("mha: q, k and v must share a dtype")
-    if k.shape != (b, lk, h, d) or v.shape != k.shape:
-        raise ValueError(f"mha: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("mha: q, k and v must be on one device")
+    args = launch_args(q, k, v, key_padding_mask)
     mask_ptr = None
     if key_padding_mask is not None:
-        if key_padding_mask.dtype != torch.bool or key_padding_mask.shape != (b, lk):
-            raise ValueError("mha: key_padding_mask must be bool (B, Lk)")
         key_padding_mask = key_padding_mask.to(q.device).contiguous()
         mask_ptr = key_padding_mask.data_ptr()
-    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+    b, lq, _, h, d = args[:5]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), mask_ptr, out.data_ptr(), b, lq, lk, h, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"mha kernel launch failed: cudaError {err}")
+    build.call(q.device, _lib(), int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), mask_ptr, out.data_ptr(), *args, 1.0 / math.sqrt(d))
     global launch_count
     launch_count += 1
     return out

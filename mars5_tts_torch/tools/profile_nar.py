@@ -1,0 +1,135 @@
+"""Where the time of the NAR diffusion goes, on one GPU.
+
+    python3 mars5_tts_torch/tools/profile_nar.py [--nar int8|bf16] [--prompt 525]
+        [--gen 200] [--steps 200] [--repeat 3] [--profile-steps 20] [--root DIR]
+        [--device cuda]
+
+Builds the released-width NAR (8 + 16 x 1024 layers, 4,096 text ids) with
+random weights from a seed, quantized with ``quantize_nar`` for ``int8``,
+and runs a deep-clone diffusion as ``Mars5TTS.tts`` does: 66 text tokens, a
+``--prompt``-frame reference, ``--gen`` generated frames (the defaults are
+the smoke request's 525 + 200 frames; 450 + 750 is the bench geometry), CFG
+w = 3, ``--steps`` reverse steps on the generator path: once to warm up,
+``--repeat`` times timed, then a ``--profile-steps`` run under
+``torch.profiler`` (a step does the same work at any T, and the profiler's
+own cost grows with the ops it records). Prints one JSON
+line: the wall ms a step (each timed run and their median), the device busy
+ms a step and the idle share, the device ms a step of the self-attention
+kernel K1 (``mha_fwd``), the kernel launches and stream waits a step, and
+the host ops with the most self CPU time a step.
+
+``--root`` imports ``mars5_tts_torch`` from another checkout, so two
+versions (a parent commit's and a change's) run the same measurement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--nar", default="int8", choices=("int8", "bf16"))
+    ap.add_argument("--prompt", type=int, default=525)
+    ap.add_argument("--gen", type=int, default=200)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--repeat", type=int, default=3)
+    ap.add_argument("--profile-steps", type=int, default=20)
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--device", default="cuda", help="cpu: a dry run of the script")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars5_tts_torch import InferenceConfig
+    from mars5_tts_torch.config import DSH
+    from mars5_tts_torch.diffusion.engine import perform_simple_inference
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.quant import quantize_nar
+
+    dev = torch.device(args.device)
+    on_card = dev.type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise SystemExit("profile_nar: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    activities = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * on_card
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        nar = ResidualTransformer(ResidualTransformerConfig.mars5(4_096)).init_(g)
+        nar = nar.to(torch.bfloat16).eval()
+    if args.nar == "int8":
+        nar = quantize_nar(nar)
+    rng = np.random.default_rng(0)
+    text = rng.integers(0, nar.cfg.n_text_vocab, (1, 66))
+    c_codes = rng.integers(0, 1024, (1, args.prompt, 8))
+    x = np.repeat(rng.integers(0, 1024, (1, args.prompt + args.gen, 1)), 8, axis=2)
+    batch = (text, c_codes, np.asarray([66]), np.asarray([args.prompt]), x,
+             np.zeros((1, x.shape[1]), bool))
+    cfg = InferenceConfig()
+    dsh = DSH(last_greedy=True, x_0_temp=cfg.x_0_temp, guidance_w=cfg.nar_guidance_w,
+              deep_clone=True, jump_len=1, jump_n_sample=1,
+              q0_override_steps=cfg.q0_override_steps, enable_kevin_scaled_inference=True,
+              progress=False)
+    steps, p_steps = args.steps, args.profile_steps
+
+    def run(t):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        diff = MultinomialDiffusion(1025, timesteps=t, device=dev)
+        return perform_simple_inference(nar, batch, diff, t, dsh, retain_quant0=True,
+                                        generator=gen)
+
+    with torch.no_grad():
+        run(steps)
+        sync()
+        walls = []
+        for _ in range(args.repeat):
+            t0 = time.perf_counter()
+            run(steps)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3 / steps)
+        run(p_steps)
+        sync()
+        with profile(activities=activities) as prof:
+            run(p_steps)
+            sync()
+    wall_ms = float(np.median(walls))
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    k1_us = sum(getattr(e, "self_device_time_total", 0) for e in events if "mha_fwd" in e.key)
+    by_name = {e.key: e for e in events}
+
+    def calls(name):
+        return by_name[name].count / p_steps if name in by_name else 0.0
+    host = sorted((e for e in events if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
+    out = {"nar": args.nar, "root": os.path.abspath(args.root),
+           "frames": args.prompt + args.gen, "steps": steps, "profile_steps": p_steps,
+           "wall_ms_per_step": wall_ms, "wall_ms_per_step_runs": walls,
+           "device_ms_per_step": device_us / 1e3 / p_steps,
+           "device_idle_share": 1 - device_us / 1e3 / p_steps / wall_ms,
+           "k1_device_ms_per_step": k1_us / 1e3 / p_steps,
+           "launches_per_step": calls("cudaLaunchKernel") + calls("cudaLaunchKernelExC"),
+           "stream_syncs_per_step": calls("cudaStreamSynchronize"),
+           "top_host_ops_us_per_step": {e.key: round(e.self_cpu_time_total / p_steps, 1)
+                                        for e in host}}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -81,6 +81,73 @@ def test_mha_kernel_rejects_other_head_dims(dev):
         K.mha(q, q, q)
 
 
+def _strided_qkv(b, l, h, dev, seed):
+    """q, k, v as the int8 decoder slices them: views of one (B, L, 3 H 64)
+    projection."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, l, 3 * h * 64), generator=g, device=dev).to(torch.bfloat16)
+    return [qkv[..., i * h * 64:(i + 1) * h * 64].reshape(b, l, h, 64) for i in range(3)]
+
+
+def _assert_k1(K, out, ref):
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= K.bf16_row_bound(ref)).all()), err.max().item()
+
+
+def test_mha_kernel_int8_decoder_call(dev):
+    """The int8 decoder's last layer: 750 queries over 1,200 keys, all three
+    strided views of a (2, 1200, 3072) projection, the second row's tail
+    masked; read in place through the tensor maps."""
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    q, k, v = _strided_qkv(2, 1200, 16, dev, 3)
+    mask = torch.zeros((2, 1200), dtype=torch.bool, device=dev)
+    mask[1, 1000:] = True
+    out = K.mha(q[:, 450:], k, v, mask)
+    torch.cuda.synchronize()
+    _assert_k1(K, out, K.mha_ref(q[:, 450:].contiguous(), k.contiguous(), v.contiguous(), mask))
+
+
+@pytest.mark.parametrize("b,lq,lk,h", [
+    (2, 525, 525, 16),        # the smoke's NAR prompt, no full tile of 192 queries
+    (2, 725, 725, 16),        # the smoke request's NAR frames
+    (1, 1201, 1201, 4),       # one key past a 128-key tile
+    (2, 750, 1201, 3),
+    (1, 1344, 1344, 19),      # 7 x 19 = 133 CTAs: one past a wave of 132
+    (7, 192, 200, 19),        # 133 CTAs of one query tile each
+    (2, 193, 129, 1),         # one query past a tile: a CTA with one live row
+    (1, 65, 1, 2),            # a single key
+])
+def test_mha_kernel_tile_edges(dev, b, lq, lk, h):
+    """Lengths off the 192-query and 128-key tiles and grids that leave a
+    partial last wave, against the twin; the last row's key tail masked."""
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    q, k, v = _qkv((b, lq, h, 64), lk, torch.bfloat16, dev, seed=lq + 7 * lk)
+    mask = torch.zeros((b, lk), dtype=torch.bool, device=dev)
+    mask[-1, lk - lk // 3:] = True
+    out = K.mha(q, k, v, mask)
+    torch.cuda.synchronize()
+    _assert_k1(K, out, K.mha_ref(q, k, v, mask))
+    _assert_k1(K, K.mha(q, k, v), K.mha_ref(q, k, v))
+
+
+def test_mha_kernel_rejects_ineligible_views(dev):
+    """A view the tensor maps cannot address raises before any launch."""
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    qkv = torch.zeros((2, 40, 3 * 128 + 8), device=dev, dtype=torch.bfloat16)
+    odd = qkv[..., 1:129].reshape(2, 40, 2, 64)          # base off a 16-byte boundary
+    n0 = K.launch_count
+    with pytest.raises(ValueError):
+        K.mha(odd, odd, odd)
+    step = qkv[..., :256:2].reshape(2, 40, 2, 64)        # head dim not unit-stride
+    with pytest.raises(ValueError):
+        K.mha(step, step, step)
+    assert K.launch_count == n0
+
+
 def test_nar_trajectory_on_gpu_matches_cpu(dev):
     """A small f32 NAR (head_dim 64) over a >= 512-frame deep-clone sequence:
     on the card its decoder self-attention runs K1; with the same weights,
@@ -649,6 +716,39 @@ def test_decode_attention_kernel_rejects_what_it_does_not_take(dev):
         A.decode_attention(q.half(), ck.half(), cv.half(), pos)
     with pytest.raises(ValueError):
         A.decode_attention(q, ck, cv, pos, kn)
+
+
+@pytest.mark.parametrize("b,w,positions", [
+    (1, 2001, (0,)), (1, 2001, (1,)), (1, 2001, (2000,)),     # positions 0, 1, W - 1
+    (1, 2001, (2001,)), (1, 2001, (4005,)),                    # W, 2 W + 3 (wrapped)
+    (2, 8192, (300, 9000)),                                    # the largest window
+    (8, 2001, (0, 5, 255, 256, 700, 1999, 2001, 5000)),        # 8 rows at mixed positions
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("self_column", [True, False])
+@pytest.mark.parametrize("host_positions", [True, False])
+def test_decode_attention_kernel_cluster_edges(dev, b, w, positions, dtype, self_column,
+                                               host_positions):
+    """K7 at the ring's edge positions, the largest window and 8 rows, with
+    the cluster sized from host positions (1 CTA at position 0, 8 from 1,793
+    slots up at one row) or, for a device tensor of positions, from the whole
+    window: within one ulp of the twin either way."""
+    from mars5_tts_torch.ops.kernels import decode_attention as A
+
+    q, ck, cv, kn, vn = _ring_inputs(b, w, 24, dtype, dev, w + sum(positions))
+    new = (kn, vn) if self_column else ()
+    pos = list(positions) if host_positions else torch.tensor(positions, dtype=torch.int32,
+                                                             device=dev)
+    cluster = A.launch_args(q, ck, cv, pos, *new)[-1]
+    n = min(max(positions) + 1, w) if host_positions else w
+    assert cluster == A.cluster_size(n, b * 24) and (b > 1 or cluster == min(8, -(-n // 256)))
+    n0 = A.launch_count
+    got = A.decode_attention(q, ck, cv, pos, *new)
+    torch.cuda.synchronize()
+    assert A.launch_count == n0 + 1
+    want = A.decode_attention_ref(q, ck, cv, pos, *new)
+    assert torch.isfinite(got).all()
+    assert ((got.float() - want.float()).abs() <= A.one_ulp(got, want)).all()
 
 
 @pytest.mark.parametrize("wbits", [8, 4])

@@ -1,5 +1,6 @@
-"""``mars5_tts_torch/tools/profile_ar.py`` runs end to end on the CPU at a
-tiny width (its ``--device cpu`` dry run) and prints the keys PERF.md reads."""
+"""``mars5_tts_torch/tools/profile_ar.py`` and ``profile_nar.py`` run end to
+end on the CPU at a tiny width (their ``--device cpu`` dry runs) and print
+the keys PERF.md reads."""
 
 import json
 import runpy
@@ -31,3 +32,25 @@ def test_profile_ar_dry_run(engine, monkeypatch, capsys):
                 "device_ms_per_token", "stream_syncs_per_token", "top_host_ops_us_per_token"):
         assert key in out
     assert ("k2_device_ms" in out) == (engine != "bf16")
+
+
+@pytest.mark.parametrize("nar", ["int8", "bf16"])
+def test_profile_nar_dry_run(nar, monkeypatch, capsys):
+    from mars5_tts_torch.models import nar as nar_mod
+
+    monkeypatch.setattr(nar_mod.ResidualTransformerConfig, "mars5",
+                        staticmethod(lambda n_text_vocab: nar_mod.ResidualTransformerConfig.tiny()))
+    monkeypatch.setattr(sys, "argv", ["profile_nar.py", "--device", "cpu", "--nar", nar,
+                                      "--prompt", "8", "--gen", "4", "--steps", "2",
+                                      "--repeat", "1", "--profile-steps", "1", "--root", ROOT])
+    torch.manual_seed(0)
+    with pytest.raises(SystemExit) as done:
+        runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_nar.py", run_name="__main__")
+    assert done.value.code == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["nar"] == nar and out["frames"] == 12 and out["steps"] == 2
+    assert out["profile_steps"] == 1
+    for key in ("wall_ms_per_step", "wall_ms_per_step_runs", "device_ms_per_step",
+                "device_idle_share", "k1_device_ms_per_step", "launches_per_step",
+                "stream_syncs_per_step", "top_host_ops_us_per_step"):
+        assert key in out
