@@ -23,8 +23,10 @@
    wrapped; clusters sized from the positions' host bound as the AR passes
    it) and K9 mega_decoder_stack (the int8 NAR decoder's 16 layers at the
    smoke request's shape: each layer alone on the kernel's output of the
-   layer before, then all sixteen in one call). K1 and K7 also print the
-   wrapper's host time (``host_ms``) and their device time (``device_ms``).
+   layer before, then all sixteen in one call). K1, K3, K4 and K7 also print
+   the wrapper's host time (``host_ms``) and their device time
+   (``device_ms``); K3 and K4 beside ``torch._int_mm`` at the (M, K, N) of
+   their int8 GEMM cores (a yardstick the port never calls there).
    Checks added after the first ones draw from generators of their own, so
    no earlier check's inputs move.
 4. Main paths: ``Mars5TTS`` at the released widths (AR 26 x 1536, NAR 8 + 16 x
@@ -260,27 +262,65 @@ def rand_qweight(n, k, gen, dev):
     return quantize_weight(torch.randn((n, k), generator=gen, device=dev) * 0.03)
 
 
-def check_w8a8(name, run, twin, moved, int8_ops):
-    """One K3/K4 variant against its twin, with CUDA-event times; ``moved``
-    the bytes it must move, ``int8_ops`` its operations."""
+def check_w8a8(name, run, twin, moved, int8_ops, min_exact):
+    """One K3/K4 variant against its twin: within the fused bound and at
+    least ``min_exact`` of the elements exactly equal; CUDA-event times, the
+    device time (``device_ms``) and the wrapper's host time (``host_ms``);
+    ``moved`` the bytes it must move, ``int8_ops`` its operations."""
     import torch
     out = run()
     ref = twin()
     torch.cuda.synchronize()
     ok, st = fused_bound(out, ref)
-    st.update(ms=cuda_ms(run), plain_ms=cuda_ms(twin))
+    ok = ok and st["exact_frac"] >= min_exact
+    st.update(ms=cuda_ms(run), plain_ms=cuda_ms(twin), device_ms=device_ms(run),
+              host_ms=host_ms(run))
     st["bound_ms"], st["bound_by"] = bound(moved + nbytes(out), int8=int8_ops)
+    rate = "not measured"
+    if st["device_ms"] is not None:
+        st["tops"] = int8_ops / (st["device_ms"] * 1e-3) / 1e12
+        rate = f"{st['tops']:.0f} TOP/s, {100 * st['tops'] * 1e12 / PEAK_OPS_S['int8']:.1f}% of peak"
     print(f"{name}: max_abs_err={st['max_abs_err']:.3e} mean_abs_err={st['mean_abs_err']:.3e} "
-          f"exact={st['exact_frac']:.4f} bound=fused_eq(0.02 peak, >95% exact, mean<2e-3 peak) "
-          f"within={ok} | kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us, "
-          f"roofline {st['bound_ms'] * 1e3:.1f} us ({st['bound_by']})", flush=True)
+          f"exact={st['exact_frac']:.5f} bound=fused_eq(0.02 peak, mean<2e-3 peak) and exact >= "
+          f"{min_exact} within={ok} | kernel {st['ms'] * 1e3:.1f} us (device "
+          f"{fmt_us(st['device_ms'])}, {rate}; wrapper host {st['host_ms'] * 1e3:.1f} us), plain "
+          f"{st['plain_ms'] * 1e3:.1f} us, roofline {st['bound_ms'] * 1e3:.1f} us "
+          f"({st['bound_by']})", flush=True)
     if not ok:
         raise RuntimeError(f"{name}: error above its bound")
     return st
 
 
+INT_MM_SHAPES = {"qkv": ((DIM, 3 * DIM),), "caq": ((DIM, DIM),),
+                 "ffn": ((DIM, 2 * FFN), (FFN, DIM))}     # (K, N) of each GEMM
+
+
+def check_int_mm(gen, dev):
+    """``torch._int_mm`` (cuBLAS) at the (M, K, N) of the int8 GEMM cores of
+    K3 and K4: a yardstick for the GEMM alone (no LN, quant or epilogue), so
+    not the same function; the port never calls it on these sites."""
+    import torch
+    res, txt = {}, []
+    for name, shapes in INT_MM_SHAPES.items():
+        ops = [(torch.randint(-127, 128, (M_ROWS, k), generator=gen, device=dev,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8).t())
+               for k, n in shapes]
+
+        def run():
+            for a, b in ops:
+                torch._int_mm(a, b)
+        res[name] = {"ms": cuda_ms(run), "device_ms": device_ms(run)}
+        txt.append(f"{name} " + " + ".join(f"({M_ROWS}, {k}) x ({k}, {n})" for k, n in shapes)
+                   + f" {res[name]['ms'] * 1e3:.1f} us (device {fmt_us(res[name]['device_ms'])})")
+    print("torch._int_mm (cuBLAS int8 GEMM alone, the yardstick of K3/K4's GEMM cores; never "
+          "called by the port here): " + ", ".join(txt), flush=True)
+    return res
+
+
 def check_nar_fused(gen, dev):
-    """K3 (qkv with LN + bias, caq, residual) and K4 at the decoder's shapes."""
+    """K3 (qkv with LN + bias, caq, residual; 100% equal to the twin) and K4
+    (at least 99.9% equal) at the decoder's shapes."""
     import torch
     from mars5_tts_torch.ops.kernels import nar_fused as F
 
@@ -296,18 +336,18 @@ def check_nar_fused(gen, dev):
         "K3 qkv (2, 1200, 1024) -> 3072, LN + bias",
         lambda: F.fused_linear(x, qkv_w, ln=ln, bias=qkv_b),
         lambda: F.fused_linear_ref(x, qkv_w, ln=ln, bias=qkv_b),
-        nbytes(x, *qkv_w, qkv_b, *ln), 2 * M_ROWS * 3 * DIM * DIM)
+        nbytes(x, *qkv_w, qkv_b, *ln), 2 * M_ROWS * 3 * DIM * DIM, 1.0)
     res["caq"] = check_w8a8(
         "K3 caq (2, 1200, 1024) -> 1024, LN + bias",
         lambda: F.fused_linear(x, sq_w, ln=ln, bias=sq_b),
         lambda: F.fused_linear_ref(x, sq_w, ln=ln, bias=sq_b),
-        nbytes(x, *sq_w, sq_b, *ln), 2 * M_ROWS * DIM * DIM)
+        nbytes(x, *sq_w, sq_b, *ln), 2 * M_ROWS * DIM * DIM, 1.0)
     a = (x * 0.5).contiguous()
     res["residual"] = check_w8a8(
         "K3 residual (2, 1200, 1024) -> 1024, bias + residual",
         lambda: F.fused_linear(a, sq_w, bias=sq_b, residual=x),
         lambda: F.fused_linear_ref(a, sq_w, bias=sq_b, residual=x),
-        nbytes(a, *sq_w, sq_b, x), 2 * M_ROWS * DIM * DIM)
+        nbytes(a, *sq_w, sq_b, x), 2 * M_ROWS * DIM * DIM, 1.0)
     w, v = rand_qweight(FFN, DIM, gen, dev), rand_qweight(FFN, DIM, gen, dev)
     l2 = rand_qweight(DIM, FFN, gen, dev)
     l2_b = 0.1 * torch.randn(DIM, generator=gen, device=dev)
@@ -315,7 +355,8 @@ def check_nar_fused(gen, dev):
         "K4 ffn (2, 1200, 1024), F 3072",
         lambda: F.fused_ffn(x, ln, w, v, l2, l2_b),
         lambda: F.fused_ffn_ref(x, ln, w, v, l2, l2_b),
-        nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * M_ROWS * 3 * DIM * FFN)
+        nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * M_ROWS * 3 * DIM * FFN, 0.999)
+    res["int_mm"] = check_int_mm(own_generator(dev, 13), dev)
     return res
 
 
@@ -1044,6 +1085,12 @@ def main():
     k6_worst = max(k6, key=lambda st: st["max_abs_err"])
     k2_main = k2[(4, AR_POSITIONS[0])]
 
+    def w8a8_extra(st, int_mm):
+        return {"device_ms": st["device_ms"], "host_ms": st["host_ms"],
+                "exact_frac": st["exact_frac"],
+                "int_mm_ms": None if int_mm is None else int_mm["ms"],
+                "int_mm_device_ms": None if int_mm is None else int_mm["device_ms"]}
+
     def batched(st):
         keys = ("positions", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                 "device_ms", "one_row_device_ms", "library_ms", "library_device_ms",
@@ -1066,9 +1113,12 @@ def main():
          "batch4": {f"W{wb}": batched(k2[(wb, "batch")]) for wb in (4, 8)}},
         {**row("fused_linear", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:111",
                w8a8["qkv"]),
-         "max_abs_err": max(w8a8[v]["max_abs_err"] for v in ("qkv", "caq", "residual"))},
-        row("fused_ffn", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:144",
-            w8a8["ffn"]),
+         "max_abs_err": max(w8a8[v]["max_abs_err"] for v in ("qkv", "caq", "residual")),
+         **w8a8_extra(w8a8["qkv"], w8a8["int_mm"]["qkv"]),
+         "cases": {v: {**{k: w8a8[v][k] for k in ("ms", "bound_ms", "max_abs_err")},
+                       **w8a8_extra(w8a8[v], w8a8["int_mm"].get(v))} for v in ("caq", "residual")}},
+        {**row("fused_ffn", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:144",
+               w8a8["ffn"]), **w8a8_extra(w8a8["ffn"], w8a8["int_mm"]["ffn"])},
         {**row("heads_diffusion_tail", "diffusion_tail.cu",
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:149", k6[-1]),
          "max_abs_err": k6_worst["max_abs_err"]},

@@ -47,8 +47,9 @@
 //   consumer warpgroup and are launched last (grid x = batch x head, grid y =
 //   query tile). The int8 NAR's last layer (750 queries) gives 4 x 32 = 128
 //   CTAs, 0.97 of a wave.
-// - cuTensorMapEncodeTiled comes from the runtime (cudaGetDriverEntryPoint),
-//   so the library needs no -lcuda; the three maps are encoded at each call.
+// - cuTensorMapEncodeTiled comes from the runtime (hopper.cuh
+//   tensor_map_encoder), so the library needs no -lcuda; the three maps are
+//   encoded at each call.
 //
 // The f32 kernel (not on the default path) keeps a query row a thread in
 // registers and walks 32-key tiles of K and V in shared memory.
@@ -335,35 +336,12 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // The 4-D map (head dim, heads, sequence, batch) of a bf16 (B, L, H, 64) view
 // with element strides (sb, sl, sh) and unit stride on the head dim; boxes of
 // ``rows`` positions of one head, 128-byte swizzle.
 bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, long long sb,
                 long long sl, long long sh, int rows) {
-  const EncodeTiled enc = encoder();
+  const EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {kD, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};

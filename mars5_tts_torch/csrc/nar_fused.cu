@@ -4,61 +4,134 @@
 // Replaces the TPU kernels mars5_tts_tpu/ops/pallas/nar_fused.py::_lin_kernel
 // (entry fused_linear) and ::_ffn_kernel (entry fused_ffn), groups = 1.
 //
-// One entry, mars5_w8a8_gemm, over the GEMM tile of w8a8_gemm.cuh, in two modes:
-//   mode 0 (K3, and K4's second launch):
-//     out = bf16(rescale(quant(A) . W^T) [+ bias]) [+ residual]
-//   mode 1 (K4's first launch):
-//     u = bf16(bf16(silu(wo)) * vo), wo/vo = bf16(rescale(quant(A) . W^T / V^T))
-//   with A = the x rows, LayerNorm'd first when ln_w is given.
+//   K3 (mars5_w8a8_linear): prologue([LN](x)) -> q, xs; then
+//     out = bf16(rescale(q . W^T) [+ bias]) [+ residual]          (2 launches)
+//   K4 (mars5_w8a8_ffn): prologue(LN(x)) -> q, xs;
+//     u = bf16(bf16(silu(wo)) * vo), wo/vo = bf16(rescale(q . W^T / V^T));
+//     prologue(u) -> q, xs; out = bf16(rescale(q . lin2^T) + b) + x (4 launches)
 //
-//   x (M, K) bf16 row-major; W/V (N, K) int8 row-major with f32 per-row
-//   scales; bias (N,) f32; residual and out (M, N) bf16.
+//   x (rows through a (B, L, K) view, unit stride on K) bf16; W/V (N, K)
+//   int8 row-major with f32 per-row scales; bias (N,) f32; residual rows
+//   bf16 through a view like x; out (M, N) bf16 row-major. The kernels and
+//   their numerics are in w8a8_wgmma.cuh.
 //
-// Numerics (those of the TPU kernels): LN in f32 (mean, then the mean of
-// squared deviations, (x - mean) / sqrt(var + eps), * w + b), rounded to
-// bf16 and back, the two means summed in f64 and rounded once; xs = max(amax, 1e-8) / 127 and q = rint(x / xs) clipped to
-// +-127 (round half to even, true division); the int32 product is exact;
-// the rescale acc * (xs * s), the bias add in f32, the bf16 cast, then the
-// residual added in bf16. Products and sums of the epilogue use __fmul_rn /
-// __fadd_rn so the compiler never contracts them into an FMA with another
-// rounding than the plain version's.
+// What bounds it on an H100: at the decoder's M = 2 x 1200 rows the qkv GEMM
+// is 7.5 G int8 MACs (7.6 us at the int8 peak) over 3 MB of weights; K4 is
+// 3 x 7.5 G MACs (22.9 us). The tensor cores bound both; only wgmma reaches
+// their rate, and at 128 x 128 tiles each 128-deep slice (32 KB from L2)
+// feeds 2 M MACs, so L2 bandwidth is the next limit. The TPU kernels kept a
+// row block and its whole (rows x 2F) intermediate in VMEM; a Hopper CTA
+// cannot hold 128 rows of u (768 KB bf16), so the re-quant of u (its row
+// amax over all F columns) is the second prologue, reading u from device
+// scratch (15 MB at the bench shape, served from the 50 MB L2). The
+// prologue runs once a row: LN and quantisation are no longer redone by each
+// CTA that shares a row block. One persistent CTA a SM walks the tiles.
+// Tiles are 128 rows x 256 weight rows where that still gives every SM a
+// tile (qkv: 19 x 12 = 228 tiles at M = 2400; K4's W and V GEMM 19 x 24,
+// 128 u columns each), else 128 x 128 (caq and lin2: 19 x 8 = 152, 1.15 a
+// SM: the wave quantisation is kept, a narrower tile would halve each
+// slice's reuse); ops/kernels/nar_fused.py gemm_plan decides.
 //
-// What bounds it here: at the decoder's M = 2400 rows the qkv GEMM is 7.5 G
-// int8 MACs over 3 MB of weights, bound by the tensor cores and by weight
-// re-reads from L2. LN and the per-row amax need whole rows, so a block owns
-// 64 rows: it normalises and quantises them once into shared memory (int8,
-// rows padded by 16 bytes so fragment loads are free of bank conflicts) and
-// then walks its share of the output columns in 64-row weight tiles,
-// streamed 128 k-deep through a two-stage cp.async buffer. 4 warps x 16 rows
-// run mma.sync.m16n8k32 (s8 x s8 -> s32) over all 64 tile rows. The TPU
-// _ffn_kernel kept the whole (rows x 2F) intermediate in VMEM; the re-quant
-// of u needs each row's amax over all F = 3072 columns, and 64 rows of u
-// (384 KB bf16) exceed a Hopper block's 227 KB of shared memory, so K4 is
-// two launches: mode 1 writes u to device scratch, and mode 0 with K = F
-// re-reads each u row whole, takes its amax, quantises and runs lin2 with
-// bias and residual. No wgmma, TMA or warp specialisation yet.
-//
-// The C entry point returns cudaGetLastError() after the launch.
+// The C entry points encode the tensor maps (cuTensorMapEncodeTiled through
+// the runtime), launch, and return cudaGetLastError() after each launch, or
+// cudaErrorInvalidValue for arguments the kernels do not take. The caller
+// gives the grid and tile (ops/kernels/nar_fused.py gemm_plan) and the scratch: q
+// (M x max(K, F) int8), then xs (M f32).
 
-#include "w8a8_gemm.cuh"
+#include <atomic>
 
-extern "C" int mars5_w8a8_gemm(int mode, const void* x, const void* ln_w, const void* ln_b,
-                               const void* wq, const void* ws, const void* vq,
-                               const void* vs, const void* bias, const void* res, void* out,
-                               int M, int N, int K, int tiles_per_block, float eps,
-                               void* stream) {
-  const bool has_ln = ln_w != nullptr && ln_b != nullptr;
-  if (M <= 0 || K <= 0 || K % kKC || K > kMaxK || tiles_per_block <= 0 ||
-      (mode == 0 && N % kBN) || (mode == 1 && (N % (kBN / 2) || !has_ln || !vq || !vs)) ||
-      (mode != 0 && mode != 1))
+#include "w8a8_wgmma.cuh"
+
+namespace {
+
+// Launches a GEMM kernel with kBN-wide tiles, its dynamic shared memory
+// (above 48 KB) allowed once a device.
+template <auto kKernel, int kBN, typename... Args>
+cudaError_t launch_gemm(int grid, cudaStream_t st, Args... args) {
+  static std::atomic<unsigned> smem_set{0};   // one bit a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32 || !(smem_set.load() & (1u << dev))) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kKernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Ring<kBN>::kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) smem_set.fetch_or(1u << dev);
+  }
+  kKernel<<<grid, kGemmThreads, Ring<kBN>::kSmem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int M, int N, int K, int grid, int bn) {
+  return M <= 0 || N <= 0 || N % 64 || K <= 0 || K % kBK || K > kMaxK || grid <= 0 ||
+         (bn != 128 && bn != 256);
+}
+
+bool bad_rows(const Rows& r) {
+  return r.L <= 0 || r.sb % 8 || r.sl % 8 || reinterpret_cast<uintptr_t>(r.ptr) % 16;
+}
+
+}  // namespace
+
+extern "C" int mars5_w8a8_linear(const void* x, int xL, long long xsb, long long xsl,
+                                 const void* ln_w, const void* ln_b, float eps, const void* wq,
+                                 const void* ws, const void* bias, const void* res, int rL,
+                                 long long rsb, long long rsl, void* out, void* scratch, int M,
+                                 int N, int K, int grid, int bn, void* stream) {
+  const Rows xr{static_cast<const __nv_bfloat16*>(x), xsb, xsl, xL};
+  const Rows rr{static_cast<const __nv_bfloat16*>(res), rsb, rsl, rL};
+  if (bad_shape(M, N, K, grid, bn) || bad_rows(xr) || (res != nullptr && bad_rows(rr)) ||
+      (ln_w == nullptr) != (ln_b == nullptr))
     return (int)cudaErrorInvalidValue;
-  Args p{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ln_w),
-         static_cast<const float*>(ln_b), static_cast<const int8_t*>(wq),
-         static_cast<const float*>(ws), static_cast<const int8_t*>(vq),
-         static_cast<const float*>(vs), static_cast<const float*>(bias),
-         static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
-         M, N, K, tiles_per_block, eps, nullptr, nullptr};
+  int8_t* q = static_cast<int8_t*>(scratch);
+  float* xs = reinterpret_cast<float*>(q + (long long)M * K);
+  CUtensorMap ta, tw;
+  if (!encode_map_s8(&ta, q, M, K, kBM) || !encode_map_s8(&tw, wq, N, K, bn))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 1) return (int)launch<true, 1>(p, st);
-  return (int)(has_ln ? launch<true, 0>(p, st) : launch<false, 0>(p, st));
+  cudaError_t err = launch_prologue<false>(xr, static_cast<const float*>(ln_w),
+                                           static_cast<const float*>(ln_b), eps, q, xs, M, K, st);
+  if (err != cudaSuccess) return (int)err;
+  const Epilogue p{xs, static_cast<const float*>(ws), nullptr, static_cast<const float*>(bias),
+                   rr, static_cast<__nv_bfloat16*>(out), M, N, K};
+  return (int)(bn == 128 ? launch_gemm<nar_k3_gemm<128>, 128>(grid, st, ta, tw, p)
+                         : launch_gemm<nar_k3_gemm<256>, 256>(grid, st, ta, tw, p));
+}
+
+extern "C" int mars5_w8a8_ffn(const void* x, int xL, long long xsb, long long xsl,
+                              const void* ln_w, const void* ln_b, float eps, const void* wq,
+                              const void* ws, const void* vq, const void* vs, const void* l2q,
+                              const void* l2s, const void* l2b, void* u, void* out,
+                              void* scratch, int M, int K, int F, int grid1, int bn1, int grid2,
+                              int bn2, void* stream) {
+  const Rows xr{static_cast<const __nv_bfloat16*>(x), xsb, xsl, xL};
+  if (bad_shape(M, F, K, grid1, bn1) || F % (bn1 / 2) || bad_shape(M, K, F, grid2, bn2) ||
+      bad_rows(xr) || ln_w == nullptr || ln_b == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int8_t* q = static_cast<int8_t*>(scratch);
+  float* xs = reinterpret_cast<float*>(q + (long long)M * (K > F ? K : F));
+  CUtensorMap ta1, tw, tv, ta2, tl;
+  if (!encode_map_s8(&ta1, q, M, K, kBM) || !encode_map_s8(&tw, wq, F, K, bn1 / 2) ||
+      !encode_map_s8(&tv, vq, F, K, bn1 / 2) || !encode_map_s8(&ta2, q, M, F, kBM) ||
+      !encode_map_s8(&tl, l2q, K, F, bn2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* ub = static_cast<__nv_bfloat16*>(u);
+
+  cudaError_t err = launch_prologue<true>(xr, static_cast<const float*>(ln_w),
+                                          static_cast<const float*>(ln_b), eps, q, xs, M, K, st);
+  if (err != cudaSuccess) return (int)err;
+  const Epilogue p1{xs, static_cast<const float*>(ws), static_cast<const float*>(vs), nullptr,
+                    Rows{nullptr, 0, 0, 1}, ub, M, F, K};
+  err = bn1 == 128 ? launch_gemm<nar_k4_gemm_swiglu<128>, 128>(grid1, st, ta1, tw, tv, p1)
+                   : launch_gemm<nar_k4_gemm_swiglu<256>, 256>(grid1, st, ta1, tw, tv, p1);
+  if (err != cudaSuccess) return (int)err;
+
+  // u's rows quantised over all F columns into the same scratch
+  err = launch_prologue<true>(Rows{ub, 0, F, M}, nullptr, nullptr, eps, q, xs, M, F, st);
+  if (err != cudaSuccess) return (int)err;
+  const Epilogue p2{xs, static_cast<const float*>(l2s), nullptr, static_cast<const float*>(l2b),
+                    xr, static_cast<__nv_bfloat16*>(out), M, K, F};
+  return (int)(bn2 == 128 ? launch_gemm<nar_k4_gemm_lin2<128>, 128>(grid2, st, ta2, tl, p2)
+                          : launch_gemm<nar_k4_gemm_lin2<256>, 256>(grid2, st, ta2, tl, p2));
 }

@@ -1,5 +1,6 @@
 """W8A8 GEMM kernels of the NAR decoder layer, K3 ``fused_linear`` and K4
-``fused_ffn`` (``csrc/nar_fused.cu``), and their plain twins.
+``fused_ffn`` (``csrc/nar_fused.cu`` over ``csrc/w8a8_wgmma.cuh``), and their
+plain twins.
 
 Replace the TPU kernels ``mars5_tts_tpu/ops/pallas/nar_fused.py::_lin_kernel``
 (entry ``fused_linear``) and ``::_ffn_kernel`` (entry ``fused_ffn``) at
@@ -14,17 +15,20 @@ Replace the TPU kernels ``mars5_tts_tpu/ops/pallas/nar_fused.py::_lin_kernel``
 
 What bounds them on an H100: at the decoder's M = 2 x 1200 rows the qkv GEMM
 is 7.5 G int8 MACs over 3 MB of weights, so both kernels are bound by the
-tensor cores and by how often each block re-reads weight tiles from L2. LN
-and the per-row amax need whole rows, so a block takes 64 rows, normalises
-and quantises them once into shared memory and then walks its share of the
-output columns, streaming 64 x 128 int8 weight tiles through a cp.async
-double buffer into ``mma.sync.m16n8k32`` (s8 x s8 -> s32). The TPU ``_ffn_kernel``
+tensor cores, which only ``wgmma`` drives at their rate, and then by how many
+bytes each tile pulls from L2. Each call is a per-row prologue (one warp a
+row: [LN,] amax, int8 row and f32 scale into scratch, once a row) and a
+persistent, warp-specialised GEMM: one producer thread feeds 128-deep int8
+slices of A and W by TMA into a shared-memory ring, two consumer warpgroups
+run ``wgmma.m64nNk32`` (s8 x s8 -> s32) on tiles of 128 rows by 256 or 128
+weight rows and apply the epilogue in registers. The TPU ``_ffn_kernel``
 kept a whole (480 x 6144) intermediate in VMEM; the re-quant of u =
-silu(w) * v needs each row's amax over all F columns, which a Hopper block
-cannot hold for 64 rows (64 x 3072 bf16 = 384 KB), so K4 is two launches of
-the same kernel: the first writes u (M, F) bf16 to device scratch (15 MB at
-the bench shape, mostly served from L2), the second re-quantises it with its
-own row amax, runs lin2 and adds bias and residual. No wgmma or TMA yet.
+silu(w) * v needs each row's amax over all F columns, which a Hopper CTA
+cannot hold for its rows, so K4 writes u (M, F) bf16 to device scratch
+(15 MB at the bench shape, mostly served from L2) and quantises it with a
+second prologue before lin2: four launches from one C call. ``gemm_plan``
+is the host's plan of a GEMM launch (tiles, grid, TMA boxes), ``row_view``
+how a prologue reads x.
 
 Numerics, as in the TPU kernels: LN in f32, rounded to bf16 and back;
 ``xs = max(amax, 1e-8) / 127``, ``rint(x / xs)`` clipped to +-127; the rescale
@@ -34,12 +38,14 @@ and rounded once, in kernel and twin alike, so the two differ only through
 ``expf`` in the sigmoid.
 
 ``fused_linear``/``fused_ffn`` take the twins only for CPU tensors. For CUDA
-tensors they launch the kernel or raise; nothing falls back.
+tensors they launch the kernels or raise; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -47,9 +53,12 @@ from ..quant import div, int8_matmul, quantize_act
 from . import build
 
 SOURCES = build.LIBRARIES["nar_fused"]
-K_CHUNK = 128        # the kernel streams weights in 128-deep k chunks
-TILE_N = 64          # output columns per weight tile
-MAX_K = 3072         # a 64-row block's int8 A tile must fit in shared memory
+K_CHUNK = 128        # the GEMM streams 128-deep k slices (one 128-byte swizzle row)
+N_MULTIPLE = 64      # output columns: a multiple of 64 (tiles may be ragged)
+MAX_K = 3072         # a prologue warp holds a row of up to 3072 values in registers
+TILE_M = 128         # rows a GEMM tile: two consumer warpgroups of 64
+TILE_B = (256, 128)  # weight rows a GEMM tile, the wider first (K4's W and V GEMM: half each)
+H100_SMS = 132
 
 # Launches of the CUDA kernels in this process (reset with reset_launch_counts).
 fused_linear_launches = 0
@@ -122,29 +131,134 @@ def fused_ffn_ref(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5):
     return (x2 + y.to(x.dtype)).reshape(*lead, k)
 
 
+def prologue_ref(x, ln=None, eps: float = 4e-5):
+    """Plain version of the kernels' per-row prologue: x (M, K) [-> LN] ->
+    (q (M, K) int8, xs (M,) f32), the twins' ``_ln_bf16_f32`` and
+    ``quantize_act``."""
+    xf = x.float()
+    if ln is not None:
+        xf = _ln_bf16_f32(xf, ln[0], ln[1], eps)
+    q, xs = quantize_act(xf)
+    return q, xs[..., 0]
+
+
+# ------------------------------------------------------------------ host plan
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """One launch of the GEMM kernel as the host plans it (``gemm_plan``)."""
+    tile_b: int         # weight rows a tile: 128 or 256 (mode 1: half W, half V)
+    tile_cols: int      # output columns a tile (mode 1: u columns, tile_b / 2)
+    tiles_m: int        # row blocks of TILE_M
+    tiles_n: int        # column blocks of ``tile_cols``
+    grid: int           # persistent CTAs, each walking tiles grid apart
+    k_slices: int       # 128-deep k slices a tile, one ring stage each
+    a_box: tuple        # TMA box of A: (bytes, rows)
+    b_boxes: tuple      # TMA boxes of the weight rows a stage: ((bytes, rows), ...)
+    row_bytes: int      # byte stride of the rows of A and of the weights (= K)
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> GemmPlan:
+    """The plan of one GEMM launch over A (m, k) int8 and weights (n, k) int8:
+    mode 0 writes (m, n); mode 1 (K4's W and V GEMM) writes u (m, n) from n
+    rows of W and n of V. The wider 256-row weight tile moves a quarter
+    fewer bytes per product than the 128-row one; it is taken when its
+    tiles still give every SM one (and, in mode 1, its 128 u columns divide
+    n). Raises ValueError on a shape the kernel does not take (K a multiple
+    of 128 up to MAX_K, N a multiple of 64)."""
+    if mode not in (0, 1):
+        raise ValueError(f"nar_fused: no GEMM mode {mode}")
+    if m <= 0:
+        raise ValueError("nar_fused: no rows")
+    if k <= 0 or k % K_CHUNK or k > MAX_K:
+        raise ValueError(f"nar_fused kernel needs K a multiple of {K_CHUNK} and <= {MAX_K}, "
+                         f"got {k}")
+    if n <= 0 or n % N_MULTIPLE:
+        raise ValueError(f"nar_fused kernel needs N a multiple of {N_MULTIPLE}, got {n}")
+    tiles_m = -(-m // TILE_M)
+    for bn in TILE_B:
+        cols = bn if mode == 0 else bn // 2
+        tiles_n = -(-n // cols)
+        if tiles_m * tiles_n >= sms and (mode == 0 or n % cols == 0):
+            break
+    boxes = ((K_CHUNK, bn),) if mode == 0 else ((K_CHUNK, bn // 2),) * 2
+    return GemmPlan(bn, cols, tiles_m, tiles_n, min(tiles_m * tiles_n, sms), k // K_CHUNK,
+                    (K_CHUNK, TILE_M), boxes, k)
+
+
+def row_view(x, what: str):
+    """(rows, L, sb, sl): how a prologue (or an epilogue's residual) reads
+    the bf16 rows of ``x`` (..., C) in place, row r of the (rows, C) matrix
+    at element (r // L) * sb + (r % L) * sl. The last axis needs unit stride,
+    the row steps multiples of 16 bytes and the view a 16-byte aligned base;
+    a size-1 axis is never stepped (its step is 0). Raises ValueError naming
+    what a view breaks (``.contiguous()`` always qualifies)."""
+    c = x.shape[-1]
+    if x.numel() == 0:
+        raise ValueError(f"{what}: no rows")
+    x3 = x.reshape(1, 1, c) if x.ndim == 1 else x
+    try:
+        x3 = x3.view(-1, x3.shape[-2], c)
+    except RuntimeError:
+        raise ValueError(f"{what}: the leading axes of a {tuple(x.shape)} view with strides "
+                         f"{x.stride()} do not merge into one") from None
+    b, l, _ = x3.shape
+    sb, sl, sc = x3.stride()
+    if sc != 1 and c > 1:
+        raise ValueError(f"{what}: the last axis must have unit stride, got strides {x.stride()}")
+    sb, sl = (sb if b > 1 else 0), (sl if l > 1 else 0)
+    per16 = 16 // x.element_size()
+    if sb % per16 or sl % per16:
+        raise ValueError(f"{what}: row strides {x.stride()} are not multiples of 16 bytes")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: the view does not start on a 16-byte boundary")
+    return b * l, l, sb, sl
+
+
 # ------------------------------------------------------------------ kernels
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(idx: int) -> int:
+    return torch.cuda.get_device_properties(idx).multi_processor_count
+
+
+def _sms(device) -> int:
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+
 
 def _lib():
     lib = build.load("nar_fused", SOURCES)
-    fn = lib.mars5_w8a8_gemm
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        # mode, x, ln_w, ln_b, wq, ws, vq, vs, bias, res, out, M, N, K,
-        # tiles_per_block, eps, stream
-        fn.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
-                       ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.mars5_w8a8_linear.argtypes is None:
+        vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        # x, L, sb, sl, ln_w, ln_b, eps, wq, ws, bias, res, L, sb, sl, out,
+        # scratch, M, N, K, grid, tile_b, stream
+        lib.mars5_w8a8_linear.argtypes = [vp, i, ll, ll, vp, vp, f, vp, vp, vp,
+                                          vp, i, ll, ll, vp, vp, i, i, i, i, i, vp]
+        # x, L, sb, sl, ln_w, ln_b, eps, wq, ws, vq, vs, l2q, l2s, l2b, u, out,
+        # scratch, M, K, F, grid1, tile_b1, grid2, tile_b2, stream
+        lib.mars5_w8a8_ffn.argtypes = [vp, i, ll, ll, vp, vp, f, vp, vp, vp, vp, vp, vp,
+                                       vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        lib.mars5_w8a8_linear.restype = lib.mars5_w8a8_ffn.restype = ctypes.c_int
+    return lib
 
 
-def _f32(t):
-    return None if t is None else t.to(torch.float32).contiguous()
-
-
-def _aligned(t):
-    """t as the kernel reads it: contiguous and 16-byte aligned (vector loads)."""
-    t = t.contiguous()
+def _f32(t, n, what):
+    """An f32 vector of ``n`` the kernels read with 16-byte loads."""
+    if t is None:
+        return None
+    if t.shape != (n,):
+        raise ValueError(f"{what} must be ({n},), got {tuple(t.shape)}")
+    t = t.to(torch.float32).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_w(w, k, what):
@@ -154,71 +268,46 @@ def _check_w(w, k, what):
                          f"{tuple(q.shape)}")
     if s.dtype != torch.float32 or s.shape != (q.shape[0],):
         raise ValueError(f"{what}: scales must be f32 ({q.shape[0]},)")
-    return _aligned(q), s.contiguous()
-
-
-def _tiles_per_block(m, n_cols):
-    """Output tiles each block walks: enough blocks to cover the card twice."""
-    tiles = n_cols // TILE_N
-    m_blocks = -(-m // 64)
-    splits = min(tiles, max(1, -(-264 // m_blocks)))
-    return -(-tiles // splits)
-
-
-def _launch(mode, x2, ln, wq, ws, vq, vs, bias, res, out, n, eps):
-    m, k = x2.shape
-    fn = _lib()
-    n_cols = n if mode == 0 else 2 * n   # mode 1 tiles hold 32 W + 32 V rows
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(mode, x2.data_ptr(),
-                 None if ln is None else ln[0].data_ptr(),
-                 None if ln is None else ln[1].data_ptr(),
-                 wq.data_ptr(), ws.data_ptr(),
-                 None if vq is None else vq.data_ptr(),
-                 None if vs is None else vs.data_ptr(),
-                 None if bias is None else bias.data_ptr(),
-                 None if res is None else res.data_ptr(),
-                 out.data_ptr(), m, n, k, _tiles_per_block(m, n_cols), eps, stream)
-    if err != 0:
-        raise RuntimeError(f"nar_fused kernel launch failed: cudaError {err}")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError(f"{what}: TMA reads the weight as a contiguous (N, K) matrix on a "
+                         f"16-byte boundary")
+    return q, s.contiguous()
 
 
 def _check_x(x, what):
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what} kernel takes bf16 activations, got {x.dtype}")
-    k = x.shape[-1]
-    if k % K_CHUNK or k > MAX_K:
-        raise ValueError(f"{what} kernel needs K a multiple of {K_CHUNK} and "
-                         f"<= {MAX_K}, got {k}")
-    return _aligned(x.reshape(-1, k))
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return row_view(x, f"{what} x")
 
 
 def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5):
     """K3: [LN ->] W8A8 linear [+ bias] [+ residual] -> (..., N).
 
-    CPU tensors take ``fused_linear_ref``; CUDA tensors launch the kernel
-    (bf16 x, K a multiple of 128, N a multiple of 64) and raise otherwise."""
+    CPU tensors take ``fused_linear_ref``; CUDA tensors launch the kernels
+    (bf16 x and residual read in place as ``row_view`` takes them, K a
+    multiple of 128 up to 3072, N a multiple of 64) and raise otherwise."""
     if x.device.type == "cpu":
         return fused_linear_ref(x, w, ln=ln, bias=bias, residual=residual, eps=eps)
-    x2 = _check_x(x, "fused_linear")
-    q, s = _check_w(w, x2.shape[1], "fused_linear")
+    m, xl, xsb, xsl = _check_x(x, "fused_linear")
+    k = x.shape[-1]
+    q, s = _check_w(w, k, "fused_linear")
     n = q.shape[0]
-    if n % TILE_N:
-        raise ValueError(f"fused_linear kernel needs N a multiple of {TILE_N}, got {n}")
-    res = None
+    plan = gemm_plan(m, n, k, 0, _sms(x.device))
+    res = (None, 1, 0, 0)
     if residual is not None:
         if residual.dtype != torch.bfloat16 or residual.shape != (*x.shape[:-1], n):
             raise ValueError("fused_linear: residual must be bf16 (..., N)")
-        res = residual.reshape(-1, n).contiguous()
-    if bias is not None and bias.shape != (n,):
-        raise ValueError(f"fused_linear: bias must be ({n},)")
-    if ln is not None:
-        ln = (_f32(ln[0]), _f32(ln[1]))
-    out = torch.empty((x2.shape[0], n), dtype=torch.bfloat16, device=x.device)
-    _launch(0, x2, ln, q, s, None, None, _f32(bias), res, out, n, eps)
+        res = (residual.data_ptr(), *row_view(residual, "fused_linear residual")[1:])
+    lnw, lnb = (None, None) if ln is None else (_f32(ln[0], k, "fused_linear: LN weight"),
+                                                _f32(ln[1], k, "fused_linear: LN bias"))
+    bias = _f32(bias, n, "fused_linear: bias")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    scratch = torch.empty(m * k + 4 * m, dtype=torch.int8, device=x.device)
+    build.call(x.device, _lib().mars5_w8a8_linear, x.data_ptr(), xl, xsb, xsl, _ptr(lnw),
+               _ptr(lnb), eps, q.data_ptr(), s.data_ptr(), _ptr(bias), *res, out.data_ptr(),
+               scratch.data_ptr(), m, n, k, plan.grid, plan.tile_b)
     global fused_linear_launches
     fused_linear_launches += 1
     return out.reshape(*x.shape[:-1], n)
@@ -227,26 +316,33 @@ def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5):
 def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5):
     """K4: x + lin2(silu(w) * v) over LN(x), W8A8 -> (..., K).
 
-    CPU tensors take ``fused_ffn_ref``; CUDA tensors launch the kernel (two
-    launches of ``csrc/nar_fused.cu``, counted as one) and raise on what it
-    does not take (bf16 x, K and F multiples of 128)."""
+    CPU tensors take ``fused_ffn_ref``; CUDA tensors launch the kernels (four
+    launches from one C call, counted as one) and raise on what they do not
+    take (bf16 x read as ``row_view`` takes it, K and F multiples of 128 up
+    to 3072)."""
     if x.device.type == "cpu":
         return fused_ffn_ref(x, ln, w, v, lin2, lin2_b, eps=eps)
-    x2 = _check_x(x, "fused_ffn")
-    m, k = x2.shape
+    m, xl, xsb, xsl = _check_x(x, "fused_ffn")
+    k = x.shape[-1]
     wq, ws = _check_w(w, k, "fused_ffn W")
     vq, vs = _check_w(v, k, "fused_ffn V")
     f = wq.shape[0]
-    if vq.shape[0] != f or f % K_CHUNK or f > MAX_K:
-        raise ValueError(f"fused_ffn kernel needs W, V of one width F, a multiple "
-                         f"of {K_CHUNK} and <= {MAX_K}")
+    if vq.shape[0] != f:
+        raise ValueError("fused_ffn: W and V must have one width F")
     l2q, l2s = _check_w(lin2, f, "fused_ffn lin2")
-    if l2q.shape[0] != k or lin2_b.shape != (k,):
+    if l2q.shape[0] != k:
         raise ValueError(f"fused_ffn: lin2 must map {f} -> {k}")
+    sms = _sms(x.device)
+    p1, p2 = gemm_plan(m, f, k, 1, sms), gemm_plan(m, k, f, 0, sms)
+    lnw, lnb = _f32(ln[0], k, "fused_ffn: LN weight"), _f32(ln[1], k, "fused_ffn: LN bias")
+    l2b = _f32(lin2_b, k, "fused_ffn: lin2 bias")
     u = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
-    _launch(1, x2, (_f32(ln[0]), _f32(ln[1])), wq, ws, vq, vs, None, None, u, f, eps)
-    out = torch.empty_like(x2)
-    _launch(0, u, None, l2q, l2s, None, None, _f32(lin2_b), x2, out, k, eps)
+    out = torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
+    scratch = torch.empty(m * max(k, f) + 4 * m, dtype=torch.int8, device=x.device)
+    build.call(x.device, _lib().mars5_w8a8_ffn, x.data_ptr(), xl, xsb, xsl, lnw.data_ptr(),
+               lnb.data_ptr(), eps, wq.data_ptr(), ws.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+               l2q.data_ptr(), l2s.data_ptr(), l2b.data_ptr(), u.data_ptr(), out.data_ptr(),
+               scratch.data_ptr(), m, k, f, p1.grid, p1.tile_b, p2.grid, p2.tile_b)
     global fused_ffn_launches
     fused_ffn_launches += 1
     return out.reshape(x.shape)

@@ -15,8 +15,10 @@ w = 3, ``--steps`` reverse steps on the generator path: once to warm up,
 own cost grows with the ops it records). Prints one JSON
 line: the wall ms a step (each timed run and their median), the device busy
 ms a step and the idle share, the device ms a step of the self-attention
-kernel K1 (``mha_fwd``), the kernel launches and stream waits a step, and
-the host ops with the most self CPU time a step.
+kernel K1 (``mha_fwd``) and of the W8A8 sites K3 ``fused_linear`` and K4
+``fused_ffn`` (by kernel name, ``w8a8_site``) with each of their kernels'
+device us a launch, the kernel launches and stream waits a step, and the
+host ops with the most self CPU time a step.
 
 ``--root`` imports ``mars5_tts_torch`` from another checkout, so two
 versions (a parent commit's and a change's) run the same measurement.
@@ -27,8 +29,34 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
+
+
+def w8a8_site(name: str):
+    """"k3", "k4" or None: the W8A8 site a device kernel of the int8 NAR
+    step belongs to, by its name. The wgmma kernels carry it
+    (``nar_k3_*``, ``nar_k4_*``); the earlier tile's one kernel,
+    ``w8a8_gemm_kernel<kLN, kMode>``, runs K3 with LN in mode 0 and K4 as
+    mode 1 with LN, then mode 0 without (the step has no other LN-less
+    call), so a parent tree's profile splits the same way."""
+    if "nar_k3_" in name:
+        return "k3"
+    if "nar_k4_" in name:
+        return "k4"
+    m = re.search(r"w8a8_gemm_kernel<\(?\w*\)?(true|false|1|0), \(?\w*\)?([01])>", name)
+    if m is None:
+        return None
+    ln, mode = m.group(1) in ("true", "1"), m.group(2) == "1"
+    return "k3" if ln and not mode else "k4"
+
+
+def w8a8_label(name: str) -> str:
+    """A W8A8 kernel's name without its namespace and arguments, e.g.
+    ``nar_k3_gemm<256>``."""
+    m = re.search(r"(nar_k[34]_\w+(?:<[^>]*>)?|w8a8_gemm_kernel<[^>]*>)", name)
+    return m.group(1) if m else name
 
 
 def main() -> int:
@@ -111,6 +139,8 @@ def main() -> int:
     events = prof.key_averages()
     device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
     k1_us = sum(getattr(e, "self_device_time_total", 0) for e in events if "mha_fwd" in e.key)
+    site_us = {site: sum(getattr(e, "self_device_time_total", 0) for e in events
+                         if w8a8_site(e.key) == site) for site in ("k3", "k4")}
     by_name = {e.key: e for e in events}
 
     def calls(name):
@@ -123,6 +153,11 @@ def main() -> int:
            "device_ms_per_step": device_us / 1e3 / p_steps,
            "device_idle_share": 1 - device_us / 1e3 / p_steps / wall_ms,
            "k1_device_ms_per_step": k1_us / 1e3 / p_steps,
+           "k3_device_ms_per_step": site_us["k3"] / 1e3 / p_steps,
+           "k4_device_ms_per_step": site_us["k4"] / 1e3 / p_steps,
+           "w8a8_kernel_us_per_launch": {
+               w8a8_label(e.key): round(getattr(e, "self_device_time_total", 0) / e.count, 1)
+               for e in events if w8a8_site(e.key) and e.count},
            "launches_per_step": calls("cudaLaunchKernel") + calls("cudaLaunchKernelExC"),
            "stream_syncs_per_step": calls("cudaStreamSynchronize"),
            "top_host_ops_us_per_step": {e.key: round(e.self_cpu_time_total / p_steps, 1)

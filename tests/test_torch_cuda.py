@@ -227,35 +227,77 @@ def _qw(n, k, g, dev):
     return quantize_weight(torch.randn((n, k), generator=g, device=dev) * 0.05)
 
 
-@pytest.mark.parametrize("m,k,n,variant", [(300, 256, 192, "ln_bias"), (70, 1024, 3072, "ln_bias"),
-                                           (2400, 1024, 1024, "residual"), (17, 128, 64, "plain")])
+def _k3_kwargs(variant, k, n, lead, g, dev):
+    if variant == "ln_bias":
+        return dict(ln=(1 + 0.1 * torch.randn(k, generator=g, device=dev),
+                        0.1 * torch.randn(k, generator=g, device=dev)),
+                    bias=0.1 * torch.randn(n, generator=g, device=dev))
+    if variant == "residual":
+        return dict(bias=0.1 * torch.randn(n, generator=g, device=dev),
+                    residual=torch.randn((*lead, n), generator=g, device=dev).to(torch.bfloat16))
+    return {}
+
+
+@pytest.mark.parametrize("m,k,n,variant", [
+    (300, 256, 192, "ln_bias"), (70, 1024, 3072, "ln_bias"), (2400, 1024, 1024, "residual"),
+    (17, 128, 64, "plain"),
+    # ragged rows (one, either side of a 64-row warpgroup, the last layer's
+    # 1,500), ragged 128-wide column tiles (64, 192), K = 3072
+    (1, 1024, 3072, "ln_bias"), (63, 1024, 192, "residual"), (65, 1024, 64, "ln_bias"),
+    (1500, 1024, 1024, "ln_bias"), (2400, 1024, 3072, "ln_bias"), (129, 3072, 1024, "residual"),
+    (200, 3072, 192, "plain"),
+    # 256-row weight tiles (gemm_plan) with a ragged last one: 64 of its 256 columns
+    (2400, 1024, 2880, "residual")])
 def test_fused_linear_kernel_matches_ref(dev, m, k, n, variant):
+    """K3 equals its twin bit for bit: an exact int32 product and the same
+    rounded operations around it."""
     from mars5_tts_torch.ops.kernels import nar_fused as F
 
     g = torch.Generator(device=dev).manual_seed(m + n)
     x = torch.randn((1, m, k), generator=g, device=dev).to(torch.bfloat16)
     w = _qw(n, k, g, dev)
-    kw = {}
-    if variant == "ln_bias":
-        kw = dict(ln=(1 + 0.1 * torch.randn(k, generator=g, device=dev),
-                      0.1 * torch.randn(k, generator=g, device=dev)),
-                  bias=0.1 * torch.randn(n, generator=g, device=dev))
-    elif variant == "residual":
-        kw = dict(bias=0.1 * torch.randn(n, generator=g, device=dev),
-                  residual=torch.randn((1, m, n), generator=g, device=dev).to(torch.bfloat16))
+    kw = _k3_kwargs(variant, k, n, (1, m), g, dev)
     n0 = F.fused_linear_launches
     out = F.fused_linear(x, w, **kw)
     torch.cuda.synchronize()
     assert F.fused_linear_launches == n0 + 1 and out.shape == (1, m, n)
-    _fused_eq(out, F.fused_linear_ref(x, w, **kw))
+    assert torch.equal(out, F.fused_linear_ref(x, w, **kw))
 
 
-@pytest.mark.parametrize("m,k,f", [(200, 256, 384), (2400, 1024, 3072)])
+@pytest.mark.parametrize("variant", ["ln_bias", "residual"])
+def test_fused_linear_kernel_reads_sliced_rows(dev, variant):
+    """The int8 decoder's last layer slices 750 of 1,200 rows of each CFG
+    row: K3 reads x (and the residual) where they lie, and equals the twin."""
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    big = torch.randn((2, 1200, 1024), generator=g, device=dev).to(torch.bfloat16)
+    x = big[:, 450:]
+    assert not x.is_contiguous()
+    w = _qw(1024, 1024, g, dev)
+    kw = _k3_kwargs(variant, 1024, 1024, (2, 1200), g, dev)
+    if "residual" in kw:
+        kw["residual"] = kw["residual"][:, 450:]
+    n0 = F.fused_linear_launches
+    out = F.fused_linear(x, w, **kw)
+    torch.cuda.synchronize()
+    assert F.fused_linear_launches == n0 + 1 and out.shape == (2, 750, 1024)
+    ref = F.fused_linear_ref(x.contiguous(), w, **{k: (v.contiguous() if k == "residual" else v)
+                                                   for k, v in kw.items()})
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,k,f", [(200, 256, 384), (2400, 1024, 3072), (1, 1024, 3072),
+                                   (63, 1024, 3072), (65, 256, 128), (1500, 1024, 3072),
+                                   (130, 3072, 1024)])
 def test_fused_ffn_kernel_matches_ref(dev, m, k, f):
+    """K4 within the JAX kernel tests' bound and at least 99.9% equal to its
+    twin: only ``expf`` in the sigmoid may round differently."""
     from mars5_tts_torch.ops.kernels import nar_fused as F
 
     g = torch.Generator(device=dev).manual_seed(m)
-    x = torch.randn((2, m // 2, k), generator=g, device=dev).to(torch.bfloat16)
+    lead = (2, m // 2) if m % 2 == 0 else (1, m)
+    x = torch.randn((*lead, k), generator=g, device=dev).to(torch.bfloat16)
     ln = (1 + 0.1 * torch.randn(k, generator=g, device=dev),
           0.1 * torch.randn(k, generator=g, device=dev))
     args = (x, ln, _qw(f, k, g, dev), _qw(f, k, g, dev), _qw(k, f, g, dev),
@@ -263,20 +305,47 @@ def test_fused_ffn_kernel_matches_ref(dev, m, k, f):
     n0 = F.fused_ffn_launches
     out = F.fused_ffn(*args)
     torch.cuda.synchronize()
-    assert F.fused_ffn_launches == n0 + 1
-    _fused_eq(out, F.fused_ffn_ref(*args))
+    assert F.fused_ffn_launches == n0 + 1 and out.shape == x.shape
+    _fused_eq(out, F.fused_ffn_ref(*args), exact_frac=0.999)
+
+
+def test_fused_ffn_kernel_reads_sliced_rows(dev):
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn((2, 1200, 1024), generator=g, device=dev).to(torch.bfloat16)[:, 450:]
+    ln = (1 + 0.1 * torch.randn(1024, generator=g, device=dev),
+          0.1 * torch.randn(1024, generator=g, device=dev))
+    args = (ln, _qw(3072, 1024, g, dev), _qw(3072, 1024, g, dev), _qw(1024, 3072, g, dev),
+            0.1 * torch.randn(1024, generator=g, device=dev))
+    n0 = F.fused_ffn_launches
+    out = F.fused_ffn(x, *args)
+    torch.cuda.synchronize()
+    assert F.fused_ffn_launches == n0 + 1 and out.shape == (2, 750, 1024)
+    _fused_eq(out, F.fused_ffn_ref(x.contiguous(), *args), exact_frac=0.999)
 
 
 def test_w8a8_kernels_reject_what_they_do_not_take(dev):
     from mars5_tts_torch.ops.kernels import nar_fused as F
 
     x = torch.zeros((1, 8, 256), device=dev, dtype=torch.bfloat16)
+    n0 = F.fused_linear_launches
     with pytest.raises(ValueError):
         F.fused_linear(x, _qw(100, 256, None, dev))          # N not a multiple of 64
     with pytest.raises(ValueError):
         F.fused_linear(x.float(), _qw(64, 256, None, dev))   # f32 activations
     with pytest.raises(ValueError):
         F.fused_linear(x[..., :200], _qw(64, 200, None, dev))  # K not a multiple of 128
+    with pytest.raises(ValueError):
+        F.fused_linear(torch.zeros((1, 8, 3200), device=dev, dtype=torch.bfloat16),
+                       _qw(64, 3200, None, dev))            # K above 3072
+    with pytest.raises(ValueError):                        # rows off a 16-byte boundary
+        F.fused_linear(torch.zeros((1, 8, 264), device=dev, dtype=torch.bfloat16)[..., 4:260],
+                       _qw(64, 256, None, dev))
+    q, s = _qw(64, 256, None, dev)
+    with pytest.raises(ValueError):                        # a weight TMA cannot read
+        F.fused_linear(x, (q.t().contiguous().t(), s))
+    assert F.fused_linear_launches == n0
 
 
 @pytest.mark.parametrize("rows,length,t", [(2, 750, 0), (2, 70, 100), (1, 33, 199)])

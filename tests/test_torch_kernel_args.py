@@ -1,7 +1,10 @@
-"""What the attention kernels' wrappers decide on the host, checked without a
-card: K1's tensor-map eligibility of a view (``mha.tensor_map_strides``) and
-its launch arguments, K7's cluster size for a slot count and its launch
-arguments, and the refusals of both wrappers on inputs a CPU can build.
+"""What the kernels' wrappers decide on the host, checked without a card:
+K1's tensor-map eligibility of a view (``mha.tensor_map_strides``) and its
+launch arguments, K7's cluster size for a slot count and its launch
+arguments, K3/K4's GEMM plan (tiles, persistent grid, TMA boxes and row
+strides, ``nar_fused.gemm_plan``) and how their prologue reads rows in place
+(``nar_fused.row_view``), and the refusals of these wrappers on inputs a CPU
+can build.
 """
 
 import pytest
@@ -9,6 +12,7 @@ import torch
 
 from mars5_tts_torch.ops.kernels import decode_attention as A
 from mars5_tts_torch.ops.kernels import mha as K
+from mars5_tts_torch.ops.kernels import nar_fused as F
 
 
 def _qkv_views(b, l, h, dtype=torch.bfloat16):
@@ -130,3 +134,94 @@ def test_decode_attention_refuses_devices_it_has_no_kernel_for():
     q, ck, cv, _, _ = (t.to("meta") for t in _ring())
     with pytest.raises(ValueError, match="unsupported device"):
         A.decode_attention(q, ck, cv, [3, 4])
+
+
+# (M, N, K, mode) -> (tile_b, tiles_m, tiles_n, tile_cols, grid, k_slices, weight boxes)
+W8A8_PLANS = [
+    ((2400, 3072, 1024, 0), (256, 19, 12, 256, 132, 8, ((128, 256),))),   # K3 qkv: 228 tiles
+    ((2400, 1024, 1024, 0), (128, 19, 8, 128, 132, 8, ((128, 128),))),    # K3 caq: 76 wide ones
+    ((2400, 3072, 1024, 1), (256, 19, 24, 128, 132, 8, ((128, 128), (128, 128)))),  # K4 W, V
+    ((2400, 1024, 3072, 0), (128, 19, 8, 128, 132, 24, ((128, 128),))),   # K4 lin2, K = F
+    ((1450, 3072, 1024, 0), (256, 12, 12, 256, 132, 8, ((128, 256),))),   # 725 frames: 144
+    ((1500, 1024, 1024, 0), (128, 12, 8, 128, 96, 8, ((128, 128),))),     # the last layer's rows
+    ((1, 64, 128, 0), (128, 1, 1, 128, 1, 1, ((128, 128),))),             # one row, a ragged tile
+    ((65, 192, 256, 0), (128, 1, 2, 128, 2, 2, ((128, 128),))),
+    ((63, 128, 3072, 1), (128, 1, 2, 64, 2, 24, ((128, 64), (128, 64)))),
+    ((2400, 192, 1024, 1), (128, 19, 3, 64, 57, 8, ((128, 64), (128, 64)))),   # 192 u columns
+]
+
+
+@pytest.mark.parametrize("shape,want", W8A8_PLANS)
+def test_w8a8_gemm_plan(shape, want):
+    m, n, k, mode = shape
+    p = F.gemm_plan(m, n, k, mode)
+    assert (p.tile_b, p.tiles_m, p.tiles_n, p.tile_cols, p.grid, p.k_slices, p.b_boxes) == want
+    assert p.tiles == want[1] * want[2]
+    assert p.a_box == (128, 128) and p.row_bytes == k          # 128 B x 128 rows of A
+    # a box row is one 128-byte swizzle row; a stage's boxes fill the tile's weight rows
+    assert sum(rows for _, rows in p.b_boxes) == p.tile_b
+    assert p.tile_cols == (p.tile_b if mode == 0 else p.tile_b // 2)
+    assert p.tiles_m * 128 >= m and p.tiles_n * p.tile_cols >= n
+
+
+def test_w8a8_gemm_plan_follows_the_card():
+    """The grid is the card's SM count or the tile count; the wide tile is
+    taken only while it still gives every SM a tile."""
+    assert F.gemm_plan(2400, 3072, 1024, 0, sms=8).grid == 8
+    wide = F.gemm_plan(2400, 1024, 1024, 0, sms=64)
+    assert (wide.tile_b, wide.grid) == (256, 64)
+    narrow = F.gemm_plan(2400, 1024, 1024, 0, sms=160)
+    assert (narrow.tile_b, narrow.grid) == (128, 152)
+
+
+@pytest.mark.parametrize("m,n,k,mode,reason", [
+    (64, 100, 256, 0, "N a multiple of 64"), (64, 32, 256, 0, "N a multiple of 64"),
+    (64, 128, 200, 0, "K a multiple of 128"), (64, 128, 3200, 0, "<= 3072"),
+    (0, 128, 256, 0, "no rows"), (64, 128, 256, 2, "mode"),
+])
+def test_w8a8_gemm_plan_refuses(m, n, k, mode, reason):
+    with pytest.raises(ValueError, match=reason):
+        F.gemm_plan(m, n, k, mode)
+
+
+def test_w8a8_row_view_reads_the_decoder_rows_in_place():
+    """x (2, 1200, 1024) and its last layer's slice [:, 450:] are read where
+    they lie; a 2-D or 1-D x is one (B = 1) block of rows."""
+    x = torch.zeros((2, 1200, 1024), dtype=torch.bfloat16)
+    assert F.row_view(x, "x") == (2400, 1200, 1200 * 1024, 1024)
+    assert F.row_view(x[:, 450:], "x") == (1500, 750, 1200 * 1024, 1024)
+    assert F.row_view(x[0], "x") == (1200, 1200, 0, 1024)
+    assert F.row_view(x[0, 0], "x") == (1, 1, 0, 0)
+    # (4, 3, C) with its axes transposed: still two row steps
+    t = torch.zeros((3, 4, 128), dtype=torch.bfloat16).transpose(0, 1)
+    assert F.row_view(t, "x") == (12, 3, 128, 512)
+
+
+@pytest.mark.parametrize("make,reason", [
+    (lambda: torch.zeros((2, 40, 3 * 128 + 8), dtype=torch.bfloat16)[..., 1:129],
+     "16-byte boundary"),
+    (lambda: torch.zeros((2, 40, 256), dtype=torch.bfloat16)[..., ::2], "unit stride"),
+    (lambda: torch.zeros((2, 40, 132), dtype=torch.bfloat16)[..., :128], "16 bytes"),
+    (lambda: torch.zeros((2, 3, 4, 128), dtype=torch.bfloat16).transpose(0, 1), "merge"),
+    (lambda: torch.zeros((0, 128), dtype=torch.bfloat16), "no rows"),
+])
+def test_w8a8_row_view_refuses(make, reason):
+    with pytest.raises(ValueError, match=reason):
+        F.row_view(make(), "x")
+
+
+def test_w8a8_refuses_activations_and_weights_it_has_no_kernel_for():
+    with pytest.raises(ValueError, match="bf16"):
+        F._check_x(torch.zeros((4, 128)), "fused_linear")
+    with pytest.raises(ValueError, match="unsupported device"):
+        F.fused_linear(torch.zeros((4, 128), dtype=torch.bfloat16, device="meta"),
+                       (torch.zeros((64, 128), dtype=torch.int8), torch.ones(64)))
+    s = torch.ones(64)
+    q = torch.zeros((128, 64), dtype=torch.int8).t()                 # not K-major rows
+    with pytest.raises(ValueError, match="contiguous"):
+        F._check_w((q, s), 128, "w")
+    q = torch.zeros(64 * 128 + 1, dtype=torch.int8)[1:].view(64, 128)   # off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        F._check_w((q, s), 128, "w")
+    with pytest.raises(ValueError, match="scales"):
+        F._check_w((torch.zeros((64, 128), dtype=torch.int8), s.double()), 128, "w")

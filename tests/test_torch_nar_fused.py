@@ -187,3 +187,39 @@ def test_decoder_stack_slices_the_last_layer(nar_pair):
     assert sliced.shape == (2, 40, D)
     np.testing.assert_allclose(sliced.numpy(), full.numpy(), rtol=0,
                                atol=1e-5 * full.abs().max().item())
+
+
+@pytest.mark.parametrize("with_ln,k", [(True, 1024), (False, 1024), (False, 3072), (True, 256)])
+def test_prologue_ref_matches_jax_ln_and_quant_rows(with_ln, k):
+    """The plain form of the kernels' per-row prologue (``prologue_ref``:
+    [LN ->] int8 rows + f32 row scales) against the JAX package's
+    ``_ln_bf16_f32`` and ``_quant_rows`` on seeded bf16 rows. Tolerance: the
+    scales within 1 f32 ulp, since JAX sums the LN statistics in f32 (and
+    takes ``rsqrt``) where the port sums in f64 and divides (ROADMAP C); the
+    int8 codes equal in every row whose scale is equal, except within one
+    code where such an LN rounding moved an element's bf16 value."""
+    from mars5_tts_tpu.ops.pallas.nar_fused import _ln_bf16_f32, _quant_rows
+    from mars5_tts_torch.ops.kernels.nar_fused import prologue_ref
+
+    rng = np.random.default_rng(k + with_ln)
+    x = jnp.asarray(rng.standard_normal((300, k)).astype(np.float32) * 2, jnp.bfloat16)
+    xf = x.astype(jnp.float32)
+    ln = None
+    if with_ln:
+        ln = (jnp.asarray(1 + 0.1 * rng.standard_normal(k).astype(np.float32)),
+              jnp.asarray(0.1 * rng.standard_normal(k).astype(np.float32)))
+        xf = _ln_bf16_f32(xf, ln[0], ln[1], 4e-5)
+    want_q, want_s = (np.asarray(a) for a in _quant_rows(xf))
+    got_q, got_s = prologue_ref(_bf16(x), None if ln is None else (t(ln[0]), t(ln[1])))
+    got_q, got_s = got_q.numpy(), got_s.numpy()
+    assert got_q.dtype == np.int8 and got_q.shape == (300, k) and got_s.shape == (300,)
+    want_s = want_s[:, 0]
+    ulp = np.spacing(np.abs(want_s))
+    assert (np.abs(got_s - want_s) <= ulp).all()
+    same = got_s == want_s
+    assert same.mean() > 0.9
+    d = np.abs(got_q[same].astype(np.int32) - want_q[same])
+    if with_ln:
+        assert d.max() <= 1 and (d == 0).mean() > 0.999
+    else:    # no LN: the rows are the same bf16 values, so every row is exact
+        assert same.all() and d.max() == 0

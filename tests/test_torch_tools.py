@@ -51,6 +51,27 @@ def test_profile_nar_dry_run(nar, monkeypatch, capsys):
     assert out["nar"] == nar and out["frames"] == 12 and out["steps"] == 2
     assert out["profile_steps"] == 1
     for key in ("wall_ms_per_step", "wall_ms_per_step_runs", "device_ms_per_step",
-                "device_idle_share", "k1_device_ms_per_step", "launches_per_step",
+                "device_idle_share", "k1_device_ms_per_step", "k3_device_ms_per_step",
+                "k4_device_ms_per_step", "w8a8_kernel_us_per_launch", "launches_per_step",
                 "stream_syncs_per_step", "top_host_ops_us_per_step"):
         assert key in out
+
+
+@pytest.mark.parametrize("name,site", [
+    ("void (anonymous namespace)::nar_k3_gemm(CUtensorMap, CUtensorMap, Epilogue)", "k3"),
+    ("void (anonymous namespace)::nar_k3_prologue<true, 8>(Rows, float const*)", "k3"),
+    ("void (anonymous namespace)::nar_k4_gemm_swiglu(CUtensorMap)", "k4"),
+    ("void (anonymous namespace)::nar_k4_prologue<false, 24>(Rows)", "k4"),
+    ("void (anonymous namespace)::w8a8_gemm_kernel<true, 0>((anonymous namespace)::Args)", "k3"),
+    ("void (anonymous namespace)::w8a8_gemm_kernel<true, 1>((anonymous namespace)::Args)", "k4"),
+    ("void (anonymous namespace)::w8a8_gemm_kernel<false, 0>((anonymous namespace)::Args)", "k4"),
+    ("void (anonymous namespace)::mha_fwd_bf16_kernel(CUtensorMap)", None),
+])
+def test_profile_nar_names_the_w8a8_sites(name, site):
+    """K3's and K4's device time a step is told apart by kernel name, for
+    the wgmma kernels and for the earlier tile a parent tree runs."""
+    tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_nar.py")
+    assert tool["w8a8_site"](name) == site
+    if site is not None:      # the per-kernel key: the name without namespace and arguments
+        label = tool["w8a8_label"](name)
+        assert label in name and "(" not in label and "namespace" not in label
