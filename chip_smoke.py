@@ -320,17 +320,20 @@ def check_int_mm(gen, dev):
 
 def check_nar_fused(gen, dev):
     """K3 (qkv with LN + bias, caq, residual; 100% equal to the twin) and K4
-    (at least 99.9% equal) at the decoder's shapes."""
+    (at least 99.9% equal) at the decoder's shapes, with its bf16 LN and bias
+    vectors."""
     import torch
     from mars5_tts_torch.ops.kernels import nar_fused as F
 
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+
     x = torch.randn((2, M_ROWS // 2, DIM), generator=gen, device=dev).to(torch.bfloat16)
-    ln = (1 + 0.1 * torch.randn(DIM, generator=gen, device=dev),
-          0.1 * torch.randn(DIM, generator=gen, device=dev))
+    ln = (vec(DIM, 1.0), vec(DIM))
     qkv_w = rand_qweight(3 * DIM, DIM, gen, dev)
-    qkv_b = 0.1 * torch.randn(3 * DIM, generator=gen, device=dev)
+    qkv_b = vec(3 * DIM)
     sq_w = rand_qweight(DIM, DIM, gen, dev)
-    sq_b = 0.1 * torch.randn(DIM, generator=gen, device=dev)
+    sq_b = vec(DIM)
     res = {}
     res["qkv"] = check_w8a8(
         "K3 qkv (2, 1200, 1024) -> 3072, LN + bias",
@@ -350,7 +353,7 @@ def check_nar_fused(gen, dev):
         nbytes(a, *sq_w, sq_b, x), 2 * M_ROWS * DIM * DIM, 1.0)
     w, v = rand_qweight(FFN, DIM, gen, dev), rand_qweight(FFN, DIM, gen, dev)
     l2 = rand_qweight(DIM, FFN, gen, dev)
-    l2_b = 0.1 * torch.randn(DIM, generator=gen, device=dev)
+    l2_b = vec(DIM)
     res["ffn"] = check_w8a8(
         "K4 ffn (2, 1200, 1024), F 3072",
         lambda: F.fused_ffn(x, ln, w, v, l2, l2_b),

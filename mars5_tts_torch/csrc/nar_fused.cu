@@ -10,10 +10,10 @@
 //     u = bf16(bf16(silu(wo)) * vo), wo/vo = bf16(rescale(q . W^T / V^T));
 //     prologue(u) -> q, xs; out = bf16(rescale(q . lin2^T) + b) + x (4 launches)
 //
-//   x (rows through a (B, L, K) view, unit stride on K) bf16; W/V (N, K)
-//   int8 row-major with f32 per-row scales; bias (N,) f32; residual rows
-//   bf16 through a view like x; out (M, N) bf16 row-major. The kernels and
-//   their numerics are in w8a8_wgmma.cuh.
+//   x (M, K) bf16 row-major; W/V (N, K) int8 row-major with f32 per-row
+//   scales; the LN vectors (K,) and the bias (N,) bf16 or f32 (vec_bf16),
+//   read as they are; residual (M, N) bf16 row-major; out (M, N) bf16
+//   row-major. The kernels and their numerics are in w8a8_wgmma.cuh.
 //
 // What bounds it on an H100: at the decoder's M = 2 x 1200 rows the qkv GEMM
 // is 7.5 G int8 MACs (7.6 us at the int8 peak) over 3 MB of weights; K4 is
@@ -35,8 +35,9 @@
 // The C entry points encode the tensor maps (cuTensorMapEncodeTiled through
 // the runtime), launch, and return cudaGetLastError() after each launch, or
 // cudaErrorInvalidValue for arguments the kernels do not take. The caller
-// gives the grid and tile (ops/kernels/nar_fused.py gemm_plan) and the scratch: q
-// (M x max(K, F) int8), then xs (M f32).
+// gives the grid and the tile's weight rows (ops/kernels/nar_fused.py
+// gemm_plan; the tiles and TMA boxes follow from them here and in
+// w8a8_wgmma.cuh) and the scratch: q (M x max(K, F) int8), then xs (M f32).
 
 #include <atomic>
 
@@ -67,47 +68,52 @@ bool bad_shape(int M, int N, int K, int grid, int bn) {
          (bn != 128 && bn != 256);
 }
 
-bool bad_rows(const Rows& r) {
-  return r.L <= 0 || r.sb % 8 || r.sl % 8 || reinterpret_cast<uintptr_t>(r.ptr) % 16;
+// The mode-0 GEMM (K3, K4's lin2) with bn-wide tiles and a bf16 or f32 bias.
+cudaError_t launch_gemm0(int bn, bool bf16_bias, int grid, cudaStream_t st,
+                         const CUtensorMap& ta, const CUtensorMap& tw, const Epilogue& p) {
+  if (bn == 128)
+    return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<128, true>, 128>(grid, st, ta, tw, p)
+                     : launch_gemm<w8a8_wgmma_gemm<128, false>, 128>(grid, st, ta, tw, p);
+  return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<256, true>, 256>(grid, st, ta, tw, p)
+                   : launch_gemm<w8a8_wgmma_gemm<256, false>, 256>(grid, st, ta, tw, p);
 }
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
 
-extern "C" int mars5_w8a8_linear(const void* x, int xL, long long xsb, long long xsl,
-                                 const void* ln_w, const void* ln_b, float eps, const void* wq,
-                                 const void* ws, const void* bias, const void* res, int rL,
-                                 long long rsb, long long rsl, void* out, void* scratch, int M,
+extern "C" int mars5_w8a8_linear(const void* x, const void* ln_w, const void* ln_b,
+                                 const void* bias, int vec_bf16, float eps, const void* wq,
+                                 const void* ws, const void* res, void* out, void* scratch, int M,
                                  int N, int K, int grid, int bn, void* stream) {
-  const Rows xr{static_cast<const __nv_bfloat16*>(x), xsb, xsl, xL};
-  const Rows rr{static_cast<const __nv_bfloat16*>(res), rsb, rsl, rL};
-  if (bad_shape(M, N, K, grid, bn) || bad_rows(xr) || (res != nullptr && bad_rows(rr)) ||
-      (ln_w == nullptr) != (ln_b == nullptr))
+  if (bad_shape(M, N, K, grid, bn) || misaligned(x) || misaligned(res) || misaligned(ln_w) ||
+      misaligned(ln_b) || misaligned(bias) || (ln_w == nullptr) != (ln_b == nullptr))
     return (int)cudaErrorInvalidValue;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
   int8_t* q = static_cast<int8_t*>(scratch);
   float* xs = reinterpret_cast<float*>(q + (long long)M * K);
   CUtensorMap ta, tw;
   if (!encode_map_s8(&ta, q, M, K, kBM) || !encode_map_s8(&tw, wq, N, K, bn))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_prologue<false>(xr, static_cast<const float*>(ln_w),
-                                           static_cast<const float*>(ln_b), eps, q, xs, M, K, st);
+  cudaError_t err = launch_prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st);
   if (err != cudaSuccess) return (int)err;
-  const Epilogue p{xs, static_cast<const float*>(ws), nullptr, static_cast<const float*>(bias),
-                   rr, static_cast<__nv_bfloat16*>(out), M, N, K};
-  return (int)(bn == 128 ? launch_gemm<nar_k3_gemm<128>, 128>(grid, st, ta, tw, p)
-                         : launch_gemm<nar_k3_gemm<256>, 256>(grid, st, ta, tw, p));
+  const Epilogue p{xs, static_cast<const float*>(ws), nullptr, bias,
+                   static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
+                   M, N, K};
+  return (int)launch_gemm0(bn, vec_bf16 != 0, grid, st, ta, tw, p);
 }
 
-extern "C" int mars5_w8a8_ffn(const void* x, int xL, long long xsb, long long xsl,
-                              const void* ln_w, const void* ln_b, float eps, const void* wq,
+extern "C" int mars5_w8a8_ffn(const void* x, const void* ln_w, const void* ln_b,
+                              const void* l2b, int vec_bf16, float eps, const void* wq,
                               const void* ws, const void* vq, const void* vs, const void* l2q,
-                              const void* l2s, const void* l2b, void* u, void* out,
-                              void* scratch, int M, int K, int F, int grid1, int bn1, int grid2,
-                              int bn2, void* stream) {
-  const Rows xr{static_cast<const __nv_bfloat16*>(x), xsb, xsl, xL};
+                              const void* l2s, void* u, void* out, void* scratch, int M, int K,
+                              int F, int grid1, int bn1, int grid2, int bn2, void* stream) {
   if (bad_shape(M, F, K, grid1, bn1) || F % (bn1 / 2) || bad_shape(M, K, F, grid2, bn2) ||
-      bad_rows(xr) || ln_w == nullptr || ln_b == nullptr)
+      misaligned(x) || ln_w == nullptr || ln_b == nullptr || l2b == nullptr ||
+      misaligned(ln_w) || misaligned(ln_b) || misaligned(l2b))
     return (int)cudaErrorInvalidValue;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
   int8_t* q = static_cast<int8_t*>(scratch);
   float* xs = reinterpret_cast<float*>(q + (long long)M * (K > F ? K : F));
   CUtensorMap ta1, tw, tv, ta2, tl;
@@ -118,20 +124,18 @@ extern "C" int mars5_w8a8_ffn(const void* x, int xL, long long xsb, long long xs
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* ub = static_cast<__nv_bfloat16*>(u);
 
-  cudaError_t err = launch_prologue<true>(xr, static_cast<const float*>(ln_w),
-                                          static_cast<const float*>(ln_b), eps, q, xs, M, K, st);
+  cudaError_t err = launch_prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st);
   if (err != cudaSuccess) return (int)err;
   const Epilogue p1{xs, static_cast<const float*>(ws), static_cast<const float*>(vs), nullptr,
-                    Rows{nullptr, 0, 0, 1}, ub, M, F, K};
-  err = bn1 == 128 ? launch_gemm<nar_k4_gemm_swiglu<128>, 128>(grid1, st, ta1, tw, tv, p1)
-                   : launch_gemm<nar_k4_gemm_swiglu<256>, 256>(grid1, st, ta1, tw, tv, p1);
+                    nullptr, ub, M, F, K};
+  err = bn1 == 128 ? launch_gemm<w8a8_wgmma_swiglu<128>, 128>(grid1, st, ta1, tw, tv, p1)
+                   : launch_gemm<w8a8_wgmma_swiglu<256>, 256>(grid1, st, ta1, tw, tv, p1);
   if (err != cudaSuccess) return (int)err;
 
   // u's rows quantised over all F columns into the same scratch
-  err = launch_prologue<true>(Rows{ub, 0, F, M}, nullptr, nullptr, eps, q, xs, M, F, st);
+  err = launch_prologue(ub, nullptr, nullptr, vec_bf16, eps, q, xs, M, F, st);
   if (err != cudaSuccess) return (int)err;
-  const Epilogue p2{xs, static_cast<const float*>(l2s), nullptr, static_cast<const float*>(l2b),
-                    xr, static_cast<__nv_bfloat16*>(out), M, K, F};
-  return (int)(bn2 == 128 ? launch_gemm<nar_k4_gemm_lin2<128>, 128>(grid2, st, ta2, tl, p2)
-                          : launch_gemm<nar_k4_gemm_lin2<256>, 256>(grid2, st, ta2, tl, p2));
+  const Epilogue p2{xs, static_cast<const float*>(l2s), nullptr, l2b, xb,
+                    static_cast<__nv_bfloat16*>(out), M, K, F};
+  return (int)launch_gemm0(bn2, vec_bf16 != 0, grid2, st, ta2, tl, p2);
 }

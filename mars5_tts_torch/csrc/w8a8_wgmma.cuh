@@ -2,16 +2,16 @@
 // a per-row prologue kernel and a TMA-fed, warp-specialised wgmma s8 GEMM.
 // nar_fused.cu chains them into K3 fused_linear and K4 fused_ffn.
 //
-// Prologue, quant_rows<kLN, kChunks> (nar_k3_prologue / nar_k4_prologue):
-//   one warp a row reads the bf16 row once into registers (4 values a lane
-//   per 128 columns, kept as packed bf16, kChunks * 128 >= K: 2,400 rows of
-//   3,072 fit on the card at once), takes the LayerNorm statistics
-//   when kLN (the LN vectors read once a block into shared memory while the
-//   rows load), then the row's amax, and writes the int8 row and its f32 scale
-//   to scratch: q (M, K) int8 row-major, xs (M,) f32. Rows are read through
-//   a (B, L, K) view (Rows), so a strided slice of x is read in place.
+// Prologue, w8a8_prologue<kLN, kChunks>: one warp a row of x (M, K) bf16
+//   row-major reads the row once into registers (4 values a lane per 128
+//   columns, kept as packed bf16, kChunks * 128 >= K: 2,400 rows of 3,072 fit
+//   on the card at once), takes the LayerNorm statistics when kLN (the LN
+//   vectors, bf16 or f32, read once a block into shared memory while the rows
+//   load), then the row's amax, and writes the int8 row and its f32 scale to
+//   scratch: q (M, K) int8 row-major, xs (M,) f32.
 //
-// GEMM, gemm<kMode, kBN> (nar_k3_gemm, nar_k4_gemm_swiglu, nar_k4_gemm_lin2):
+// GEMM, gemm<kMode, kBN, kBf16Bias> (w8a8_wgmma_gemm: mode 0, its bias bf16
+// or f32; w8a8_wgmma_swiglu: mode 1):
 //   mode 0: out = bf16(acc * (xs * s) [+ bias]) [+ residual]
 //   mode 1: u = bf16(bf16(silu(wo)) * vo), wo / vo = bf16(acc * (xs * s))
 //   with acc the exact int32 product of q (M, K) and W (N, K), both K-major.
@@ -60,18 +60,6 @@ namespace {
 
 using namespace mars5;
 
-// A bf16 (B, L, C) view with unit stride on C: row r of the (B * L, C)
-// matrix starts at ptr + (r / L) * sb + (r % L) * sl.
-struct Rows {
-  const __nv_bfloat16* ptr;
-  long long sb, sl;
-  int L;
-};
-
-__device__ __forceinline__ const __nv_bfloat16* row_ptr(const Rows& v, int r) {
-  return v.ptr + (long long)(r / v.L) * v.sb + (long long)(r % v.L) * v.sl;
-}
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -95,11 +83,18 @@ __device__ __forceinline__ uint2 pack4(const float* v) {
                     (__float_as_uint(v[2]) >> 16) | __float_as_uint(v[3]));
 }
 
+// Element i of a bias vector, bf16 or f32 (bf16 to f32 is exact).
+template <bool kBf16>
+__device__ __forceinline__ float vec_at(const void* p, int i) {
+  if (kBf16) return __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(p) + i));
+  return __ldg(static_cast<const float*>(p) + i);
+}
+
 template <bool kLN, int kChunks>
-__device__ __forceinline__ void quant_rows(const Rows& x, const float* __restrict__ ln_w,
-                                           const float* __restrict__ ln_b, float eps,
-                                           int8_t* __restrict__ q, float* __restrict__ xs_out,
-                                           int M, int K) {
+__global__ void __launch_bounds__(kRowWarps * 32)
+w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void* ln_b,
+              int vec_bf16, float eps, int8_t* __restrict__ q, float* __restrict__ xs_out, int M,
+              int K) {
   // the block's LN vectors, loaded once while the rows are in flight
   __shared__ float4 lnp[2][kLN ? kChunks * 32 : 1];
   const int lane = threadIdx.x & 31;
@@ -111,7 +106,7 @@ __device__ __forceinline__ void quant_rows(const Rows& x, const float* __restric
   uint2 r[kChunks];
   float v[4];
   if (live) {
-    const __nv_bfloat16* xr = row_ptr(x, row) + lane * 4;
+    const __nv_bfloat16* xr = x + (long long)row * K + lane * 4;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c)
       if (c < nch) r[c] = *reinterpret_cast<const uint2*>(xr + c * 128);
@@ -119,7 +114,13 @@ __device__ __forceinline__ void quant_rows(const Rows& x, const float* __restric
   if (kLN) {
     for (int i = threadIdx.x; i < 2 * nch * 32; i += kRowWarps * 32) {
       const int which = i >= nch * 32, k4 = i - which * nch * 32;
-      lnp[which][k4] = *reinterpret_cast<const float4*>((which ? ln_b : ln_w) + 4 * k4);
+      const void* src = which ? ln_b : ln_w;
+      if (vec_bf16) {
+        unpack4(static_cast<const uint2*>(src)[k4], v);
+        lnp[which][k4] = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        lnp[which][k4] = static_cast<const float4*>(src)[k4];
+      }
     }
     __syncthreads();
   }
@@ -189,42 +190,28 @@ __device__ __forceinline__ void quant_rows(const Rows& x, const float* __restric
   if (lane == 0) xs_out[row] = xs;
 }
 
-// One name a kernel, so a profile tells K3's share from K4's.
 template <bool kLN, int kChunks>
-__global__ void __launch_bounds__(kRowWarps * 32)
-nar_k3_prologue(Rows x, const float* ln_w, const float* ln_b, float eps, int8_t* q, float* xs,
-                int M, int K) {
-  quant_rows<kLN, kChunks>(x, ln_w, ln_b, eps, q, xs, M, K);
-}
-template <bool kLN, int kChunks>
-__global__ void __launch_bounds__(kRowWarps * 32)
-nar_k4_prologue(Rows x, const float* ln_w, const float* ln_b, float eps, int8_t* q, float* xs,
-                int M, int K) {
-  quant_rows<kLN, kChunks>(x, ln_w, ln_b, eps, q, xs, M, K);
-}
-
-template <bool kLN, int kChunks, bool kK4>
-cudaError_t launch_prologue_k(const Rows& x, const float* ln_w, const float* ln_b, float eps,
-                              int8_t* q, float* xs, int M, int K, cudaStream_t st) {
+cudaError_t launch_prologue_k(const __nv_bfloat16* x, const void* ln_w, const void* ln_b,
+                              int vec_bf16, float eps, int8_t* q, float* xs, int M, int K,
+                              cudaStream_t st) {
   const dim3 grid((M + kRowWarps - 1) / kRowWarps);
-  if (kK4)
-    nar_k4_prologue<kLN, kChunks><<<grid, kRowWarps * 32, 0, st>>>(x, ln_w, ln_b, eps, q, xs, M, K);
-  else
-    nar_k3_prologue<kLN, kChunks><<<grid, kRowWarps * 32, 0, st>>>(x, ln_w, ln_b, eps, q, xs, M, K);
+  w8a8_prologue<kLN, kChunks><<<grid, kRowWarps * 32, 0, st>>>(x, ln_w, ln_b, vec_bf16, eps, q,
+                                                               xs, M, K);
   return cudaGetLastError();
 }
 
-// The prologue of K3 (kK4 false) or K4; LN when ln_w is given. Rows of up to
-// 1,024 columns keep 32 values a lane, longer ones (to kMaxK) 96.
-template <bool kK4>
-cudaError_t launch_prologue(const Rows& x, const float* ln_w, const float* ln_b, float eps,
-                            int8_t* q, float* xs, int M, int K, cudaStream_t st) {
+// The prologue over x (M, K); LN when ln_w is given. Rows of up to 1,024
+// columns keep 32 values a lane, longer ones (to kMaxK) 96.
+cudaError_t launch_prologue(const __nv_bfloat16* x, const void* ln_w, const void* ln_b,
+                            int vec_bf16, float eps, int8_t* q, float* xs, int M, int K,
+                            cudaStream_t st) {
   const bool ln = ln_w != nullptr;
   if (K <= 1024)
-    return ln ? launch_prologue_k<true, 8, kK4>(x, ln_w, ln_b, eps, q, xs, M, K, st)
-              : launch_prologue_k<false, 8, kK4>(x, ln_w, ln_b, eps, q, xs, M, K, st);
-  return ln ? launch_prologue_k<true, kMaxK / 128, kK4>(x, ln_w, ln_b, eps, q, xs, M, K, st)
-            : launch_prologue_k<false, kMaxK / 128, kK4>(x, ln_w, ln_b, eps, q, xs, M, K, st);
+    return ln ? launch_prologue_k<true, 8>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st)
+              : launch_prologue_k<false, 8>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st);
+  return ln ? launch_prologue_k<true, kMaxK / 128>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st)
+            : launch_prologue_k<false, kMaxK / 128>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K,
+                                                    st);
 }
 
 // ---- GEMM ------------------------------------------------------------------
@@ -252,8 +239,8 @@ struct Epilogue {
   const float* xs;       // (M,) row scales of A
   const float* ws;       // (N,) scales of W
   const float* vs;       // mode 1: (N,) scales of V
-  const float* bias;     // mode 0: (N,) or null
-  Rows res;              // mode 0: residual rows, res.ptr null for none
+  const void* bias;      // mode 0: (N,) bf16 or f32 (the kernel's kBf16Bias), or null
+  const __nv_bfloat16* res;   // mode 0: (M, N) row-major residual, or null
   __nv_bfloat16* out;    // (M, N) row-major
   int M, N, K;           // N: output columns (mode 1: u columns, F)
 };
@@ -266,7 +253,7 @@ __device__ __forceinline__ void wgmma_s8(int* acc, uint64_t da, uint64_t db, int
     wgmma_m64n256k32_s8(acc, da, db, accumulate);
 }
 
-template <int kMode, int kBN>
+template <int kMode, int kBN, bool kBf16Bias>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* tw,
                                      const CUtensorMap* tv, const Epilogue& p) {
   using R = Ring<kBN>;
@@ -351,7 +338,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
       orow[h] = p.out + (long long)(r0 + 8 * h) * p.N;
       if (live[h]) {
         xs[h] = __ldg(p.xs + r0 + 8 * h);
-        if (kMode == 0 && p.res.ptr != nullptr) rrow[h] = row_ptr(p.res, r0 + 8 * h);
+        if (kMode == 0 && p.res != nullptr) rrow[h] = p.res + (long long)(r0 + 8 * h) * p.N;
       }
     }
     constexpr int kGroups = kMode == 0 ? kBN / 8 : kBN / 16;   // 8-column groups a thread
@@ -368,7 +355,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
         for (int e = 0; e < 2; ++e) {
           sa[jj][e] = in ? __ldg(p.ws + col + e) : 0.f;
           if (kMode == 0)
-            sb[jj][e] = in && p.bias != nullptr ? __ldg(p.bias + col + e) : 0.f;
+            sb[jj][e] = in && p.bias != nullptr ? vec_at<kBf16Bias>(p.bias, col + e) : 0.f;
           else
             sb[jj][e] = __ldg(p.vs + col + e);    // N is a multiple of kCols
         }
@@ -410,23 +397,17 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
   }
 }
 
-template <int kBN>
+template <int kBN, bool kBf16Bias>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-nar_k3_gemm(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
-            Epilogue p) {
-  gemm<0, kBN>(&ta, &tw, &tw, p);
+w8a8_wgmma_gemm(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                Epilogue p) {
+  gemm<0, kBN, kBf16Bias>(&ta, &tw, &tw, p);
 }
 template <int kBN>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-nar_k4_gemm_swiglu(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
-                   const __grid_constant__ CUtensorMap tv, Epilogue p) {
-  gemm<1, kBN>(&ta, &tw, &tv, p);
-}
-template <int kBN>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-nar_k4_gemm_lin2(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
-                 Epilogue p) {
-  gemm<0, kBN>(&ta, &tw, &tw, p);
+w8a8_wgmma_swiglu(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap tv, Epilogue p) {
+  gemm<1, kBN, false>(&ta, &tw, &tv, p);
 }
 
 }  // namespace

@@ -27,8 +27,10 @@ silu(w) * v needs each row's amax over all F columns, which a Hopper CTA
 cannot hold for its rows, so K4 writes u (M, F) bf16 to device scratch
 (15 MB at the bench shape, mostly served from L2) and quantises it with a
 second prologue before lin2: four launches from one C call. ``gemm_plan``
-is the host's plan of a GEMM launch (tiles, grid, TMA boxes), ``row_view``
-how a prologue reads x.
+is the host's choice of a GEMM launch's tile width and persistent grid.
+x and the residual are read as contiguous (M, C) rows, the LN and bias
+vectors as they are when all of a call's are bf16 (the decoder's are) or
+all f32.
 
 Numerics, as in the TPU kernels: LN in f32, rounded to bf16 and back;
 ``xs = max(amax, 1e-8) / 127``, ``rint(x / xs)`` clipped to +-127; the rescale
@@ -45,7 +47,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 
 import torch
 
@@ -144,33 +145,17 @@ def prologue_ref(x, ln=None, eps: float = 4e-5):
 
 # ------------------------------------------------------------------ host plan
 
-@dataclass(frozen=True)
-class GemmPlan:
-    """One launch of the GEMM kernel as the host plans it (``gemm_plan``)."""
-    tile_b: int         # weight rows a tile: 128 or 256 (mode 1: half W, half V)
-    tile_cols: int      # output columns a tile (mode 1: u columns, tile_b / 2)
-    tiles_m: int        # row blocks of TILE_M
-    tiles_n: int        # column blocks of ``tile_cols``
-    grid: int           # persistent CTAs, each walking tiles grid apart
-    k_slices: int       # 128-deep k slices a tile, one ring stage each
-    a_box: tuple        # TMA box of A: (bytes, rows)
-    b_boxes: tuple      # TMA boxes of the weight rows a stage: ((bytes, rows), ...)
-    row_bytes: int      # byte stride of the rows of A and of the weights (= K)
-
-    @property
-    def tiles(self) -> int:
-        return self.tiles_m * self.tiles_n
-
-
 @functools.lru_cache(maxsize=256)
-def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> GemmPlan:
-    """The plan of one GEMM launch over A (m, k) int8 and weights (n, k) int8:
-    mode 0 writes (m, n); mode 1 (K4's W and V GEMM) writes u (m, n) from n
-    rows of W and n of V. The wider 256-row weight tile moves a quarter
-    fewer bytes per product than the 128-row one; it is taken when its
-    tiles still give every SM one (and, in mode 1, its 128 u columns divide
-    n). Raises ValueError on a shape the kernel does not take (K a multiple
-    of 128 up to MAX_K, N a multiple of 64)."""
+def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> tuple:
+    """(tile_b, grid) of one GEMM launch over A (m, k) int8 and weights
+    (n, k) int8, mode 0 writing (m, n), mode 1 (K4's W and V GEMM) u (m, n)
+    from n rows of W and n of V: the weight rows a tile and the persistent
+    CTAs, each walking tiles grid apart. The wider 256-row tile moves a
+    quarter fewer bytes per product than the 128-row one; it is taken when
+    its tiles still give every SM one (and, in mode 1, its 128 u columns
+    divide n). The kernels derive the tiles and TMA boxes from tile_b.
+    Raises ValueError on a shape they do not take (K a multiple of 128 up to
+    MAX_K, N a multiple of 64)."""
     if mode not in (0, 1):
         raise ValueError(f"nar_fused: no GEMM mode {mode}")
     if m <= 0:
@@ -183,41 +168,42 @@ def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> GemmPla
     tiles_m = -(-m // TILE_M)
     for bn in TILE_B:
         cols = bn if mode == 0 else bn // 2
-        tiles_n = -(-n // cols)
-        if tiles_m * tiles_n >= sms and (mode == 0 or n % cols == 0):
+        tiles = tiles_m * -(-n // cols)
+        if tiles >= sms and (mode == 0 or n % cols == 0):
             break
-    boxes = ((K_CHUNK, bn),) if mode == 0 else ((K_CHUNK, bn // 2),) * 2
-    return GemmPlan(bn, cols, tiles_m, tiles_n, min(tiles_m * tiles_n, sms), k // K_CHUNK,
-                    (K_CHUNK, TILE_M), boxes, k)
+    return bn, min(tiles, sms)
 
 
-def row_view(x, what: str):
-    """(rows, L, sb, sl): how a prologue (or an epilogue's residual) reads
-    the bf16 rows of ``x`` (..., C) in place, row r of the (rows, C) matrix
-    at element (r // L) * sb + (r % L) * sl. The last axis needs unit stride,
-    the row steps multiples of 16 bytes and the view a 16-byte aligned base;
-    a size-1 axis is never stepped (its step is 0). Raises ValueError naming
-    what a view breaks (``.contiguous()`` always qualifies)."""
-    c = x.shape[-1]
-    if x.numel() == 0:
+def _rows(t, what) -> int:
+    """The number of rows of ``t`` (..., C), which the kernels read as
+    contiguous (M, C) rows on a 16-byte boundary (C is a multiple of 64).
+    Raises ValueError on any other layout."""
+    if t.numel() == 0:
         raise ValueError(f"{what}: no rows")
-    x3 = x.reshape(1, 1, c) if x.ndim == 1 else x
-    try:
-        x3 = x3.view(-1, x3.shape[-2], c)
-    except RuntimeError:
-        raise ValueError(f"{what}: the leading axes of a {tuple(x.shape)} view with strides "
-                         f"{x.stride()} do not merge into one") from None
-    b, l, _ = x3.shape
-    sb, sl, sc = x3.stride()
-    if sc != 1 and c > 1:
-        raise ValueError(f"{what}: the last axis must have unit stride, got strides {x.stride()}")
-    sb, sl = (sb if b > 1 else 0), (sl if l > 1 else 0)
-    per16 = 16 // x.element_size()
-    if sb % per16 or sl % per16:
-        raise ValueError(f"{what}: row strides {x.stride()} are not multiples of 16 bytes")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{what}: the view does not start on a 16-byte boundary")
-    return b * l, l, sb, sl
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: the kernels read contiguous rows, got shape "
+                         f"{tuple(t.shape)} with strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: the rows do not start on a 16-byte boundary")
+    return t.numel() // t.shape[-1]
+
+
+def _vectors(*vecs):
+    """A call's LN and bias vectors, (tensor or None, length, name) each, as
+    the kernels read them, and whether they are bf16: as given when all are
+    bf16 (the decoder's are) or all f32, else f32 copies (bf16 to f32 is
+    exact); contiguous on a 16-byte boundary."""
+    for t, n, name in vecs:
+        if t is not None and t.shape != (n,):
+            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
+    bf16 = all(t.dtype == torch.bfloat16 for t, _, _ in vecs if t is not None)
+    out = []
+    for t, _, _ in vecs:
+        if t is not None:
+            t = t.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+            t = t if t.data_ptr() % 16 == 0 else t.clone()
+        out.append(t)
+    return out, bf16
 
 
 # ------------------------------------------------------------------ kernels
@@ -234,27 +220,17 @@ def _sms(device) -> int:
 def _lib():
     lib = build.load("nar_fused", SOURCES)
     if lib.mars5_w8a8_linear.argtypes is None:
-        vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        # x, L, sb, sl, ln_w, ln_b, eps, wq, ws, bias, res, L, sb, sl, out,
-        # scratch, M, N, K, grid, tile_b, stream
-        lib.mars5_w8a8_linear.argtypes = [vp, i, ll, ll, vp, vp, f, vp, vp, vp,
-                                          vp, i, ll, ll, vp, vp, i, i, i, i, i, vp]
-        # x, L, sb, sl, ln_w, ln_b, eps, wq, ws, vq, vs, l2q, l2s, l2b, u, out,
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # x, ln_w, ln_b, bias, vec_bf16, eps, wq, ws, res, out, scratch, M, N,
+        # K, grid, tile_b, stream
+        lib.mars5_w8a8_linear.argtypes = [vp, vp, vp, vp, i, f, vp, vp, vp, vp, vp,
+                                          i, i, i, i, i, vp]
+        # x, ln_w, ln_b, l2b, vec_bf16, eps, wq, ws, vq, vs, l2q, l2s, u, out,
         # scratch, M, K, F, grid1, tile_b1, grid2, tile_b2, stream
-        lib.mars5_w8a8_ffn.argtypes = [vp, i, ll, ll, vp, vp, f, vp, vp, vp, vp, vp, vp,
-                                       vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        lib.mars5_w8a8_ffn.argtypes = [vp, vp, vp, vp, i, f, vp, vp, vp, vp, vp, vp, vp,
+                                       vp, vp, i, i, i, i, i, i, i, vp]
         lib.mars5_w8a8_linear.restype = lib.mars5_w8a8_ffn.restype = ctypes.c_int
     return lib
-
-
-def _f32(t, n, what):
-    """An f32 vector of ``n`` the kernels read with 16-byte loads."""
-    if t is None:
-        return None
-    if t.shape != (n,):
-        raise ValueError(f"{what} must be ({n},), got {tuple(t.shape)}")
-    t = t.to(torch.float32).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _ptr(t):
@@ -279,35 +255,35 @@ def _check_x(x, what):
         raise ValueError(f"{what} kernel takes bf16 activations, got {x.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    return row_view(x, f"{what} x")
+    return _rows(x, f"{what} x")
 
 
 def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5):
     """K3: [LN ->] W8A8 linear [+ bias] [+ residual] -> (..., N).
 
     CPU tensors take ``fused_linear_ref``; CUDA tensors launch the kernels
-    (bf16 x and residual read in place as ``row_view`` takes them, K a
-    multiple of 128 up to 3072, N a multiple of 64) and raise otherwise."""
+    (bf16 x and residual as contiguous rows, K a multiple of 128 up to 3072,
+    N a multiple of 64) and raise otherwise."""
     if x.device.type == "cpu":
         return fused_linear_ref(x, w, ln=ln, bias=bias, residual=residual, eps=eps)
-    m, xl, xsb, xsl = _check_x(x, "fused_linear")
+    m = _check_x(x, "fused_linear")
     k = x.shape[-1]
     q, s = _check_w(w, k, "fused_linear")
     n = q.shape[0]
-    plan = gemm_plan(m, n, k, 0, _sms(x.device))
-    res = (None, 1, 0, 0)
+    tile_b, grid = gemm_plan(m, n, k, 0, _sms(x.device))
     if residual is not None:
         if residual.dtype != torch.bfloat16 or residual.shape != (*x.shape[:-1], n):
             raise ValueError("fused_linear: residual must be bf16 (..., N)")
-        res = (residual.data_ptr(), *row_view(residual, "fused_linear residual")[1:])
-    lnw, lnb = (None, None) if ln is None else (_f32(ln[0], k, "fused_linear: LN weight"),
-                                                _f32(ln[1], k, "fused_linear: LN bias"))
-    bias = _f32(bias, n, "fused_linear: bias")
+        _rows(residual, "fused_linear residual")
+    ln = (None, None) if ln is None else ln
+    (lnw, lnb, bias), bf16 = _vectors((ln[0], k, "fused_linear: LN weight"),
+                                      (ln[1], k, "fused_linear: LN bias"),
+                                      (bias, n, "fused_linear: bias"))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     scratch = torch.empty(m * k + 4 * m, dtype=torch.int8, device=x.device)
-    build.call(x.device, _lib().mars5_w8a8_linear, x.data_ptr(), xl, xsb, xsl, _ptr(lnw),
-               _ptr(lnb), eps, q.data_ptr(), s.data_ptr(), _ptr(bias), *res, out.data_ptr(),
-               scratch.data_ptr(), m, n, k, plan.grid, plan.tile_b)
+    build.call(x.device, _lib().mars5_w8a8_linear, x.data_ptr(), _ptr(lnw), _ptr(lnb),
+               _ptr(bias), bf16, eps, q.data_ptr(), s.data_ptr(), _ptr(residual),
+               out.data_ptr(), scratch.data_ptr(), m, n, k, grid, tile_b)
     global fused_linear_launches
     fused_linear_launches += 1
     return out.reshape(*x.shape[:-1], n)
@@ -318,11 +294,10 @@ def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5):
 
     CPU tensors take ``fused_ffn_ref``; CUDA tensors launch the kernels (four
     launches from one C call, counted as one) and raise on what they do not
-    take (bf16 x read as ``row_view`` takes it, K and F multiples of 128 up
-    to 3072)."""
+    take (bf16 x as contiguous rows, K and F multiples of 128 up to 3072)."""
     if x.device.type == "cpu":
         return fused_ffn_ref(x, ln, w, v, lin2, lin2_b, eps=eps)
-    m, xl, xsb, xsl = _check_x(x, "fused_ffn")
+    m = _check_x(x, "fused_ffn")
     k = x.shape[-1]
     wq, ws = _check_w(w, k, "fused_ffn W")
     vq, vs = _check_w(v, k, "fused_ffn V")
@@ -333,16 +308,17 @@ def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5):
     if l2q.shape[0] != k:
         raise ValueError(f"fused_ffn: lin2 must map {f} -> {k}")
     sms = _sms(x.device)
-    p1, p2 = gemm_plan(m, f, k, 1, sms), gemm_plan(m, k, f, 0, sms)
-    lnw, lnb = _f32(ln[0], k, "fused_ffn: LN weight"), _f32(ln[1], k, "fused_ffn: LN bias")
-    l2b = _f32(lin2_b, k, "fused_ffn: lin2 bias")
+    (b1, g1), (b2, g2) = gemm_plan(m, f, k, 1, sms), gemm_plan(m, k, f, 0, sms)
+    (lnw, lnb, l2b), bf16 = _vectors((ln[0], k, "fused_ffn: LN weight"),
+                                     (ln[1], k, "fused_ffn: LN bias"),
+                                     (lin2_b, k, "fused_ffn: lin2 bias"))
     u = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
     scratch = torch.empty(m * max(k, f) + 4 * m, dtype=torch.int8, device=x.device)
-    build.call(x.device, _lib().mars5_w8a8_ffn, x.data_ptr(), xl, xsb, xsl, lnw.data_ptr(),
-               lnb.data_ptr(), eps, wq.data_ptr(), ws.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-               l2q.data_ptr(), l2s.data_ptr(), l2b.data_ptr(), u.data_ptr(), out.data_ptr(),
-               scratch.data_ptr(), m, k, f, p1.grid, p1.tile_b, p2.grid, p2.tile_b)
+    build.call(x.device, _lib().mars5_w8a8_ffn, x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
+               l2b.data_ptr(), bf16, eps, wq.data_ptr(), ws.data_ptr(), vq.data_ptr(),
+               vs.data_ptr(), l2q.data_ptr(), l2s.data_ptr(), u.data_ptr(), out.data_ptr(),
+               scratch.data_ptr(), m, k, f, g1, b1, g2, b2)
     global fused_ffn_launches
     fused_ffn_launches += 1
     return out.reshape(x.shape)

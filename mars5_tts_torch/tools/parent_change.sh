@@ -1,0 +1,45 @@
+#!/usr/bin/env bash
+# Parent / change comparison on one GPU: chip_smoke.py, then profile_nar.py
+# at 725 frames (525 prompt + 200 generated, the smoke request's) and at
+# 1,200 (450 + 750, the bench geometry), each in the order parent, change,
+# change, parent, one process a run. profile_nar.py is the change's, run on
+# either tree through --root.
+#
+#   mkdir -p build/parent build/change
+#   git archive <parent commit> | tar -x -C build/parent
+#   git add -A && git archive "$(git write-tree)" | tar -x -C build/change
+#   bash mars5_tts_torch/tools/parent_change.sh build/parent build/change build/parent_change
+#
+# Writes OUT/smoke_<n>_<parent|change>.txt and
+# OUT/nar_<frames>_<n>_<parent|change>.txt, n = 1..4 in run order; prints
+# each run's exit code; exits 1 if any run failed.
+set -u
+if [ $# -ne 3 ]; then
+  echo "usage: $0 PARENT_DIR CHANGE_DIR OUT_DIR" >&2
+  exit 2
+fi
+parent=$(realpath "$1")
+change=$(realpath "$2")
+out=$3
+mkdir -p "$out"
+tool=$change/mars5_tts_torch/tools/profile_nar.py
+runs="1:parent 2:change 3:change 4:parent"
+rc=0
+
+root_of() { if [ "$1" = parent ]; then echo "$parent"; else echo "$change"; fi; }
+
+for run in $runs; do
+  n=${run%%:*}; tag=${run#*:}
+  (cd "$(root_of "$tag")" && python3 chip_smoke.py) > "$out/smoke_${n}_${tag}.txt" 2>&1
+  r=$?; echo "smoke $n $tag rc=$r"; [ $r -eq 0 ] || rc=1
+done
+for geometry in 725:525:200 1200:450:750; do
+  IFS=: read -r frames prompt gen <<< "$geometry"
+  for run in $runs; do
+    n=${run%%:*}; tag=${run#*:}
+    python3 "$tool" --root "$(root_of "$tag")" --prompt "$prompt" --gen "$gen" --repeat 2 \
+      > "$out/nar_${frames}_${n}_${tag}.txt" 2>&1
+    r=$?; echo "nar $frames $n $tag rc=$r"; [ $r -eq 0 ] || rc=1
+  done
+done
+exit $rc

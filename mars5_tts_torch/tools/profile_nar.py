@@ -14,11 +14,13 @@ w = 3, ``--steps`` reverse steps on the generator path: once to warm up,
 ``torch.profiler`` (a step does the same work at any T, and the profiler's
 own cost grows with the ops it records). Prints one JSON
 line: the wall ms a step (each timed run and their median), the device busy
-ms a step and the idle share, the device ms a step of the self-attention
-kernel K1 (``mha_fwd``) and of the W8A8 sites K3 ``fused_linear`` and K4
-``fused_ffn`` (by kernel name, ``w8a8_site``) with each of their kernels'
-device us a launch, the kernel launches and stream waits a step, and the
-host ops with the most self CPU time a step.
+ms a step (the device's own events: kernels, copies, fills) and the idle
+share, the device ms a step of the self-attention kernel K1 (``mha_fwd``)
+and of the W8A8 sites K3 ``fused_linear`` and K4 ``fused_ffn`` (the device
+spans of the profiler ranges ``mark_w8a8_sites`` puts around the decoder's
+calls for the profiled run only), the ``w8a8_*`` kernels' device ms a step
+and each one's device us a launch, the kernel launches and stream waits a
+step, and the host ops with the most self CPU time a step.
 
 ``--root`` imports ``mars5_tts_torch`` from another checkout, so two
 versions (a parent commit's and a change's) run the same measurement.
@@ -27,36 +29,38 @@ versions (a parent commit's and a change's) run the same measurement.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
 import sys
 import time
 
-
-def w8a8_site(name: str):
-    """"k3", "k4" or None: the W8A8 site a device kernel of the int8 NAR
-    step belongs to, by its name. The wgmma kernels carry it
-    (``nar_k3_*``, ``nar_k4_*``); the earlier tile's one kernel,
-    ``w8a8_gemm_kernel<kLN, kMode>``, runs K3 with LN in mode 0 and K4 as
-    mode 1 with LN, then mode 0 without (the step has no other LN-less
-    call), so a parent tree's profile splits the same way."""
-    if "nar_k3_" in name:
-        return "k3"
-    if "nar_k4_" in name:
-        return "k4"
-    m = re.search(r"w8a8_gemm_kernel<\(?\w*\)?(true|false|1|0), \(?\w*\)?([01])>", name)
-    if m is None:
-        return None
-    ln, mode = m.group(1) in ("true", "1"), m.group(2) == "1"
-    return "k3" if ln and not mode else "k4"
+SITES = {"fused_linear": "w8a8_k3", "fused_ffn": "w8a8_k4"}   # wrapper -> profiler range
 
 
-def w8a8_label(name: str) -> str:
-    """A W8A8 kernel's name without its namespace and arguments, e.g.
-    ``nar_k3_gemm<256>``."""
-    m = re.search(r"(nar_k[34]_\w+(?:<[^>]*>)?|w8a8_gemm_kernel<[^>]*>)", name)
-    return m.group(1) if m else name
+def mark_w8a8_sites(layers) -> None:
+    """Wraps the decoder layer's K3 and K4 calls (``layers.fused_linear``,
+    ``layers.fused_ffn``) in profiler ranges named by ``SITES``, so that the
+    device work each call launches is read per site, for this checkout's
+    wrappers and for another's alike."""
+    from torch.profiler import record_function
+
+    for name, label in SITES.items():
+        fn = getattr(layers, name)
+
+        @functools.wraps(fn)
+        def ranged(*args, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*args, **kw)
+        setattr(layers, name, ranged)
+
+
+def w8a8_label(name: str):
+    """A W8A8 kernel's name without its namespace and arguments (e.g.
+    ``w8a8_wgmma_gemm<256>``), or None for any other kernel."""
+    m = re.search(r"\bw8a8_\w+(?:<[^>]*>)?", name)
+    return m.group(0) if m else None
 
 
 def main() -> int:
@@ -75,12 +79,14 @@ def main() -> int:
 
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mars5_tts_torch import InferenceConfig
     from mars5_tts_torch.config import DSH
     from mars5_tts_torch.diffusion.engine import perform_simple_inference
     from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models import layers
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
     from mars5_tts_torch.ops.quant import quantize_nar
 
@@ -130,6 +136,7 @@ def main() -> int:
             run(steps)
             sync()
             walls.append((time.perf_counter() - t0) * 1e3 / steps)
+        mark_w8a8_sites(layers)
         run(p_steps)
         sync()
         with profile(activities=activities) as prof:
@@ -137,11 +144,17 @@ def main() -> int:
             sync()
     wall_ms = float(np.median(walls))
     events = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-    k1_us = sum(getattr(e, "self_device_time_total", 0) for e in events if "mha_fwd" in e.key)
-    site_us = {site: sum(getattr(e, "self_device_time_total", 0) for e in events
-                         if w8a8_site(e.key) == site) for site in ("k3", "k4")}
-    by_name = {e.key: e for e in events}
+    # a host op's device time repeats its kernels': count the device's own events
+    device = [e for e in events if e.device_type != DeviceType.CPU]
+    kernels = [e for e in device if not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    k1_us = sum(e.self_device_time_total for e in kernels if "mha_fwd" in e.key)
+    # a site's: the device spans of its profiler ranges (first kernel's start
+    # to last kernel's end in each call), beside the W8A8 kernels' own sum
+    site_us = {label: sum(e.device_time_total for e in device if e.key == label)
+               for label in SITES.values()}
+    w8a8 = [e for e in kernels if w8a8_label(e.key) and e.count]
+    by_name = {e.key: e for e in events if e.device_type == DeviceType.CPU}
 
     def calls(name):
         return by_name[name].count / p_steps if name in by_name else 0.0
@@ -153,11 +166,12 @@ def main() -> int:
            "device_ms_per_step": device_us / 1e3 / p_steps,
            "device_idle_share": 1 - device_us / 1e3 / p_steps / wall_ms,
            "k1_device_ms_per_step": k1_us / 1e3 / p_steps,
-           "k3_device_ms_per_step": site_us["k3"] / 1e3 / p_steps,
-           "k4_device_ms_per_step": site_us["k4"] / 1e3 / p_steps,
+           "k3_device_ms_per_step": site_us["w8a8_k3"] / 1e3 / p_steps,
+           "k4_device_ms_per_step": site_us["w8a8_k4"] / 1e3 / p_steps,
+           "w8a8_kernels_device_ms_per_step":
+               sum(e.self_device_time_total for e in w8a8) / 1e3 / p_steps,
            "w8a8_kernel_us_per_launch": {
-               w8a8_label(e.key): round(getattr(e, "self_device_time_total", 0) / e.count, 1)
-               for e in events if w8a8_site(e.key) and e.count},
+               w8a8_label(e.key): round(e.self_device_time_total / e.count, 1) for e in w8a8},
            "launches_per_step": calls("cudaLaunchKernel") + calls("cudaLaunchKernelExC"),
            "stream_syncs_per_step": calls("cudaStreamSynchronize"),
            "top_host_ops_us_per_step": {e.key: round(e.self_cpu_time_total / p_steps, 1)

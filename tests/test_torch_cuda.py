@@ -228,12 +228,15 @@ def _qw(n, k, g, dev):
 
 
 def _k3_kwargs(variant, k, n, lead, g, dev):
-    if variant == "ln_bias":
-        return dict(ln=(1 + 0.1 * torch.randn(k, generator=g, device=dev),
-                        0.1 * torch.randn(k, generator=g, device=dev)),
-                    bias=0.1 * torch.randn(n, generator=g, device=dev))
-    if variant == "residual":
-        return dict(bias=0.1 * torch.randn(n, generator=g, device=dev),
+    """``variant``: plain, ln_bias or residual; ``_bf16`` for bf16 LN and bias
+    vectors (the decoder's), else f32."""
+    vec = torch.bfloat16 if variant.endswith("_bf16") else torch.float32
+    if variant.startswith("ln_bias"):
+        return dict(ln=((1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(vec),
+                        (0.1 * torch.randn(k, generator=g, device=dev)).to(vec)),
+                    bias=(0.1 * torch.randn(n, generator=g, device=dev)).to(vec))
+    if variant.startswith("residual"):
+        return dict(bias=(0.1 * torch.randn(n, generator=g, device=dev)).to(vec),
                     residual=torch.randn((*lead, n), generator=g, device=dev).to(torch.bfloat16))
     return {}
 
@@ -247,7 +250,10 @@ def _k3_kwargs(variant, k, n, lead, g, dev):
     (1500, 1024, 1024, "ln_bias"), (2400, 1024, 3072, "ln_bias"), (129, 3072, 1024, "residual"),
     (200, 3072, 192, "plain"),
     # 256-row weight tiles (gemm_plan) with a ragged last one: 64 of its 256 columns
-    (2400, 1024, 2880, "residual")])
+    (2400, 1024, 2880, "residual"),
+    # the decoder's bf16 LN and bias vectors, read as they are
+    (2400, 1024, 3072, "ln_bias_bf16"), (1500, 1024, 1024, "ln_bias_bf16"),
+    (63, 1024, 192, "residual_bf16")])
 def test_fused_linear_kernel_matches_ref(dev, m, k, n, variant):
     """K3 equals its twin bit for bit: an exact int32 product and the same
     rounded operations around it."""
@@ -264,33 +270,14 @@ def test_fused_linear_kernel_matches_ref(dev, m, k, n, variant):
     assert torch.equal(out, F.fused_linear_ref(x, w, **kw))
 
 
-@pytest.mark.parametrize("variant", ["ln_bias", "residual"])
-def test_fused_linear_kernel_reads_sliced_rows(dev, variant):
-    """The int8 decoder's last layer slices 750 of 1,200 rows of each CFG
-    row: K3 reads x (and the residual) where they lie, and equals the twin."""
-    from mars5_tts_torch.ops.kernels import nar_fused as F
-
-    g = torch.Generator(device=dev).manual_seed(31)
-    big = torch.randn((2, 1200, 1024), generator=g, device=dev).to(torch.bfloat16)
-    x = big[:, 450:]
-    assert not x.is_contiguous()
-    w = _qw(1024, 1024, g, dev)
-    kw = _k3_kwargs(variant, 1024, 1024, (2, 1200), g, dev)
-    if "residual" in kw:
-        kw["residual"] = kw["residual"][:, 450:]
-    n0 = F.fused_linear_launches
-    out = F.fused_linear(x, w, **kw)
-    torch.cuda.synchronize()
-    assert F.fused_linear_launches == n0 + 1 and out.shape == (2, 750, 1024)
-    ref = F.fused_linear_ref(x.contiguous(), w, **{k: (v.contiguous() if k == "residual" else v)
-                                                   for k, v in kw.items()})
-    assert torch.equal(out, ref)
-
-
-@pytest.mark.parametrize("m,k,f", [(200, 256, 384), (2400, 1024, 3072), (1, 1024, 3072),
-                                   (63, 1024, 3072), (65, 256, 128), (1500, 1024, 3072),
-                                   (130, 3072, 1024)])
-def test_fused_ffn_kernel_matches_ref(dev, m, k, f):
+@pytest.mark.parametrize("m,k,f,vec", [
+    (200, 256, 384, torch.float32), (2400, 1024, 3072, torch.float32),
+    (1, 1024, 3072, torch.float32), (63, 1024, 3072, torch.float32),
+    (65, 256, 128, torch.float32), (1500, 1024, 3072, torch.float32),
+    (130, 3072, 1024, torch.float32),
+    # the decoder's bf16 LN and bias vectors
+    (2400, 1024, 3072, torch.bfloat16), (1500, 1024, 3072, torch.bfloat16)])
+def test_fused_ffn_kernel_matches_ref(dev, m, k, f, vec):
     """K4 within the JAX kernel tests' bound and at least 99.9% equal to its
     twin: only ``expf`` in the sigmoid may round differently."""
     from mars5_tts_torch.ops.kernels import nar_fused as F
@@ -298,10 +285,10 @@ def test_fused_ffn_kernel_matches_ref(dev, m, k, f):
     g = torch.Generator(device=dev).manual_seed(m)
     lead = (2, m // 2) if m % 2 == 0 else (1, m)
     x = torch.randn((*lead, k), generator=g, device=dev).to(torch.bfloat16)
-    ln = (1 + 0.1 * torch.randn(k, generator=g, device=dev),
-          0.1 * torch.randn(k, generator=g, device=dev))
+    ln = ((1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(vec),
+          (0.1 * torch.randn(k, generator=g, device=dev)).to(vec))
     args = (x, ln, _qw(f, k, g, dev), _qw(f, k, g, dev), _qw(k, f, g, dev),
-            0.1 * torch.randn(k, generator=g, device=dev))
+            (0.1 * torch.randn(k, generator=g, device=dev)).to(vec))
     n0 = F.fused_ffn_launches
     out = F.fused_ffn(*args)
     torch.cuda.synchronize()
@@ -309,20 +296,24 @@ def test_fused_ffn_kernel_matches_ref(dev, m, k, f):
     _fused_eq(out, F.fused_ffn_ref(*args), exact_frac=0.999)
 
 
-def test_fused_ffn_kernel_reads_sliced_rows(dev):
+def test_w8a8_kernels_refuse_strided_rows(dev):
+    """The kernels read x and the residual as contiguous rows: a strided
+    slice of the decoder's x, [:, 450:], raises and launches nothing."""
     from mars5_tts_torch.ops.kernels import nar_fused as F
 
     g = torch.Generator(device=dev).manual_seed(32)
     x = torch.randn((2, 1200, 1024), generator=g, device=dev).to(torch.bfloat16)[:, 450:]
-    ln = (1 + 0.1 * torch.randn(1024, generator=g, device=dev),
-          0.1 * torch.randn(1024, generator=g, device=dev))
-    args = (ln, _qw(3072, 1024, g, dev), _qw(3072, 1024, g, dev), _qw(1024, 3072, g, dev),
-            0.1 * torch.randn(1024, generator=g, device=dev))
-    n0 = F.fused_ffn_launches
-    out = F.fused_ffn(x, *args)
-    torch.cuda.synchronize()
-    assert F.fused_ffn_launches == n0 + 1 and out.shape == (2, 750, 1024)
-    _fused_eq(out, F.fused_ffn_ref(x.contiguous(), *args), exact_frac=0.999)
+    ln = (torch.ones(1024, device=dev), torch.zeros(1024, device=dev))
+    w = _qw(1024, 1024, g, dev)
+    n3, n4 = F.fused_linear_launches, F.fused_ffn_launches
+    with pytest.raises(ValueError, match="contiguous"):
+        F.fused_linear(x, w, ln=ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        F.fused_linear(x.contiguous(), w, residual=x)
+    with pytest.raises(ValueError, match="contiguous"):
+        F.fused_ffn(x, ln, _qw(3072, 1024, g, dev), _qw(3072, 1024, g, dev),
+                    _qw(1024, 3072, g, dev), torch.zeros(1024, device=dev))
+    assert (F.fused_linear_launches, F.fused_ffn_launches) == (n3, n4)
 
 
 def test_w8a8_kernels_reject_what_they_do_not_take(dev):

@@ -1,10 +1,9 @@
 """What the kernels' wrappers decide on the host, checked without a card:
 K1's tensor-map eligibility of a view (``mha.tensor_map_strides``) and its
 launch arguments, K7's cluster size for a slot count and its launch
-arguments, K3/K4's GEMM plan (tiles, persistent grid, TMA boxes and row
-strides, ``nar_fused.gemm_plan``) and how their prologue reads rows in place
-(``nar_fused.row_view``), and the refusals of these wrappers on inputs a CPU
-can build.
+arguments, K3/K4's GEMM plan (tile width and persistent grid,
+``nar_fused.gemm_plan``), the rows and LN/bias vectors they read, and the
+refusals of these wrappers on inputs a CPU can build.
 """
 
 import pytest
@@ -136,42 +135,33 @@ def test_decode_attention_refuses_devices_it_has_no_kernel_for():
         A.decode_attention(q, ck, cv, [3, 4])
 
 
-# (M, N, K, mode) -> (tile_b, tiles_m, tiles_n, tile_cols, grid, k_slices, weight boxes)
+# (M, N, K, mode) -> (tile_b, grid): tiles of 128 rows by tile_b weight rows
+# (mode 1: tile_b / 2 u columns)
 W8A8_PLANS = [
-    ((2400, 3072, 1024, 0), (256, 19, 12, 256, 132, 8, ((128, 256),))),   # K3 qkv: 228 tiles
-    ((2400, 1024, 1024, 0), (128, 19, 8, 128, 132, 8, ((128, 128),))),    # K3 caq: 76 wide ones
-    ((2400, 3072, 1024, 1), (256, 19, 24, 128, 132, 8, ((128, 128), (128, 128)))),  # K4 W, V
-    ((2400, 1024, 3072, 0), (128, 19, 8, 128, 132, 24, ((128, 128),))),   # K4 lin2, K = F
-    ((1450, 3072, 1024, 0), (256, 12, 12, 256, 132, 8, ((128, 256),))),   # 725 frames: 144
-    ((1500, 1024, 1024, 0), (128, 12, 8, 128, 96, 8, ((128, 128),))),     # the last layer's rows
-    ((1, 64, 128, 0), (128, 1, 1, 128, 1, 1, ((128, 128),))),             # one row, a ragged tile
-    ((65, 192, 256, 0), (128, 1, 2, 128, 2, 2, ((128, 128),))),
-    ((63, 128, 3072, 1), (128, 1, 2, 64, 2, 24, ((128, 64), (128, 64)))),
-    ((2400, 192, 1024, 1), (128, 19, 3, 64, 57, 8, ((128, 64), (128, 64)))),   # 192 u columns
+    ((2400, 3072, 1024, 0), (256, 132)),   # K3 qkv: 19 x 12 = 228 tiles
+    ((2400, 1024, 1024, 0), (128, 132)),   # K3 caq: 19 x 4 = 76 wide ones, 152 narrow
+    ((2400, 3072, 1024, 1), (256, 132)),   # K4 W, V: 19 x 24 tiles of 128 u columns
+    ((2400, 1024, 3072, 0), (128, 132)),   # K4 lin2, K = F
+    ((1450, 3072, 1024, 0), (256, 132)),   # 725 frames: 12 x 12 = 144
+    ((1500, 1024, 1024, 0), (128, 96)),    # the last layer's rows: 12 x 8 tiles
+    ((1, 64, 128, 0), (128, 1)),           # one row, a ragged tile
+    ((65, 192, 256, 0), (128, 2)),
+    ((63, 128, 3072, 1), (128, 2)),        # 64 u columns a tile
+    ((2400, 192, 1024, 1), (128, 57)),     # 192 u columns: 19 x 3
 ]
 
 
 @pytest.mark.parametrize("shape,want", W8A8_PLANS)
 def test_w8a8_gemm_plan(shape, want):
-    m, n, k, mode = shape
-    p = F.gemm_plan(m, n, k, mode)
-    assert (p.tile_b, p.tiles_m, p.tiles_n, p.tile_cols, p.grid, p.k_slices, p.b_boxes) == want
-    assert p.tiles == want[1] * want[2]
-    assert p.a_box == (128, 128) and p.row_bytes == k          # 128 B x 128 rows of A
-    # a box row is one 128-byte swizzle row; a stage's boxes fill the tile's weight rows
-    assert sum(rows for _, rows in p.b_boxes) == p.tile_b
-    assert p.tile_cols == (p.tile_b if mode == 0 else p.tile_b // 2)
-    assert p.tiles_m * 128 >= m and p.tiles_n * p.tile_cols >= n
+    assert F.gemm_plan(*shape) == want
 
 
 def test_w8a8_gemm_plan_follows_the_card():
     """The grid is the card's SM count or the tile count; the wide tile is
     taken only while it still gives every SM a tile."""
-    assert F.gemm_plan(2400, 3072, 1024, 0, sms=8).grid == 8
-    wide = F.gemm_plan(2400, 1024, 1024, 0, sms=64)
-    assert (wide.tile_b, wide.grid) == (256, 64)
-    narrow = F.gemm_plan(2400, 1024, 1024, 0, sms=160)
-    assert (narrow.tile_b, narrow.grid) == (128, 152)
+    assert F.gemm_plan(2400, 3072, 1024, 0, sms=8) == (256, 8)
+    assert F.gemm_plan(2400, 1024, 1024, 0, sms=64) == (256, 64)
+    assert F.gemm_plan(2400, 1024, 1024, 0, sms=160) == (128, 152)
 
 
 @pytest.mark.parametrize("m,n,k,mode,reason", [
@@ -184,30 +174,58 @@ def test_w8a8_gemm_plan_refuses(m, n, k, mode, reason):
         F.gemm_plan(m, n, k, mode)
 
 
-def test_w8a8_row_view_reads_the_decoder_rows_in_place():
-    """x (2, 1200, 1024) and its last layer's slice [:, 450:] are read where
-    they lie; a 2-D or 1-D x is one (B = 1) block of rows."""
+def test_w8a8_rows_of_the_decoder():
+    """The decoder's x (2, 1200, 1024), one of its rows and one CFG row are
+    contiguous rows."""
     x = torch.zeros((2, 1200, 1024), dtype=torch.bfloat16)
-    assert F.row_view(x, "x") == (2400, 1200, 1200 * 1024, 1024)
-    assert F.row_view(x[:, 450:], "x") == (1500, 750, 1200 * 1024, 1024)
-    assert F.row_view(x[0], "x") == (1200, 1200, 0, 1024)
-    assert F.row_view(x[0, 0], "x") == (1, 1, 0, 0)
-    # (4, 3, C) with its axes transposed: still two row steps
-    t = torch.zeros((3, 4, 128), dtype=torch.bfloat16).transpose(0, 1)
-    assert F.row_view(t, "x") == (12, 3, 128, 512)
+    assert F._rows(x, "x") == 2400
+    assert F._rows(x[1], "x") == 1200
+    assert F._rows(x[0, 0], "x") == 1
+    # the last layer's slice, once made contiguous (the decoder adds to it first)
+    assert F._rows(x[:, 450:] + 0, "x") == 1500
 
 
 @pytest.mark.parametrize("make,reason", [
-    (lambda: torch.zeros((2, 40, 3 * 128 + 8), dtype=torch.bfloat16)[..., 1:129],
+    (lambda: torch.zeros((2, 1200, 1024), dtype=torch.bfloat16)[:, 450:], "contiguous"),
+    (lambda: torch.zeros((2, 40, 256), dtype=torch.bfloat16)[..., ::2], "contiguous"),
+    (lambda: torch.zeros((2, 40, 132), dtype=torch.bfloat16)[..., :128], "contiguous"),
+    (lambda: torch.zeros((3, 4, 128), dtype=torch.bfloat16).transpose(0, 1), "contiguous"),
+    (lambda: torch.zeros(40 * 128 + 1, dtype=torch.bfloat16)[1:].view(40, 128),
      "16-byte boundary"),
-    (lambda: torch.zeros((2, 40, 256), dtype=torch.bfloat16)[..., ::2], "unit stride"),
-    (lambda: torch.zeros((2, 40, 132), dtype=torch.bfloat16)[..., :128], "16 bytes"),
-    (lambda: torch.zeros((2, 3, 4, 128), dtype=torch.bfloat16).transpose(0, 1), "merge"),
     (lambda: torch.zeros((0, 128), dtype=torch.bfloat16), "no rows"),
 ])
-def test_w8a8_row_view_refuses(make, reason):
+def test_w8a8_rows_refuses(make, reason):
     with pytest.raises(ValueError, match=reason):
-        F.row_view(make(), "x")
+        F._rows(make(), "x")
+
+
+@pytest.mark.parametrize("dtypes,bf16", [
+    ((torch.bfloat16, torch.bfloat16, torch.bfloat16), True),    # the decoder's
+    ((torch.float32, torch.float32, torch.float32), False),
+    ((torch.bfloat16, torch.bfloat16, torch.float32), False),    # mixed: f32 copies
+    ((torch.bfloat16, torch.bfloat16, None), True),              # no bias
+    ((None, None, torch.float16), False),
+])
+def test_w8a8_vectors(dtypes, bf16):
+    """The LN and bias vectors go to the kernels as they are when all are
+    bf16 or all f32, else as f32 copies holding the same values."""
+    vecs = [None if d is None else torch.linspace(-1, 1, 256).to(d) for d in dtypes]
+    got, is_bf16 = F._vectors(*((v, 256, "v") for v in vecs))
+    assert is_bf16 == bf16
+    for v, g in zip(vecs, got):
+        if v is None:
+            assert g is None
+            continue
+        assert g.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert g.is_contiguous() and g.data_ptr() % 16 == 0
+        assert torch.equal(g.float(), v.float())
+        if v.dtype == g.dtype:
+            assert g.data_ptr() == v.data_ptr()     # read where it lies, no copy
+
+
+def test_w8a8_vectors_refuse_a_wrong_length():
+    with pytest.raises(ValueError, match=r"bias must be \(64,\)"):
+        F._vectors((torch.zeros(128), 128, "LN weight"), (torch.zeros(32), 64, "bias"))
 
 
 def test_w8a8_refuses_activations_and_weights_it_has_no_kernel_for():
@@ -225,3 +243,4 @@ def test_w8a8_refuses_activations_and_weights_it_has_no_kernel_for():
         F._check_w((q, s), 128, "w")
     with pytest.raises(ValueError, match="scales"):
         F._check_w((torch.zeros((64, 128), dtype=torch.int8), s.double()), 128, "w")
+

@@ -38,6 +38,10 @@ def test_profile_ar_dry_run(engine, monkeypatch, capsys):
 def test_profile_nar_dry_run(nar, monkeypatch, capsys):
     from mars5_tts_torch.models import nar as nar_mod
 
+    from mars5_tts_torch.models import layers
+
+    for name in ("fused_linear", "fused_ffn"):      # the tool wraps them: restored after
+        monkeypatch.setattr(layers, name, getattr(layers, name))
     monkeypatch.setattr(nar_mod.ResidualTransformerConfig, "mars5",
                         staticmethod(lambda n_text_vocab: nar_mod.ResidualTransformerConfig.tiny()))
     monkeypatch.setattr(sys, "argv", ["profile_nar.py", "--device", "cpu", "--nar", nar,
@@ -52,26 +56,55 @@ def test_profile_nar_dry_run(nar, monkeypatch, capsys):
     assert out["profile_steps"] == 1
     for key in ("wall_ms_per_step", "wall_ms_per_step_runs", "device_ms_per_step",
                 "device_idle_share", "k1_device_ms_per_step", "k3_device_ms_per_step",
-                "k4_device_ms_per_step", "w8a8_kernel_us_per_launch", "launches_per_step",
+                "k4_device_ms_per_step", "w8a8_kernels_device_ms_per_step",
+                "w8a8_kernel_us_per_launch", "launches_per_step",
                 "stream_syncs_per_step", "top_host_ops_us_per_step"):
         assert key in out
 
 
-@pytest.mark.parametrize("name,site", [
-    ("void (anonymous namespace)::nar_k3_gemm(CUtensorMap, CUtensorMap, Epilogue)", "k3"),
-    ("void (anonymous namespace)::nar_k3_prologue<true, 8>(Rows, float const*)", "k3"),
-    ("void (anonymous namespace)::nar_k4_gemm_swiglu(CUtensorMap)", "k4"),
-    ("void (anonymous namespace)::nar_k4_prologue<false, 24>(Rows)", "k4"),
-    ("void (anonymous namespace)::w8a8_gemm_kernel<true, 0>((anonymous namespace)::Args)", "k3"),
-    ("void (anonymous namespace)::w8a8_gemm_kernel<true, 1>((anonymous namespace)::Args)", "k4"),
-    ("void (anonymous namespace)::w8a8_gemm_kernel<false, 0>((anonymous namespace)::Args)", "k4"),
+@pytest.mark.parametrize("name,label", [
+    ("void (anonymous namespace)::w8a8_wgmma_gemm<256, true>(CUtensorMap, CUtensorMap, "
+     "Epilogue)", "w8a8_wgmma_gemm<256, true>"),
+    ("void (anonymous namespace)::w8a8_wgmma_swiglu<128>(CUtensorMap, CUtensorMap)",
+     "w8a8_wgmma_swiglu<128>"),
+    ("void (anonymous namespace)::w8a8_prologue<true, 8>(__nv_bfloat16 const*, void const*)",
+     "w8a8_prologue<true, 8>"),
+    ("void (anonymous namespace)::w8a8_prologue<false, 24>(__nv_bfloat16 const*)",
+     "w8a8_prologue<false, 24>"),
+    ("void (anonymous namespace)::w8a8_gemm_kernel<true, 1>((anonymous namespace)::Args)",
+     "w8a8_gemm_kernel<true, 1>"),
     ("void (anonymous namespace)::mha_fwd_bf16_kernel(CUtensorMap)", None),
 ])
-def test_profile_nar_names_the_w8a8_sites(name, site):
-    """K3's and K4's device time a step is told apart by kernel name, for
-    the wgmma kernels and for the earlier tile a parent tree runs."""
+def test_profile_nar_labels_the_w8a8_kernels(name, label):
+    """Each W8A8 kernel's device us a launch is keyed by its name without
+    namespace and arguments; other kernels are not W8A8 kernels."""
     tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_nar.py")
-    assert tool["w8a8_site"](name) == site
-    if site is not None:      # the per-kernel key: the name without namespace and arguments
-        label = tool["w8a8_label"](name)
-        assert label in name and "(" not in label and "namespace" not in label
+    assert tool["w8a8_label"](name) == label
+
+
+@pytest.mark.parametrize("site", ["fused_linear", "fused_ffn"])
+def test_profile_nar_marks_the_w8a8_sites(site, monkeypatch):
+    """The decoder layer's K3 and K4 calls run inside a profiler range named
+    for their site, once a call, and return what the wrapper returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars5_tts_torch.models import layers
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+    from mars5_tts_torch.ops.quant import quantize_weight
+
+    for name in ("fused_linear", "fused_ffn"):
+        monkeypatch.setattr(layers, name, getattr(layers, name))    # restored after the test
+    tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_nar.py")
+    tool["mark_w8a8_sites"](layers)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 5, 128), generator=g).bfloat16()
+    ln = (torch.ones(128), torch.zeros(128))
+    w = [quantize_weight(torch.randn(shape, generator=g) * 0.05)
+         for shape in ((256, 128), (256, 128), (128, 256))]
+    args = (x, w[0]) if site == "fused_linear" else (x, ln, *w, torch.zeros(128))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = getattr(layers, site)(*args)
+    want = getattr(F, site)(*args)
+    assert torch.equal(got, want)
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts.get(tool["SITES"][site]) == 1
