@@ -23,9 +23,11 @@
    wrapped; clusters sized from the positions' host bound as the AR passes
    it) and K9 mega_decoder_stack (the int8 NAR decoder's 16 layers at the
    smoke request's shape: each layer alone on the kernel's output of the
-   layer before, then all sixteen in one call). K1, K3, K4 and K7 also print
-   the wrapper's host time (``host_ms``) and their device time
-   (``device_ms``); K3 and K4 beside ``torch._int_mm`` at the (M, K, N) of
+   layer before, then all sixteen in one call). K1, K2, K3, K4, K5, K6 and
+   K7 also print the wrapper's host time (``host_ms``) and their device time
+   (``device_ms``), K2 and K6 their kernel launches a call by their C
+   entries' own count (K2: one a decode step, K6: two, at most two each
+   allowed); K3 and K4 beside ``torch._int_mm`` at the (M, K, N) of
    their int8 GEMM cores (a yardstick the port never calls there).
    Checks added after the first ones draw from generators of their own, so
    no earlier check's inputs move.
@@ -81,7 +83,6 @@ AR_MAX_LEN = 2000                   # K2 check: window min(3000, 2001)
 AR_POSITIONS = (600, 1900)
 BATCH_POSITIONS = (600, 1200, 1900, 2400)     # four rows, the last past the window
 K7_CASES = ((600,), (1900,), BATCH_POSITIONS)
-K2_QUEUED = 4                       # K2 calls device_ms queues: 4 x 131 launches
 HBM_BYTES_S = 3.35e12               # H100 SXM data sheet
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
 # K9 at the smoke request's shape: 7 s reference = 525 prompt frames + up to
@@ -124,8 +125,7 @@ def device_ms(fn, n=20):
     left out: ``n`` calls queued behind a spin kernel, so the host has
     queued them all before the card reaches them, and CUDA events time the
     card alone. Their launches must fit the device's launch queue (about a
-    thousand: a full queue blocks the host until the spin ends), so a K2
-    step of 131 launches is timed ``K2_QUEUED`` calls at a time. None if the
+    thousand: a full queue blocks the host until the spin ends). None if the
     host could not queue them within the spin.
     Phase 3 does not use ``torch.profiler``: once it has traced a process,
     every later launch costs more host time, which would slow the
@@ -161,6 +161,18 @@ def host_ms(fn, n=50, warmup=5):
     t = (time.perf_counter() - t0) / n
     torch.cuda.synchronize()
     return 1e3 * t
+
+
+def kernel_launches_per_call(module, fn):
+    """CUDA kernels one call of ``fn`` launches, by the C entry's own count
+    (``module.kernel_launches``)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    n0 = module.kernel_launches()
+    fn()
+    torch.cuda.synchronize()
+    return module.kernel_launches() - n0
 
 
 def fmt_us(ms):
@@ -400,19 +412,26 @@ def check_heads_tail(gen, dev):
         torch.cuda.synchronize()
         mism = got != want
         bad = int((mism & ~near_tie).sum())
+        run6 = lambda: D.heads_diffusion_tail(*args, w=3.0, temp=0.7)
         st = {"mismatches": int(mism.sum()), "near_ties": int(near_tie.sum()),
-              "max_abs_err": shortfall.max().item(),
-              "ms": cuda_ms(lambda: D.heads_diffusion_tail(*args, w=3.0, temp=0.7)),
-              "plain_ms": cuda_ms(lambda: D.heads_diffusion_tail_ref(*args, w=3.0, temp=0.7))}
+              "max_abs_err": shortfall.max().item(), "kernel_launches_per_call":
+                  kernel_launches_per_call(D, run6),
+              "ms": cuda_ms(run6),
+              "plain_ms": cuda_ms(lambda: D.heads_diffusion_tail_ref(*args, w=3.0, temp=0.7)),
+              "device_ms": device_ms(run6), "host_ms": host_ms(run6)}
         print(f"K6 heads+tail (2, 750, 1024) x (7, 1025) w=3 t={t}: index mismatches "
               f"{st['mismatches']} of {got.numel()} (twin near-ties within 1e-5: "
               f"{st['near_ties']}, mismatches outside them: {bad}) | kernel "
-              f"{st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us", flush=True)
+              f"{st['ms'] * 1e3:.1f} us (device {fmt_us(st['device_ms'])}, wrapper host "
+              f"{st['host_ms'] * 1e3:.1f} us, {st['kernel_launches_per_call']} kernel launches "
+              f"a call), plain {st['plain_ms'] * 1e3:.1f} us", flush=True)
         st["bound_ms"], st["bound_by"] = bound(
             nbytes(x8, xs, *folded.values(), u0, x_t, scal, got),
             int8=2 * x8.shape[0] * GEN_LEN * LANES * CLASSES * DIM)
         if bad or got.min() < 0 or got.max() >= CLASSES:
             raise RuntimeError(f"K6 t={t}: indices differ from the twin outside near-ties")
+        if st["kernel_launches_per_call"] > 2:
+            raise RuntimeError(f"K6 t={t}: {st['kernel_launches_per_call']} kernels a call")
         res.append(st)
 
         tail_args = (logits, u0, x_t, scal)
@@ -425,14 +444,17 @@ def check_heads_tail(gen, dev):
                .max().item(),
                "ms": cuda_ms(lambda: D.diffusion_tail(*tail_args, w=3.0, temp=0.7)),
                "plain_ms": cuda_ms(lambda: D.diffusion_tail_ref(*tail_args, w=3.0, temp=0.7)),
+               "device_ms": device_ms(lambda: D.diffusion_tail(*tail_args, w=3.0, temp=0.7)),
+               "host_ms": host_ms(lambda: D.diffusion_tail(*tail_args, w=3.0, temp=0.7)),
                "heads_ms": cuda_ms(lambda: nar_heads_folded(folded, out))}
         st5["bound_ms"], st5["bound_by"] = bound(nbytes(*tail_args, got5))
         print(f"K5 tail (2, 750, 7, 1025) bf16 logits w=3 t={t}: index mismatches against "
               f"K6 {st5['vs_k6']}, against its twin {st5['vs_twin']} of {got5.numel()} "
-              f"(bound: 0) | kernel {st5['ms'] * 1e3:.1f} us, plain {st5['plain_ms'] * 1e3:.1f} "
-              f"us, roofline {st5['bound_ms'] * 1e3:.1f} us ({st5['bound_by']}); the folded "
-              f"heads before it (torch._int_mm + epilogue) {st5['heads_ms'] * 1e3:.1f} us",
-              flush=True)
+              f"(bound: 0) | kernel {st5['ms'] * 1e3:.1f} us (device "
+              f"{fmt_us(st5['device_ms'])}, wrapper host {st5['host_ms'] * 1e3:.1f} us), plain "
+              f"{st5['plain_ms'] * 1e3:.1f} us, roofline {st5['bound_ms'] * 1e3:.1f} us "
+              f"({st5['bound_by']}); the folded heads before it (torch._int_mm + epilogue) "
+              f"{st5['heads_ms'] * 1e3:.1f} us", flush=True)
         if st5["vs_k6"] or st5["vs_twin"]:
             raise RuntimeError(f"K5 t={t}: indices differ from K6 or from the twin")
         res5.append(st5)
@@ -491,10 +513,12 @@ def check_decode_layer(ar, gen, dev):
                 st[name] = s1
                 st["max_abs_err"] = max(st["max_abs_err"], s1["max_abs_err"])
                 st["mean_abs_err"] = max(st["mean_abs_err"], s1["mean_abs_err"])
-            st.update(ms=cuda_ms(lambda: D.fused_decode_layers(*args, dims=dims, norm_eps=eps),
-                                 n=50),
+            run = lambda: D.fused_decode_layers(*args, dims=dims, norm_eps=eps)
+            st.update(ms=cuda_ms(run, n=50),
                       plain_ms=cuda_ms(lambda: D.fused_step_ref(*args, dims=dims, norm_eps=eps),
                                        n=5, warmup=1),
+                      device_ms=device_ms(run), host_ms=host_ms(run),
+                      kernel_launches_per_call=kernel_launches_per_call(D, run),
                       pack_mb=nbytes / 1e6, wbits=wbits, pos=pos)
             st["pack_gb_s"] = nbytes / (st["ms"] * 1e-3) / 1e9
             slots = min(pos, dims.window)        # ring rows the attention reads
@@ -505,12 +529,17 @@ def check_decode_layer(ar, gen, dev):
                   f"{dims.window}) pos={pos}: h max_abs_err={st['h']['max_abs_err']:.3e} "
                   f"(exact {st['h']['exact_frac']:.3f}), k_new {st['k_new']['max_abs_err']:.3e}, "
                   f"v_new {st['v_new']['max_abs_err']:.3e}; bound=fused_eq without the exact "
-                  f"fraction (f32) within={ok} | kernel {st['ms'] * 1e3:.1f} us, plain "
+                  f"fraction (f32) within={ok} | kernel {st['ms'] * 1e3:.1f} us (device "
+                  f"{fmt_us(st['device_ms'])}, wrapper host {st['host_ms'] * 1e3:.1f} us, "
+                  f"{st['kernel_launches_per_call']} kernel launch(es) a call), plain "
                   f"{st['plain_ms'] * 1e3:.1f} us; pack {st['pack_mb']:.1f} MB -> "
                   f"{st['pack_gb_s']:.0f} GB/s ({100 * st['pack_gb_s'] * 1e9 / HBM_BYTES_S:.1f}% "
                   f"of 3.35 TB/s)", flush=True)
             if not ok:
                 raise RuntimeError(f"K2 W{wbits} pos={pos}: error above its bound")
+            if st["kernel_launches_per_call"] > 2:
+                raise RuntimeError(f"K2 W{wbits} pos={pos}: {st['kernel_launches_per_call']} "
+                                   f"kernels a decode step")
             res[(wbits, pos)] = st
         del ck, cv, kvs
         res[(wbits, "batch")] = check_decode_layer_rows(fp, dims, eps, res[(wbits, 600)],
@@ -555,11 +584,11 @@ def check_decode_layer_rows(fp, dims, eps, one_row, gen, dev):
               plain_ms=cuda_ms(lambda: D.fused_step_ref(*args, dims=dims, norm_eps=eps), n=3,
                                warmup=1),
               device_ms=device_ms(lambda: D.fused_decode_layers(*args, dims=dims,
-                                                                norm_eps=eps), n=K2_QUEUED))
+                                                                norm_eps=eps)))
     one_args = (fp, x[:1], BATCH_POSITIONS[0], ck[:, 0].contiguous(), cv[:, 0].contiguous(),
                 kvs[:, 0].contiguous())
     one_device_ms = st["one_row_device_ms"] = device_ms(
-        lambda: D.fused_decode_layers(*one_args, dims=dims, norm_eps=eps), n=K2_QUEUED)
+        lambda: D.fused_decode_layers(*one_args, dims=dims, norm_eps=eps))
     ring = dims.n_layers * sum(min(p, dims.window) for p in BATCH_POSITIONS) * (2 * dims.dim + 8)
     st["bound_ms"], st["bound_by"] = bound(
         nbytes + ring, int8=2 * b * nbytes * (2 if dims.wbits == 4 else 1))
@@ -1113,6 +1142,11 @@ def main():
         {**row("fused_decode_layers", "decode_layer.cu",
                "mars5_tts_tpu/ops/pallas/decode_layer.py:139", k2_main),
          "max_abs_err": max(st["max_abs_err"] for st in k2.values()),
+         **{k: k2_main[k] for k in ("device_ms", "host_ms", "kernel_launches_per_call")},
+         "cases": {f"W{wb} pos {pos}": {k: k2[(wb, pos)][k] for k in
+                                        ("ms", "device_ms", "host_ms", "bound_ms",
+                                         "max_abs_err", "kernel_launches_per_call")}
+                   for wb in (4, 8) for pos in AR_POSITIONS},
          "batch4": {f"W{wb}": batched(k2[(wb, "batch")]) for wb in (4, 8)}},
         {**row("fused_linear", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:111",
                w8a8["qkv"]),
@@ -1124,7 +1158,9 @@ def main():
                w8a8["ffn"]), **w8a8_extra(w8a8["ffn"], w8a8["int_mm"]["ffn"])},
         {**row("heads_diffusion_tail", "diffusion_tail.cu",
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:149", k6[-1]),
-         "max_abs_err": k6_worst["max_abs_err"]},
+         "max_abs_err": k6_worst["max_abs_err"],
+         **{k: k6[-1][k] for k in ("device_ms", "host_ms", "kernel_launches_per_call")},
+         "t0": {k: k6[0][k] for k in ("ms", "device_ms", "host_ms")}},
         {**row("head4_logits", "head4.cu", "mars5_tts_tpu/ops/pallas/head4.py:55", k8,
                launches=path_launches["head4_logits"]),
          "device_ms": k8["device_ms"], "batch4": batched(k8["batch"])},
@@ -1134,9 +1170,11 @@ def main():
          "max_abs_err": max(st["max_abs_err"] for st in k7.values()),
          "device_ms": k7[K7_CASES[0]]["device_ms"], "host_ms": k7[K7_CASES[0]]["host_ms"],
          "cases": {",".join(map(str, p)): batched(st) for p, st in k7.items()}},
-        row("diffusion_tail", "diffusion_tail.cu",
-            "mars5_tts_tpu/ops/pallas/diffusion_tail.py:41", k5[-1],
-            launches=path_launches["diffusion_tail"]),
+        {**row("diffusion_tail", "diffusion_tail.cu",
+               "mars5_tts_tpu/ops/pallas/diffusion_tail.py:41", k5[-1],
+               launches=path_launches["diffusion_tail"]),
+         "device_ms": k5[-1]["device_ms"], "host_ms": k5[-1]["host_ms"],
+         "t0": {k: k5[0][k] for k in ("ms", "device_ms", "host_ms")}},
         row("mega_decoder_stack", "nar_mega.cu", "mars5_tts_tpu/ops/pallas/nar_mega.py:251", k9,
             launches=path_launches["mega_decoder_stack"]),
     ]}))

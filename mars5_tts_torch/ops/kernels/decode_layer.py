@@ -29,10 +29,13 @@ What bounds K2 on an H100: the weight stream. At the released widths
 (26 x 1536, hidden 3584) the pack is 675 MB a step at W8 and 337 MB at W4,
 whatever the number of rows, plus the int8 K/V of each row's positions so
 far (3 KB a position and layer). The products are GEMVs (B <= 8 activation
-rows), far below the tensor cores' break-even, so the kernel streams each
-weight row once with 16-byte loads, one warp per output row, and dots it
-with every activation row with ``__dp4a``. See the CUDA source for the
-launch sequence.
+rows), far below the tensor cores' break-even, so they run ``__dp4a`` on
+CUDA cores. A step is one cooperative launch of a persistent kernel, one
+block an SM, its phases parted by grid barriers; each block owns a fixed
+row range of every matrix (``persistent_plan``) and bulk-copies its slice
+of the next phase but one into shared memory while it computes, so the
+weight stream runs through the barriers. Attention is split over the grid
+by slot chunks (``attention_split``). See the CUDA source for the phases.
 
 Numerics, those of ``fused_step_emulation``: ``xs = max(amax, 1e-8) / 127``
 and ``q = rint(x / xs)`` clipped to +-127; the W8 rescale ``(acc * xs) *
@@ -62,6 +65,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -74,7 +78,12 @@ SOURCES = build.LIBRARIES["decode_layer"]
 HEAD_DIM = 64          # the attention kernel's head width
 MAX_ROW_BYTES = 4096   # a weight row a warp holds in registers (16 B x 8 a lane)
 MAX_BATCH = 8          # activation rows a step takes
-GEMV_SMEM = 48 * 1024  # a GEMV block's shared memory: K f32 + B x K int8 + B scales
+MAX_DIM = 2048         # d: 8 columns a thread of a 256-thread block, rows of <= 2048 bytes
+MAX_HIDDEN = 4096      # hidden: 16 a thread
+SMEM_LIMIT = 232_448   # shared memory a block may use on an H100 (227 KB)
+STATIC_SMEM = 4096     # the kernel's static shared memory, at most (reductions, q, k, v)
+SLOT_TILE = 64         # attention chunks are whole multiples of 64 slots
+PHASES = ("wqkv", "wo", "w13", "w2")    # the weight phases of a layer, in order
 
 # Launches of the CUDA kernel in this process (reset with reset_launch_count).
 launch_count = 0
@@ -318,6 +327,128 @@ def fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, *, dims: FusedDims,
     return h, torch.stack(k_news), torch.stack(v_news)
 
 
+# ------------------------------------------------------------- the plan
+
+@dataclass(frozen=True)
+class PersistentPlan:
+    """The launch of one K2 step, fixed by the host and taken as given by the
+    kernel: ``grid`` blocks; ``rows[k]`` the ``grid + 1`` row boundaries of
+    phase ``PHASES[k]`` (block i owns rows ``rows[k][i]:rows[k][i + 1]``; for
+    w13 the rows of w1 and the same rows of w3, so one block holds both halves
+    of its u columns); ``slice_bytes[k]`` the largest slice a block loads in
+    phase k; dynamic shared memory: weight buffer A (wqkv, w13) at 0, the
+    RMSNorm weight the A phases copy in with their slices at ``off_norm``,
+    buffer B (wo, w2) at ``off_b``, the activation rows as f32 at ``off_act``, a
+    vector at ``off_vec`` (the attention's per-head values, then the wo and w2
+    results before they are added to h: d floats, or more for a small grid), the activation rows as int8 at ``off_x8``,
+    ``smem_bytes`` in all."""
+
+    grid: int
+    rows: tuple
+    slice_bytes: tuple
+    off_norm: int
+    off_b: int
+    off_act: int
+    off_vec: int
+    off_x8: int
+    smem_bytes: int
+
+    def phase_rows(self, k: int, block: int) -> tuple[int, int]:
+        return self.rows[k][block], self.rows[k][block + 1]
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def row_bytes(dims: FusedDims) -> tuple[int, ...]:
+    """Bytes of one weight row of each phase (wqkv, wo, w13, w2)."""
+    div = 2 if dims.wbits == 4 else 1
+    return (dims.dim // div,) * 3 + (dims.hidden // div,)
+
+
+def phase_rows(dims: FusedDims) -> tuple[int, ...]:
+    """Rows each phase splits over the grid: w13 by its u columns (pairs)."""
+    return 3 * dims.dim, dims.dim, dims.hidden, dims.dim
+
+
+def persistent_plan(dims: FusedDims, batch: int, sm_count: int,
+                    blocks_per_sm: int = 1) -> PersistentPlan:
+    """The row ranges, shared memory and grid of a K2 step of ``batch`` rows
+    on ``sm_count`` SMs with ``blocks_per_sm`` blocks each. Block i owns rows
+    ``i * N // grid`` up to ``(i + 1) * N // grid`` of a phase of N rows; each
+    slice is whole rows, so 16-byte aligned when a row is a multiple of 16
+    bytes. Phases alternate between two buffers, so any two consecutive
+    phases are in shared memory at once. Raises when a row is not a multiple
+    of 16 bytes or longer than ``MAX_ROW_BYTES``, or when the buffers and the
+    activation rows exceed a block's shared memory."""
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"K2 takes 1..{MAX_BATCH} rows, got {batch}")
+    if sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError("K2 needs at least one block")
+    grid = sm_count * blocks_per_sm
+    rb = row_bytes(dims)
+    if (any(r % 16 or r > MAX_ROW_BYTES for r in rb) or dims.dim > MAX_DIM
+            or dims.hidden > MAX_HIDDEN):
+        raise ValueError(f"K2 takes weight rows of a multiple of 16 bytes up to "
+                         f"{MAX_ROW_BYTES}, dim up to {MAX_DIM} and hidden up to {MAX_HIDDEN}, "
+                         f"got rows {rb}, dim {dims.dim}, hidden {dims.hidden}")
+    rows = tuple(tuple(i * n // grid for i in range(grid + 1)) for n in phase_rows(dims))
+    per = (1, 1, 2, 1)                 # w13: a w1 row and a w3 row per u column
+    slices = tuple(max(r[i + 1] - r[i] for i in range(grid)) * b * m
+                   for r, b, m in zip(rows, rb, per))
+    off_norm = _up16(max(slices[0], slices[2]))
+    off_b = off_norm + _up16(4 * dims.dim)
+    off_act = off_b + _up16(max(slices[1], slices[3]))
+    off_vec = off_act + _up16(4 * batch * dims.dim)
+    most = max(r[i + 1] - r[i] for r in (rows[1], rows[3]) for i in range(grid))
+    off_x8 = off_vec + _up16(4 * max(dims.dim, batch * most))
+    smem = off_x8 + _up16(batch * max(dims.dim, dims.hidden))
+    if smem + STATIC_SMEM > SMEM_LIMIT:
+        raise ValueError(f"K2 at {batch} rows on a grid of {grid} needs {smem} bytes of "
+                         f"shared memory a block, over {SMEM_LIMIT - STATIC_SMEM}")
+    return PersistentPlan(grid, rows, slices, off_norm, off_b, off_act, off_vec, off_x8, smem)
+
+
+def attention_split(grid: int, batch: int, n_heads: int, slots: int) -> tuple[int, int]:
+    """(chunk, n_chunks): each (row, head)'s first ``slots`` ring slots (the
+    most any row has valid) in chunks of ``chunk`` slots, a multiple of
+    ``SLOT_TILE``, so that the ``batch * n_heads * n_chunks`` units about
+    fill the grid. One chunk runs the whole attention of a (row, head) in
+    one block, with no grid barrier inside it."""
+    per = min(32, max(1, grid // (batch * n_heads)))     # chunks a (row, head)
+    per_chunk = -(-slots // per)
+    chunk = max(SLOT_TILE, -(-per_chunk // SLOT_TILE) * SLOT_TILE)
+    return chunk, -(-slots // chunk)
+
+
+SCRATCH_REGIONS = ("qkv", "u", "uamax", "scores", "pmax", "pamax", "selfs", "stats", "pv",
+                   "psum")                       # the kernel's order
+
+
+def scratch_layout(dims: FusedDims, batch: int, w_pad: int, grid: int,
+                   n_chunks: int) -> dict:
+    """Byte offsets of the step's scratch regions in the kernel's order, and
+    ``"bytes"`` in all: qkv (B, 3d) f32, u (B, hidden) f32, the u amax of
+    each block (grid, B) f32, scores (B, H, w_pad) f32, per chunk the score
+    max and the amax of p * vs (B, H, n_chunks) f32 each, the self scores
+    (B, H) f32, the PV sums (B, d) int32, and the denominator's f64 sum over
+    each ``SLOT_TILE`` slots (B, H, ceil(window / SLOT_TILE)): summed tile by
+    tile in slot order, the total does not depend on the chunks."""
+    bh = batch * dims.n_heads
+    tiles = -(-dims.window // SLOT_TILE)
+    sizes = {"qkv": 4 * batch * 3 * dims.dim, "u": 4 * batch * dims.hidden,
+             "uamax": 4 * grid * batch, "scores": 4 * bh * w_pad, "pmax": 4 * bh * n_chunks,
+             "pamax": 4 * bh * n_chunks, "selfs": 4 * bh, "stats": 12 * bh,
+             "pv": 4 * batch * dims.dim, "psum": 8 * bh * tiles}
+    out, at = {}, 0
+    for name in SCRATCH_REGIONS:
+        out[name] = at
+        at += _up16(sizes[name])
+    out["bytes"] = at
+    return out
+
+
 # ------------------------------------------------------------------- kernel
 
 def _lib():
@@ -325,12 +456,46 @@ def _lib():
     fn = lib.mars5_fused_decode
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        # wbits, B, L, d, hidden, n_heads, window, w_pad, eps, x, pos, cos, sin,
-        # wqkv, sqkv, wo, so, w13, s13, w2, s2, attn_norms, ffn_norms,
-        # cache_k, cache_v, kv_scales, h, k_new, v_new, scratch, stream
-        fn.argtypes = [i] * 8 + [ctypes.c_float] + [vp] * 22
+        # wbits, B, L, d, hidden, n_heads, window, w_pad, eps, grid, rows, off_b,
+        # off_norm, off_act, off_vec, off_x8, smem, chunk, n_chunks, x, pos, cos, sin, wqkv,
+        # sqkv, wo,
+        # so, w13, s13, w2, s2, attn_norms, ffn_norms, cache_k, cache_v,
+        # kv_scales, h, k_new, v_new, scratch, offsets (host, 10 x int64),
+        # scratch_bytes, barrier, stream
+        fn.argtypes = ([i] * 8 + [ctypes.c_float, i, vp] + [i] * 8 + [vp] * 22
+                       + [ctypes.c_longlong, vp, vp])
         fn.restype = ctypes.c_int
-    return fn
+        occ = lib.mars5_fused_decode_occupancy
+        occ.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+        lib.mars5_fused_decode_kernel_launches.restype = ctypes.c_longlong
+    return lib
+
+
+def kernel_launches() -> int:
+    """CUDA kernels the K2 library has launched in this process (one a step),
+    counted by its C entry; ``launch_count`` counts the wrapper's calls."""
+    return _lib().mars5_fused_decode_kernel_launches()
+
+
+@lru_cache(maxsize=None)
+def _launch_plan(dims: FusedDims, batch: int, device_index: int):
+    """The plan of a step on this device (one block an SM: each block runs
+    the activation prologue of every phase, so more blocks would repeat it
+    and add arrivals at every barrier), its row table on the device and the
+    grid barrier's counter, zeroed once (the kernel leaves it as it found
+    it). Raises unless one block of the plan's shared memory fits an SM."""
+    sm = torch.cuda.get_device_properties(device_index).multi_processor_count
+    plan = persistent_plan(dims, batch, sm, 1)
+    per_sm = ctypes.c_int(0)
+    err = _lib().mars5_fused_decode_occupancy(plan.smem_bytes, ctypes.byref(per_sm))
+    if err != 0 or per_sm.value < 1:
+        raise RuntimeError(f"fused_decode_layers: a block of {plan.smem_bytes} bytes of "
+                           f"shared memory cannot reside on an SM (cudaError {err})")
+    dev = torch.device("cuda", device_index)
+    rows = torch.tensor(plan.rows, dtype=torch.int32, device=dev).contiguous()
+    barrier = torch.zeros(64, dtype=torch.int32, device=dev)   # count, finish count at 32
+    return plan, rows, barrier
 
 
 def _need(t, dtype, shape, what):
@@ -367,8 +532,10 @@ def fused_decode_layers(fp, x, pos, cache_k, cache_v, kv_scales, *,
 
     CPU tensors take ``fused_step_ref``. CUDA tensors launch the kernel and
     raise on what it does not take: x bf16 (B, d) with 1 <= B <= 8,
-    positions >= 0, head_dim 64, weight rows of at most 4096 bytes, a pack as
-    ``build_fused_pack`` makes it."""
+    positions >= 0, head_dim 64, weight rows of a multiple of 16 bytes up to
+    4096, a plan that fits shared memory (``persistent_plan``), a pack as
+    ``build_fused_pack`` makes it. The step is one cooperative launch: if
+    its grid cannot be resident at once, the launch fails and this raises."""
     if x.device.type == "cpu":
         return fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, dims=dims,
                               norm_eps=norm_eps)
@@ -377,13 +544,8 @@ def fused_decode_layers(fp, x, pos, cache_k, cache_v, kv_scales, *,
     if dims.head_dim != HEAD_DIM:
         raise ValueError(f"fused_decode_layers kernel takes head_dim {HEAD_DIM}, "
                          f"got {dims.head_dim}")
-    if max(d, f) // (2 if dims.wbits == 4 else 1) > MAX_ROW_BYTES:
-        raise ValueError(f"fused_decode_layers kernel takes weight rows of at most "
-                         f"{MAX_ROW_BYTES} bytes")
-    if not 1 <= B <= MAX_BATCH or max(d, f) * (4 + B) + 4 * B > GEMV_SMEM:
-        raise ValueError(f"fused_decode_layers kernel takes 1..{MAX_BATCH} rows with "
-                         f"max(d, hidden) x (4 + rows) + 4 x rows <= {GEMV_SMEM} bytes, "
-                         f"got {B} rows")
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"fused_decode_layers kernel takes 1..{MAX_BATCH} rows, got {B}")
     positions = positions_of(pos, B)
     if len(positions) != B or min(positions) < 0:
         raise ValueError(f"fused_decode_layers: need {B} positions >= 0, got {positions}")
@@ -396,25 +558,28 @@ def fused_decode_layers(fp, x, pos, cache_k, cache_v, kv_scales, *,
     _need(cache_v, torch.int8, (L, B, w_pad, d), "cache_v")
     _need(kv_scales, torch.float32, (L, B, 2, w_pad), "kv_scales")
     check_pack(fp, dims)
-    cos, sin = rope_rows(positions, dims, x.device)
-    cos, sin = cos.contiguous(), sin.contiguous()
     pos_t = ints_on_device(positions, x.device, torch.int32)
+    cos, sin = rope_angles(pos_t, dims.head_dim)     # rope_rows in one pass
+    dev_index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan, rows, barrier = _launch_plan(dims, B, dev_index)
+    slots = max(min(p + 1, dims.window) for p in positions)
+    chunk, n_chunks = attention_split(plan.grid, B, dims.n_heads, slots)
+    layout = scratch_layout(dims, B, w_pad, plan.grid, n_chunks)
+    offsets = (ctypes.c_longlong * len(SCRATCH_REGIONS))(*(layout[k] for k in SCRATCH_REGIONS))
     h = torch.empty((B, d), dtype=torch.float32, device=x.device)
     k_new = torch.empty((L, B, d), dtype=torch.float32, device=x.device)
     v_new = torch.empty_like(k_new)
-    scratch = torch.empty(B * (4 * d + 2 * f), dtype=torch.float32, device=x.device)
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(dims.wbits, B, L, d, f, dims.n_heads, dims.window, w_pad, norm_eps,
-                 x.data_ptr(), pos_t.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                 *(fp[k].data_ptr() for k in ("wqkv", "sqkv", "wo", "so", "w13", "s13",
-                                              "w2", "s2", "attn_norms", "ffn_norms")),
-                 cache_k.data_ptr(), cache_v.data_ptr(), kv_scales.data_ptr(),
-                 h.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"decode_layer kernel launch failed: cudaError {err}")
+    scratch = torch.empty(layout["bytes"], dtype=torch.uint8, device=x.device)
+    fn = _lib().mars5_fused_decode
+    build.call(x.device, fn, dims.wbits, B, L, d, f, dims.n_heads, dims.window, w_pad,
+               norm_eps, plan.grid, rows.data_ptr(), plan.off_norm, plan.off_b, plan.off_act,
+               plan.off_vec, plan.off_x8, plan.smem_bytes, chunk, n_chunks, x.data_ptr(), pos_t.data_ptr(),
+               cos.data_ptr(), sin.data_ptr(),
+               *(fp[k].data_ptr() for k in ("wqkv", "sqkv", "wo", "so", "w13", "s13",
+                                            "w2", "s2", "attn_norms", "ffn_norms")),
+               cache_k.data_ptr(), cache_v.data_ptr(), kv_scales.data_ptr(),
+               h.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
+               ctypes.addressof(offsets), layout["bytes"], barrier.data_ptr())
     global launch_count
     launch_count += 1
     return h, k_new, v_new

@@ -911,3 +911,97 @@ def test_batched_ar_engines_on_gpu(dev):
     for (t, n), p in zip(outs, prompts):
         gen = t[len(p):]
         assert len(gen) == n and ((gen >= 257) & (gen < 1283)).all()
+
+
+@pytest.mark.parametrize("b", range(1, 9))
+def test_fused_decode_persistent_step_rows(dev, b):
+    """K2 as one cooperative launch a step at 1-8 rows (a 512-wide, 4-layer
+    model, window 100, rows on both sides of the wrap): one kernel launch a
+    call, within the twin's bound, each row bitwise its one-row step."""
+    from mars5_tts_torch.models.ar import CodecLMConfig
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    cfg = CodecLMConfig(n_vocab=512, dim=512, n_heads=8, n_kv_heads=8, head_dim=64,
+                        n_layers=4, hidden_dim=1024, sliding_window=100)
+    fp, dims = prepare_fused(_decode_model(cfg, dev, b), 150, 4 if b % 2 else 8)
+    positions = [int(p) for p in np.random.default_rng(b).integers(0, 150, b)]
+    g = torch.Generator(device=dev).manual_seed(b)
+    shape = (dims.n_layers, b, dims.window, dims.dim)
+    (ck, ks), (cv, vs) = (D.quantize_kv_rows(torch.randn(shape, generator=g, device=dev) * 0.1)
+                          for _ in range(2))
+    kvs = torch.stack([ks, vs], dim=2).contiguous()
+    x = fp["embed"][torch.arange(b, device=dev) * 5 + 3].to(torch.bfloat16)
+    got = D.fused_decode_layers(fp, x, positions, ck, cv, kvs, dims=dims, norm_eps=cfg.norm_eps)
+    torch.cuda.synchronize()
+    n0 = D.kernel_launches()
+    D.fused_decode_layers(fp, x, positions, ck, cv, kvs, dims=dims, norm_eps=cfg.norm_eps)
+    torch.cuda.synchronize()
+    assert D.kernel_launches() == n0 + 1
+    want = D.fused_step_ref(fp, x, positions, ck, cv, kvs, dims=dims, norm_eps=cfg.norm_eps)
+    for a, w in zip(got, want):
+        _fused_eq_f32(a, w)
+    for i in range(b):
+        one = D.fused_decode_layers(fp, x[i:i + 1], positions[i], ck[:, i].contiguous(),
+                                    cv[:, i].contiguous(), kvs[:, i].contiguous(), dims=dims,
+                                    norm_eps=cfg.norm_eps)
+        assert torch.equal(one[0], got[0][i:i + 1])
+        assert torch.equal(one[1], got[1][:, i:i + 1])
+
+
+def test_fused_decode_raises_when_the_grid_cannot_be_resident(dev, monkeypatch):
+    """A plan of more blocks than the card can hold at once: the cooperative
+    launch is refused, the wrapper raises, and nothing else runs."""
+    from mars5_tts_torch.models.ar import CodecLMConfig
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    cfg = CodecLMConfig(n_vocab=300, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                        n_layers=1, hidden_dim=512, sliding_window=24)
+    fp, dims = prepare_fused(_decode_model(cfg, dev, 0), 40, 8)
+    ck, cv, kvs = _ring(dims, None, dev)
+    x = fp["embed"][:1].to(torch.bfloat16)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = D.persistent_plan(dims, 1, sm, 40)             # 40 blocks an SM: never resident
+    rows = torch.tensor(plan.rows, dtype=torch.int32, device=dev)
+    barrier = torch.zeros(64, dtype=torch.int32, device=dev)
+    monkeypatch.setattr(D, "_launch_plan", lambda *_: (plan, rows, barrier))
+    n0, k0 = D.launch_count, D.kernel_launches()
+    with pytest.raises(RuntimeError):
+        D.fused_decode_layers(fp, x, 3, ck, cv, kvs, dims=dims)
+    assert D.launch_count == n0 and D.kernel_launches() == k0
+
+
+@pytest.mark.parametrize("rows,length", [(2, 1), (2, 31), (2, 33), (1, 64), (2, 750)])
+def test_heads_tail_kernel_ragged_frames(dev, rows, length):
+    """K6 at frame counts that leave a ragged last block of 32, with and
+    without CFG: two kernel launches a call, indices equal to the twin's but
+    at its near-ties, none in the padded classes; K5 equals it exactly."""
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import nar_heads_folded, nar_heads_prequant
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + length)
+    d, n, kc = 1024, 7, 1025
+    out = torch.randn((rows, length, d), generator=g, device=dev).to(torch.bfloat16)
+    x8, xs = nar_heads_prequant(out)
+    wf = torch.randn((n, kc, d), generator=g, device=dev) * 0.03
+    s = wf.abs().amax(-1) / 127.0
+    folded = {"q": torch.round(wf / s[..., None]).clamp(-127, 127).to(torch.int8), "s": s,
+              "b": 0.1 * torch.randn((n, kc), generator=g, device=dev)}
+    u0 = torch.rand((1, length, n, kc), generator=g, device=dev)
+    x_t = torch.randint(0, kc, (1, length, n), generator=g, device=dev)
+    scal = D.tail_scalars(MultinomialDiffusion(kc, 200, device=dev), 50)
+    args = (x8, xs, folded, u0, x_t, scal)
+    got = D.heads_diffusion_tail(*args, w=3.0, temp=0.7)
+    torch.cuda.synchronize()
+    n0 = D.kernel_launches()
+    D.heads_diffusion_tail(*args, w=3.0, temp=0.7)
+    torch.cuda.synchronize()
+    assert D.kernel_launches() == n0 + 2
+    assert int(got.max()) < kc
+    want = D.heads_diffusion_tail_ref(*args, w=3.0, temp=0.7)
+    top2 = torch.topk(D.tail_scores(*args, w=3.0, temp=0.7), 2, dim=-1).values
+    assert not bool(((got != want) & ((top2[..., 0] - top2[..., 1]) > 1e-5)).any())
+    k5 = D.diffusion_tail(nar_heads_folded(folded, out), u0, x_t, scal, w=3.0, temp=0.7)
+    assert torch.equal(k5, got)

@@ -2,8 +2,10 @@
 K1's tensor-map eligibility of a view (``mha.tensor_map_strides``) and its
 launch arguments, K7's cluster size for a slot count and its launch
 arguments, K3/K4's GEMM plan (tile width and persistent grid,
-``nar_fused.gemm_plan``), the rows and LN/bias vectors they read, and the
-refusals of these wrappers on inputs a CPU can build.
+``nar_fused.gemm_plan``), the rows and LN/bias vectors they read, K6's tile
+plan (``diffusion_tail.heads_tail_plan``) and its padded classes, and the
+refusals of these wrappers on inputs a CPU can build. K2's plan is in
+``test_torch_persistent_decode.py``.
 """
 
 import pytest
@@ -244,3 +246,64 @@ def test_w8a8_refuses_activations_and_weights_it_has_no_kernel_for():
     with pytest.raises(ValueError, match="scales"):
         F._check_w((torch.zeros((64, 128), dtype=torch.int8), s.double()), 128, "w")
 
+
+
+# ------------------------------------------------------------ K6's plan
+
+def test_heads_tail_plan_at_the_bench_shape():
+    """32 frames a block, 17 tiles of 64 classes (the last holds class 1024
+    and 63 padded ones), as many ring stages as let two blocks share an SM:
+    the 24 x 7 grid is one wave on 132 SMs."""
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    plan = D.heads_tail_plan(1, 750, 7, 1025, 1024)
+    assert plan.grid == (24, 7, 1) and plan.class_tiles == 17
+    assert plan.stages == 5 and plan.smem_bytes <= D.SMEM_TWO_BLOCKS
+    assert plan.smem_bytes >= 8 * 8192 + 5 * 8192 + 8 * 11 + 1024
+    assert 24 * 7 <= 2 * 132
+
+
+@pytest.mark.parametrize("bs,length,dim,stages", [(2, 33, 1024, 5), (1, 1, 128, 12),
+                                                  (1, 750, 2048, 12)])
+def test_heads_tail_plan_geometries(bs, length, dim, stages):
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    plan = D.heads_tail_plan(bs, length, 7, 1025, dim)
+    assert plan.grid == (-(-length // 32), 7, bs) and plan.stages == stages
+    assert plan.smem_bytes <= D.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dim,classes,match", [(1000, 1025, "multiple of 128"),
+                                               (1024, 2100, "K <= 2048"),
+                                               (4096, 1025, "shared")])
+def test_heads_tail_plan_refuses(dim, classes, match):
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    with pytest.raises(ValueError, match=match):
+        D.heads_tail_plan(1, 10, 7, classes, dim)
+
+
+def test_padded_classes_never_win():
+    """The last weight tile's 63 padded classes are zero-filled weights: had
+    their logits (0, no bias) entered the tail, they would beat classes whose
+    logits are all far below 0 and take the argmax. Kept out by the mask,
+    the tail over the tiles' classes picks the twin's indices."""
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    g = torch.Generator().manual_seed(0)
+    mask = D.class_tile_mask(1025)
+    assert mask.shape == (17 * 64,) and int(mask.sum()) == 1025 and bool(mask[:1025].all())
+    n = mask.numel()
+    logits = (torch.randn((2, 6, 7, 1025), generator=g) - 40.0).to(torch.bfloat16)
+    u0 = torch.rand((1, 6, 7, n), generator=g)
+    x_t = torch.randint(0, 1025, (1, 6, 7), generator=g)
+    scal = D.tail_scalars(MultinomialDiffusion(1025, 200), 0)
+    padded = torch.zeros((2, 6, 7, n), dtype=torch.bfloat16)
+    padded[..., :1025] = logits
+    unmasked = D.logit_scores(padded, u0, x_t, scal, w=3.0, temp=0.7).argmax(-1)
+    assert bool((unmasked >= 1025).all())
+    masked = D.logit_scores(padded[..., mask], u0[..., mask], x_t, scal, w=3.0,
+                            temp=0.7).argmax(-1)
+    want = D.diffusion_tail_ref(logits, u0[..., :1025].contiguous(), x_t, scal, w=3.0, temp=0.7)
+    assert torch.equal(masked, want)

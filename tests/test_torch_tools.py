@@ -32,6 +32,61 @@ def test_profile_ar_dry_run(engine, monkeypatch, capsys):
                 "device_ms_per_token", "stream_syncs_per_token", "top_host_ops_us_per_token"):
         assert key in out
     assert ("k2_device_ms" in out) == (engine != "bf16")
+    assert ("k2_launches_per_call" in out) == (engine != "bf16")
+
+
+def test_profile_ar_dry_run_four_rows(monkeypatch, capsys):
+    """``--rows 4`` runs the batched quantized engine and one K2 call of four rows."""
+    from mars5_tts_torch.models import ar
+
+    tiny = ar.CodecLMConfig(n_vocab=1400, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                            n_layers=1, hidden_dim=512, sliding_window=3000, n_spk_layers=1,
+                            spk_hidden_dim=256)
+    monkeypatch.setattr(ar.CodecLMConfig, "mars5", staticmethod(lambda n_vocab: tiny))
+    monkeypatch.setattr(sys, "argv", ["profile_ar.py", "--device", "cpu", "--rows", "4",
+                                      "--tokens", "2", "--repeat", "1", "--root", ROOT])
+    torch.manual_seed(0)
+    with pytest.raises(SystemExit) as done:
+        runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_ar.py", run_name="__main__")
+    assert done.value.code == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["rows"] == 4 and out["tokens"] == 2 and "k2_device_ms" in out
+
+
+class _Event:
+    """A stub of one ``key_averages()`` entry."""
+
+    def __init__(self, key, device_type, self_device_us, count=1, annotation=False):
+        from torch.autograd import DeviceType
+
+        self.key, self.count, self.is_user_annotation = key, count, annotation
+        self.device_type = getattr(DeviceType, device_type)
+        self.self_device_time_total = self_device_us
+
+
+def test_profile_ar_counts_device_events_once():
+    """A host op's device time repeats its kernels' and a user annotation's
+    spans them: the busy time counts the device's own events once, and K2's
+    time only K2's kernels (the persistent step, or the launch sequence it
+    replaced), with their launches."""
+    tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_ar.py")
+    events = [
+        _Event("aten::mm", "CPU", 30.0),                  # its kernel's time, again
+        _Event("ampere_sgemm_128x64", "CUDA", 30.0),
+        _Event("k2_range", "CUDA", 500.0, annotation=True),
+        _Event("void (anonymous namespace)::fused_decode_step((anonymous namespace)::Args)",
+               "CUDA", 400.0, count=2),
+        _Event("void (anonymous namespace)::gemv_kernel<0, true, true>(GemvArgs)", "CUDA",
+               50.0, count=3),
+        _Event("void (anonymous namespace)::head4_kernel(signed char const*)", "CUDA", 7.0),
+        _Event("Memcpy HtoD (Pageable -> Device)", "CUDA", 2.0),
+        _Event("cudaLaunchKernel", "CPU", 0.0, count=5),
+        _Event("cudaLaunchCooperativeKernel", "CPU", 0.0, count=2),
+        _Event("cudaLaunchKernelExC", "CPU", 0.0, count=1),
+    ]
+    assert tool["device_us"](events) == 30.0 + 400.0 + 50.0 + 7.0 + 2.0
+    assert tool["k2_kernels"](events) == (450.0, 5)
+    assert tool["launches"](events) == 8
 
 
 @pytest.mark.parametrize("nar", ["int8", "bf16"])
