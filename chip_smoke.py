@@ -23,12 +23,13 @@
    wrapped; clusters sized from the positions' host bound as the AR passes
    it) and K9 mega_decoder_stack (the int8 NAR decoder's 16 layers at the
    smoke request's shape: each layer alone on the kernel's output of the
-   layer before, then all sixteen in one call). K1, K2, K3, K4, K5, K6 and
-   K7 also print the wrapper's host time (``host_ms``) and their device time
-   (``device_ms``), K2 and K6 their kernel launches a call by their C
-   entries' own count (K2: one a decode step, K6: two, at most two each
-   allowed); K3 and K4 beside ``torch._int_mm`` at the (M, K, N) of
-   their int8 GEMM cores (a yardstick the port never calls there).
+   layer before, then all sixteen in one call, with the device time of each
+   phase; then at the bench's 1,200 frames). Every kernel also prints the
+   wrapper's host time (``host_ms``) and its device time (``device_ms``);
+   K2, K6, K8 and K9 their kernel launches a call by their C entries' own
+   count (K2: one a decode step, K6: two, at most two each allowed; K8: one;
+   K9: 1 + 15 a layer); K3 and K4 beside ``torch._int_mm`` at the (M, K, N)
+   of their int8 GEMM cores (a yardstick the port never calls there).
    Checks added after the first ones draw from generators of their own, so
    no earlier check's inputs move.
 4. Main paths: ``Mars5TTS`` at the released widths (AR 26 x 1536, NAR 8 + 16 x
@@ -88,6 +89,7 @@ PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
 # K9 at the smoke request's shape: 7 s reference = 525 prompt frames + up to
 # 200 generated, two CFG rows; 66 encoder tokens (the deep-clone text + speaker)
 MEGA_L, MEGA_LK = 725, 66
+MEGA_BENCH_L = 1200                 # K9 also at the bench's frames (bench.py:47-49)
 
 
 def bound(nbytes, **ops):
@@ -173,6 +175,11 @@ def kernel_launches_per_call(module, fn):
     fn()
     torch.cuda.synchronize()
     return module.kernel_launches() - n0
+
+
+def sm_count(dev):
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def fmt_us(ms):
@@ -620,14 +627,19 @@ def check_head4(ar, gen, dev):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     peak = want.abs().max().item()
+    run1 = lambda: H.head4_logits(x, wp, ws, n_vocab=n)    # noqa: E731
     st = {"max_abs_err": err, "exact": bool(torch.equal(got, want)),
-          "ms": cuda_ms(lambda: H.head4_logits(x, wp, ws, n_vocab=n), n=50),
-          "plain_ms": cuda_ms(lambda: H.head4_logits_ref(x, wp, ws, n_vocab=n), n=20)}
+          "ms": cuda_ms(run1, n=50),
+          "plain_ms": cuda_ms(lambda: H.head4_logits_ref(x, wp, ws, n_vocab=n), n=20),
+          "host_ms": host_ms(run1), "kernel_launches_per_call": kernel_launches_per_call(H, run1),
+          "slab_plan": H.slab_plan(wp.shape[0], x.shape[1], 1)}
     nbytes = wp.numel() + ws.numel() * 4
     st["bound_ms"], st["bound_by"] = bound(nbytes + x.numel() * 2 + n * 4, int8=2 * n * x.shape[1])
     print(f"K8 head4 (1, {ar.cfg.dim}) -> {n}: max_abs_err={err:.3e} (bitwise equal: "
           f"{st['exact']}) bound=1e-5 x peak ({1e-5 * peak:.3e}) within={err <= 1e-5 * peak} | "
-          f"kernel {st['ms'] * 1e3:.1f} us, plain {st['plain_ms'] * 1e3:.1f} us; "
+          f"kernel {st['ms'] * 1e3:.1f} us (wrapper host {st['host_ms'] * 1e3:.1f} us, "
+          f"{st['kernel_launches_per_call']} kernel launch(es) a call; slab plan (rows a block, "
+          f"grid, stages, smem) {st['slab_plan']}), plain {st['plain_ms'] * 1e3:.1f} us; "
           f"{nbytes / 1e6:.1f} MB -> {nbytes / (st['ms'] * 1e-3) / 1e9:.0f} GB/s", flush=True)
     if not err <= 1e-5 * peak:
         raise RuntimeError("K8: error above its bound")
@@ -637,11 +649,13 @@ def check_head4(ar, gen, dev):
     gotb = H.head4_logits(xb, wp, ws, n_vocab=n)
     wantb = H.head4_logits_ref(xb, wp, ws, n_vocab=n)
     torch.cuda.synchronize()
+    run4 = lambda: H.head4_logits(xb, wp, ws, n_vocab=n)    # noqa: E731
     sb = {"max_abs_err": (gotb - wantb).abs().max().item(), "exact": bool(torch.equal(gotb, wantb)),
-          "ms": cuda_ms(lambda: H.head4_logits(xb, wp, ws, n_vocab=n), n=50),
+          "ms": cuda_ms(run4, n=50),
           "plain_ms": cuda_ms(lambda: H.head4_logits_ref(xb, wp, ws, n_vocab=n), n=20),
-          "device_ms": device_ms(lambda: H.head4_logits(xb, wp, ws, n_vocab=n))}
-    st["device_ms"] = device_ms(lambda: H.head4_logits(x, wp, ws, n_vocab=n))
+          "device_ms": device_ms(run4), "host_ms": host_ms(run4),
+          "kernel_launches_per_call": kernel_launches_per_call(H, run4)}
+    st["device_ms"] = device_ms(run1)
     sb["bound_ms"], sb["bound_by"] = bound(nbytes + xb.numel() * 2 + gotb.numel() * 4,
                                            int8=2 * n * xb.numel())
     st["batch"] = sb
@@ -649,10 +663,13 @@ def check_head4(ar, gen, dev):
           f"equal within={sb['exact']} | kernel {sb['ms'] * 1e3:.1f} us ({sb['ms'] / st['ms']:.2f}x "
           f"the one-row call), plain {sb['plain_ms'] * 1e3:.1f} us, roofline "
           f"{sb['bound_ms'] * 1e3:.1f} us ({sb['bound_by']}); device time of the wrapper's "
-          f"kernels (device_ms): {fmt_us(sb['device_ms'])}, one row {fmt_us(st['device_ms'])}",
-          flush=True)
+          f"kernels (device_ms): {fmt_us(sb['device_ms'])}, one row {fmt_us(st['device_ms'])}; "
+          f"wrapper host {sb['host_ms'] * 1e3:.1f} us, {sb['kernel_launches_per_call']} kernel "
+          f"launch(es) a call", flush=True)
     if not sb["exact"]:
         raise RuntimeError("K8 four rows: not bitwise equal to the twin")
+    if st["kernel_launches_per_call"] != 1 or sb["kernel_launches_per_call"] != 1:
+        raise RuntimeError("K8: not one kernel launch a call")
     st["max_abs_err"] = max(err, sb["max_abs_err"])
     return st
 
@@ -794,24 +811,19 @@ def check_mega(dec, dev):
     peak = want.float().abs().max().item()
     ok = bool(torch.isfinite(got).all()) and diff.mean().item() <= 8e-3 * peak
     worst = max(per_layer, key=lambda st: st["max_abs_err"] / max(st["peak"], 1.0))
+    run = lambda: M.mega_decoder_stack(mp, x, mem, tm, mm)    # noqa: E731
     st = {"max_abs_err": max(p["max_abs_err"] for p in per_layer),
           "stack_max_abs_err": diff.max().item(), "stack_mean_abs_err": diff.mean().item(),
           "stack_exact_frac": (got == want).float().mean().item(), "stack_peak": peak,
           "layers": per_layer,
-          "ms": cuda_ms(lambda: M.mega_decoder_stack(mp, x, mem, tm, mm), n=10, warmup=2),
-          "plain_ms": cuda_ms(lambda: M.mega_decoder_stack_ref(mp, x, mem, tm, mm), n=3,
-                              warmup=1),
-          "kernels_per_call": 1 + 9 * d.n_layers}
-    rows, mk = 2 * MEGA_L, 2 * MEGA_LK
-    D, F = d.dim, d.hidden
-    int8_ops = d.n_layers * (2 * rows * (6 * D * D + 3 * F * D) + 2 * mk * 2 * D * D)
-    flops = d.n_layers * 4 * d.nhead * MEGA_L * d.head_dim * (int((~tm).sum()) + int((~mm).sum()))
-    st["bound_ms"], st["bound_by"] = bound(
-        nbytes(x, mem, tm, mm, mp.pack, mp.svec, mp.bvec, mp.lnvec, got), int8=int8_ops,
-        bf16=flops)
-    st["phase_ms"] = mega_phases(lambda: M.mega_decoder_stack(mp, x, mem, tm, mm),
-                                 d.n_layers)
+          "plan": dict(zip(M.SITES, M.mega_plan(d, 2 * MEGA_L, 2 * MEGA_LK, sm_count(dev)))),
+          **mega_times(M, run, lambda: M.mega_decoder_stack_ref(mp, x, mem, tm, mm))}
+    st["bound_ms"], st["bound_by"] = mega_bound(mp, x, mem, tm, mm, got)
+    # the bench's rows before the profiler runs (it slows a process's later launches)
+    st["cases"] = {f"(2, {MEGA_BENCH_L})": check_mega_bench(M, mp, dev)}
+    st["phase_ms"] = mega_phases(run, d.n_layers)
     exact = [p["exact_frac"] for p in per_layer]
+    D, F = d.dim, d.hidden
     print(f"K9 mega_decoder_stack (2, {MEGA_L}, {D}) over memory (2, {MEGA_LK}, {D}), "
           f"{d.n_layers} x (F {F}), masks on: each layer alone on the kernel's output of the "
           f"layer before, bound=fused_eq (0.02 x peak, >95% exact, mean < 2e-3 x peak) "
@@ -821,26 +833,102 @@ def check_mega(dec, dev):
           f"exactly equal {min(exact):.5f}-{max(exact):.5f}; {d.n_layers} layers in one call "
           f"max_abs_err={st['stack_max_abs_err']:.3e} (printed, not gated) mean_abs_err="
           f"{st['stack_mean_abs_err']:.3e} (peak {peak:.3f}) exact={st['stack_exact_frac']:.4f} "
-          f"bound=mean <= 8e-3 x peak within={ok} | kernel {st['ms']:.3f} ms "
-          f"({st['kernels_per_call']} launches from one C call), plain {st['plain_ms']:.3f} ms, "
-          f"roofline {st['bound_ms']:.3f} ms ({st['bound_by']}); pack "
-          f"{mp.pack.numel() / 1e6:.1f} MB", flush=True)
+          f"bound=mean <= 8e-3 x peak within={ok} | " + mega_times_txt(st)
+          + f"; site plan (tile_b, grid) {st['plan']}; pack {mp.pack.numel() / 1e6:.1f} MB",
+          flush=True)
     print("K9 layer 0, exactly-equal share with two residual branches zeroed: "
           + json.dumps(st1["segments_exact"]) + "; device time by phase over one call "
           "(torch.profiler, ms): " + json.dumps(st["phase_ms"]), flush=True)
     if not (ok_layers and ok):
         raise RuntimeError("K9: error above its bound")
+    if st["kernel_launches_per_call"] != M.kernels_per_call(d.n_layers):
+        raise RuntimeError(f"K9: {st['kernel_launches_per_call']} kernels a call, expected "
+                           f"{M.kernels_per_call(d.n_layers)}")
     return st
 
 
-MEGA_PHASES = ("qkv", "self-attention", "sa_out", "ca_q", "ca_kv", "cross-attention", "ca_out",
-               "WV", "lin2")
+def mega_times(M, run, twin):
+    """K9's CUDA-event, plain-twin, device and host ms a call, and its kernel
+    launches a call by the C entry's count. device_ms and host_ms queue 3
+    calls (723 launches at 16 layers) to stay inside the launch queue."""
+    return {"ms": cuda_ms(run, n=10, warmup=2), "plain_ms": cuda_ms(twin, n=3, warmup=1),
+            "device_ms": device_ms(run, n=3), "host_ms": host_ms(run, n=3, warmup=1),
+            "kernel_launches_per_call": kernel_launches_per_call(M, run)}
+
+
+def mega_times_txt(st):
+    return (f"kernel {st['ms']:.3f} ms (device {fmt_us(st['device_ms'])}, wrapper host "
+            f"{st['host_ms']:.3f} ms, {st['kernel_launches_per_call']} kernel launches from one "
+            f"C call), plain {st['plain_ms']:.3f} ms, roofline {st['bound_ms']:.3f} ms "
+            f"({st['bound_by']})")
+
+
+def mega_bound(mp, x, mem, tm, mm, out):
+    """K9's bound: its int8 GEMM operations, the bf16 attention's (one pass
+    over the valid keys, as the twin's) and its bytes."""
+    d = mp.dims
+    b, l, D = x.shape
+    rows, mk, F = b * l, b * mem.shape[1], d.hidden
+    int8_ops = d.n_layers * (2 * rows * (6 * D * D + 3 * F * D) + 2 * mk * 2 * D * D)
+    flops = d.n_layers * 4 * d.nhead * l * d.head_dim * (int((~tm).sum()) + int((~mm).sum()))
+    return bound(nbytes(x, mem, tm, mm, mp.pack, mp.svec, mp.bvec, mp.lnvec, out), int8=int8_ops,
+                 bf16=flops)
+
+
+def check_mega_bench(M, mp, dev):
+    """K9 at the bench's (2, 1200) frames over the smoke's (2, 66) memory,
+    masks on: layer 0 alone within the fused bound, the sixteen in one call
+    within the stack's mean gate, with its times."""
+    import dataclasses
+
+    import torch
+    gen = own_generator(dev, 10)
+    x = torch.randn((2, MEGA_BENCH_L, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    mem = torch.randn((2, MEGA_LK, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    tm = torch.zeros((2, MEGA_BENCH_L), dtype=torch.bool, device=dev)
+    tm[-1, MEGA_BENCH_L - MEGA_BENCH_L // 6:] = True
+    mm = torch.zeros((2, MEGA_LK), dtype=torch.bool, device=dev)
+    mm[-1, MEGA_LK - 5:] = True
+    one = M.MegaPack(dataclasses.replace(mp.dims, n_layers=1), mp.pack[:1], mp.svec[:1],
+                     mp.bvec[:1], mp.lnvec[:1])
+    ok1, st1 = fused_bound(M.mega_decoder_stack(one, x, mem, tm, mm),
+                           M.mega_decoder_stack_ref(one, x, mem, tm, mm))
+    got = M.mega_decoder_stack(mp, x, mem, tm, mm)
+    want = M.mega_decoder_stack_ref(mp, x, mem, tm, mm)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    peak = want.float().abs().max().item()
+    ok = ok1 and bool(torch.isfinite(got).all()) and diff.mean().item() <= 8e-3 * peak
+    st = {"max_abs_err": st1["max_abs_err"], "layer0_exact_frac": st1["exact_frac"],
+          "stack_mean_abs_err": diff.mean().item(), "stack_peak": peak,
+          "plan": dict(zip(M.SITES, M.mega_plan(mp.dims, 2 * MEGA_BENCH_L, 2 * MEGA_LK,
+                                                sm_count(dev)))),
+          **mega_times(M, lambda: M.mega_decoder_stack(mp, x, mem, tm, mm),
+                       lambda: M.mega_decoder_stack_ref(mp, x, mem, tm, mm))}
+    st["bound_ms"], st["bound_by"] = mega_bound(mp, x, mem, tm, mm, got)
+    print(f"K9 mega_decoder_stack (2, {MEGA_BENCH_L}, {DIM}) over memory (2, {MEGA_LK}, {DIM}), "
+          f"masks on: layer 0 max_abs_err={st1['max_abs_err']:.3e} exact={st1['exact_frac']:.5f} "
+          f"bound=fused_eq; {mp.dims.n_layers} layers mean_abs_err={st['stack_mean_abs_err']:.3e} "
+          f"(peak {peak:.3f}) bound=mean <= 8e-3 x peak within={ok} | " + mega_times_txt(st)
+          + f"; site plan (tile_b, grid) {st['plan']}", flush=True)
+    if not ok:
+        raise RuntimeError(f"K9 (2, {MEGA_BENCH_L}): error above its bound")
+    if st["kernel_launches_per_call"] != M.kernels_per_call(mp.dims.n_layers):
+        raise RuntimeError(f"K9 (2, {MEGA_BENCH_L}): {st['kernel_launches_per_call']} kernels "
+                           f"a call")
+    return st
+
+
+MEGA_PHASES = ("ln1 prologue", "qkv", "self-attention", "sa quant", "sa_out", "ln2 prologue",
+               "ca_q", "ca_kv", "cross-attention", "ca quant", "ca_out", "ln3 prologue", "WV",
+               "u quant", "lin2")
 
 
 def mega_phases(run, n_layers):
     """Device ms of each K9 phase summed over the layers of one call, from
     the profiler's kernel records in launch order (the memory quant, then
-    nine a layer); None when the profiler records no device kernels."""
+    fifteen a layer), and their sums over the GEMM sites, the prologues and
+    the attentions; None when the profiler records no device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -850,8 +938,8 @@ def mega_phases(run, n_layers):
         run()
         torch.cuda.synchronize()
     kern = sorted((e for e in prof.events()
-                   if any(k in e.name for k in ("w8a8_gemm_kernel", "attn_kernel",
-                                                "quant_rows_kernel"))),
+                   if any(k in e.name for k in ("w8a8_prologue", "w8a8_wgmma_gemm",
+                                                "w8a8_wgmma_swiglu", "mega_attn_kernel"))),
                   key=lambda e: e.time_range.start)
     if len(kern) != 1 + len(MEGA_PHASES) * n_layers:
         return None
@@ -859,6 +947,11 @@ def mega_phases(run, n_layers):
     for i, e in enumerate(kern[1:]):
         name = MEGA_PHASES[i % len(MEGA_PHASES)]
         out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    groups = {"GEMM sites": ("qkv", "sa_out", "ca_q", "ca_kv", "ca_out", "WV", "lin2"),
+              "prologues": ("memory quant", "ln1 prologue", "sa quant", "ln2 prologue",
+                            "ca quant", "ln3 prologue", "u quant"),
+              "attention": ("self-attention", "cross-attention")}
+    out.update({g: sum(out[k] for k in ks) for g, ks in groups.items()})
     return out
 
 
@@ -1126,7 +1219,7 @@ def main():
     def batched(st):
         keys = ("positions", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                 "device_ms", "one_row_device_ms", "library_ms", "library_device_ms",
-                "host_ms", "cluster")
+                "host_ms", "cluster", "kernel_launches_per_call")
         return {k: st[k] for k in keys if k in st}
     print(json.dumps({"kernels": [
         {**row("mha", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46", main_res),
@@ -1163,7 +1256,8 @@ def main():
          "t0": {k: k6[0][k] for k in ("ms", "device_ms", "host_ms")}},
         {**row("head4_logits", "head4.cu", "mars5_tts_tpu/ops/pallas/head4.py:55", k8,
                launches=path_launches["head4_logits"]),
-         "device_ms": k8["device_ms"], "batch4": batched(k8["batch"])},
+         **{k: k8[k] for k in ("device_ms", "host_ms", "kernel_launches_per_call")},
+         "batch4": batched(k8["batch"])},
         {**row("decode_attention", "decode_attention.cu",
                "mars5_tts_tpu/ops/pallas/decode_attention.py:32", k7[K7_CASES[0]],
                launches=path_launches["decode_attention"]),
@@ -1175,8 +1269,13 @@ def main():
                launches=path_launches["diffusion_tail"]),
          "device_ms": k5[-1]["device_ms"], "host_ms": k5[-1]["host_ms"],
          "t0": {k: k5[0][k] for k in ("ms", "device_ms", "host_ms")}},
-        row("mega_decoder_stack", "nar_mega.cu", "mars5_tts_tpu/ops/pallas/nar_mega.py:251", k9,
-            launches=path_launches["mega_decoder_stack"]),
+        {**row("mega_decoder_stack", "nar_mega.cu", "mars5_tts_tpu/ops/pallas/nar_mega.py:251",
+               k9, launches=path_launches["mega_decoder_stack"]),
+         **{k: k9[k] for k in ("device_ms", "host_ms", "kernel_launches_per_call", "phase_ms")},
+         "cases": {name: {k: st[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
+                                             "kernel_launches_per_call", "bound_ms", "bound_by",
+                                             "max_abs_err", "stack_mean_abs_err")}
+                   for name, st in k9["cases"].items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

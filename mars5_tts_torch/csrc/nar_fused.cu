@@ -39,43 +39,13 @@
 // gemm_plan; the tiles and TMA boxes follow from them here and in
 // w8a8_wgmma.cuh) and the scratch: q (M x max(K, F) int8), then xs (M f32).
 
-#include <atomic>
-
 #include "w8a8_wgmma.cuh"
 
 namespace {
 
-// Launches a GEMM kernel with kBN-wide tiles, its dynamic shared memory
-// (above 48 KB) allowed once a device.
-template <auto kKernel, int kBN, typename... Args>
-cudaError_t launch_gemm(int grid, cudaStream_t st, Args... args) {
-  static std::atomic<unsigned> smem_set{0};   // one bit a device
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 32 || !(smem_set.load() & (1u << dev))) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(kKernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Ring<kBN>::kSmem);
-    if (err != cudaSuccess) return err;
-    if (dev < 32) smem_set.fetch_or(1u << dev);
-  }
-  kKernel<<<grid, kGemmThreads, Ring<kBN>::kSmem, st>>>(args...);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int M, int N, int K, int grid, int bn) {
   return M <= 0 || N <= 0 || N % 64 || K <= 0 || K % kBK || K > kMaxK || grid <= 0 ||
          (bn != 128 && bn != 256);
-}
-
-// The mode-0 GEMM (K3, K4's lin2) with bn-wide tiles and a bf16 or f32 bias.
-cudaError_t launch_gemm0(int bn, bool bf16_bias, int grid, cudaStream_t st,
-                         const CUtensorMap& ta, const CUtensorMap& tw, const Epilogue& p) {
-  if (bn == 128)
-    return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<128, true>, 128>(grid, st, ta, tw, p)
-                     : launch_gemm<w8a8_wgmma_gemm<128, false>, 128>(grid, st, ta, tw, p);
-  return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<256, true>, 256>(grid, st, ta, tw, p)
-                   : launch_gemm<w8a8_wgmma_gemm<256, false>, 256>(grid, st, ta, tw, p);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -128,8 +98,7 @@ extern "C" int mars5_w8a8_ffn(const void* x, const void* ln_w, const void* ln_b,
   if (err != cudaSuccess) return (int)err;
   const Epilogue p1{xs, static_cast<const float*>(ws), static_cast<const float*>(vs), nullptr,
                     nullptr, ub, M, F, K};
-  err = bn1 == 128 ? launch_gemm<w8a8_wgmma_swiglu<128>, 128>(grid1, st, ta1, tw, tv, p1)
-                   : launch_gemm<w8a8_wgmma_swiglu<256>, 256>(grid1, st, ta1, tw, tv, p1);
+  err = launch_swiglu(bn1, grid1, st, ta1, tw, tv, p1);
   if (err != cudaSuccess) return (int)err;
 
   // u's rows quantised over all F columns into the same scratch

@@ -1,6 +1,7 @@
 // The W8A8 GEMM of the NAR decoder's per-layer sites for Hopper (sm_90a):
 // a per-row prologue kernel and a TMA-fed, warp-specialised wgmma s8 GEMM.
-// nar_fused.cu chains them into K3 fused_linear and K4 fused_ffn.
+// nar_fused.cu chains them into K3 fused_linear and K4 fused_ffn, nar_mega.cu
+// into the seven GEMM sites of each layer of K9 mega_decoder_stack.
 //
 // Prologue, w8a8_prologue<kLN, kChunks>: one warp a row of x (M, K) bf16
 //   row-major reads the row once into registers (4 values a lane per 128
@@ -11,7 +12,7 @@
 //   scratch: q (M, K) int8 row-major, xs (M,) f32.
 //
 // GEMM, gemm<kMode, kBN, kBf16Bias> (w8a8_wgmma_gemm: mode 0, its bias bf16
-// or f32; w8a8_wgmma_swiglu: mode 1):
+// or f32; w8a8_wgmma_swiglu: mode 1; launched by launch_gemm0 / launch_swiglu):
 //   mode 0: out = bf16(acc * (xs * s) [+ bias]) [+ residual]
 //   mode 1: u = bf16(bf16(silu(wo)) * vo), wo / vo = bf16(acc * (xs * s))
 //   with acc the exact int32 product of q (M, K) and W (N, K), both K-major.
@@ -52,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "hopper.cuh"
 #include "warp_mma.cuh"
@@ -408,6 +411,43 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 w8a8_wgmma_swiglu(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
                   const __grid_constant__ CUtensorMap tv, Epilogue p) {
   gemm<1, kBN, false>(&ta, &tw, &tv, p);
+}
+
+// ---- host launchers ----------------------------------------------------------
+
+// Launches a GEMM kernel with kBN-wide tiles, its dynamic shared memory
+// (above 48 KB) allowed once a device.
+template <auto kKernel, int kBN, typename... Args>
+cudaError_t launch_gemm(int grid, cudaStream_t st, Args... args) {
+  static std::atomic<unsigned> smem_set{0};   // one bit a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32 || !(smem_set.load() & (1u << dev))) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kKernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Ring<kBN>::kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) smem_set.fetch_or(1u << dev);
+  }
+  kKernel<<<grid, kGemmThreads, Ring<kBN>::kSmem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// The mode-0 GEMM with bn-wide tiles and a bf16 or f32 bias.
+inline cudaError_t launch_gemm0(int bn, bool bf16_bias, int grid, cudaStream_t st,
+                                const CUtensorMap& ta, const CUtensorMap& tw, const Epilogue& p) {
+  if (bn == 128)
+    return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<128, true>, 128>(grid, st, ta, tw, p)
+                     : launch_gemm<w8a8_wgmma_gemm<128, false>, 128>(grid, st, ta, tw, p);
+  return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<256, true>, 256>(grid, st, ta, tw, p)
+                   : launch_gemm<w8a8_wgmma_gemm<256, false>, 256>(grid, st, ta, tw, p);
+}
+
+// The mode-1 (SwiGLU) GEMM with bn-wide tiles: bn / 2 rows of W and of V.
+inline cudaError_t launch_swiglu(int bn, int grid, cudaStream_t st, const CUtensorMap& ta,
+                                 const CUtensorMap& tw, const CUtensorMap& tv, const Epilogue& p) {
+  return bn == 128 ? launch_gemm<w8a8_wgmma_swiglu<128>, 128>(grid, st, ta, tw, tv, p)
+                   : launch_gemm<w8a8_wgmma_swiglu<256>, 256>(grid, st, ta, tw, tv, p);
 }
 
 }  // namespace

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES = {
     "mha": ("mha.cu", "hopper.cuh", "warp_mma.cuh"),
     "nar_fused": ("nar_fused.cu", "w8a8_wgmma.cuh", "hopper.cuh", "warp_mma.cuh"),
-    "nar_mega": ("nar_mega.cu", "w8a8_gemm.cuh", "warp_mma.cuh"),
+    "nar_mega": ("nar_mega.cu", "w8a8_wgmma.cuh", "hopper.cuh", "warp_mma.cuh"),
     "diffusion_tail": ("diffusion_tail.cu", "hopper.cuh", "warp_mma.cuh"),
     "decode_layer": ("decode_layer.cu", "gemv_s8.cuh", "hopper.cuh", "warp_mma.cuh"),
     "head4": ("head4.cu", "gemv_s8.cuh", "warp_mma.cuh"),

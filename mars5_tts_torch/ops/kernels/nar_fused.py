@@ -145,17 +145,9 @@ def prologue_ref(x, ln=None, eps: float = 4e-5):
 
 # ------------------------------------------------------------------ host plan
 
-@functools.lru_cache(maxsize=256)
-def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> tuple:
-    """(tile_b, grid) of one GEMM launch over A (m, k) int8 and weights
-    (n, k) int8, mode 0 writing (m, n), mode 1 (K4's W and V GEMM) u (m, n)
-    from n rows of W and n of V: the weight rows a tile and the persistent
-    CTAs, each walking tiles grid apart. The wider 256-row tile moves a
-    quarter fewer bytes per product than the 128-row one; it is taken when
-    its tiles still give every SM one (and, in mode 1, its 128 u columns
-    divide n). The kernels derive the tiles and TMA boxes from tile_b.
-    Raises ValueError on a shape they do not take (K a multiple of 128 up to
-    MAX_K, N a multiple of 64)."""
+def check_gemm(m: int, n: int, k: int, mode: int) -> None:
+    """Raises ValueError on a GEMM the kernels of ``w8a8_wgmma.cuh`` do not
+    take: mode 0 or 1, K a multiple of 128 up to MAX_K, N a multiple of 64."""
     if mode not in (0, 1):
         raise ValueError(f"nar_fused: no GEMM mode {mode}")
     if m <= 0:
@@ -165,6 +157,19 @@ def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> tuple:
                          f"got {k}")
     if n <= 0 or n % N_MULTIPLE:
         raise ValueError(f"nar_fused kernel needs N a multiple of {N_MULTIPLE}, got {n}")
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> tuple:
+    """(tile_b, grid) of one GEMM launch over A (m, k) int8 and weights
+    (n, k) int8, mode 0 writing (m, n), mode 1 (K4's W and V GEMM) u (m, n)
+    from n rows of W and n of V: the weight rows a tile and the persistent
+    CTAs, each walking tiles grid apart. The wider 256-row tile moves a
+    quarter fewer bytes per product than the 128-row one; it is taken when
+    its tiles still give every SM one (and, in mode 1, its 128 u columns
+    divide n). The kernels derive the tiles and TMA boxes from tile_b.
+    Raises ValueError on a shape they do not take (``check_gemm``)."""
+    check_gemm(m, n, k, mode)
     tiles_m = -(-m // TILE_M)
     for bn in TILE_B:
         cols = bn if mode == 0 else bn // 2

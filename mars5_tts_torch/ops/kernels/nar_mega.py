@@ -28,18 +28,19 @@ whatever the order of the sum.
 
 What bounds it on an H100: at the bench geometry (2 x 1200 rows, D = 1024,
 F = 3072, 16 layers) one call is 1.21 T int8 ops of GEMM (0.61 ms at 1,979
-TOP/s) and 0.19 TFLOP of bf16 self-attention, over 285 MB of int8 weights
-(85 us at 3.35 TB/s): bound by the tensor cores. The TPU program kept the
-(B, L, D) stream in VMEM across all layers; this first version makes one
-launch per phase, nine a layer (qkv, self-attention, sa_out, ca_q, ca_kv,
-cross-attention, ca_out, WV, lin2) plus the memory quant, all from one C
-entry with no PyTorch op between layers. The activations (x, qkv, the
-attention output, ca_q, u; 44 MB at the bench geometry) live in device
-scratch the wrapper allocates, most of it served from the 50 MB L2, Hopper's
-counterpart of the VMEM residency. The GEMMs are the ``mma.sync`` s8 tiles
-of K3/K4 (``csrc/w8a8_gemm.cuh``); the attention gives a block 64 queries of
-one head and walks the keys twice, once for the row max and once for p, the
-f64 sum and PV, so the softmax is the twin's full-row form.
+TOP/s) and 0.19 TFLOP of bf16 self-attention a pass over the keys, over 285
+MB of int8 weights (85 us at 3.35 TB/s): bound by the tensor cores. The TPU
+program kept the (B, L, D) stream in VMEM across all layers; here one C entry
+makes 1 + 15 launches a layer with no PyTorch op between them, and the
+activations (x, qkv, the attention output, ca_q, u and the int8 A operand;
+about 50 MB at the bench geometry) live in device scratch the wrapper
+allocates, most of it served from the 50 MB L2. The seven GEMM sites a layer
+are K3/K4's (``csrc/w8a8_wgmma.cuh``): a per-row prologue (LN, int8 row and
+scale, once a row) and the persistent, TMA-fed wgmma s8 GEMM, each site's
+tile width and grid from ``mega_plan``. Both attentions run on wgmma with a
+TMA-fed K/V ring (K1's design) and walk the keys twice, once for the row max
+and once for p, the f64 sum and PV, so the softmax is the twin's full-row
+form.
 
 ``mega_decoder_stack`` takes the twin only for CPU tensors. For CUDA tensors
 it launches the kernels or raises; nothing falls back.
@@ -48,6 +49,7 @@ it launches the kernels or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -55,16 +57,17 @@ import torch
 
 from ..quant import int8_matmul, is_quantized, quantize_act
 from . import build
-from .nar_fused import _ln_bf16_f32 as _ln, _silu_mul_bf16, _sum
+from .nar_fused import (H100_SMS, K_CHUNK, MAX_K, TILE_B, TILE_M, _ln_bf16_f32 as _ln,
+                        _silu_mul_bf16, _sms, _sum, check_gemm)
 
 SOURCES = build.LIBRARIES["nar_mega"]
 HEAD_DIM = 64
-K_CHUNK = 128        # the GEMM tiles stream 128-deep k chunks
-MAX_K = 3072         # a 64-row block's int8 A tile must fit in shared memory
 LOG2E = 1.4426950408889634
+SITES = ("qkv", "sa_out", "ca_q", "ca_kv", "ca_out", "WV", "lin2")   # the GEMM sites a layer
+ATTN_KEYS = 128     # keys a ring stage of the attention kernel
 
 # Launches of the C entry in this process, one per stack call (reset with
-# reset_launch_count); each is 1 + 9 x n_layers kernels.
+# reset_launch_count); each is 1 + 15 x n_layers kernels (kernel_launches).
 launch_count = 0
 
 
@@ -160,7 +163,7 @@ def _weights(layer):
 def mega_supported(decoder) -> bool:
     """Whether ``decoder`` (a ``TransformerDecoder``) runs on K9: every
     weight W8A8 with per-row scales, head dim 64, D and F multiples of 128 and
-    at most 3072 (the GEMM tiles' int8 A block in shared memory). The TPU
+    at most 3072 (a prologue warp holds a row in registers). The TPU
     program's VMEM estimate and its head-pair and K-chunk conditions are
     TPU layout and do not carry over."""
     layer = decoder.layers[0]
@@ -256,6 +259,63 @@ def mega_decoder_stack_ref(mp: MegaPack, x, memory, tgt_key_padding_mask=None,
     return xs.to(x.dtype)
 
 
+# ------------------------------------------------------------------ host plan
+
+def site_shapes(dims: MegaDims, m: int, mk: int):
+    """(M, N, K, mode) of each GEMM site of a layer (``SITES``) over m rows of
+    x and mk rows of memory; mode 1 is WV (N = F u columns, from F rows of W
+    and F of V)."""
+    D, F = dims.dim, dims.hidden
+    return ((m, 3 * D, D, 0), (m, D, D, 0), (m, D, D, 0), (mk, 2 * D, D, 0), (m, D, D, 0),
+            (m, F, D, 1), (m, D, F, 0))
+
+
+@functools.lru_cache(maxsize=256)
+def site_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> tuple:
+    """(tile_b, grid) of one K9 GEMM site, as ``nar_fused.gemm_plan`` gives
+    K3/K4's but chosen by the wave tail: of the 256- and 128-row tiles, the
+    one whose last wave ends first, a tile's time taken as its width
+    (rounds = ceil(tiles / sms), cost = rounds x tile_b; a tie keeps the
+    wider tile, which moves a quarter fewer bytes a product). The persistent
+    grid is min(tiles, sms). Raises ValueError on a shape the kernels do not
+    take (``nar_fused.check_gemm``)."""
+    check_gemm(m, n, k, mode)
+    tiles_m = -(-m // TILE_M)
+    best = None
+    for bn in TILE_B:
+        cols = bn if mode == 0 else bn // 2
+        if mode == 1 and n % cols:
+            continue
+        tiles = tiles_m * -(-n // cols)
+        cost = -(-tiles // sms) * bn
+        if best is None or cost < best[0]:
+            best = (cost, bn, min(tiles, sms))
+    return best[1], best[2]
+
+
+def mega_plan(dims: MegaDims, m: int, mk: int, sms: int = H100_SMS) -> tuple:
+    """The (tile_b, grid) of the seven GEMM sites of a layer, in ``SITES``
+    order, for m rows of x and mk of memory."""
+    return tuple(site_plan(*shape, sms) for shape in site_shapes(dims, m, mk))
+
+
+def scratch_shapes(dims: MegaDims, b: int, l: int, lk: int):
+    """(shape, dtype) of the scratch the kernels take, in the C entry's order:
+    qkv, attn, hq, ckv, u (bf16), q8 (the GEMMs' int8 A operand) and xs (its
+    row scales), mem8 and ms (the memory, quantized once a call)."""
+    D, F = dims.dim, dims.hidden
+    m, mk = b * l, b * lk
+    bf, s8, f32 = torch.bfloat16, torch.int8, torch.float32
+    return (((m, 3 * D), bf), ((m, D), bf), ((m, D), bf), ((mk, 2 * D), bf), ((m, F), bf),
+            ((m, max(D, F)), s8), ((m,), f32), ((mk, D), s8), ((mk,), f32))
+
+
+def kernels_per_call(n_layers: int) -> int:
+    """CUDA kernels one K9 call launches: the memory quant, then per layer
+    five prologues, the seven GEMM sites and the two attentions."""
+    return 1 + 15 * n_layers
+
+
 # ------------------------------------------------------------------ kernel
 
 def _lib():
@@ -264,10 +324,17 @@ def _lib():
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # x, mem, tmask, mmask, pack, svec, bvec, lnvec, qkv, attn, hq, ckv, u,
-        # mem8, ms, n_layers, B, L, Lk, D, H, F, eps, c2, stream
-        fn.argtypes = [vp] * 15 + [i] * 7 + [f, f, vp]
+        # q8, xs, mem8, ms, plan, n_layers, B, L, Lk, D, H, F, eps, c2, stream
+        fn.argtypes = [vp] * 17 + [ctypes.POINTER(ctypes.c_int)] + [i] * 7 + [f, f, vp]
         fn.restype = ctypes.c_int
-    return fn
+        lib.mars5_mega_kernel_launches.restype = ctypes.c_longlong
+    return lib
+
+
+def kernel_launches() -> int:
+    """CUDA kernels the K9 library has launched in this process, counted by
+    its C entry (``kernels_per_call`` a call)."""
+    return _lib().mars5_mega_kernel_launches()
 
 
 def _mask_u8(mask, shape, what):
@@ -307,32 +374,25 @@ def mega_decoder_stack(mp: MegaPack, x, memory, tgt_key_padding_mask=None,
             or tuple(mp.svec.shape) != (nl, 9 * D + 2 * F)
             or tuple(mp.bvec.shape) != (nl, 9 * D) or tuple(mp.lnvec.shape) != (nl, 6 * D)
             or any(t.dtype != torch.float32 for t in (mp.svec, mp.bvec, mp.lnvec))
-            or not all(t.is_contiguous() for t in (mp.pack, mp.svec, mp.bvec, mp.lnvec))):
+            or not all(t.is_contiguous() for t in (mp.pack, mp.svec, mp.bvec, mp.lnvec))
+            or any(t.data_ptr() % 16 for t in (mp.pack, mp.svec, mp.bvec, mp.lnvec))):
         raise ValueError("mega_decoder_stack: malformed pack (see build_mega_pack)")
     if any(t.device != x.device for t in (memory, mp.pack, mp.svec, mp.bvec, mp.lnvec)):
         raise ValueError("mega_decoder_stack: x, memory and the pack must share a device")
     lk = memory.shape[1]
     tm = _mask_u8(tgt_key_padding_mask, (b, l), "tgt_key_padding_mask")
     mm = _mask_u8(memory_key_padding_mask, (b, lk), "memory_key_padding_mask")
+    plan = mega_plan(dims, b * l, b * lk, _sms(x.device))
     xw = x.contiguous().clone()          # the stream, updated in place by the kernels
     mem = memory.contiguous()
-    m, dev = b * l, x.device
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    scratch = [torch.empty((m, 3 * D), **bf), torch.empty((m, D), **bf),
-               torch.empty((m, D), **bf), torch.empty((b * lk, 2 * D), **bf),
-               torch.empty((m, F), **bf),
-               torch.empty((b * lk, D), dtype=torch.int8, device=dev),
-               torch.empty((b * lk,), dtype=torch.float32, device=dev)]
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xw.data_ptr(), mem.data_ptr(), None if tm is None else tm.data_ptr(),
-                 None if mm is None else mm.data_ptr(), mp.pack.data_ptr(),
-                 mp.svec.data_ptr(), mp.bvec.data_ptr(), mp.lnvec.data_ptr(),
-                 *[t.data_ptr() for t in scratch], nl, b, l, lk, D, dims.nhead, F,
-                 eps, (1.0 / math.sqrt(HEAD_DIM)) * LOG2E, stream)
-    if err != 0:
-        raise RuntimeError(f"mega_decoder_stack kernel launch failed: cudaError {err}")
+    scratch = [torch.empty(shape, dtype=dt, device=x.device)
+               for shape, dt in scratch_shapes(dims, b, l, lk)]
+    lib = _lib()
+    build.call(x.device, lib.mars5_mega_decoder_stack, xw.data_ptr(), mem.data_ptr(),
+               None if tm is None else tm.data_ptr(), None if mm is None else mm.data_ptr(),
+               mp.pack.data_ptr(), mp.svec.data_ptr(), mp.bvec.data_ptr(), mp.lnvec.data_ptr(),
+               *[t.data_ptr() for t in scratch], (ctypes.c_int * 14)(*sum(plan, ())), nl, b, l,
+               lk, D, dims.nhead, F, eps, (1.0 / math.sqrt(HEAD_DIM)) * LOG2E)
     global launch_count
     launch_count += 1
     return xw

@@ -57,8 +57,12 @@ from .utils.profiling import StageTimer
 
 
 def default_device() -> torch.device:
-    """The card when PyTorch sees one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card. Raises when PyTorch sees none: the entry points never land
+    on the CPU unasked (pass ``device="cpu"`` for that)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("Mars5TTS: PyTorch sees no CUDA device; pass device='cpu' to run "
+                           "on the CPU")
+    return torch.device("cuda")
 
 
 class Mars5TTS:

@@ -1,18 +1,22 @@
-"""Two checkouts' K6 / K5 and K2 kernel checks in turns (A, B, B, A) on one GPU.
+"""Two checkouts' kernel checks in turns (A, B, B, A) on one GPU.
 
-    python3 mars5_tts_torch/tools/kernel_ab.py ROOT_A ROOT_B
+    python3 mars5_tts_torch/tools/kernel_ab.py ROOT_A ROOT_B [--checks k6,k2,k8,k9]
 
 Each turn is a process of its own that imports that checkout's
-``chip_smoke.py`` and runs its ``check_heads_tail`` (K6 and K5 at the bench
-shape, t = 0 and 100) and ``check_decode_layer`` (K2, W8 and W4 at the
-released AR widths, one row at pos 600 and 1900, then four rows), which
-build that checkout's kernels and print their times beside the twins'. Use
-it to compare two versions of a kernel within one call, where the card and
-its host are the same for both.
+``chip_smoke.py`` and runs the checks named by ``--checks`` (default
+``k6,k2``): ``k6`` its ``check_heads_tail`` (K6 and K5 at the bench shape,
+t = 0 and 100), ``k2`` its ``check_decode_layer`` (K2, W8 and W4 at the
+released AR widths, one row at pos 600 and 1900, then four rows), ``k8`` its
+``check_head4`` (K8 on the released AR's head, one row and four) and ``k9``
+its ``check_mega`` (K9 on a released-width int8 NAR decoder), which build
+that checkout's kernels and print their times beside the twins'. Use it to
+compare two versions of a kernel within one call, where the card and its
+host are the same for both.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -20,6 +24,7 @@ import sys
 CHECKS = """
 import os, sys
 root = os.path.abspath(sys.argv[1])
+checks = sys.argv[2].split(",")
 os.chdir(root)
 sys.path.insert(0, root)
 import torch
@@ -28,26 +33,43 @@ from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(1)
-S.check_heads_tail(gen, dev)
-g = torch.Generator(device=dev).manual_seed(0)
-with torch.device(dev):
-    ar = CodecLM(CodecLMConfig.mars5(24_000)).init_(g).to(torch.bfloat16)
-S.check_decode_layer(ar, gen, dev)
+if "k6" in checks:
+    S.check_heads_tail(gen, dev)
+if "k2" in checks or "k8" in checks:
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        ar = CodecLM(CodecLMConfig.mars5(24_000)).init_(g).to(torch.bfloat16)
+    if "k2" in checks:
+        S.check_decode_layer(ar, gen, dev)
+    if "k8" in checks:
+        S.check_head4(ar, gen, dev)
+if "k9" in checks:
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.quant import quantize_nar
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        nar = ResidualTransformer(ResidualTransformerConfig.mars5(4_096)).init_(g)
+    S.check_mega(quantize_nar(nar.to(torch.bfloat16)).tfm.decoder, dev)
 """
+PREFIXES = ("K2 W", "K5 ", "K6 ", "K8 ", "K9 ")
 
 
 def main() -> int:
-    if len(sys.argv) != 3:
-        print(__doc__, file=sys.stderr)
-        return 2
-    roots = {"A": sys.argv[1], "B": sys.argv[2]}
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root_a")
+    ap.add_argument("root_b")
+    ap.add_argument("--checks", default="k6,k2")
+    args = ap.parse_args()
+    if not set(args.checks.split(",")) <= {"k6", "k2", "k8", "k9"}:
+        ap.error(f"unknown checks {args.checks}")
+    roots = {"A": args.root_a, "B": args.root_b}
     rc = 0
     for tag in "ABBA":
         print(f"=== {tag}: {os.path.abspath(roots[tag])}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", CHECKS, roots[tag]], capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, "-c", CHECKS, roots[tag], args.checks],
+                              capture_output=True, text=True)
         for line in proc.stdout.splitlines():
-            if line.startswith(("K2 W", "K5 ", "K6 ")):
+            if line.startswith(PREFIXES):
                 print(line, flush=True)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], flush=True)

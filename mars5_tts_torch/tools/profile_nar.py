@@ -1,8 +1,8 @@
 """Where the time of the NAR diffusion goes, on one GPU.
 
-    python3 mars5_tts_torch/tools/profile_nar.py [--nar int8|bf16] [--prompt 525]
-        [--gen 200] [--steps 200] [--repeat 3] [--profile-steps 20] [--root DIR]
-        [--device cuda]
+    python3 mars5_tts_torch/tools/profile_nar.py [--nar int8|bf16] [--mega]
+        [--prompt 525] [--gen 200] [--steps 200] [--repeat 3] [--profile-steps 20]
+        [--root DIR] [--device cuda]
 
 Builds the released-width NAR (8 + 16 x 1024 layers, 4,096 text ids) with
 random weights from a seed, quantized with ``quantize_nar`` for ``int8``,
@@ -22,6 +22,12 @@ calls for the profiled run only), the ``w8a8_*`` kernels' device ms a step
 and each one's device us a launch, the kernel launches and stream waits a
 step, and the host ops with the most self CPU time a step.
 
+``--mega`` (int8 only) runs the decoder stack through kernel K9 (the
+``nar_mega=True`` route: the stack's ``build_mega_pack``, built before the
+warm-up) and adds K9's device ms a step (the device spans of the profiler
+range ``mark_mega`` puts around each call) and the device ms a step of every
+kernel outside those spans, by name.
+
 ``--root`` imports ``mars5_tts_torch`` from another checkout, so two
 versions (a parent commit's and a change's) run the same measurement.
 """
@@ -37,6 +43,7 @@ import sys
 import time
 
 SITES = {"fused_linear": "w8a8_k3", "fused_ffn": "w8a8_k4"}   # wrapper -> profiler range
+MEGA = "mega_k9"                                               # K9's profiler range
 
 
 def mark_w8a8_sites(layers) -> None:
@@ -56,6 +63,51 @@ def mark_w8a8_sites(layers) -> None:
         setattr(layers, name, ranged)
 
 
+def mark_mega(layers) -> None:
+    """Wraps the decoder stack's K9 calls (``layers.mega_decoder_stack``) in
+    the profiler range ``MEGA``."""
+    from torch.profiler import record_function
+
+    fn = layers.mega_decoder_stack
+
+    @functools.wraps(fn)
+    def ranged(*args, **kw):
+        with record_function(MEGA):
+            return fn(*args, **kw)
+    layers.mega_decoder_stack = ranged
+
+
+def outside_spans(kernels, spans) -> dict:
+    """Device us by name of the ``kernels`` ((name, start, end) in us) that
+    start outside every (start, end) of ``spans``."""
+    spans = sorted(spans)
+    out: dict = {}
+    for name, t0, t1 in kernels:
+        if not any(a <= t0 < b for a, b in spans):
+            out[name] = out.get(name, 0.0) + (t1 - t0)
+    return out
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its return type, namespaces and argument list
+    (template arguments kept)."""
+    if name.startswith("void "):
+        name = name[5:]
+    if name.endswith(")"):                  # cut the argument list
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    depth, cut = 0, 0
+    for i, ch in enumerate(name):          # the last top-level namespace separator
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if depth == 0 and name.startswith("::", i):
+            cut = i + 2
+    return name[cut:].strip() or name
+
+
 def w8a8_label(name: str):
     """A W8A8 kernel's name without its namespace and arguments (e.g.
     ``w8a8_wgmma_gemm<256>``), or None for any other kernel."""
@@ -66,6 +118,7 @@ def w8a8_label(name: str):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nar", default="int8", choices=("int8", "bf16"))
+    ap.add_argument("--mega", action="store_true", help="the decoder stack through K9")
     ap.add_argument("--prompt", type=int, default=525)
     ap.add_argument("--gen", type=int, default=200)
     ap.add_argument("--steps", type=int, default=200)
@@ -75,6 +128,8 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--device", default="cuda", help="cpu: a dry run of the script")
     args = ap.parse_args()
+    if args.mega and args.nar != "int8":
+        ap.error("--mega needs --nar int8")
     sys.path.insert(0, os.path.abspath(args.root))
 
     import numpy as np
@@ -88,6 +143,7 @@ def main() -> int:
     from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
     from mars5_tts_torch.models import layers
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.kernels.nar_mega import build_mega_pack
     from mars5_tts_torch.ops.quant import quantize_nar
 
     dev = torch.device(args.device)
@@ -108,6 +164,7 @@ def main() -> int:
         nar = nar.to(torch.bfloat16).eval()
     if args.nar == "int8":
         nar = quantize_nar(nar)
+    mega = build_mega_pack(nar.tfm.decoder) if args.mega else None
     rng = np.random.default_rng(0)
     text = rng.integers(0, nar.cfg.n_text_vocab, (1, 66))
     c_codes = rng.integers(0, 1024, (1, args.prompt, 8))
@@ -125,7 +182,7 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(1)
         diff = MultinomialDiffusion(1025, timesteps=t, device=dev)
         return perform_simple_inference(nar, batch, diff, t, dsh, retain_quant0=True,
-                                        generator=gen)
+                                        generator=gen, mega=mega)
 
     with torch.no_grad():
         run(steps)
@@ -137,6 +194,7 @@ def main() -> int:
             sync()
             walls.append((time.perf_counter() - t0) * 1e3 / steps)
         mark_w8a8_sites(layers)
+        mark_mega(layers)
         run(p_steps)
         sync()
         with profile(activities=activities) as prof:
@@ -176,6 +234,23 @@ def main() -> int:
            "stream_syncs_per_step": calls("cudaStreamSynchronize"),
            "top_host_ops_us_per_step": {e.key: round(e.self_cpu_time_total / p_steps, 1)
                                         for e in host}}
+    if args.mega:
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.name == MEGA and e.device_type != DeviceType.CPU]
+        kern = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type != DeviceType.CPU and e.name != MEGA
+                and not getattr(e, "is_user_annotation", False)
+                and e.name not in SITES.values()]
+        outside = outside_spans(kern, spans)
+        out["mega"] = True
+        out["k9_device_ms_per_step"] = sum(b - a for a, b in spans) / 1e3 / p_steps
+        out["k9_calls_per_step"] = len(spans) / p_steps
+        out["outside_k9_device_ms_per_step"] = sum(outside.values()) / 1e3 / p_steps
+        by_name: dict = {}
+        for name, us in outside.items():
+            by_name[short_name(name)] = by_name.get(short_name(name), 0.0) + us
+        out["outside_k9_device_ms_per_step_by_kernel"] = {
+            k: round(v / 1e3 / p_steps, 4) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
     print(json.dumps(out), flush=True)
     return 0
 

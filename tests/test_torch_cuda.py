@@ -611,7 +611,32 @@ def test_mega_kernel_matches_ref(dev, dim, nhead, hidden, n_layers, l, lk):
         _fused_eq(got, want)
 
 
-def test_mega_kernel_rejects_what_it_does_not_take(dev):
+@pytest.mark.parametrize("dim,nhead,hidden,l,lk,masked", [
+    (256, 4, 768, 77, 9, True),            # B L = 154 rows: a ragged row tile
+    (256, 4, 768, 100, 66, False),
+    (1024, 16, 3072, 725, 66, True),       # the smoke request: 1,450 rows
+    (1024, 16, 3072, 1200, 9, False),      # the bench's frames, ten key tiles
+    (1024, 16, 3072, 300, 130, True),      # a ragged second key tile of memory
+])
+def test_mega_kernel_layer_cases(dev, dim, nhead, hidden, l, lk, masked):
+    """One K9 layer against its twin within the fused bound: ragged rows and
+    key tiles, Lk of 9, 66 and 130 (not multiples of the 128-key ring tile or
+    of 16), masks on and off, D 256 / F 768 and the released 1024 / 3072;
+    one C call of 1 + 15 kernels."""
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    mp = M.build_mega_pack(_mega_decoder(dim, nhead, hidden, 1, dev, l + lk))
+    x, mem, tm, mm = _mega_inputs(dim, l, lk, dev, l * lk)
+    if not masked:
+        tm = mm = None
+    n0, k0 = M.launch_count, M.kernel_launches()
+    got = M.mega_decoder_stack(mp, x, mem, tm, mm)
+    torch.cuda.synchronize()
+    assert M.launch_count == n0 + 1 and M.kernel_launches() - k0 == M.kernels_per_call(1)
+    _fused_eq(got, M.mega_decoder_stack_ref(mp, x, mem, tm, mm))
+
+
+def test_mega_kernel_rejects_what_it_does_not_take(dev, monkeypatch):
     from mars5_tts_torch.ops.kernels import nar_mega as M
 
     dec = _mega_decoder(256, 4, 768, 1, dev, 0)
@@ -628,6 +653,10 @@ def test_mega_kernel_rejects_what_it_does_not_take(dev):
                                         mp.lnvec), x, mem)           # malformed pack
     with pytest.raises(ValueError):                                  # head dim 32
         M.build_mega_pack(_mega_decoder(256, 8, 768, 1, dev, 0))
+    bad = M.mega_plan(mp.dims, 80, 18)[:6] + ((96, 4),)              # a tile width of 96
+    monkeypatch.setattr(M, "mega_plan", lambda *a: bad)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        M.mega_decoder_stack(mp, x, mem, tm, mm)
 
 
 @pytest.mark.parametrize("rows,length,t", [(2, 750, 0), (2, 70, 100), (1, 33, 199)])
@@ -848,6 +877,28 @@ def test_fused_decode_kernel_batched_matches_ref(dev, wbits, full):
                                     norm_eps=cfg.norm_eps)
         assert torch.equal(one[0], got[0][i:i + 1])
         assert torch.equal(one[1], got[1][:, i:i + 1])
+
+
+@pytest.mark.parametrize("b,v,k,dtype", [
+    *[(b, 24_000, 1536, torch.bfloat16) for b in range(1, 9)],   # the head, 1..8 rows
+    (4, 100_000, 1536, torch.bfloat16),   # 24 chunks a slab: the ring refills
+    (3, 500, 256, torch.bfloat16),        # 4 rows a slab, the last one ragged
+    (2, 24_000, 1536, torch.float32),     # an f32 model's rows
+])
+def test_head4_kernel_slabs_bitwise(dev, b, v, k, dtype):
+    """K8 bitwise equal to its twin (exact int32 sums, the same f32 epilogue,
+    the twin's quant) at 1..8 rows, over a vocabulary that is not a multiple
+    of a slab, with one kernel launch a call."""
+    from mars5_tts_torch.ops.kernels import head4 as H
+
+    g = torch.Generator(device=dev).manual_seed(b * v + k)
+    wp, ws = H.pack_head4(torch.randn((v, k), generator=g, device=dev) * 0.03)
+    x = (torch.randn((b, k), generator=g, device=dev) * 3).to(dtype)
+    n0, k0 = H.launch_count, H.kernel_launches()
+    got = H.head4_logits(x, wp, ws, n_vocab=v - 7)
+    torch.cuda.synchronize()
+    assert (H.launch_count - n0, H.kernel_launches() - k0) == (1, 1)
+    assert torch.equal(got, H.head4_logits_ref(x, wp, ws, n_vocab=v - 7))
 
 
 @pytest.mark.parametrize("b", [3, 8])

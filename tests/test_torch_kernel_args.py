@@ -248,6 +248,129 @@ def test_w8a8_refuses_activations_and_weights_it_has_no_kernel_for():
 
 
 
+# ------------------------------------------------------------ K9's plan
+
+# (B L rows, B Lk memory rows) -> each site's (tile_b, grid), in SITES order:
+# the tile whose last wave on 132 SMs ends first (rounds x tile_b), a tie
+# kept by the wider tile
+MEGA_PLANS = [
+    # the smoke request, 2 x 725 over 2 x 66: 12 row tiles; qkv 144 wide
+    # tiles (2 rounds of 256) or 288 narrow (3 rounds of 128): narrow
+    ((1450, 132), ((128, 132), (128, 96), (128, 96), (128, 32), (128, 96), (128, 132),
+                   (128, 96))),
+    # the bench geometry, 2 x 1200: qkv 228 wide tiles (2 rounds) tie 456
+    # narrow (4 rounds); sa_out 76 wide (1 round) tie 152 narrow (2); WV 456
+    # wide (4 rounds of 256) loses to 912 narrow (7 of 128)
+    ((2400, 132), ((256, 132), (256, 76), (256, 76), (128, 32), (256, 76), (128, 132),
+                   (256, 76))),
+    # B L = 2 x 77, not a multiple of 128; Lk 9
+    ((154, 18), ((128, 48), (128, 16), (128, 16), (128, 16), (128, 16), (128, 96),
+                 (128, 16))),
+]
+
+
+@pytest.mark.parametrize("rows,want", MEGA_PLANS)
+def test_mega_plan(rows, want):
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    assert M.mega_plan(M.MegaDims(16, 1024, 16, 3072), *rows) == want
+
+
+def test_mega_site_shapes_and_plan_follow_the_dims():
+    """Each site's (M, N, K, mode) at D 256 / F 768; the plan follows the card's
+    SM count."""
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    d = M.MegaDims(2, 256, 4, 768)
+    assert M.site_shapes(d, 200, 38) == (
+        (200, 768, 256, 0), (200, 256, 256, 0), (200, 256, 256, 0), (38, 512, 256, 0),
+        (200, 256, 256, 0), (200, 768, 256, 1), (200, 256, 768, 0))
+    assert M.mega_plan(d, 200, 38) == ((128, 12), (128, 4), (128, 4), (128, 4), (128, 4),
+                                       (128, 24), (128, 4))
+    assert M.site_plan(2400, 3072, 1024, 0, sms=8) == (128, 8)       # 57 x 128 < 29 x 256
+    assert M.site_plan(2400, 1024, 1024, 0, sms=160) == (128, 152)   # one round of the narrow
+    assert M.site_plan(1450, 3072, 1024, 1, sms=132) == (128, 132)
+
+
+def test_mega_scratch_and_launches():
+    """The scratch the C entry takes (the int8 A operand sized for the wider
+    of D and F) and the kernels a call launches (the memory quant, then 15 a
+    layer)."""
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    d = M.MegaDims(16, 1024, 16, 3072)
+    bf, s8, f32 = torch.bfloat16, torch.int8, torch.float32
+    assert M.scratch_shapes(d, 2, 725, 66) == (
+        ((1450, 3072), bf), ((1450, 1024), bf), ((1450, 1024), bf), ((132, 2048), bf),
+        ((1450, 3072), bf), ((1450, 3072), s8), ((1450,), f32), ((132, 1024), s8),
+        ((132,), f32))
+    assert M.kernels_per_call(16) == 241 and M.kernels_per_call(1) == 16
+
+
+@pytest.mark.parametrize("m,n,k,mode,reason", [
+    (64, 100, 256, 0, "N a multiple of 64"), (64, 128, 200, 0, "K a multiple of 128"),
+    (64, 128, 3200, 0, "<= 3072"), (0, 128, 256, 0, "no rows"), (64, 128, 256, 2, "mode"),
+])
+def test_mega_site_plan_refuses(m, n, k, mode, reason):
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    with pytest.raises(ValueError, match=reason):
+        M.site_plan(m, n, k, mode)
+
+
+def test_mega_refuses_devices_it_has_no_kernel_for():
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    d = M.MegaDims(1, 256, 4, 768)
+    mp = M.MegaPack(d, torch.zeros((1, d.layer_bytes), dtype=torch.int8),
+                    torch.ones((1, 9 * 256 + 2 * 768)), torch.zeros((1, 9 * 256)),
+                    torch.zeros((1, 6 * 256)))
+    x = torch.zeros((2, 10, 256), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        M.mega_decoder_stack(mp, x, x[:, :3])
+
+
+# ------------------------------------------------------------ K8's plan
+
+def test_head4_slab_plan_at_the_head():
+    """24,000 rows of 768 packed bytes on 132 SMs: 182 rows a block, the last
+    slab ragged (158 rows); six stages of 32 rows hold a whole slab (147 KB),
+    beside the int8 rows, their scales and amaxes and the barriers."""
+    from mars5_tts_torch.ops.kernels import head4 as H
+
+    for b in (1, 4, 8):
+        rows, grid, stages, smem = H.slab_plan(24_000, 1536, b)
+        assert (rows, grid, stages) == (182, 132, 6)
+        assert 24_000 - (grid - 1) * rows == 158
+        assert smem == 6 * 32 * 768 + b * 1536 + 64 + 16 * 6
+
+
+@pytest.mark.parametrize("v,k,b,want", [
+    (100_000, 1536, 4, (758, 132, 6)),       # 24 chunks a slab through a six-stage ring
+    (500, 256, 3, (4, 125, 1)),              # one chunk a slab, one stage
+    (24_000, 8192, 8, (182, 132, 1)),        # 128 KB stages: one fits the ring
+    (131, 1536, 1, (1, 131, 1)),
+])
+def test_head4_slab_plan_geometries(v, k, b, want):
+    """Every vocabulary row in exactly one slab, the last one ragged but not
+    empty, and the shared memory within a block's 227 KB."""
+    from mars5_tts_torch.ops.kernels import head4 as H
+
+    rows, grid, stages, smem = H.slab_plan(v, k, b)
+    assert (rows, grid, stages) == want
+    assert grid * rows >= v > (grid - 1) * rows
+    assert stages * H.STAGE_ROWS * (k // 2) <= H.RING_BYTES and smem <= 227 * 1024
+
+
+def test_head4_refuses_devices_it_has_no_kernel_for():
+    from mars5_tts_torch.ops.kernels import head4 as H
+
+    wp = torch.zeros((64, 128), dtype=torch.int8, device="meta")
+    ws = torch.zeros((2, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA rows"):
+        H.head4_logits(torch.zeros((1, 256), dtype=torch.bfloat16, device="meta"), wp, ws,
+                       n_vocab=64)
+
 # ------------------------------------------------------------ K6's plan
 
 def test_heads_tail_plan_at_the_bench_shape():

@@ -15,6 +15,10 @@ L = 100, Lk = 19, with both key-padding masks.
 * The per-layer W8A8 stack agrees with the mega stack within 0.05 x max
   (cross-attention is the flash form in K9, the documented divergence).
 * Masked rows do not reach valid rows.
+* A torch emulation of the kernel's two-pass attention (128-key tiles, the
+  max first, then p, its f64 sum and P V tile by tile) agrees with the
+  twin's ``_attn`` within one bf16 ulp, and in the twin with the JAX
+  ``mega_decoder_stack_ref`` within the JAX kernel tests' bound.
 * The W8A8 trajectory with the mega pack against the JAX engine with
   ``MARS5_NAR_MEGA_INTERPRET=1`` under shared uniforms, and
   ``Mars5TTS(nar_backend="int8", nar_mega=True)`` against the JAX pipeline
@@ -218,6 +222,87 @@ def test_mega_mask_isolation(stack):
     pert = _port_ref(mp, x2, mem2, kpm, mpm)
     np.testing.assert_array_equal(base[0], pert[0])
     np.testing.assert_array_equal(base[1, :90], pert[1, :90])
+
+
+def _attn_two_pass(q, k, v, mask, c2):
+    """A torch emulation of K9's attention kernel (``csrc/nar_mega.cu``
+    ``mega_attn_kernel``): the keys in ring tiles of ``ATTN_KEYS`` with a 0 /
+    -inf bias for masked keys and the ragged tail (zero-filled rows), pass 1
+    each row's max tile by tile, pass 2 p = exp2((s - max) * c2), its row sum
+    in f64 and P V (p rounded to bf16) accumulated tile by tile in f32, then
+    o / sum. Arguments and result as the twin's ``_attn``."""
+    from mars5_tts_torch.ops.kernels.nar_mega import ATTN_KEYS
+
+    b, lq, h, dh = q.shape
+    lk = k.shape[1]
+    n = -(-lk // ATTN_KEYS) * ATTN_KEYS
+    kp, vp = (torch.nn.functional.pad(a.float(), (0, 0, 0, 0, 0, n - lk)) for a in (k, v))
+    bias = torch.zeros((b, n))
+    bias[:, lk:] = float("-inf")
+    if mask is not None:
+        bias[:, :lk] = bias[:, :lk].masked_fill(mask, float("-inf"))
+    qf = q.float()
+
+    def scores(t):
+        sl = slice(t * ATTN_KEYS, (t + 1) * ATTN_KEYS)
+        return torch.einsum("bqhd,bkhd->bhqk", qf, kp[:, sl]) + bias[:, None, None, sl], sl
+
+    tiles = range(n // ATTN_KEYS)
+    m = torch.stack([scores(t)[0].amax(-1) for t in tiles]).amax(0)[..., None]
+    o = torch.zeros((b, h, lq, dh))
+    r = torch.zeros((b, h, lq, 1), dtype=torch.float64)
+    for t in tiles:
+        s, sl = scores(t)
+        p = torch.exp2((s - m) * c2)
+        r += p.double().sum(-1, keepdim=True)
+        o += torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vp[:, sl])
+    return (o / r.float()).to(torch.bfloat16).permute(0, 2, 1, 3).reshape(b, lq, h * dh)
+
+
+@pytest.mark.parametrize("lq,lk,masked", [(100, 19, True), (300, 300, True), (77, 130, False),
+                                          (130, 66, True)])
+def test_two_pass_attention_matches_the_twin(lq, lk, masked):
+    """The kernel's two-pass, tile-by-tile attention against the twin's
+    full-row ``_attn`` on the same bf16 q, k, v: the scores, the max and the
+    f64 row sums are the same values; only the f32 P V sums run in another
+    order (tile by tile), so each output is within one bf16 ulp of the
+    twin's (|diff| <= 2^-7 x |twin|, the largest ulp a bf16 value v has
+    relative to |v|) and at least 98% are equal (99.99% at 300 keys here)."""
+    from mars5_tts_torch.ops.kernels.nar_mega import LOG2E, _attn
+
+    g = torch.Generator().manual_seed(lq + lk)
+    q, k, v = (torch.randn((2, n, NH, 64), generator=g).to(torch.bfloat16)
+               for n in (lq, lk, lk))
+    mask = None
+    if masked:
+        mask = torch.zeros((2, lk), dtype=torch.bool)
+        mask[1, lk - lk // 5:] = True
+        mask[0, 3] = True
+    c2 = 0.125 * LOG2E
+    got = _attn_two_pass(q, k, v, mask, c2).float()
+    want = _attn(q, k, v, mask, c2).float()
+    assert got.shape == want.shape == (2, lq, NH * 64)
+    assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs()).all())
+    assert (got == want).float().mean().item() >= 0.98
+
+
+def test_two_pass_stack_matches_jax(stack, monkeypatch):
+    """The twin with its attention replaced by the kernel's two-pass
+    emulation, against the JAX ``mega_decoder_stack_ref``: within 0.03 x
+    max|want| and a mean below 8e-3 x max|want| (the JAX kernel tests'
+    bound, as ``test_mega_ref_matches_jax``)."""
+    from mars5_tts_tpu.ops.pallas.nar_mega import mega_decoder_stack_ref
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    layers, mp, x, mem, kpm, mpm = stack
+    want = np.asarray(jax.jit(functools.partial(mega_decoder_stack_ref, nhead=NH, eps=EPS))(
+        layers, x, mem, tgt_key_padding_mask=jnp.asarray(kpm),
+        memory_key_padding_mask=jnp.asarray(mpm)).astype(jnp.float32))
+    monkeypatch.setattr(M, "_attn", _attn_two_pass)
+    got = _port_ref(mp, x, mem, kpm, mpm)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=0.03 * scale)
+    assert np.abs(got - want).mean() < 8e-3 * scale
 
 
 def _batch(rng, gen=24, n_prompt=13, text_len=9):

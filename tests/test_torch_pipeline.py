@@ -176,7 +176,8 @@ def test_mars5tts_from_local_tts_is_seeded(tmp_path):
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """``Mars5TTS`` and ``from_local`` run on the card unless the caller asks
-    for the CPU; ``from_params`` follows its modules' device."""
+    for the CPU, and raise when PyTorch sees no card; ``from_params`` follows
+    its modules' device."""
     import inspect
 
     from mars5_tts_torch import Mars5TTS, pipeline
@@ -185,9 +186,12 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert pipeline.default_device() == torch.device("cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert pipeline.default_device() == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.default_device()
     ar_path, nar_path = write_checkpoints(tmp_path)
-    assert Mars5TTS.from_local(ar_path, nar_path).device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Mars5TTS.from_local(ar_path, nar_path)
+    assert Mars5TTS.from_local(ar_path, nar_path, device="cpu").device == torch.device("cpu")
     ar, nar, _, _ = _ports()
     texttok, speechtok, _, _ = make_tokenizers()
     assert Mars5TTS.from_params(ar, nar, texttok=texttok,

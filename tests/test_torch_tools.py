@@ -89,17 +89,22 @@ def test_profile_ar_counts_device_events_once():
     assert tool["launches"](events) == 8
 
 
-@pytest.mark.parametrize("nar", ["int8", "bf16"])
+@pytest.mark.parametrize("nar", ["int8", "bf16", "int8 --mega"])
 def test_profile_nar_dry_run(nar, monkeypatch, capsys):
     from mars5_tts_torch.models import nar as nar_mod
 
     from mars5_tts_torch.models import layers
 
-    for name in ("fused_linear", "fused_ffn"):      # the tool wraps them: restored after
-        monkeypatch.setattr(layers, name, getattr(layers, name))
+    for name in ("fused_linear", "fused_ffn", "mega_decoder_stack"):   # the tool wraps them
+        monkeypatch.setattr(layers, name, getattr(layers, name))    # restored after
+    cfg = nar_mod.ResidualTransformerConfig.tiny()
+    if "--mega" in nar:                             # K9 takes head dim 64, D a multiple of 128
+        cfg = nar_mod.ResidualTransformerConfig(n_text_vocab=32, dim=128, nhead=2, enc_layers=1,
+                                                dec_layers=2, n_spk_layers=1, t_emb_dim=64,
+                                                hidden_dim=256)
     monkeypatch.setattr(nar_mod.ResidualTransformerConfig, "mars5",
-                        staticmethod(lambda n_text_vocab: nar_mod.ResidualTransformerConfig.tiny()))
-    monkeypatch.setattr(sys, "argv", ["profile_nar.py", "--device", "cpu", "--nar", nar,
+                        staticmethod(lambda n_text_vocab: cfg))
+    monkeypatch.setattr(sys, "argv", ["profile_nar.py", "--device", "cpu", "--nar", *nar.split(),
                                       "--prompt", "8", "--gen", "4", "--steps", "2",
                                       "--repeat", "1", "--profile-steps", "1", "--root", ROOT])
     torch.manual_seed(0)
@@ -107,7 +112,7 @@ def test_profile_nar_dry_run(nar, monkeypatch, capsys):
         runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_nar.py", run_name="__main__")
     assert done.value.code == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["nar"] == nar and out["frames"] == 12 and out["steps"] == 2
+    assert out["nar"] == nar.split()[0] and out["frames"] == 12 and out["steps"] == 2
     assert out["profile_steps"] == 1
     for key in ("wall_ms_per_step", "wall_ms_per_step_runs", "device_ms_per_step",
                 "device_idle_share", "k1_device_ms_per_step", "k3_device_ms_per_step",
@@ -115,6 +120,39 @@ def test_profile_nar_dry_run(nar, monkeypatch, capsys):
                 "w8a8_kernel_us_per_launch", "launches_per_step",
                 "stream_syncs_per_step", "top_host_ops_us_per_step"):
         assert key in out
+    mega_keys = ("k9_device_ms_per_step", "k9_calls_per_step", "outside_k9_device_ms_per_step",
+                 "outside_k9_device_ms_per_step_by_kernel")
+    assert all((key in out) == ("--mega" in nar) for key in mega_keys)
+    if "--mega" in nar:          # the K9 range ran once a profiled step, on the host here
+        assert out["top_host_ops_us_per_step"].get("mega_k9", 0) > 0
+
+
+def test_profile_nar_splits_device_time_at_the_k9_spans():
+    """Kernels that start inside a K9 call's device span are K9's; the rest
+    are summed by name, and a kernel's name loses its return type,
+    namespaces and arguments."""
+    tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/profile_nar.py")
+    kernels = [("a", 0.0, 5.0), ("w8a8_prologue", 10.0, 12.0), ("a", 20.0, 25.0),
+               ("b", 30.0, 31.0), ("mega_attn_kernel", 33.0, 39.0)]
+    assert tool["outside_spans"](kernels, [(9.0, 13.0), (32.0, 40.0)]) == {"a": 10.0, "b": 1.0}
+    assert tool["short_name"](
+        "void (anonymous namespace)::w8a8_wgmma_gemm<256, false>(CUtensorMap, CUtensorMap, "
+        "(anonymous namespace)::Epilogue)") == "w8a8_wgmma_gemm<256, false>"
+    assert tool["short_name"]("void at::native::elementwise_kernel<128, 4, at::native::"
+                              "F<float> >(int, at::native::F<float>)") == (
+        "elementwise_kernel<128, 4, at::native::F<float> >")
+    assert tool["short_name"]("Memcpy HtoD (Pageable -> Device)") == "Memcpy HtoD"
+
+
+def test_kernel_ab_checks(monkeypatch):
+    """kernel_ab.py's per-turn script compiles, and a check it does not know
+    is refused before any turn runs."""
+    tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/kernel_ab.py")
+    compile(tool["CHECKS"], "kernel_ab checks", "exec")
+    monkeypatch.setattr(sys, "argv", ["kernel_ab.py", ROOT, ROOT, "--checks", "k2,k7"])
+    with pytest.raises(SystemExit) as done:
+        tool["main"]()
+    assert done.value.code == 2
 
 
 @pytest.mark.parametrize("name,label", [
