@@ -24,8 +24,12 @@
    it) and K9 mega_decoder_stack (the int8 NAR decoder's 16 layers at the
    smoke request's shape: each layer alone on the kernel's output of the
    layer before, then all sixteen in one call, with the device time of each
-   phase; then at the bench's 1,200 frames). Every kernel also prints the
-   wrapper's host time (``host_ms``) and its device time (``device_ms``);
+   phase; then at the bench's 1,200 frames), then the modes of the int8
+   NAR's other routes: K1's int8 mode at (2, 1200, 16, 64) masked and
+   unmasked, at the request's 725 frames and across over its 66-token
+   memory, and K1's bf16 kernel on that cross-attention; K3 (qkv, caq,
+   residual) and K4 with per-K-group scales at gsize 128 (K3 bitwise).
+   Every kernel also prints the wrapper's host time (``host_ms``) and its device time (``device_ms``);
    K2, K6, K8 and K9 their kernel launches a call by their C entries' own
    count (K2: one a decode step, K6: two, at most two each allowed; K8: one;
    K9: 1 + 15 a layer); K3 and K4 beside ``torch._int_mm`` at the (M, K, N)
@@ -48,7 +52,12 @@
    texts with two voices (7 s and 5 s references, so the NAR takes its
    ragged branch) on fused4 + int8 (K2 once a batched step for all rows, K7
    0, K6 200), and two texts with one voice on the bf16 AR + int8 NAR (K7 26
-   times a batched step). Each request's AR cap leaves its longest prompt
+   times a batched step). Then the int8 NAR's other routes on fused4: (a)
+   ``nar_gsize=128`` (K3 6,400 and K4 3,200 launches, all grouped) and (b)
+   ``nar_fused=False, nar_qattn=True, nar_cross_k1=True`` (K1's int8 mode
+   16 x 200 on the self- and 16 x 200 on the cross-attention, K3 = K4 = 0).
+   The default routes must launch neither new mode. Each request's AR cap
+   leaves its longest prompt
    ``GEN_FRAMES`` generated frames. Each request's launch counts are reset
    before it and read after it.
 
@@ -90,6 +99,7 @@ PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
 # 200 generated, two CFG rows; 66 encoder tokens (the deep-clone text + speaker)
 MEGA_L, MEGA_LK = 725, 66
 MEGA_BENCH_L = 1200                 # K9 also at the bench's frames (bench.py:47-49)
+GSIZE = 128                         # the grouped request's K group (QMODES_r05.json's g128)
 
 
 def bound(nbytes, **ops):
@@ -379,6 +389,135 @@ def check_nar_fused(gen, dev):
         lambda: F.fused_ffn_ref(x, ln, w, v, l2, l2_b),
         nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * M_ROWS * 3 * DIM * FFN, 0.999)
     res["int_mm"] = check_int_mm(own_generator(dev, 13), dev)
+    return res
+
+
+def check_k1_modes(dev):
+    """K1's modes of the unfused int8 decoder (``nar_fused=False``): the int8
+    mode (``nar_qattn``) at the bench's (2, 1200, 16, 64), masked and
+    unmasked, and at the smoke request's 725 frames, self-attention on
+    strided views of a (2, L, 3072) qkv projection and cross-attention
+    (``nar_cross_k1``) over the 66-token memory (k, v views of its (2, 66,
+    2048) projection), within ``mha.int8_bound`` of the twin (two one-step
+    p8 changes and a bf16 ulp, printed beside the error); then the bf16
+    kernel on the same cross-attention, within 2 bf16 ulp of each row's peak.
+    The int8 mode has no single PyTorch call (``library_ms`` None);
+    ``scaled_dot_product_attention`` in bf16 is printed beside it as a
+    yardstick."""
+    import torch
+    import torch.nn.functional as Fn
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    gen = own_generator(dev, 21)
+    h, d = MAIN_SHAPE[2], MAIN_SHAPE[3]
+
+    def views(b, lq, lk, cross):
+        if not cross:
+            qkv = torch.randn((b, lq, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+            return [qkv[..., i * h * d:(i + 1) * h * d].reshape(b, lq, h, d) for i in range(3)]
+        q = torch.randn((b, lq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn((b, lk, 2 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+        return [q] + [kv[..., i * h * d:(i + 1) * h * d].reshape(b, lk, h, d) for i in range(2)]
+
+    res = {}
+    for name, (b, lq, lk), cross, masked, quantized in (
+            ("int8 (2, 1200) masked", (2, 1200, 1200), False, True, True),
+            ("int8 (2, 1200)", (2, 1200, 1200), False, False, True),
+            ("int8 (2, 725) strided", (2, MEGA_L, MEGA_L), False, True, True),
+            ("int8 cross (2, 725) over 66", (2, MEGA_L, MEGA_LK), True, True, True),
+            ("bf16 cross (2, 725) over 66", (2, MEGA_L, MEGA_LK), True, True, False)):
+        q, k, v = views(b, lq, lk, cross)
+        mask = None
+        if masked:
+            mask = torch.zeros((b, lk), dtype=torch.bool, device=dev)
+            mask[-1, lk - lk // 6:] = True
+        run = lambda: K.mha(q, k, v, mask, quantized=quantized)
+        out = run()
+        if quantized:
+            ref, tol = K.int8_bound(q, k, v, mask)
+            bound_txt = "2 p8 steps (2 vs / r) + 1 bf16 ulp"
+        else:
+            ref = K.mha_ref(q, k, v, mask)
+            tol = K.bf16_row_bound(ref)
+            bound_txt = "2 bf16 ulp of each row's peak"
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        ok = bool(torch.isfinite(out).all()) and bool((diff <= tol).all())
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        am = None if mask is None else ~mask[:, None, None, :]
+        sdpa_ms = cuda_ms(lambda: Fn.scaled_dot_product_attention(qt, kt, vt, am))
+        st = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+              "max_bound": tol.max().item(), "min_bound": tol.min().item(),
+              "ms": cuda_ms(run), "plain_ms": cuda_ms(lambda: K.mha_ref(q, k, v, mask, quantized)),
+              "device_ms": device_ms(run), "host_ms": host_ms(run),
+              "library_ms": None if quantized else sdpa_ms, "sdpa_yardstick_ms": sdpa_ms}
+        keys = lk * b if mask is None else int((~mask).sum())
+        ops = 4 * h * lq * d * keys
+        st["bound_ms"], st["bound_by"] = bound(nbytes(q, k, v, out, mask),
+                                               **({"int8": ops} if quantized else {"bf16": ops}))
+        print(f"K1 {name} {tuple(q.shape)} over {lk} keys mask={masked}: max_abs_err="
+              f"{st['max_abs_err']:.3e} mean_abs_err={st['mean_abs_err']:.3e} bound={bound_txt} "
+              f"(per element, {st['min_bound']:.3e} .. {st['max_bound']:.3e}) within={ok} | "
+              f"kernel {st['ms'] * 1e3:.1f} us (device {fmt_us(st['device_ms'])}, wrapper host "
+              f"{st['host_ms'] * 1e3:.1f} us), plain {st['plain_ms'] * 1e3:.1f} us, sdpa bf16 "
+              f"{sdpa_ms * 1e3:.1f} us{'' if quantized else ' (library)'}, roofline "
+              f"{st['bound_ms'] * 1e3:.1f} us ({st['bound_by']})", flush=True)
+        if not ok:
+            raise RuntimeError(f"K1 {name}: error above its bound")
+        res[name] = st
+    return res
+
+
+def check_nar_fused_grouped(dev):
+    """K3 and K4 with per-K-group scales at gsize 128 (``nar_gsize=128``) at
+    the decoder's shapes: K3 qkv (G = 8 weight groups), caq (8 activation
+    groups over per-row weight scales) and a residual site (saout), bitwise
+    equal to the twin; K4 (G = 8 for W and V, 24 for lin2) within the fused
+    bound and at least 99.9% equal (the GEMMs exact, the sigmoid's expf as
+    at one group)."""
+    import torch
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+    from mars5_tts_torch.ops.quant import quantize_weight_grouped
+
+    gen = own_generator(dev, 22)
+    gs = 128
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+
+    def gweight(n, k):
+        return quantize_weight_grouped(torch.randn((n, k), generator=gen, device=dev) * 0.03, gs)
+
+    x = torch.randn((2, M_ROWS // 2, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    ln = (vec(DIM, 1.0), vec(DIM))
+    g1, g2 = DIM // gs, FFN // gs
+    qkv_w, qkv_b = gweight(3 * DIM, DIM), vec(3 * DIM)
+    caq_w, caq_b = rand_qweight(DIM, DIM, gen, dev), vec(DIM)
+    out_w, out_b = gweight(DIM, DIM), vec(DIM)
+    a = (x * 0.5).contiguous()
+    res = {}
+    res["qkv"] = check_w8a8(
+        f"K3 grouped qkv (2, 1200, 1024) -> 3072, G = {g1}, LN + bias",
+        lambda: F.fused_linear(x, qkv_w, ln=ln, bias=qkv_b, groups=g1),
+        lambda: F.fused_linear_ref(x, qkv_w, ln=ln, bias=qkv_b, groups=g1),
+        nbytes(x, *qkv_w, qkv_b, *ln), 2 * M_ROWS * 3 * DIM * DIM, 1.0)
+    res["caq"] = check_w8a8(
+        f"K3 grouped caq (2, 1200, 1024) -> 1024, {g1} activation groups, per-row weights",
+        lambda: F.fused_linear(x, caq_w, ln=ln, bias=caq_b, groups=g1),
+        lambda: F.fused_linear_ref(x, caq_w, ln=ln, bias=caq_b, groups=g1),
+        nbytes(x, *caq_w, caq_b, *ln), 2 * M_ROWS * DIM * DIM, 1.0)
+    res["residual"] = check_w8a8(
+        f"K3 grouped residual (2, 1200, 1024) -> 1024, G = {g1}, bias + residual",
+        lambda: F.fused_linear(a, out_w, bias=out_b, residual=x, groups=g1),
+        lambda: F.fused_linear_ref(a, out_w, bias=out_b, residual=x, groups=g1),
+        nbytes(a, *out_w, out_b, x), 2 * M_ROWS * DIM * DIM, 1.0)
+    w, v, l2 = gweight(FFN, DIM), gweight(FFN, DIM), gweight(DIM, FFN)
+    l2_b = vec(DIM)
+    res["ffn"] = check_w8a8(
+        f"K4 grouped ffn (2, 1200, 1024), F 3072, G = {g1} / {g2}",
+        lambda: F.fused_ffn(x, ln, w, v, l2, l2_b, groups=g1, groups2=g2),
+        lambda: F.fused_ffn_ref(x, ln, w, v, l2, l2_b, groups=g1, groups2=g2),
+        nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * M_ROWS * 3 * DIM * FFN, 0.999)
     return res
 
 
@@ -992,8 +1131,11 @@ def counts():
     from mars5_tts_torch.ops.kernels import (decode_attention as A, decode_layer as L,
                                              diffusion_tail as D, head4 as H, mha as K,
                                              nar_fused as F, nar_mega as M)
-    return {"mha": K.launch_count, "fused_linear": F.fused_linear_launches,
-            "fused_ffn": F.fused_ffn_launches, "heads_diffusion_tail": D.launch_count,
+    return {"mha": K.launch_count, "mha_int8": K.int8_launch_count,
+            "fused_linear": F.fused_linear_launches, "fused_ffn": F.fused_ffn_launches,
+            "fused_linear_grouped": F.fused_linear_grouped_launches,
+            "fused_ffn_grouped": F.fused_ffn_grouped_launches,
+            "heads_diffusion_tail": D.launch_count,
             "diffusion_tail": D.tail_launch_count, "mega_decoder_stack": M.launch_count,
             "fused_decode_layers": L.launch_count, "head4_logits": H.launch_count,
             "decode_attention": A.launch_count}
@@ -1191,6 +1333,8 @@ def main():
     k2 = check_decode_layer(models["ar"], gen, dev)
     k8 = check_head4(models["ar"], gen, dev)
     k7 = check_decode_attention(models["ar"].cfg, dev)
+    k1_modes = check_k1_modes(dev)
+    w8a8_g = check_nar_fused_grouped(dev)
 
     # -- 4. main paths, each request with its launch counts from 0
     records, main_launches, path_launches, nar8 = serve_paths(models, dev)
@@ -1221,17 +1365,37 @@ def main():
                 "device_ms", "one_row_device_ms", "library_ms", "library_device_ms",
                 "host_ms", "cluster", "kernel_launches_per_call")
         return {k: st[k] for k in keys if k in st}
+    k1_cross = k1_modes["bf16 cross (2, 725) over 66"]
+    k1_int8 = {name: st for name, st in k1_modes.items() if name.startswith("int8")}
     print(json.dumps({"kernels": [
         {**row("mha", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46", main_res),
-         "max_abs_err": max(st["max_abs_err"] for st in (main_res, second, *k1_views)),
+         "max_abs_err": max(st["max_abs_err"] for st in (main_res, second, *k1_views, k1_cross)),
          "device_ms": main_res["device_ms"], "host_ms": main_res["host_ms"],
          "encode_us": main_res["encode_us"],
          "library_unmasked_ms": main_res["library_unmasked_ms"],
-         "cases": {name: {k: st[k] for k in ("ms", "device_ms", "host_ms", "encode_us",
-                                             "library_ms", "bound_ms", "max_abs_err")}
+         "cases": {name: {k: st.get(k) for k in ("ms", "device_ms", "host_ms", "encode_us",
+                                                 "library_ms", "bound_ms", "max_abs_err")}
                    for name, st in (("(2, 525) unmasked", second),
                                     ("(2, 750) over 1200 strided", k1_views[0]),
-                                    ("(2, 725) strided", k1_views[1]))}},
+                                    ("(2, 725) strided", k1_views[1]),
+                                    ("(2, 725) over 66 cross", k1_cross))}},
+        {**row("mha_int8", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46",
+               k1_int8["int8 (2, 1200) masked"], launches=path_launches["mha_int8"]),
+         "max_abs_err": max(st["max_abs_err"] for st in k1_int8.values()),
+         "cases": {name: {k: st[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
+                                             "bound_ms", "bound_by", "max_abs_err", "max_bound",
+                                             "sdpa_yardstick_ms")}
+                   for name, st in k1_int8.items()}},
+        {**row("fused_linear_grouped", "nar_fused.cu",
+               "mars5_tts_tpu/ops/pallas/nar_fused.py:111", w8a8_g["qkv"],
+               launches=path_launches["fused_linear_grouped"]),
+         "max_abs_err": max(w8a8_g[v]["max_abs_err"] for v in ("qkv", "caq", "residual")),
+         **w8a8_extra(w8a8_g["qkv"], None),
+         "cases": {v: {**{k: w8a8_g[v][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+                       **w8a8_extra(w8a8_g[v], None)} for v in ("caq", "residual")}},
+        {**row("fused_ffn_grouped", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:144",
+               w8a8_g["ffn"], launches=path_launches["fused_ffn_grouped"]),
+         **w8a8_extra(w8a8_g["ffn"], None)},
         {**row("fused_decode_layers", "decode_layer.cu",
                "mars5_tts_tpu/ops/pallas/decode_layer.py:139", k2_main),
          "max_abs_err": max(st["max_abs_err"] for st in k2.values()),
@@ -1300,14 +1464,16 @@ def serve_paths(models, dev):
     ar_layers = ar.cfg.n_layers
     common = {k: models[k] for k in ("texttok", "speechtok", "encodec", "vocos")}
     layers = nar.cfg.dec_layers
+    # the default routes never take K1's int8 mode or the grouped K3/K4
+    no_modes = {"mha_int8": (0, 0), "fused_linear_grouped": (0, 0), "fused_ffn_grouped": (0, 0)}
     k1_only = {"mha": (layers * STEPS, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
                "heads_diffusion_tail": (0, 0), "diffusion_tail": (0, 0),
-               "mega_decoder_stack": (0, 0)}
+               "mega_decoder_stack": (0, 0), **no_modes}
     int8 = {"mha": (layers * STEPS, 10 ** 9),
             "fused_linear": (2 * layers * STEPS, 2 * layers * STEPS),
             "fused_ffn": (layers * STEPS, layers * STEPS),
             "heads_diffusion_tail": (STEPS, STEPS), "diffusion_tail": (0, 0),
-            "mega_decoder_stack": (0, 0)}
+            "mega_decoder_stack": (0, 0), **no_modes}
     # K9 in place of the decoder's K1, K3 and K4; K5 in place of K6
     mega = {**int8, "mha": (0, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
             "mega_decoder_stack": (STEPS, STEPS)}
@@ -1328,6 +1494,11 @@ def serve_paths(models, dev):
     nar8 = Mars5TTS.from_params(ar, nar, nar_backend="int8", **common).codecnar
     torch.cuda.synchronize()
     print(f"quantize_nar: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    nar8g = Mars5TTS.from_params(ar, nar, nar_backend="int8", nar_gsize=GSIZE,
+                                 **common).codecnar
+    torch.cuda.synchronize()
+    print(f"quantize_nar(w_gsize={GSIZE}): {time.perf_counter() - t0:.2f} s", flush=True)
     del nar
     torch.cuda.reset_peak_memory_stats(dev)
     records.append(serve(Mars5TTS.from_params(ar, nar8, nar_backend="int8", **common),
@@ -1384,6 +1555,29 @@ def serve_paths(models, dev):
         REF_SECONDS, 14, {**int8, **bf16_ar}))
     del tts
     path_launches["decode_attention"] = batch_records[-1]["launches"]["decode_attention"]
+    # the int8 NAR's other routes: (a) per-K-group scales through grouped K3 /
+    # K4, (b) the unfused layer with K1's int8 mode on both attentions
+    sites3 = 2 * layers * STEPS
+    grouped = {**int8, "fused_linear_grouped": (sites3, sites3),
+               "fused_ffn_grouped": (layers * STEPS, layers * STEPS), "mha_int8": (0, 0)}
+    unfused = {**int8, "fused_linear": (0, 0), "fused_ffn": (0, 0),
+               "mha_int8": (2 * layers * STEPS, 2 * layers * STEPS)}
+    for label, nar_q, kw, want_nar, names in (
+            (f"fused4 AR + int8 NAR, nar_gsize={GSIZE}", nar8g, dict(nar_gsize=GSIZE), grouped,
+             ("fused_linear_grouped", "fused_ffn_grouped")),
+            ("fused4 AR + int8 NAR, nar_fused=False, nar_qattn, nar_cross_k1", nar8,
+             dict(nar_fused=False, nar_qattn=True, nar_cross_k1=True), unfused, ("mha_int8",))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        tts = Mars5TTS.from_params(ar, nar_q, ar_backend="fused4", nar_backend="int8", **kw,
+                                   **common)
+        rec = serve(tts, label, *first, {**want_nar, **fused_ar})
+        del tts
+        records.append(rec)
+        path_launches.update({n: rec["launches"][n] for n in names})
+        nar_ms = [1e3 * r["stages_s"]["nar_diffusion"] / STEPS for r in (rec, default)]
+        print(f"{label}: NAR {nar_ms[0]:.2f} ms a step against {nar_ms[1]:.2f} for the default "
+              f"int8 route in this call", flush=True)
+    del nar8g
     print(json.dumps({"requests": records + batch_records}), flush=True)
     bf16_ms = records[1]["ar_ms_per_token"]
     print("AR stage ms/token (same call, incl. prefill): " + ", ".join(

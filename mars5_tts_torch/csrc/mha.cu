@@ -54,6 +54,34 @@
 // The f32 kernel (not on the default path) keeps a query row a thread in
 // registers and walks 32-key tiles of K and V in shared memory.
 //
+// The int8 mode (mars5_mha_int8_fwd; _mha_kernel(quantized=True), the W8A8
+// NAR's attention under MARS5_QATTN), per (batch, head), bf16 in and out:
+//   q8, qs = quant_rows(q); k8, ks = quant_rows(k)  (per 64-value row:
+//     qs = max(amax, 1e-8) / 127, q8 = rint(q / qs) clipped to +-127)
+//   s = (float(q8 . k8) * (qs * scale)) * ks, -inf on masked keys and keys
+//     past Lk; m = the row's max over all keys; p = exp2((s - m) * log2e);
+//     r = sum p (f32)
+//   v8, vs per channel over all Lk keys (masked ones included)
+//   o = (float(rint(p * 127) . v8) * (vs / 127)) / r
+// p is rounded to int8 against the full row's max, so the keys are walked
+// twice: pass 1 takes the max, pass 2 the exponentials, their sum and the PV
+// product (an online softmax would round other integers). A pre-pass writes
+// q8 and k8 (row-major, (B H, L, 64), zero rows past L) with their scales,
+// and v8 transposed to (B H, 64, Lk) (K-major for the PV product) with vs,
+// in four launches (q rows, k rows, v's channel scales, v8 a 32-key block a
+// CTA); the attention is the fifth. A CTA is 64 queries of
+// one (batch, head), four warps of 16 rows; both products run on the
+// legacy mma.sync m16n8k32 s8 instruction with s32 sums, the operands read
+// straight from global memory (each (B H) slice of k8 and v8 is 4.9 KB
+// every 64 keys, shared by the CTA's warps through L1). The QK
+// accumulators of a 32-key tile become the A fragment of the PV product in
+// registers: a thread holds keys {2t, 2t + 1, 8 + 2t, 9 + 2t} (+ 16) of
+// its rows where the 8-bit A layout wants keys 4t .. 4t + 3 (+ 16), so the
+// pre-pass stores v8's keys in that order inside each 32-key block (a
+// reduction's order is free) and no register is moved. The int32 PV sum
+// is at most 127^2 Lk, far inside int32 for any NAR length. Not yet tuned:
+// wgmma and a shared-memory K/V ring are the next step (ROADMAP B).
+//
 // The C entry point returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments or views it does not take.
 
@@ -336,6 +364,229 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
+// ---- int8 mode (see the header): pre-pass, then a two-pass attention
+constexpr int kQ8Rows = 64;         // queries a CTA: four warps of 16
+constexpr int kKeyTile = 32;        // keys a step: one s8 k32 step of the PV product
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t ld_s8x4(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ int quant127(float v, float s) {
+  return max(-127, min(127, __float2int_rn(__fdiv_rn(v, s))));
+}
+
+// Key order inside a 32-key block of v8: position 4 t + i (+ 16) holds key
+// {2t, 2t + 1, 8 + 2t, 9 + 2t}[i] (+ 16), the keys a thread's QK
+// accumulators give it.
+__device__ __forceinline__ int v8_key(int p) {
+  const int r = p & 15, t = r >> 2, i = r & 3;
+  return (p & 16) + (i < 2 ? 2 * t + i : 6 + 2 * t + i);
+}
+
+// One warp a row of x (B, L, H, 64) bf16 viewed with element strides (sb,
+// sl, sh): the row's int8 values at x8 (B H, Lp, 64) and its scale at xs
+// (B H, Lp); rows past L get zeros.
+__global__ void __launch_bounds__(256)
+mha_quant_rows(const __nv_bfloat16* __restrict__ x, int L, int Lp, int H, Strides st,
+               int8_t* __restrict__ x8, float* __restrict__ xs, int rows) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int l = row % Lp, bh = row / Lp, b = bh / H, h = bh % H;
+  auto* dst = reinterpret_cast<uint16_t*>(x8 + (long long)row * kD + 2 * lane);
+  if (l >= L) {
+    *dst = 0;
+    if (lane == 0) xs[row] = 0.f;
+    return;
+  }
+  const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(
+      x + b * st.b + l * st.l + h * st.h + 2 * lane);
+  const float v0 = __low2float(v2), v1 = __high2float(v2);
+  const float s = __fdiv_rn(fmaxf(warp_max(fmaxf(fabsf(v0), fabsf(v1))), 1e-8f), 127.f);
+  *dst = (uint16_t)((uint8_t)quant127(v0, s) | ((uint32_t)(uint8_t)quant127(v1, s) << 8));
+  if (lane == 0) xs[row] = s;
+}
+
+// A block a (batch, head): v's per-channel scales over all Lk keys into vs
+// (B H, 64).
+__global__ void __launch_bounds__(256)
+mha_v_scales(const __nv_bfloat16* __restrict__ v, int Lk, int H, Strides st,
+             float* __restrict__ vs) {
+  __shared__ float red[8][kD];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const __nv_bfloat16* vb = v + b * st.b + h * st.h;
+  float m0 = 0.f, m1 = 0.f;
+  for (int key = warp; key < Lk; key += 8) {
+    const __nv_bfloat162 v2 =
+        *reinterpret_cast<const __nv_bfloat162*>(vb + key * st.l + 2 * lane);
+    m0 = fmaxf(m0, fabsf(__low2float(v2)));
+    m1 = fmaxf(m1, fabsf(__high2float(v2)));
+  }
+  red[warp][2 * lane] = m0;
+  red[warp][2 * lane + 1] = m1;
+  __syncthreads();
+  if (threadIdx.x < kD) {
+    float m = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) m = fmaxf(m, red[w][threadIdx.x]);
+    vs[bh * kD + threadIdx.x] = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+  }
+}
+
+// A block a (32-key block, (batch, head)): those keys of v, int8 at vs's
+// scales, into v8 (B H, 64, Lkp), each channel's keys in v8_key order,
+// zeros past Lk; the block stages its 32 x 64 tile in shared memory so that
+// both the reads and the transposed writes are coalesced.
+__global__ void __launch_bounds__(256)
+mha_quant_v(const __nv_bfloat16* __restrict__ v, int Lk, int Lkp, int H, Strides st,
+            const float* __restrict__ vs, int8_t* __restrict__ v8t) {
+  __shared__ float tile[kKeyTile][kD + 1];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * kKeyTile;
+  const __nv_bfloat16* vb = v + b * st.b + h * st.h;
+  for (int i = threadIdx.x; i < kKeyTile * kD / 2; i += 256) {
+    const int key = i / (kD / 2), c = 2 * (i % (kD / 2));
+    float2 f = make_float2(0.f, 0.f);
+    if (k0 + key < Lk)
+      f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(vb + (k0 + key) * st.l + c));
+    tile[key][c] = f.x;
+    tile[key][c + 1] = f.y;
+  }
+  __syncthreads();
+  int8_t* dst = v8t + (long long)bh * kD * Lkp + k0;
+  for (int i = threadIdx.x; i < kD * kKeyTile / 4; i += 256) {
+    const int c = i / (kKeyTile / 4), p0 = (i % (kKeyTile / 4)) * 4;
+    const float s = __ldg(vs + bh * kD + c);
+    uint32_t packed = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = v8_key(p0 + j);
+      const int qv = k0 + key < Lk ? quant127(tile[key][c], s) : 0;
+      packed |= (uint32_t)(uint8_t)qv << (8 * j);
+    }
+    *reinterpret_cast<uint32_t*>(dst + (long long)c * Lkp + p0) = packed;
+  }
+}
+
+// The attention over the pre-pass's tensors: grid (query tiles of 64, B H),
+// 128 threads; warp w takes rows 16 w .. 16 w + 15 of its tile, lane 4 g + t
+// rows g and g + 8 (the mma fragments' layout).
+__global__ void __launch_bounds__(128)
+mha_int8_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
+                const int8_t* __restrict__ k8, const float* __restrict__ ks,
+                const int8_t* __restrict__ v8t, const float* __restrict__ vs,
+                const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out, int Lq,
+                int Lqp, int Lk, int Lkp, int H, float scale) {
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * kQ8Rows + warp * 16;
+  const int8_t* qb = q8 + ((long long)bh * Lqp + r0) * kD;
+  uint32_t qa[2][4];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    qa[kk][0] = ld_s8x4(qb + g * kD + 32 * kk + 4 * t);
+    qa[kk][1] = ld_s8x4(qb + (g + 8) * kD + 32 * kk + 4 * t);
+    qa[kk][2] = ld_s8x4(qb + g * kD + 32 * kk + 16 + 4 * t);
+    qa[kk][3] = ld_s8x4(qb + (g + 8) * kD + 32 * kk + 16 + 4 * t);
+  }
+  const float qsc[2] = {__fmul_rn(qs[(long long)bh * Lqp + r0 + g], scale),
+                        __fmul_rn(qs[(long long)bh * Lqp + r0 + g + 8], scale)};
+  const int8_t* kb = k8 + (long long)bh * Lkp * kD;
+  const float* ksb = ks + (long long)bh * Lkp;
+  const int8_t* vb = v8t + (long long)bh * kD * Lkp;
+  const uint8_t* mrow = mask != nullptr ? mask + (long long)b * Lk : nullptr;
+
+  // the scores of keys k0 .. k0 + 31: sc[j][e] is row g + 8 (e >> 1), key
+  // k0 + 8 j + 2 t + (e & 1)
+  auto scores = [&](int k0, float (&sc)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int c[4] = {0, 0, 0, 0};
+      const int8_t* kr = kb + (long long)(k0 + 8 * j + g) * kD;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t bf[2] = {ld_s8x4(kr + 32 * kk + 4 * t), ld_s8x4(kr + 32 * kk + 16 + 4 * t)};
+        mma_s8_16832(c, qa[kk], bf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        const bool off = key >= Lk || (mrow != nullptr && mrow[key]);
+        sc[j][e] = off ? -INFINITY : __fmul_rn(__fmul_rn((float)c[e], qsc[e >> 1]), ksb[key]);
+      }
+    }
+  };
+
+  // pass 1: the row max over all keys
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int k0 = 0; k0 < Lkp; k0 += kKeyTile) {
+    float sc[4][4];
+    scores(k0, sc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], sc[j][e]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+
+  // pass 2: p, its sum, p8 and the PV product
+  float rsum[2] = {0.f, 0.f};
+  int o[8][4];
+#pragma unroll
+  for (int c8 = 0; c8 < 8; ++c8)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c8][e] = 0;
+  for (int k0 = 0; k0 < Lkp; k0 += kKeyTile) {
+    float sc[4][4];
+    scores(k0, sc);
+    uint32_t p8[4] = {0u, 0u, 0u, 0u};   // bytes in the v8_key order of this thread's keys
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(__fmul_rn(__fsub_rn(sc[j][e], m[e >> 1]), kLog2e));
+        rsum[e >> 1] = __fadd_rn(rsum[e >> 1], p);
+        const uint32_t byte = (uint32_t)(uint8_t)__float2int_rn(__fmul_rn(p, 127.f));
+        // a0: row g keys j 0-1; a1: row g + 8 keys j 0-1; a2 / a3: j 2-3
+        p8[(j >> 1) * 2 + (e >> 1)] |= byte << (8 * ((j & 1) * 2 + (e & 1)));
+      }
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8) {
+      const int8_t* vr = vb + (long long)(8 * c8 + g) * Lkp + k0;
+      const uint32_t bf[2] = {ld_s8x4(vr + 4 * t), ld_s8x4(vr + 16 + 4 * t)};
+      mma_s8_16832(o[c8], p8, bf);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(0xffffffffu, rsum[r], 1));
+    rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(0xffffffffu, rsum[r], 2));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= Lq) continue;
+    __nv_bfloat16* orow = out + (((long long)b * Lq + row) * H + h) * kD;
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8) {
+      const int ch = 8 * c8 + 2 * t;
+      float y[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float vsd = __fdiv_rn(vs[bh * kD + ch + e], 127.f);
+        y[e] = __fdiv_rn(__fmul_rn((float)o[c8][2 * r + e], vsd), rsum[r]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(orow + ch) = __floats2bfloat162_rn(y[0], y[1]);
+    }
+  }
+}
+
 // The 4-D map (head dim, heads, sequence, batch) of a bf16 (B, L, H, 64) view
 // with element strides (sb, sl, sh) and unit stride on the head dim; boxes of
 // ``rows`` positions of one head, 128-byte swizzle.
@@ -413,5 +664,55 @@ extern "C" int mars5_mha_fwd(int is_bf16, const void* q, const void* k,
         static_cast<const float*>(v), m, static_cast<float*>(out), Lq, Lk, H, sq,
         sk, sv, scale_log2);
   }
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the int8 mode's scratch at (B, Lq, Lk, H): q8, k8, v8 and their
+// scales (row counts padded to 64 queries and 32 keys).
+extern "C" long long mars5_mha_int8_scratch_bytes(int B, int Lq, int Lk, int H) {
+  const long long bh = (long long)B * H, lqp = (Lq + kQ8Rows - 1) / kQ8Rows * kQ8Rows,
+                  lkp = (Lk + kKeyTile - 1) / kKeyTile * kKeyTile;
+  return bh * (lqp * kD + 2 * lkp * kD) + 4 * bh * (lqp + lkp + kD);
+}
+
+// The int8 mode on bf16 views (strides as mars5_mha_fwd's): five launches.
+extern "C" int mars5_mha_int8_fwd(const void* q, const void* k, const void* v, const void* mask,
+                                  void* out, void* scratch, int B, int Lq, int Lk, int H, int D,
+                                  long long sqb, long long sql, long long sqh, long long skb,
+                                  long long skl, long long skh, long long svb, long long svl,
+                                  long long svh, float scale, void* stream) {
+  if (D != kD || B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || (long long)B * H > 65535 ||
+      (Lq + kQ8Rows - 1) / kQ8Rows > 0x7fffffff / 2)
+    return (int)cudaErrorInvalidValue;
+  const int lqp = (Lq + kQ8Rows - 1) / kQ8Rows * kQ8Rows;
+  const int lkp = (Lk + kKeyTile - 1) / kKeyTile * kKeyTile;
+  const long long bh = (long long)B * H;
+  auto* q8 = static_cast<int8_t*>(scratch);
+  int8_t* k8 = q8 + bh * lqp * kD;
+  int8_t* v8t = k8 + bh * lkp * kD;
+  auto* qs = reinterpret_cast<float*>(v8t + bh * lkp * kD);
+  float* ks = qs + bh * lqp;
+  float* vs = ks + bh * lkp;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  const int q_rows = (int)(bh * lqp), k_rows = (int)(bh * lkp);
+  mha_quant_rows<<<(q_rows + 7) / 8, 256, 0, st>>>(qb, Lq, lqp, H, Strides{sqb, sql, sqh}, q8,
+                                                    qs, q_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mha_quant_rows<<<(k_rows + 7) / 8, 256, 0, st>>>(kb, Lk, lkp, H, Strides{skb, skl, skh}, k8,
+                                                    ks, k_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  mha_v_scales<<<(int)bh, 256, 0, st>>>(vb, Lk, H, Strides{svb, svl, svh}, vs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  mha_quant_v<<<dim3(lkp / kKeyTile, (unsigned)bh), 256, 0, st>>>(
+      vb, Lk, lkp, H, Strides{svb, svl, svh}, vs, v8t);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 grid(lqp / kQ8Rows, (unsigned)bh);
+  mha_int8_kernel<<<grid, 128, 0, st>>>(q8, qs, k8, ks, v8t, vs, static_cast<const uint8_t*>(mask),
+                                        static_cast<__nv_bfloat16*>(out), Lq, lqp, Lk, lkp, H,
+                                        scale);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 // and K4 fused_ffn.
 //
 // Replaces the TPU kernels mars5_tts_tpu/ops/pallas/nar_fused.py::_lin_kernel
-// (entry fused_linear) and ::_ffn_kernel (entry fused_ffn), groups = 1.
+// (entry fused_linear) and ::_ffn_kernel (entry fused_ffn), groups = 1 and,
+// with gsize < K, per-K-group scales (_qdot with groups > 1: w8a8_wgmma.cuh's
+// grouped prologue and GEMM, 128-wide tiles).
 //
 //   K3 (mars5_w8a8_linear): prologue([LN](x)) -> q, xs; then
 //     out = bf16(rescale(q . W^T) [+ bias]) [+ residual]          (2 launches)
@@ -48,16 +50,40 @@ bool bad_shape(int M, int N, int K, int grid, int bn) {
          (bn != 128 && bn != 256);
 }
 
+// A group size the grouped kernels take over K (gsize == K: one group, the
+// ungrouped kernels): a multiple of 32 (one s8 wgmma step) dividing K, and
+// 128-wide tiles.
+bool bad_groups(int K, int gsize, int bn) {
+  return gsize <= 0 || gsize % 32 || K % gsize || (gsize != K && bn != 128);
+}
+
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
+// The per-row prologue, or the grouped one when gsize < K.
+cudaError_t prologue(const __nv_bfloat16* x, const void* ln_w, const void* ln_b, int vec_bf16,
+                     float eps, int8_t* q, float* xs, int M, int K, int gsize, cudaStream_t st) {
+  if (gsize == K) return launch_prologue(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st);
+  return launch_prologue_grouped(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize, st);
+}
+
+cudaError_t gemm0(int bn, bool bf16_bias, int gsize, bool w_grouped, int grid, cudaStream_t st,
+                  const CUtensorMap& ta, const CUtensorMap& tw, const Epilogue& p) {
+  if (gsize == p.K) return launch_gemm0(bn, bf16_bias, grid, st, ta, tw, p);
+  return launch_gemm0_grouped(w_grouped, bf16_bias, grid, st, ta, tw, p);
+}
 
 }  // namespace
 
+// gsize: K columns a group of activation (and, with w_grouped, weight)
+// scales, K for one scale a row; ws (G, N) when w_grouped, else (N,).
 extern "C" int mars5_w8a8_linear(const void* x, const void* ln_w, const void* ln_b,
                                  const void* bias, int vec_bf16, float eps, const void* wq,
                                  const void* ws, const void* res, void* out, void* scratch, int M,
-                                 int N, int K, int grid, int bn, void* stream) {
-  if (bad_shape(M, N, K, grid, bn) || misaligned(x) || misaligned(res) || misaligned(ln_w) ||
-      misaligned(ln_b) || misaligned(bias) || (ln_w == nullptr) != (ln_b == nullptr))
+                                 int N, int K, int grid, int bn, int gsize, int w_grouped,
+                                 void* stream) {
+  if (bad_shape(M, N, K, grid, bn) || bad_groups(K, gsize, bn) || (w_grouped && gsize == K) ||
+      misaligned(x) || misaligned(res) || misaligned(ln_w) || misaligned(ln_b) ||
+      misaligned(bias) || (ln_w == nullptr) != (ln_b == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   int8_t* q = static_cast<int8_t*>(scratch);
@@ -66,22 +92,26 @@ extern "C" int mars5_w8a8_linear(const void* x, const void* ln_w, const void* ln
   if (!encode_map_s8(&ta, q, M, K, kBM) || !encode_map_s8(&tw, wq, N, K, bn))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st);
+  cudaError_t err = prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize, st);
   if (err != cudaSuccess) return (int)err;
   const Epilogue p{xs, static_cast<const float*>(ws), nullptr, bias,
                    static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
-                   M, N, K};
-  return (int)launch_gemm0(bn, vec_bf16 != 0, grid, st, ta, tw, p);
+                   M, N, K, gsize};
+  return (int)gemm0(bn, vec_bf16 != 0, gsize, w_grouped != 0, grid, st, ta, tw, p);
 }
 
+// gsize1 / w1_grouped for the W and V GEMM (over K), gsize2 / w2_grouped
+// for lin2 (over F), as in mars5_w8a8_linear.
 extern "C" int mars5_w8a8_ffn(const void* x, const void* ln_w, const void* ln_b,
                               const void* l2b, int vec_bf16, float eps, const void* wq,
                               const void* ws, const void* vq, const void* vs, const void* l2q,
                               const void* l2s, void* u, void* out, void* scratch, int M, int K,
-                              int F, int grid1, int bn1, int grid2, int bn2, void* stream) {
+                              int F, int grid1, int bn1, int grid2, int bn2, int gsize1,
+                              int w1_grouped, int gsize2, int w2_grouped, void* stream) {
   if (bad_shape(M, F, K, grid1, bn1) || F % (bn1 / 2) || bad_shape(M, K, F, grid2, bn2) ||
-      misaligned(x) || ln_w == nullptr || ln_b == nullptr || l2b == nullptr ||
-      misaligned(ln_w) || misaligned(ln_b) || misaligned(l2b))
+      bad_groups(K, gsize1, bn1) || bad_groups(F, gsize2, bn2) || (w1_grouped && gsize1 == K) ||
+      (w2_grouped && gsize2 == F) || misaligned(x) || ln_w == nullptr || ln_b == nullptr ||
+      l2b == nullptr || misaligned(ln_w) || misaligned(ln_b) || misaligned(l2b))
     return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   int8_t* q = static_cast<int8_t*>(scratch);
@@ -94,17 +124,18 @@ extern "C" int mars5_w8a8_ffn(const void* x, const void* ln_w, const void* ln_b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* ub = static_cast<__nv_bfloat16*>(u);
 
-  cudaError_t err = launch_prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st);
+  cudaError_t err = prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize1, st);
   if (err != cudaSuccess) return (int)err;
   const Epilogue p1{xs, static_cast<const float*>(ws), static_cast<const float*>(vs), nullptr,
-                    nullptr, ub, M, F, K};
-  err = launch_swiglu(bn1, grid1, st, ta1, tw, tv, p1);
+                    nullptr, ub, M, F, K, gsize1};
+  err = gsize1 == K ? launch_swiglu(bn1, grid1, st, ta1, tw, tv, p1)
+                    : launch_swiglu_grouped(w1_grouped != 0, grid1, st, ta1, tw, tv, p1);
   if (err != cudaSuccess) return (int)err;
 
-  // u's rows quantised over all F columns into the same scratch
-  err = launch_prologue(ub, nullptr, nullptr, vec_bf16, eps, q, xs, M, F, st);
+  // u's rows quantised over all F columns (or per group) into the same scratch
+  err = prologue(ub, nullptr, nullptr, vec_bf16, eps, q, xs, M, F, gsize2, st);
   if (err != cudaSuccess) return (int)err;
   const Epilogue p2{xs, static_cast<const float*>(l2s), nullptr, l2b, xb,
-                    static_cast<__nv_bfloat16*>(out), M, K, F};
-  return (int)launch_gemm0(bn2, vec_bf16 != 0, grid2, st, ta2, tl, p2);
+                    static_cast<__nv_bfloat16*>(out), M, K, F, gsize2};
+  return (int)gemm0(bn2, vec_bf16 != 0, gsize2, w2_grouped != 0, grid2, st, ta2, tl, p2);
 }

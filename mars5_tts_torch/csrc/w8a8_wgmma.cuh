@@ -36,6 +36,16 @@
 //     through the read-only path in batches ahead of the stores (loads that
 //     waited on each store left a 128 x 128 tile's epilogue latency-bound).
 //
+// Grouped mode (the TPU kernels' _qdot with groups > 1; kGrouped prologue,
+// kG 1 or 2 GEMM, 128-wide tiles): the prologue writes a scale a (row, group
+// of gsize columns), xs (M, G), from each 32-column segment's amax; the
+// consumers flush the int32 accumulator at each group's last 32-deep wgmma
+// step (several flushes a 128-deep stage for gsize 32 or 64, one every
+// gsize / 128 stages above) into an f32 sum, (float(acc) * xs[row, g]) *
+// sg[g, col] (kG 1, weight scales (G, N)) or float(acc) * xs[row, g] (kG
+// 2, per-row weight scales, applied after the sum), in group order; the
+// epilogue then adds the bias, casts and adds the residual as above.
+//
 // Numerics (those of the twins and the TPU kernels): LN in f32 (mean, then
 // the mean of squared deviations, (x - mean) * (1 / sqrt(var + eps)), * w +
 // b), rounded to bf16, with the two means summed in f64 and rounded once
@@ -93,13 +103,16 @@ __device__ __forceinline__ float vec_at(const void* p, int i) {
   return __ldg(static_cast<const float*>(p) + i);
 }
 
-template <bool kLN, int kChunks>
+template <bool kLN, int kChunks, bool kGrouped>
 __global__ void __launch_bounds__(kRowWarps * 32)
 w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void* ln_b,
               int vec_bf16, float eps, int8_t* __restrict__ q, float* __restrict__ xs_out, int M,
-              int K) {
+              int K, int gsize) {
   // the block's LN vectors, loaded once while the rows are in flight
   __shared__ float4 lnp[2][kLN ? kChunks * 32 : 1];
+  // kGrouped: each warp's 32-column maxima, then its row's group scales
+  __shared__ float seg_sh[kGrouped ? kRowWarps : 1][kGrouped ? kMaxK / 32 : 1];
+  __shared__ float xs_sh[kGrouped ? kRowWarps : 1][kGrouped ? kMaxK / 32 : 1];
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const bool live = row < M;
@@ -167,6 +180,45 @@ w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void*
         r[c] = pack4(v);
       }
   }
+  int8_t* qr = q + (long long)row * K + lane * 4;
+  if (kGrouped) {
+    // groups of gsize columns (a multiple of 32 dividing K): the maximum of
+    // each 32-column segment (8 lanes of a chunk), then each group's over
+    // its segments; the scales go out as xs (M, G) row-major
+    const int w = threadIdx.x >> 5, G = K / gsize, nseg = gsize / 32;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      if (c < nch) {
+        unpack4(r[c], v);
+        float m = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        if ((lane & 7) == 0) seg_sh[w][c * 4 + (lane >> 3)] = m;
+      }
+    __syncwarp();
+    for (int g = lane; g < G; g += 32) {
+      float m = 0.f;
+      for (int i = 0; i < nseg; ++i) m = fmaxf(m, seg_sh[w][g * nseg + i]);
+      const float xs = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+      xs_sh[w][g] = xs;
+      xs_out[(long long)row * G + g] = xs;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      if (c < nch) {
+        unpack4(r[c], v);
+        const float xs = xs_sh[w][(c * 128 + lane * 4) / gsize];
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = max(-127, min(127, __float2int_rn(__fdiv_rn(v[j], xs))));
+          packed |= (uint32_t)(uint8_t)(int8_t)qi << (8 * j);
+        }
+        *reinterpret_cast<uint32_t*>(qr + c * 128) = packed;
+      }
+    return;
+  }
   float am[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
@@ -177,7 +229,6 @@ w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void*
     }
   const float amax = warp_max(fmaxf(fmaxf(am[0], am[1]), fmaxf(am[2], am[3])));
   const float xs = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
-  int8_t* qr = q + (long long)row * K + lane * 4;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
     if (c < nch) {
@@ -193,13 +244,13 @@ w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void*
   if (lane == 0) xs_out[row] = xs;
 }
 
-template <bool kLN, int kChunks>
+template <bool kLN, int kChunks, bool kGrouped = false>
 cudaError_t launch_prologue_k(const __nv_bfloat16* x, const void* ln_w, const void* ln_b,
                               int vec_bf16, float eps, int8_t* q, float* xs, int M, int K,
-                              cudaStream_t st) {
+                              cudaStream_t st, int gsize = 0) {
   const dim3 grid((M + kRowWarps - 1) / kRowWarps);
-  w8a8_prologue<kLN, kChunks><<<grid, kRowWarps * 32, 0, st>>>(x, ln_w, ln_b, vec_bf16, eps, q,
-                                                               xs, M, K);
+  w8a8_prologue<kLN, kChunks, kGrouped><<<grid, kRowWarps * 32, 0, st>>>(
+      x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize);
   return cudaGetLastError();
 }
 
@@ -215,6 +266,22 @@ cudaError_t launch_prologue(const __nv_bfloat16* x, const void* ln_w, const void
   return ln ? launch_prologue_k<true, kMaxK / 128>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st)
             : launch_prologue_k<false, kMaxK / 128>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K,
                                                     st);
+}
+
+// The prologue with per-(row, group of gsize columns) scales, xs (M, K / gsize).
+cudaError_t launch_prologue_grouped(const __nv_bfloat16* x, const void* ln_w, const void* ln_b,
+                                    int vec_bf16, float eps, int8_t* q, float* xs, int M, int K,
+                                    int gsize, cudaStream_t st) {
+  const bool ln = ln_w != nullptr;
+  if (K <= 1024)
+    return ln ? launch_prologue_k<true, 8, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st,
+                                                 gsize)
+              : launch_prologue_k<false, 8, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st,
+                                                  gsize);
+  return ln ? launch_prologue_k<true, kMaxK / 128, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M,
+                                                         K, st, gsize)
+            : launch_prologue_k<false, kMaxK / 128, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M,
+                                                          K, st, gsize);
 }
 
 // ---- GEMM ------------------------------------------------------------------
@@ -239,13 +306,14 @@ struct Ring {
 };
 
 struct Epilogue {
-  const float* xs;       // (M,) row scales of A
-  const float* ws;       // (N,) scales of W
-  const float* vs;       // mode 1: (N,) scales of V
+  const float* xs;       // (M,) row scales of A; grouped: (M, G) row-major
+  const float* ws;       // (N,) scales of W; kG 1: (G, N) row-major
+  const float* vs;       // mode 1: (N,) scales of V; kG 1: (G, N)
   const void* bias;      // mode 0: (N,) bf16 or f32 (the kernel's kBf16Bias), or null
   const __nv_bfloat16* res;   // mode 0: (M, N) row-major residual, or null
   __nv_bfloat16* out;    // (M, N) row-major
   int M, N, K;           // N: output columns (mode 1: u columns, F)
+  int gsize = 0;         // grouped kernels: K columns a group (a multiple of 32), G = K / gsize
 };
 
 template <int kBN>
@@ -256,7 +324,85 @@ __device__ __forceinline__ void wgmma_s8(int* acc, uint64_t da, uint64_t db, int
     wgmma_m64n256k32_s8(acc, da, db, accumulate);
 }
 
-template <int kMode, int kBN, bool kBf16Bias>
+// The f32 value of accumulator element i before the bias: the rescaled int32
+// product acc * (xs * ws) (kG 0), or the sum of the groups' partials (kG 1),
+// times W's row scale (kG 2).
+template <int kG>
+__device__ __forceinline__ float rescaled(const int* acc, const float* sum, int i, float xs,
+                                          float ws) {
+  if constexpr (kG == 0) return __fmul_rn((float)acc[i], __fmul_rn(xs, ws));
+  else if constexpr (kG == 1) return sum[i];
+  else return __fmul_rn(sum[i], ws);
+}
+
+// The k loop of one tile in a grouped mode (kG 1 or 2, see gemm), for the
+// consumer thread of rows r0 and r0 + 8, columns n0 + 8 j + 2 q4 + {0, 1}.
+// The wgmma steps (32 deep) of each gsize-column group accumulate in acc; at
+// the group's last step the consumer waits for them and adds the group's
+// partial to sum: (float(acc) * xs[row, g]) * sg[g, col] (kG 1) or
+// float(acc) * xs[row, g] (kG 2), summed in group order from the first, as
+// the twins' _qdot does. A stage goes back to the producer once its
+// products are done. One wgmma group in flight at a time: the flushes need
+// the int32 sums, so the grouped modes give up the overlap of the slice
+// before with the next.
+template <int kMode, int kBN, int kG>
+__device__ __forceinline__ void grouped_mainloop(int* acc, float* sum, uint32_t base,
+                                                 uint32_t full, uint32_t empty, int& s,
+                                                 int& phase, int wg, int lane, int r0, int n0,
+                                                 int q4, const Epilogue& p) {
+  using R = Ring<kBN>;
+  const int n_k = p.K / kBK, G = p.K / p.gsize;
+  const bool live0 = r0 < p.M, live1 = r0 + 8 < p.M;
+  for (int kc = 0; kc < n_k; ++kc) {
+    mbar_wait(full + 8 * s, phase);
+    const uint32_t a = base + s * R::kStageBytes + wg * 64 * kBK;
+    const uint32_t b = base + s * R::kStageBytes + kTileA;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      const int k0 = kc * kBK + kk * 32;
+      const bool flush = (k0 + 32) % p.gsize == 0;
+      fence_regs<kBN / 2>(acc);
+      wgmma_fence();
+      wgmma_s8<kBN>(acc, wgmma_desc_sw128(a + 32 * kk, 0, 1024),
+                    wgmma_desc_sw128(b + 32 * kk, 0, 1024), k0 % p.gsize != 0);
+      if (!flush && kk != kBK / 32 - 1) continue;
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<kBN / 2>(acc);
+      if (!flush) continue;
+      const int gi = (k0 + 32) / p.gsize - 1;
+      const float xa = live0 ? __ldg(p.xs + (long long)r0 * G + gi) : 0.f;
+      const float xb = live1 ? __ldg(p.xs + (long long)(r0 + 8) * G + gi) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        // mode 1: fragment groups j < kBN / 16 are W's columns, the rest V's
+        const bool is_v = kMode == 1 && j >= kBN / 16;
+        const int col = n0 + 8 * (is_v ? j - kBN / 16 : j) + 2 * q4;
+        float w2[2] = {0.f, 0.f};
+        if (kG == 1 && col < p.N) {
+          const float* sg = (is_v ? p.vs : p.ws) + (long long)gi * p.N + col;
+          w2[0] = __ldg(sg);
+          w2[1] = __ldg(sg + 1);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float part = __fmul_rn((float)acc[i], h ? xb : xa);
+            if (kG == 1) part = __fmul_rn(part, w2[e]);
+            sum[i] = gi == 0 ? part : __fadd_rn(sum[i], part);
+          }
+      }
+    }
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    if (++s == R::kStages) s = 0, phase ^= 1;
+  }
+}
+
+// kG: 0 one scale a row of A and of W; grouped (gsize-column groups of K,
+// A's scales (M, G)), 1 with W's scales (G, N) too, 2 with W's per row.
+template <int kMode, int kBN, bool kBf16Bias, int kG = 0>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* tw,
                                      const CUtensorMap* tv, const Epilogue& p) {
   using R = Ring<kBN>;
@@ -304,9 +450,14 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
   const int tid = threadIdx.x % kWarpgroup, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q4 = lane & 3;
   int acc[kBN / 2];
+  float sum[kBN / 2];                   // grouped: the f32 sum of the groups' rescaled partials
   int s = 0, phase = 0, prev = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = (t / tiles_n) * kBM, n0 = (t % tiles_n) * kCols;
+    if constexpr (kG != 0) {
+      grouped_mainloop<kMode, kBN, kG>(acc, sum, base, full, empty, s, phase, wg, lane,
+                                       m0 + wg * 64 + warp * 16 + g, n0, q4, p);
+    } else {
     for (int kc = 0; kc < n_k; ++kc) {
       mbar_wait(full + 8 * s, phase);
       const uint32_t a = base + s * R::kStageBytes + wg * 64 * kBK;
@@ -327,6 +478,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
     wgmma_wait<0>();
     fence_regs<kBN / 2>(acc);
     if (lane == 0) mbar_arrive(empty + 8 * prev);
+    }
 
     // ---- epilogue: rows g and g + 8 of this warp's 16. The loads it needs
     // (scales, bias, residual) are read-only (ld.global.nc), so each batch
@@ -340,7 +492,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
     for (int h = 0; h < 2; ++h) {
       orow[h] = p.out + (long long)(r0 + 8 * h) * p.N;
       if (live[h]) {
-        xs[h] = __ldg(p.xs + r0 + 8 * h);
+        if (kG == 0) xs[h] = __ldg(p.xs + r0 + 8 * h);
         if (kMode == 0 && p.res != nullptr) rrow[h] = p.res + (long long)(r0 + 8 * h) * p.N;
       }
     }
@@ -356,11 +508,12 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
         const bool in = col < p.N;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          sa[jj][e] = in ? __ldg(p.ws + col + e) : 0.f;
+          // kG 1: W's (and V's) scales were applied group by group
+          sa[jj][e] = in && kG != 1 ? __ldg(p.ws + col + e) : 0.f;
           if (kMode == 0)
             sb[jj][e] = in && p.bias != nullptr ? vec_at<kBf16Bias>(p.bias, col + e) : 0.f;
           else
-            sb[jj][e] = __ldg(p.vs + col + e);    // N is a multiple of kCols
+            sb[jj][e] = kG != 1 ? __ldg(p.vs + col + e) : 0.f;    // N is a multiple of kCols
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h)
@@ -378,17 +531,17 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             if (kMode == 0) {
-              float y = __fmul_rn((float)acc[4 * j + 2 * h + e], __fmul_rn(xs[h], sa[jj][e]));
+              float y = rescaled<kG>(acc, sum, 4 * j + 2 * h + e, xs[h], sa[jj][e]);
               if (p.bias != nullptr) y = __fadd_rn(y, sb[jj][e]);
               o[e] = __float2bfloat16_rn(y);
               if (rrow[h] != nullptr)
                 o[e] = __float2bfloat16_rn(__fadd_rn(
                     __bfloat162float(e == 0 ? rv[h][jj].x : rv[h][jj].y), __bfloat162float(o[e])));
             } else {
-              const float wo = bf16_round(
-                  __fmul_rn((float)acc[4 * j + 2 * h + e], __fmul_rn(xs[h], sa[jj][e])));
-              const float vo = bf16_round(__fmul_rn(
-                  (float)acc[4 * (j + kBN / 16) + 2 * h + e], __fmul_rn(xs[h], sb[jj][e])));
+              const float wo = bf16_round(rescaled<kG>(acc, sum, 4 * j + 2 * h + e, xs[h],
+                                                       sa[jj][e]));
+              const float vo = bf16_round(rescaled<kG>(acc, sum, 4 * (j + kBN / 16) + 2 * h + e,
+                                                       xs[h], sb[jj][e]));
               const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-wo)));
               o[e] = __float2bfloat16_rn(__fmul_rn(bf16_round(__fmul_rn(wo, sig)), vo));
             }
@@ -400,17 +553,17 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
   }
 }
 
-template <int kBN, bool kBf16Bias>
+template <int kBN, bool kBf16Bias, int kG = 0>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 w8a8_wgmma_gemm(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
                 Epilogue p) {
-  gemm<0, kBN, kBf16Bias>(&ta, &tw, &tw, p);
+  gemm<0, kBN, kBf16Bias, kG>(&ta, &tw, &tw, p);
 }
-template <int kBN>
+template <int kBN, int kG = 0>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 w8a8_wgmma_swiglu(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
                   const __grid_constant__ CUtensorMap tv, Epilogue p) {
-  gemm<1, kBN, false>(&ta, &tw, &tv, p);
+  gemm<1, kBN, false, kG>(&ta, &tw, &tv, p);
 }
 
 // ---- host launchers ----------------------------------------------------------
@@ -441,6 +594,27 @@ inline cudaError_t launch_gemm0(int bn, bool bf16_bias, int grid, cudaStream_t s
                      : launch_gemm<w8a8_wgmma_gemm<128, false>, 128>(grid, st, ta, tw, p);
   return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<256, true>, 256>(grid, st, ta, tw, p)
                    : launch_gemm<w8a8_wgmma_gemm<256, false>, 256>(grid, st, ta, tw, p);
+}
+
+// The grouped mode-0 GEMM (128-wide tiles: the f32 sums and the int32
+// accumulators together fit a consumer's registers only there), W's scales
+// (G, N) (w_grouped) or (N,).
+inline cudaError_t launch_gemm0_grouped(bool w_grouped, bool bf16_bias, int grid,
+                                        cudaStream_t st, const CUtensorMap& ta,
+                                        const CUtensorMap& tw, const Epilogue& p) {
+  if (w_grouped)
+    return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<128, true, 1>, 128>(grid, st, ta, tw, p)
+                     : launch_gemm<w8a8_wgmma_gemm<128, false, 1>, 128>(grid, st, ta, tw, p);
+  return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<128, true, 2>, 128>(grid, st, ta, tw, p)
+                   : launch_gemm<w8a8_wgmma_gemm<128, false, 2>, 128>(grid, st, ta, tw, p);
+}
+
+// The grouped mode-1 GEMM, 128-wide tiles (64 rows of W, 64 of V).
+inline cudaError_t launch_swiglu_grouped(bool w_grouped, int grid, cudaStream_t st,
+                                         const CUtensorMap& ta, const CUtensorMap& tw,
+                                         const CUtensorMap& tv, const Epilogue& p) {
+  return w_grouped ? launch_gemm<w8a8_wgmma_swiglu<128, 1>, 128>(grid, st, ta, tw, tv, p)
+                   : launch_gemm<w8a8_wgmma_swiglu<128, 2>, 128>(grid, st, ta, tw, tv, p);
 }
 
 // The mode-1 (SwiGLU) GEMM with bn-wide tiles: bn / 2 rows of W and of V.

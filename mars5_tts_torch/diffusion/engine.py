@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..config import DSH
+from ..models.layers import DEFAULT_OPTIONS, NarOptions
 from ..models.nar import (ResidualTransformer, fold_quant_heads, nar_heads_folded,
                           nar_heads_prequant)
 from ..ops.kernels.diffusion_tail import diffusion_tail, heads_diffusion_tail, tail_scalars
@@ -72,7 +73,8 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                              retain_quant0: bool = True,
                              generator: torch.Generator | None = None,
                              uniforms=None, x_init=None, tail: str = "heads",
-                             mega: MegaPack | None = None):
+                             mega: MegaPack | None = None,
+                             options: NarOptions = DEFAULT_OPTIONS):
     """Run the whole inpainting trajectory.
 
     batch: (c_text (bs, Lt), c_codes (bs, Lc, 8), c_texts_length (bs,),
@@ -81,7 +83,8 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     Returns the (bs, Lx, 8) int64 grid on the model's device, deep-clone
     prompt frames cropped (each row at its own prompt length). ``tail`` ("heads", "split" or "dense") picks a
     W8A8 model's tail on the generator path and ``mega`` (a ``MegaPack``)
-    its decoder stack route, as in the module docstring.
+    its decoder stack route, as in the module docstring; ``options``
+    (``models.layers.NarOptions``) the encoder's and decoder's routes.
     """
     if tail not in TAILS:
         raise ValueError(f"unknown tail {tail!r}; expected one of {TAILS}")
@@ -145,7 +148,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     t_lasts, is_reverse, cs = build_step_plan(T, dsh.jump_len, dsh.jump_n_sample)
     out = _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x_cur, x_known,
                       xpm, x_quant0, t_lasts, is_reverse, cs, uniforms, generator,
-                      offset, retain_quant0, tail, mega, offsets)
+                      offset, retain_quant0, tail, mega, offsets, options)
     if offsets is not None:         # each row's generated frames at its own offset
         return torch.stack([out[r, lc:lc + lx] for r, lc in enumerate(offsets)])
     return out[:, offset:offset + lx]
@@ -153,7 +156,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
 
 def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                 x_quant0, t_lasts, is_reverse, cs, uniforms, generator, offset,
-                retain_quant0, tail, mega, offsets=None):
+                retain_quant0, tail, mega, offsets=None, options=DEFAULT_OPTIONS):
     dev = x.device
     bs, _, n_lanes = x.shape
     K = diff.num_classes
@@ -185,7 +188,8 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
     t_enc_all, t_dec_all = model.timestep_mlps(torch.arange(T, device=dev), c_base.dtype)
     c_all = (c_base[None] + t_enc_all[:, None, None]).reshape(T * rows, lc, dim)
     cp_all = c_padding[None].expand(T, rows, lc).reshape(T * rows, lc)
-    memory_all = model.tfm.encoder(c_all, key_padding_mask=cp_all).reshape(T, rows, lc, dim)
+    memory_all = model.tfm.encoder(c_all, key_padding_mask=cp_all,
+                                   options=options).reshape(T, rows, lc, dim)
 
     # W8A8: the heads' LN affines folded into requantized head weights
     folded = fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized else None
@@ -196,7 +200,7 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         xr = torch.cat([x, x]) if cfg_batched else x
         return model.decoder_apply(xr, xpm_rows, t_dec_all[t_last][None].expand(rows, dim),
                                    memory_all[t_last], c_padding, q_tail_start=offset,
-                                   mega=mega)
+                                   mega=mega, options=options)
 
     def x0_logits(x, t_last):
         """CFG-combined f32 x0 logits on the generated frames, lanes 1.."""

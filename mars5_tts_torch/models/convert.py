@@ -13,8 +13,9 @@ Encodec and Vocos take the JAX pytree directly (``encodec_from_pytree``,
 ``vocos_from_pytree``).
 
 A NAR pytree quantized by the JAX package's ``quantize_nar`` (per-row
-``{"q", "s"}`` leaves) converts to a state dict with ``<weight>.q`` /
-``<weight>.s`` entries, which ``load_nar`` loads into a W8A8 model.
+``{"q", "s"}`` leaves, or ``{"q", "sg"}`` with ``w_gsize``) converts to a
+state dict with ``<weight>.q`` / ``<weight>.s`` (or ``<weight>.sg``, (G, N))
+entries, which ``load_nar`` loads into a W8A8 model.
 """
 
 from __future__ import annotations
@@ -120,7 +121,9 @@ def load_nar(sd, cfg: ResidualTransformerConfig, dtype=torch.float32,
     for key in sd:
         if key.endswith(".q"):
             owner, name = key[:-2].rsplit(".", 1)
-            set_weight(model.get_submodule(owner), name, QuantWeight.empty(*sd[key].shape))
+            sg = sd.get(key[:-2] + ".sg")
+            set_weight(model.get_submodule(owner), name,
+                       QuantWeight.empty(*sd[key].shape, groups=0 if sg is None else sg.shape[0]))
     return _load(model, {k: _np(v) for k, v in sd.items()}, dtype, device)
 
 
@@ -133,12 +136,18 @@ def _flat3(w):
 
 
 def _weight(out: dict, key: str, leaf, i, fn=lambda a: a) -> None:
-    """Entry ``i`` of a stacked weight, through ``fn``, under ``key``; a
-    quantized leaf ({"q", "s"}) gives ``key.q`` and ``key.s``."""
-    if isinstance(leaf, dict):
-        out[key + ".q"], out[key + ".s"] = fn(_np(leaf["q"][i])), fn(_np(leaf["s"][i]))
-    else:
+    """Entry ``i`` of a stacked weight, through ``fn`` (which takes and
+    returns output rows first), under ``key``; a quantized leaf gives
+    ``key.q`` and ``key.s`` ({"q", "s"}) or ``key.sg`` ({"q", "sg"}: (..., G,
+    N) group scales, through ``fn`` along their output axis, to (G, N'))."""
+    if not isinstance(leaf, dict):
         out[key] = fn(_np(leaf[i]))
+        return
+    out[key + ".q"] = fn(_np(leaf["q"][i]))
+    if "sg" in leaf:
+        out[key + ".sg"] = np.moveaxis(fn(np.moveaxis(_np(leaf["sg"][i]), -2, -1)), -1, 0)
+    else:
+        out[key + ".s"] = fn(_np(leaf["s"][i]))
 
 
 def _stack_to_sd(stack, prefix: str, n_layers: int, out: dict) -> None:

@@ -13,13 +13,17 @@ and each stack ends with a LayerNorm (eps 4e-5).
 
 Weights may be W8A8 (``ops/quant.py``). A quantized decoder layer runs the
 serving path of the JAX package's ``decoder_layer_fused``
-(:meth:`DecoderLayer.forward_w8a8`); a quantized encoder layer runs unfused
-W8A8 products. Given a ``MegaPack``, a quantized decoder stack runs whole
-through kernel K9 (``ops/kernels/nar_mega.py``), the JAX ``MARS5_NAR_MEGA``
-route.
+(:meth:`DecoderLayer.forward_w8a8`) over the fused sites its
+:class:`NarOptions` name, or, with ``fused=False``, the JAX
+``decoder_layer`` body with unfused W8A8 products; a quantized encoder layer
+runs unfused W8A8 products. Given a ``MegaPack``, a quantized decoder stack
+runs whole through kernel K9 (``ops/kernels/nar_mega.py``), the JAX
+``MARS5_NAR_MEGA`` route.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -30,9 +34,46 @@ from ..ops.kernels import mha as mha_kernel
 from ..ops.kernels.nar_fused import fused_ffn, fused_linear
 from ..ops.kernels.nar_mega import mega_decoder_stack
 from ..ops.norms import layer_norm
-from ..ops.quant import is_quantized, linear_any, linear_w8a8
+from ..ops.quant import is_quantized, linear_any, slice_rows
 
 LAYERNORM_EPS = 4e-5
+NAR_SITES = ("qkv", "saout", "caq", "caout", "ffn")     # the W8A8 GEMM sites K3/K4 can run
+
+
+@dataclass(frozen=True)
+class NarOptions:
+    """The NAR's routes, one to one with the JAX package's environment
+    knobs: ``fused`` (``MARS5_NAR_FUSED``) the fused W8A8 decoder layer,
+    over the GEMM ``sites`` (``MARS5_NARF_SITES``, a subset of NAR_SITES)
+    that run in K3/K4 with activation groups of ``gsize`` columns
+    (``MARS5_NARF_GSIZE``, 0 one a row); ``qattn`` (``MARS5_QATTN``) K1's
+    int8 mode for attention with a quantized in-projection; ``cross_k1``
+    (``MARS5_CROSS_PALLAS``) long-query cross-attention through K1. The
+    last two act where the JAX package's ``torch_mha`` does: the encoder
+    layers and the unfused decoder layer (the fused one calls K1 in bf16
+    for its self-attention and plain attention across, as
+    ``decoder_layer_fused`` does)."""
+    fused: bool = True
+    sites: tuple = ("qkv", "caq", "ffn")
+    gsize: int = 0
+    qattn: bool = False
+    cross_k1: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "sites", tuple(self.sites))
+        bad = [s for s in self.sites if s not in NAR_SITES]
+        if bad:
+            raise ValueError(f"unknown NAR sites {bad}; expected a subset of {NAR_SITES}")
+        if self.gsize < 0:
+            raise ValueError(f"gsize must be >= 0, got {self.gsize}")
+
+    def groups(self, k_dim: int) -> int:
+        """Activation groups of a fused GEMM over ``k_dim`` columns (JAX
+        ``gct``): one a row unless ``gsize`` divides ``k_dim``."""
+        return k_dim // self.gsize if self.gsize and k_dim % self.gsize == 0 else 1
+
+
+DEFAULT_OPTIONS = NarOptions()
 
 
 class LayerNorm(nn.Module):
@@ -58,10 +99,11 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, q_in, kv_in, key_padding_mask=None):
+    def forward(self, q_in, kv_in, key_padding_mask=None, options: NarOptions = DEFAULT_OPTIONS):
         return torch_mha(self.in_proj_weight, self.in_proj_bias,
                          self.out_proj.weight, self.out_proj.bias,
-                         q_in, kv_in, self.nhead, key_padding_mask)
+                         q_in, kv_in, self.nhead, key_padding_mask,
+                         qattn=options.qattn, cross_k1=options.cross_k1)
 
 
 class SwiGLU(nn.Module):
@@ -86,9 +128,9 @@ class EncoderLayer(nn.Module):
     def ff(self, h):
         return linear_any(self.activation(h), self.linear2.weight, self.linear2.bias)
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, options: NarOptions = DEFAULT_OPTIONS):
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, key_padding_mask)
+        x = x + self.self_attn(h, h, key_padding_mask, options)
         return x + self.ff(self.norm2(x))
 
 
@@ -103,57 +145,86 @@ class DecoderLayer(EncoderLayer):
         return is_quantized(self.activation.W.weight)
 
     def forward(self, x, memory, tgt_key_padding_mask=None,
-                memory_key_padding_mask=None):
-        if self.is_quantized:
+                memory_key_padding_mask=None, options: NarOptions = DEFAULT_OPTIONS):
+        """The layer; a W8A8 one runs ``forward_w8a8`` when ``options.fused``,
+        else the JAX ``decoder_layer`` body below with unfused products."""
+        if self.is_quantized and options.fused:
             return self.forward_w8a8(x, memory, tgt_key_padding_mask,
-                                     memory_key_padding_mask)
+                                     memory_key_padding_mask, options=options)
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, tgt_key_padding_mask)
-        x = x + self.multihead_attn(self.norm2(x), memory, memory_key_padding_mask)
+        x = x + self.self_attn(h, h, tgt_key_padding_mask, options)
+        x = x + self.multihead_attn(self.norm2(x), memory, memory_key_padding_mask, options)
         return x + self.ff(self.norm3(x))
 
     def forward_w8a8(self, x, memory, tgt_key_padding_mask=None,
-                     memory_key_padding_mask=None, q_start: int = 0):
-        """The W8A8 layer with the JAX package's default fused sites
-        (``decoder_layer_fused``): qkv through K3 with the LN1 prologue, K1
-        self-attention, the self-attention out-projection unfused, the
-        cross-attention q through K3 with the LN2 prologue, plain
-        cross-attention over the unfused K/V projection of the memory, its
-        out-projection unfused, and the FFN through K4. The JAX package takes
-        the fused sites on a TPU only from 1024 rows up, for launch overhead
-        there; the port always takes them (the same math).
+                     memory_key_padding_mask=None, q_start: int = 0,
+                     options: NarOptions = DEFAULT_OPTIONS):
+        """The W8A8 layer of the JAX package's ``decoder_layer_fused``: each
+        GEMM site in ``options.sites`` through K3/K4, with
+        ``options.groups(K)`` activation groups, the others LN +
+        ``linear_any``. The default sites: qkv through K3 with the LN1
+        prologue, K1 self-attention, the self-attention out-projection
+        unfused, the cross-attention q through K3 with the LN2 prologue,
+        plain cross-attention over the unfused K/V projection of the memory,
+        its out-projection unfused, and the FFN through K4; ``saout`` and
+        ``caout`` run the out-projections through K3 with the residual
+        added in its epilogue. The JAX package takes the fused sites on a
+        TPU only from 1024 rows up, for launch overhead there; the port
+        always takes them (the same math).
 
         ``q_start > 0``: everything after the K/V projection runs on rows
         ``[q_start:]`` only, and the layer returns (B, L - q_start, D).
         """
+        sites = options.sites
         b, l, d = x.shape
+        g = options.groups(d)
         sa, ca = self.self_attn, self.multihead_attn
         nh = sa.nhead
         hd = d // nh
         w = sa.in_proj_weight
-        qkv = fused_linear(x, (w.q, w.s), ln=(self.norm1.weight, self.norm1.bias),
-                           bias=sa.in_proj_bias, eps=self.norm1.eps)
+        if "qkv" in sites:
+            qkv = fused_linear(x, (w.q, w.scales), ln=(self.norm1.weight, self.norm1.bias),
+                               bias=sa.in_proj_bias, eps=self.norm1.eps, groups=g)
+        else:
+            qkv = linear_any(self.norm1(x), w, sa.in_proj_bias)
         q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, l, nh, hd) for i in range(3))
         if q_start:
             q, x = q[:, q_start:], x[:, q_start:]
             l -= q_start
         a = mha_kernel.mha(q, k, v, tgt_key_padding_mask).reshape(b, l, d)
-        x = x + linear_any(a, sa.out_proj.weight, sa.out_proj.bias)
+        w = sa.out_proj.weight
+        if "saout" in sites:
+            x = fused_linear(a, (w.q, w.scales), bias=sa.out_proj.bias, residual=x.contiguous(),
+                             groups=g)
+        else:
+            x = x + linear_any(a, w, sa.out_proj.bias)
 
         w = ca.in_proj_weight
-        hq = fused_linear(x, (w.q[:d], w.s[:d]), ln=(self.norm2.weight, self.norm2.bias),
-                          bias=ca.in_proj_bias[:d], eps=self.norm2.eps)
-        kv = linear_w8a8(memory, w.q[d:], w.s[d:], ca.in_proj_bias[d:])
+        if "caq" in sites:
+            wq = slice_rows(w, 0, d)
+            hq = fused_linear(x, (wq.q, wq.scales), ln=(self.norm2.weight, self.norm2.bias),
+                              bias=ca.in_proj_bias[:d], eps=self.norm2.eps, groups=g)
+        else:
+            hq = linear_any(self.norm2(x), slice_rows(w, 0, d), ca.in_proj_bias[:d])
+        kv = linear_any(memory, slice_rows(w, d, 3 * d), ca.in_proj_bias[d:])
         lk = kv.shape[1]
         mask = (None if memory_key_padding_mask is None
                 else ~memory_key_padding_mask[:, None, None, :])
         c = sdpa(hq.reshape(b, l, nh, hd), kv[..., :d].reshape(b, lk, nh, hd),
-                 kv[..., d:].reshape(b, lk, nh, hd), mask)
-        x = x + linear_any(c.reshape(b, l, d), ca.out_proj.weight, ca.out_proj.bias)
+                 kv[..., d:].reshape(b, lk, nh, hd), mask).reshape(b, l, d)
+        w = ca.out_proj.weight
+        if "caout" in sites:
+            x = fused_linear(c.contiguous(), (w.q, w.scales), bias=ca.out_proj.bias,
+                             residual=x.contiguous(), groups=g)
+        else:
+            x = x + linear_any(c, w, ca.out_proj.bias)
 
+        if "ffn" not in sites:
+            return x + self.ff(self.norm3(x))
         W, V, l2 = self.activation.W.weight, self.activation.V.weight, self.linear2.weight
-        return fused_ffn(x, (self.norm3.weight, self.norm3.bias), (W.q, W.s), (V.q, V.s),
-                         (l2.q, l2.s), self.linear2.bias, eps=self.norm3.eps)
+        return fused_ffn(x, (self.norm3.weight, self.norm3.bias), (W.q, W.scales),
+                         (V.q, V.scales), (l2.q, l2.scales), self.linear2.bias,
+                         eps=self.norm3.eps, groups=g, groups2=options.groups(l2.q.shape[1]))
 
 
 class TransformerEncoder(nn.Module):
@@ -163,9 +234,9 @@ class TransformerEncoder(nn.Module):
                                     for _ in range(n_layers))
         self.norm = LayerNorm(dim)
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, options: NarOptions = DEFAULT_OPTIONS):
         for layer in self.layers:
-            x = layer(x, key_padding_mask)
+            x = layer(x, key_padding_mask, options)
         return self.norm(x)
 
 
@@ -177,10 +248,13 @@ class TransformerDecoder(nn.Module):
         self.norm = LayerNorm(dim)
 
     def forward(self, x, memory, tgt_key_padding_mask=None,
-                memory_key_padding_mask=None, q_tail_start: int = 0, mega=None):
+                memory_key_padding_mask=None, q_tail_start: int = 0, mega=None,
+                options: NarOptions = DEFAULT_OPTIONS):
         """Stacked decoder layers + final LayerNorm. ``q_tail_start > 0`` returns
-        only rows from that index on, (B, L - q_tail_start, D); a W8A8 stack
-        then runs its last layer past the K/V projection on those rows only.
+        only rows from that index on, (B, L - q_tail_start, D); a fused W8A8
+        stack then runs its last layer past the K/V projection on those rows
+        only (the unfused one, as the JAX ``decoder_stack``, slices at the
+        end). ``options``: the layers' routes (:class:`NarOptions`).
 
         ``mega``: this stack's ``build_mega_pack``; the layers then run as one
         K9 call over every row (as the JAX package's mega route does), the
@@ -191,12 +265,13 @@ class TransformerDecoder(nn.Module):
                                              eps=self.layers[0].norm1.eps))
             return x[:, q_tail_start:] if q_tail_start else x
         last = self.layers[-1]
-        sliced = bool(q_tail_start) and last.is_quantized
+        sliced = bool(q_tail_start) and last.is_quantized and options.fused
         for layer in self.layers[:-1] if sliced else self.layers:
-            x = layer(x, memory, tgt_key_padding_mask, memory_key_padding_mask)
+            x = layer(x, memory, tgt_key_padding_mask, memory_key_padding_mask, options)
         if sliced:
             return self.norm(last.forward_w8a8(x, memory, tgt_key_padding_mask,
-                                               memory_key_padding_mask, q_tail_start))
+                                               memory_key_padding_mask, q_tail_start,
+                                               options))
         x = self.norm(x)
         return x[:, q_tail_start:] if q_tail_start else x
 

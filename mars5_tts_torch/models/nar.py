@@ -26,7 +26,8 @@ from ..ops.embeddings import timestep_embedding
 from ..ops.quant import int8_matmul, is_quantized, linear_any, quantize_act
 from ..utils.masks import length_to_mask
 from .ar import ChunkedEmbedding, SinePositionalEmbedding
-from .layers import LayerNorm, TransformerDecoder, TransformerEncoder, init_params_
+from .layers import (DEFAULT_OPTIONS, LayerNorm, NarOptions, TransformerDecoder,
+                     TransformerEncoder, init_params_)
 
 
 @dataclass(frozen=True)
@@ -127,18 +128,21 @@ class ResidualTransformer(nn.Module):
         return self.cond_pos_embedding(c), c_padding
 
     def decoder_apply(self, x, x_padding_mask, t_dec, memory, c_padding,
-                      q_tail_start: int = 0, mega=None):
+                      q_tail_start: int = 0, mega=None,
+                      options: NarOptions = DEFAULT_OPTIONS):
         """Decoder stream and stack over a precomputed encoder memory;
         returns (bs, Lx - q_tail_start, dim). ``mega``: the decoder's
-        ``build_mega_pack``, to run the stack through kernel K9."""
+        ``build_mega_pack``, to run the stack through kernel K9; ``options``
+        the layers' routes."""
         h = self.pos_embedding(self.residual_encoder(x))
         h = h + t_dec[:, None]
         return self.tfm.decoder(h, memory, tgt_key_padding_mask=x_padding_mask,
                                 memory_key_padding_mask=c_padding,
-                                q_tail_start=q_tail_start, mega=mega)
+                                q_tail_start=q_tail_start, mega=mega, options=options)
 
     def backbone(self, c_text, c_codes, c_texts_length, c_codes_length, x,
-                 x_padding_mask, t, drop_cond=None, spk=None):
+                 x_padding_mask, t, drop_cond=None, spk=None,
+                 options: NarOptions = DEFAULT_OPTIONS):
         """Everything up to the output heads: (bs, Lx, dim)."""
         if spk is None:
             if drop_cond is not None:
@@ -148,8 +152,10 @@ class ResidualTransformer(nn.Module):
             spk = self.spk_embedding(c_codes, c_codes_length)
         t_enc, t_dec = self.timestep_mlps(t, self.text_embed.weight.dtype)
         c, c_padding = self.enc_inputs(c_text, c_texts_length, spk)
-        memory = self.tfm.encoder(c + t_enc[:, None], key_padding_mask=c_padding)
-        return self.decoder_apply(x, x_padding_mask, t_dec, memory, c_padding)
+        memory = self.tfm.encoder(c + t_enc[:, None], key_padding_mask=c_padding,
+                                  options=options)
+        return self.decoder_apply(x, x_padding_mask, t_dec, memory, c_padding,
+                                  options=options)
 
     def heads(self, out, lanes=None):
         """Per-codebook LayerNorm -> Linear heads: (bs, L, len(lanes), n_quant)."""

@@ -10,13 +10,20 @@ import math
 import torch
 
 from .kernels import mha as mha_kernel
-from .quant import linear_any
+from .quant import is_quantized, linear_any, slice_rows
 
 NEG_INF = float("-inf")
 
-# self-attention at or above this many queries goes to kernel K1 on CUDA,
-# the same threshold at which the JAX package takes its Pallas kernel on TPU
+# attention with at least this many queries goes to kernel K1 on CUDA, the
+# same threshold at which the JAX package takes its Pallas kernel on TPU
 KERNEL_SELF_ATTN_MIN_LEN = 512
+
+
+def kernel_route(t) -> bool:
+    """Whether attention over tensors like ``t`` takes kernel K1's route
+    (given the length conditions of ``torch_mha``): on the card, as the JAX
+    package takes its Pallas kernel only on a TPU (``ops.pallas.enabled``)."""
+    return t.is_cuda
 
 
 def linear(x, w, b=None):
@@ -51,13 +58,16 @@ def sdpa(q, k, v, mask=None):
 
 
 def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
-              key_padding_mask=None):
+              key_padding_mask=None, *, qattn: bool = False, cross_k1: bool = False):
     """torch ``nn.MultiheadAttention`` forward (batch_first).
 
     in_w (3D, D) / in_b (3D,) are torch's fused in-projection; out_w/out_b the
-    out-projection (either may be a ``QuantWeight`` for self-attention, which
-    then runs W8A8). key_padding_mask (B, Lk) bool, True = ignore. Attention
-    with Lq == Lk >= 512 runs kernel K1 on CUDA tensors and plain ``sdpa``
+    out-projection (any of them may be a ``QuantWeight``, which then runs
+    W8A8). key_padding_mask (B, Lk) bool, True = ignore. Attention with at
+    least ``KERNEL_SELF_ATTN_MIN_LEN`` queries and Lq == Lk, or any Lk with
+    ``cross_k1`` (JAX ``MARS5_CROSS_PALLAS``), takes kernel K1's route
+    (``kernel_route``: CUDA tensors), in its int8 mode with ``qattn`` (JAX
+    ``MARS5_QATTN``) when the in-projection is quantized; plain ``sdpa``
     otherwise.
     """
     d = q_in.shape[-1]
@@ -67,14 +77,15 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
         qkv = linear_any(q_in, in_w, in_b)
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     else:
-        q = linear(q_in, in_w[:d], in_b[:d])
-        kv = linear(kv_in, in_w[d:], in_b[d:])
+        q = linear_any(q_in, slice_rows(in_w, 0, d), in_b[:d])
+        kv = linear_any(kv_in, slice_rows(in_w, d, 3 * d), in_b[d:])
         k, v = kv[..., :d], kv[..., d:]
     q = q.reshape(b, lq, nhead, d // nhead)
     k = k.reshape(b, lk, nhead, d // nhead)
     v = v.reshape(b, lk, nhead, d // nhead)
-    if lq >= KERNEL_SELF_ATTN_MIN_LEN and lq == lk and q.is_cuda:
-        out = mha_kernel.mha(q, k, v, key_padding_mask)
+    if lq >= KERNEL_SELF_ATTN_MIN_LEN and (lq == lk or cross_k1) and kernel_route(q):
+        out = mha_kernel.mha(q, k, v, key_padding_mask,
+                             quantized=qattn and is_quantized(in_w))
     else:
         mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
         out = sdpa(q, k, v, mask)

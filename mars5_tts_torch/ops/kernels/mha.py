@@ -1,8 +1,11 @@
 """Bidirectional attention kernel K1 (``csrc/mha.cu``) and its plain twin.
 
 Replaces the TPU kernel ``mars5_tts_tpu/ops/pallas/mha.py::_mha_kernel``
-(entry ``sdpa_pallas`` with ``quantized=False``): the NAR decoder's
-self-attention and the speaker encoders' self-attention at 512 frames and up.
+(entry ``sdpa_pallas``): the NAR decoder's self-attention, the speaker
+encoders' self-attention at 512 frames and up and, where asked
+(``ops.attention.torch_mha(cross_k1=True)``), long-query cross-attention;
+``quantized=True`` is its int8 QK / PV mode (``qattn``), which the W8A8
+NAR's unfused layers run.
 
 What bounds it on an H100: at the NAR shape (2, 1200, 16, 64) one call moves
 about 20 MB (q, k, v and the output, bf16) and does
@@ -14,6 +17,9 @@ each CTA 192 queries of one head (three consumer warpgroups) and streams
 4-D tensor maps over the caller's views while the consumers run both
 products on wgmma with an online softmax; the score matrix never reaches
 device memory. The f32 kernel (off the default path) runs on CUDA cores.
+The int8 mode (bf16 only) is a pre-pass that quantizes q and k per row and
+v per channel, then a kernel that walks the keys twice (the row max, then
+p, its sum and PV), both products on ``mma.sync`` s8 (``csrc/mha.cu``).
 
 ``mha`` takes ``mha_ref`` only for CPU tensors. For CUDA tensors it launches
 the kernel or raises; nothing falls back.
@@ -26,22 +32,51 @@ import math
 
 import torch
 
+from ..quant import div, quantize_act
 from . import build
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
 SOURCES = build.LIBRARIES["mha"]
 
-# Launches of the CUDA kernel in this process (reset with reset_launch_count).
+# Launches of the CUDA kernels in this process, all modes, and of those the
+# int8 mode's (reset with reset_launch_count).
 launch_count = 0
+int8_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+    global launch_count, int8_launch_count
+    launch_count = int8_launch_count = 0
 
 
-def mha_ref(q, k, v, key_padding_mask=None):
+def _mha_int8_ref(q, k, v, key_padding_mask, stats: bool = False):
+    """The int8 mode of ``mha_ref`` (JAX ``_mha_kernel(quantized=True)``);
+    ``stats`` also returns v's channel scales vs (B, 1, H, D) and the row
+    sums r (B, Lq, H, 1)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    q8, qs = quantize_act(q.float())                      # (B, L, H, D), (B, L, H, 1)
+    k8, ks = quantize_act(k.float())
+    # integer products in f64: exact (|sums| < 2^53), rounded once to f32 as
+    # the int32 -> f32 conversion does
+    si = torch.einsum("bqhd,bkhd->bhqk", q8.double(), k8.double()).float()
+    s = (si * (qs * scale).permute(0, 2, 1, 3)) * ks.permute(0, 2, 3, 1)
+    if key_padding_mask is not None:
+        s = s.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2((s - m) * LOG2E)
+    r = p.sum(dim=-1, keepdim=True)                       # (B, H, Lq, 1)
+    vf = v.float()
+    vs = div(vf.abs().amax(dim=1, keepdim=True).clamp_min(1e-8), 127.0)   # (B, 1, H, D)
+    v8 = torch.round(vf / vs).clamp(-127, 127)
+    p8 = torch.round(p * 127.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", p8.double(), v8.double()).float() * div(vs, 127.0)
+    r = r.permute(0, 2, 1, 3)
+    out = (o / r).to(q.dtype)
+    return (out, vs, r) if stats else out
+
+
+def mha_ref(q, k, v, key_padding_mask=None, quantized: bool = False):
     """Plain PyTorch version of the kernel's math.
 
     q (B, Lq, H, D), k/v (B, Lk, H, D); key_padding_mask (B, Lk) bool,
@@ -49,7 +84,14 @@ def mha_ref(q, k, v, key_padding_mask=None):
     the 1/sqrt(D) scale folded in, PV on probabilities rounded to the input
     dtype with f32 accumulation, and division by the f32 row sum last.
     Unlike ``ops.attention.sdpa`` it never rounds the scores to bf16.
+
+    ``quantized``: the int8 mode. q and k int8 per row, s = (float(q8 .
+    k8) * (qs * scale)) * ks; p = exp2((s - max) * log2e) against the full
+    row's max; v int8 per channel over all Lk keys (masked ones included);
+    o = float(rint(p * 127) . v8) * (vs / 127), then / sum(p).
     """
+    if quantized:
+        return _mha_int8_ref(q, k, v, key_padding_mask)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if key_padding_mask is not None:
@@ -59,6 +101,18 @@ def mha_ref(q, k, v, key_padding_mask=None):
     r = p.sum(dim=-1, keepdim=True)                       # (B, H, Lq, 1)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
     return (o / r.permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def int8_bound(q, k, v, key_padding_mask=None, flips: int = 2):
+    """(the twin's int8-mode output, the stated tolerance of the kernel
+    against it per element). A step of one p8 (p * 127 within an ulp of a
+    half, should the kernel's exp2 round differently from the twin's) moves
+    an output by |v8| vs / 127 / r <= vs / r (|v8| <= 127): the tolerance is
+    ``flips`` such steps plus 1 bf16 ulp of the output (the kernel's f32 row
+    sum, taken in another order, may round o / r across a bf16 boundary)."""
+    ref, vs, r = _mha_int8_ref(q, k, v, key_padding_mask, stats=True)
+    peak = ref.float().abs().clamp_min(2.0 ** -100)
+    return ref, flips * vs / r + torch.exp2(torch.floor(torch.log2(peak)) - 7)
 
 
 def bf16_row_bound(ref):
@@ -146,26 +200,51 @@ def launch_args(q, k, v, key_padding_mask=None):
             *tensor_map_strides(v))
 
 
-def mha(q, k, v, key_padding_mask=None):
-    """Attention of q (B, Lq, H, D) over k/v (B, Lk, H, D) -> (B, Lq, H, D).
+def _int8_lib():
+    lib = build.load("mha", SOURCES)
+    fn = lib.mars5_mha_int8_fwd
+    if fn.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, vp]
+        fn.restype = ctypes.c_int
+        lib.mars5_mha_int8_scratch_bytes.argtypes = [i, i, i, i]
+        lib.mars5_mha_int8_scratch_bytes.restype = ll
+    return lib
+
+
+def mha(q, k, v, key_padding_mask=None, quantized: bool = False):
+    """Attention of q (B, Lq, H, D) over k/v (B, Lk, H, D) -> (B, Lq, H, D);
+    ``quantized``: the int8 QK / PV mode (``mha_ref``).
 
     CPU tensors take ``mha_ref``; CUDA tensors launch the kernel (bf16 or
-    f32, D = 64, views as ``tensor_map_strides`` takes them) and raise on
-    anything it does not take (``launch_args``).
+    f32, the int8 mode bf16 only; D = 64, views as ``tensor_map_strides``
+    takes them) and raise on anything it does not take (``launch_args``).
     """
     if q.device.type == "cpu":
-        return mha_ref(q, k, v, key_padding_mask)
+        return mha_ref(q, k, v, key_padding_mask, quantized)
     if q.device.type != "cuda":
         raise ValueError(f"mha: unsupported device {q.device}")
     args = launch_args(q, k, v, key_padding_mask)
+    if quantized and q.dtype != torch.bfloat16:
+        raise ValueError(f"mha: the int8 mode takes bf16, got {q.dtype}")
     mask_ptr = None
     if key_padding_mask is not None:
         key_padding_mask = key_padding_mask.to(q.device).contiguous()
         mask_ptr = key_padding_mask.data_ptr()
-    b, lq, _, h, d = args[:5]
+    b, lq, lk, h, d = args[:5]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
-    build.call(q.device, _lib(), int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), mask_ptr, out.data_ptr(), *args, 1.0 / math.sqrt(d))
-    global launch_count
+    global launch_count, int8_launch_count
+    if quantized:
+        lib = _int8_lib()
+        scratch = torch.empty(lib.mars5_mha_int8_scratch_bytes(b, lq, lk, h), dtype=torch.int8,
+                              device=q.device)
+        build.call(q.device, lib.mars5_mha_int8_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   mask_ptr, out.data_ptr(), scratch.data_ptr(), *args, 1.0 / math.sqrt(d))
+        int8_launch_count += 1
+    else:
+        build.call(q.device, _lib(), int(q.dtype == torch.bfloat16), q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), *args,
+                   1.0 / math.sqrt(d))
     launch_count += 1
     return out

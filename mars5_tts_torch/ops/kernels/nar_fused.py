@@ -3,8 +3,9 @@
 plain twins.
 
 Replace the TPU kernels ``mars5_tts_tpu/ops/pallas/nar_fused.py::_lin_kernel``
-(entry ``fused_linear``) and ``::_ffn_kernel`` (entry ``fused_ffn``) at
-``groups=1`` (per-row activation and weight scales):
+(entry ``fused_linear``) and ``::_ffn_kernel`` (entry ``fused_ffn``), with
+per-row activation and weight scales (``groups=1``) or per K group
+(``groups`` > 1, the fidelity mode of ``quantize_nar(w_gsize=)``):
 
 * ``fused_linear``: [LayerNorm ->] per-row int8 act quant -> int8 x int8 ->
   int32 GEMM -> f32 rescale [+ bias] -> bf16 [+ bf16 residual]. The decoder
@@ -39,6 +40,16 @@ in bf16. The integer GEMM is exact and the LN statistics are summed in f64
 and rounded once, in kernel and twin alike, so the two differ only through
 ``expf`` in the sigmoid.
 
+Grouped (JAX ``_qdot`` with ``groups`` > 1): the activations are quantized
+per (row, group of K / groups columns), scales (M, G); each group's int32
+partial becomes ``(acc * xs_g) * sg[g]`` for weights with group scales sg
+(G, N), or ``acc * xs_g`` for per-row weights (times s after the sum); the
+partials are summed in group order from the first, then the bias, the cast
+and the residual as above. The kernels flush the int32 accumulator into an
+f32 sum at each group's end (a group a multiple of 32 columns, one s8 wgmma
+step) on 128-wide tiles (the sum and the accumulator together fit the
+registers only there).
+
 ``fused_linear``/``fused_ffn`` take the twins only for CPU tensors. For CUDA
 tensors they launch the kernels or raise; nothing falls back.
 """
@@ -59,16 +70,22 @@ N_MULTIPLE = 64      # output columns: a multiple of 64 (tiles may be ragged)
 MAX_K = 3072         # a prologue warp holds a row of up to 3072 values in registers
 TILE_M = 128         # rows a GEMM tile: two consumer warpgroups of 64
 TILE_B = (256, 128)  # weight rows a GEMM tile, the wider first (K4's W and V GEMM: half each)
+GROUP_MULTIPLE = 32  # a K group of the grouped kernels: whole s8 wgmma steps (32 deep)
 H100_SMS = 132
 
-# Launches of the CUDA kernels in this process (reset with reset_launch_counts).
+# Launches of the CUDA kernels in this process, and of those the grouped
+# ones (reset with reset_launch_counts).
 fused_linear_launches = 0
 fused_ffn_launches = 0
+fused_linear_grouped_launches = 0
+fused_ffn_grouped_launches = 0
 
 
 def reset_launch_counts() -> None:
     global fused_linear_launches, fused_ffn_launches
+    global fused_linear_grouped_launches, fused_ffn_grouped_launches
     fused_linear_launches = fused_ffn_launches = 0
+    fused_linear_grouped_launches = fused_ffn_grouped_launches = 0
 
 
 # --------------------------------------------------------------- plain twins
@@ -90,10 +107,44 @@ def _ln_bf16_f32(xf, w, b, eps):
     return (y * w.float() + b.float()).to(torch.bfloat16).float()
 
 
-def _qdot(xf, w):
-    """quant -> int8 GEMM -> f32 rescale; xf (M, K) f32, w = (q (N, K), s (N,))."""
-    xq, xs = quantize_act(xf)
-    return int8_matmul(xq, w[0]).float() * (xs * w[1])
+def check_groups(k: int, groups: int, s) -> int:
+    """The group size K / groups of a GEMM over K columns with weight scales
+    ``s``: (N,) per row, or (groups, N) per K group (one group, (1, N), is
+    per row). Raises ValueError when groups does not divide K or ``s`` fits
+    neither (JAX ``_qdot``)."""
+    if groups < 1 or k % groups:
+        raise ValueError(f"nar_fused: groups {groups} does not divide K={k}")
+    if s.ndim == 2 and s.shape[0] not in (groups, 1):
+        raise ValueError(f"nar_fused: weight scale groups {s.shape[0]} != activation groups "
+                         f"{groups}")
+    if s.ndim not in (1, 2):
+        raise ValueError(f"nar_fused: scales must be (N,) or (G, N), got {tuple(s.shape)}")
+    return k // groups
+
+
+def _qdot(xf, w, groups: int = 1):
+    """quant -> int8 GEMM -> f32 rescale; xf (M, K) f32, w = (q (N, K), s),
+    s (N,) per row or (G, N) per K group. groups = 1: ``acc * (xs * s)``.
+    groups > 1 (JAX ``_qdot``): per (row, group) activation scales, each
+    group's int32 partial rescaled ``(acc * xs_g) * s[g]`` (or ``acc *
+    xs_g`` with per-row weight scales, multiplied by s after the sum), the
+    groups summed in order from the first."""
+    q, s = w
+    gs = check_groups(xf.shape[-1], groups, s)
+    if s.ndim == 2 and s.shape[0] == 1:      # one weight group: a scale a row
+        s = s[0]
+    if groups == 1:
+        xq, xs = quantize_act(xf)
+        return int8_matmul(xq, q).float() * (xs * s)
+    out = None
+    for g in range(groups):
+        sl = slice(g * gs, (g + 1) * gs)
+        xq, xs = quantize_act(xf[:, sl])
+        part = int8_matmul(xq, q[:, sl].contiguous()).float() * xs
+        if s.ndim == 2:
+            part = part * s[g]
+        out = part if out is None else out + part
+    return out if s.ndim == 2 else out * s
 
 
 def _silu_mul_bf16(wo, vo):
@@ -103,14 +154,16 @@ def _silu_mul_bf16(wo, vo):
     return (s * vo.float()).to(torch.bfloat16)
 
 
-def fused_linear_ref(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5):
-    """Plain version of K3. x (..., K); w = (q (N, K) int8, s (N,) f32);
-    ln = (weight, bias) of a LayerNorm prologue; residual (..., N)."""
+def fused_linear_ref(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5,
+                     groups: int = 1):
+    """Plain version of K3. x (..., K); w = (q (N, K) int8, s) with s (N,)
+    f32, or (groups, N) with ``groups`` K groups; ln = (weight, bias) of a
+    LayerNorm prologue; residual (..., N)."""
     lead, k = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, k).float()
     if ln is not None:
         xf = _ln_bf16_f32(xf, ln[0], ln[1], eps)
-    y = _qdot(xf, w)
+    y = _qdot(xf, w, groups)
     if bias is not None:
         y = y + bias.float()
     yb = y.to(x.dtype)
@@ -119,16 +172,19 @@ def fused_linear_ref(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e
     return yb.reshape(*lead, -1)
 
 
-def fused_ffn_ref(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5):
+def fused_ffn_ref(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5, groups: int = 1,
+                  groups2: int | None = None):
     """Plain version of K4: x + lin2(silu(LN(x) W^T) * LN(x) V^T) with the W8A8
-    chain; w, v, lin2 are (q, s) pairs, ln = (weight, bias)."""
+    chain; w, v, lin2 are (q, s) pairs, ln = (weight, bias). ``groups`` K
+    groups for the W and V GEMM, ``groups2`` (default ``groups``) F groups
+    for lin2, as ``fused_linear_ref`` takes them."""
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
     h = _ln_bf16_f32(x2.float(), ln[0], ln[1], eps)
-    hq, hs = quantize_act(h)
-    wo = (int8_matmul(hq, w[0]).float() * (hs * w[1])).to(torch.bfloat16)
-    vo = (int8_matmul(hq, v[0]).float() * (hs * v[1])).to(torch.bfloat16)
-    y = _qdot(_silu_mul_bf16(wo, vo).float(), lin2) + lin2_b.float()
+    wo = _qdot(h, w, groups).to(torch.bfloat16)
+    vo = _qdot(h, v, groups).to(torch.bfloat16)
+    y = _qdot(_silu_mul_bf16(wo, vo).float(), lin2,
+              groups if groups2 is None else groups2) + lin2_b.float()
     return (x2 + y.to(x.dtype)).reshape(*lead, k)
 
 
@@ -160,18 +216,21 @@ def check_gemm(m: int, n: int, k: int, mode: int) -> None:
 
 
 @functools.lru_cache(maxsize=256)
-def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> tuple:
+def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS,
+              grouped: bool = False) -> tuple:
     """(tile_b, grid) of one GEMM launch over A (m, k) int8 and weights
     (n, k) int8, mode 0 writing (m, n), mode 1 (K4's W and V GEMM) u (m, n)
     from n rows of W and n of V: the weight rows a tile and the persistent
     CTAs, each walking tiles grid apart. The wider 256-row tile moves a
     quarter fewer bytes per product than the 128-row one; it is taken when
     its tiles still give every SM one (and, in mode 1, its 128 u columns
-    divide n). The kernels derive the tiles and TMA boxes from tile_b.
-    Raises ValueError on a shape they do not take (``check_gemm``)."""
+    divide n). A grouped GEMM takes the 128-row tile: its f32 sums beside
+    the int32 accumulators fit a consumer's registers only there. The
+    kernels derive the tiles and TMA boxes from tile_b. Raises ValueError on
+    a shape they do not take (``check_gemm``)."""
     check_gemm(m, n, k, mode)
     tiles_m = -(-m // TILE_M)
-    for bn in TILE_B:
+    for bn in TILE_B[1:] if grouped else TILE_B:
         cols = bn if mode == 0 else bn // 2
         tiles = tiles_m * -(-n // cols)
         if tiles >= sms and (mode == 0 or n % cols == 0):
@@ -227,13 +286,14 @@ def _lib():
     if lib.mars5_w8a8_linear.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # x, ln_w, ln_b, bias, vec_bf16, eps, wq, ws, res, out, scratch, M, N,
-        # K, grid, tile_b, stream
+        # K, grid, tile_b, gsize, w_grouped, stream
         lib.mars5_w8a8_linear.argtypes = [vp, vp, vp, vp, i, f, vp, vp, vp, vp, vp,
-                                          i, i, i, i, i, vp]
+                                          i, i, i, i, i, i, i, vp]
         # x, ln_w, ln_b, l2b, vec_bf16, eps, wq, ws, vq, vs, l2q, l2s, u, out,
-        # scratch, M, K, F, grid1, tile_b1, grid2, tile_b2, stream
+        # scratch, M, K, F, grid1, tile_b1, grid2, tile_b2, gsize1, w1_grouped,
+        # gsize2, w2_grouped, stream
         lib.mars5_w8a8_ffn.argtypes = [vp, vp, vp, vp, i, f, vp, vp, vp, vp, vp, vp, vp,
-                                       vp, vp, i, i, i, i, i, i, i, vp]
+                                       vp, vp, i, i, i, i, i, i, i, i, i, i, i, vp]
         lib.mars5_w8a8_linear.restype = lib.mars5_w8a8_ffn.restype = ctypes.c_int
     return lib
 
@@ -242,17 +302,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_w(w, k, what):
+def _check_w(w, k, what, groups=1):
+    """(q, s) as the kernels read them, and whether s is per K group; raises
+    ValueError on what they do not take."""
     q, s = w
     if q.dtype != torch.int8 or q.ndim != 2 or q.shape[1] != k:
         raise ValueError(f"{what}: weight must be int8 (N, {k}), got {q.dtype} "
                          f"{tuple(q.shape)}")
-    if s.dtype != torch.float32 or s.shape != (q.shape[0],):
-        raise ValueError(f"{what}: scales must be f32 ({q.shape[0]},)")
+    n = q.shape[0]
+    if s.dtype != torch.float32 or s.shape not in ((n,), (1, n), (groups, n)):
+        raise ValueError(f"{what}: scales must be f32 ({n},), (1, {n})"
+                         + (f" or ({groups}, {n})" if groups > 1 else "")
+                         + f", got {s.dtype} {tuple(s.shape)}")
+    if s.ndim == 2 and s.shape[0] == 1:       # one weight group: a scale a row
+        s = s[0]
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError(f"{what}: TMA reads the weight as a contiguous (N, K) matrix on a "
                          f"16-byte boundary")
-    return q, s.contiguous()
+    return q, s.contiguous(), s.ndim == 2
+
+
+def _gsize(k, groups, what):
+    """Columns a group of a GEMM over K, as the kernels take it; raises
+    ValueError on a group count they do not take."""
+    if groups < 1 or k % groups:
+        raise ValueError(f"{what}: groups {groups} does not divide K={k}")
+    gsize = k // groups
+    if groups > 1 and gsize % GROUP_MULTIPLE:
+        raise ValueError(f"{what}: the kernels take groups of a multiple of {GROUP_MULTIPLE} "
+                         f"columns, got {gsize}")
+    return gsize
 
 
 def _check_x(x, what):
@@ -263,19 +342,25 @@ def _check_x(x, what):
     return _rows(x, f"{what} x")
 
 
-def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5):
-    """K3: [LN ->] W8A8 linear [+ bias] [+ residual] -> (..., N).
+def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5,
+                 groups: int = 1):
+    """K3: [LN ->] W8A8 linear [+ bias] [+ residual] -> (..., N). ``groups`` >
+    1 quantizes the activations per (row, K group) and takes w's scales per
+    row (N,) or per group (groups, N) (JAX ``fused_linear(groups=)``).
 
     CPU tensors take ``fused_linear_ref``; CUDA tensors launch the kernels
     (bf16 x and residual as contiguous rows, K a multiple of 128 up to 3072,
-    N a multiple of 64) and raise otherwise."""
+    N a multiple of 64, a group of K / groups columns a multiple of 32) and
+    raise otherwise."""
     if x.device.type == "cpu":
-        return fused_linear_ref(x, w, ln=ln, bias=bias, residual=residual, eps=eps)
+        return fused_linear_ref(x, w, ln=ln, bias=bias, residual=residual, eps=eps,
+                                groups=groups)
     m = _check_x(x, "fused_linear")
     k = x.shape[-1]
-    q, s = _check_w(w, k, "fused_linear")
+    gsize = _gsize(k, groups, "fused_linear")
+    q, s, w_grouped = _check_w(w, k, "fused_linear", groups)
     n = q.shape[0]
-    tile_b, grid = gemm_plan(m, n, k, 0, _sms(x.device))
+    tile_b, grid = gemm_plan(m, n, k, 0, _sms(x.device), groups > 1)
     if residual is not None:
         if residual.dtype != torch.bfloat16 or residual.shape != (*x.shape[:-1], n):
             raise ValueError("fused_linear: residual must be bf16 (..., N)")
@@ -285,45 +370,59 @@ def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5):
                                       (ln[1], k, "fused_linear: LN bias"),
                                       (bias, n, "fused_linear: bias"))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    scratch = torch.empty(m * k + 4 * m, dtype=torch.int8, device=x.device)
+    scratch = torch.empty(m * k + 4 * m * groups, dtype=torch.int8, device=x.device)
     build.call(x.device, _lib().mars5_w8a8_linear, x.data_ptr(), _ptr(lnw), _ptr(lnb),
                _ptr(bias), bf16, eps, q.data_ptr(), s.data_ptr(), _ptr(residual),
-               out.data_ptr(), scratch.data_ptr(), m, n, k, grid, tile_b)
-    global fused_linear_launches
+               out.data_ptr(), scratch.data_ptr(), m, n, k, grid, tile_b, gsize, w_grouped)
+    global fused_linear_launches, fused_linear_grouped_launches
     fused_linear_launches += 1
+    fused_linear_grouped_launches += groups > 1
     return out.reshape(*x.shape[:-1], n)
 
 
-def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5):
-    """K4: x + lin2(silu(w) * v) over LN(x), W8A8 -> (..., K).
+def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5, groups: int = 1,
+              groups2: int | None = None):
+    """K4: x + lin2(silu(w) * v) over LN(x), W8A8 -> (..., K); ``groups`` K
+    groups for the W and V GEMM and ``groups2`` (default ``groups``) F groups
+    for lin2, as ``fused_linear`` takes them.
 
     CPU tensors take ``fused_ffn_ref``; CUDA tensors launch the kernels (four
     launches from one C call, counted as one) and raise on what they do not
-    take (bf16 x as contiguous rows, K and F multiples of 128 up to 3072)."""
+    take (bf16 x as contiguous rows, K and F multiples of 128 up to 3072,
+    groups of a multiple of 32 columns)."""
+    groups2 = groups if groups2 is None else groups2
     if x.device.type == "cpu":
-        return fused_ffn_ref(x, ln, w, v, lin2, lin2_b, eps=eps)
+        return fused_ffn_ref(x, ln, w, v, lin2, lin2_b, eps=eps, groups=groups,
+                             groups2=groups2)
     m = _check_x(x, "fused_ffn")
     k = x.shape[-1]
-    wq, ws = _check_w(w, k, "fused_ffn W")
-    vq, vs = _check_w(v, k, "fused_ffn V")
+    gsize1 = _gsize(k, groups, "fused_ffn W and V")
+    wq, ws, wg1 = _check_w(w, k, "fused_ffn W", groups)
+    vq, vs, vg1 = _check_w(v, k, "fused_ffn V", groups)
     f = wq.shape[0]
     if vq.shape[0] != f:
         raise ValueError("fused_ffn: W and V must have one width F")
-    l2q, l2s = _check_w(lin2, f, "fused_ffn lin2")
+    if wg1 != vg1:
+        raise ValueError("fused_ffn: W and V must both have per-row or both group scales")
+    gsize2 = _gsize(f, groups2, "fused_ffn lin2")
+    l2q, l2s, wg2 = _check_w(lin2, f, "fused_ffn lin2", groups2)
     if l2q.shape[0] != k:
         raise ValueError(f"fused_ffn: lin2 must map {f} -> {k}")
     sms = _sms(x.device)
-    (b1, g1), (b2, g2) = gemm_plan(m, f, k, 1, sms), gemm_plan(m, k, f, 0, sms)
+    (b1, g1), (b2, g2) = (gemm_plan(m, f, k, 1, sms, groups > 1),
+                          gemm_plan(m, k, f, 0, sms, groups2 > 1))
     (lnw, lnb, l2b), bf16 = _vectors((ln[0], k, "fused_ffn: LN weight"),
                                      (ln[1], k, "fused_ffn: LN bias"),
                                      (lin2_b, k, "fused_ffn: lin2 bias"))
     u = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
-    scratch = torch.empty(m * max(k, f) + 4 * m, dtype=torch.int8, device=x.device)
+    scratch = torch.empty(m * max(k, f) + 4 * m * max(groups, groups2), dtype=torch.int8,
+                          device=x.device)
     build.call(x.device, _lib().mars5_w8a8_ffn, x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
                l2b.data_ptr(), bf16, eps, wq.data_ptr(), ws.data_ptr(), vq.data_ptr(),
                vs.data_ptr(), l2q.data_ptr(), l2s.data_ptr(), u.data_ptr(), out.data_ptr(),
-               scratch.data_ptr(), m, k, f, g1, b1, g2, b2)
-    global fused_ffn_launches
+               scratch.data_ptr(), m, k, f, g1, b1, g2, b2, gsize1, wg1, gsize2, wg2)
+    global fused_ffn_launches, fused_ffn_grouped_launches
     fused_ffn_launches += 1
+    fused_ffn_grouped_launches += groups > 1 or groups2 > 1
     return out.reshape(x.shape)

@@ -162,12 +162,14 @@ def _weights(layer):
 
 def mega_supported(decoder) -> bool:
     """Whether ``decoder`` (a ``TransformerDecoder``) runs on K9: every
-    weight W8A8 with per-row scales, head dim 64, D and F multiples of 128 and
+    weight W8A8 with per-row scales (no group scales, as JAX
+    ``mega_supported`` refuses ``sg``), head dim 64, D and F multiples of 128 and
     at most 3072 (a prologue warp holds a row in registers). The TPU
     program's VMEM estimate and its head-pair and K-chunk conditions are
     TPU layout and do not carry over."""
     layer = decoder.layers[0]
-    if not all(is_quantized(w) for lay in decoder.layers for w in _weights(lay)):
+    if not all(is_quantized(w) and not w.grouped for lay in decoder.layers
+               for w in _weights(lay)):
         return False
     d = layer.norm1.weight.shape[0]
     f = layer.linear2.weight.q.shape[1]

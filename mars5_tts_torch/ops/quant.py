@@ -12,7 +12,9 @@ the quantized tensors are bit-identical to its ``quantize_nar`` output.
 ``quantize_nar`` swaps each quantized weight ``Parameter`` of a
 ``ResidualTransformer`` for a :class:`QuantWeight` module registered under
 the same name, so a quantized state dict reads ``<weight name>.q`` /
-``<weight name>.s``.
+``<weight name>.s``, or ``<weight name>.sg`` for the per-K-group scales of
+a grouped decoder weight (``quantize_nar(w_gsize=)``, the fidelity mode of
+kernels K3/K4).
 """
 
 from __future__ import annotations
@@ -25,23 +27,47 @@ from torch.nn import functional as F
 
 
 class QuantWeight(nn.Module):
-    """int8 weight ``q`` (out, in) with f32 per-row scales ``s`` (out,)."""
+    """int8 weight ``q`` (out, in) with f32 scales: per output row ``s``
+    (out,), or, for a grouped weight (``quantize_weight_grouped``), per (K
+    group, output row) ``sg`` (G, out) and no ``s``, so that a consumer that
+    cannot take group scales fails on the missing attribute."""
 
-    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+    def __init__(self, q: torch.Tensor, s: torch.Tensor | None = None,
+                 sg: torch.Tensor | None = None):
         super().__init__()
+        if (s is None) == (sg is None):
+            raise ValueError("QuantWeight takes per-row scales s or group scales sg")
         self.register_buffer("q", q)
-        self.register_buffer("s", s)
+        self.register_buffer("s" if sg is None else "sg", s if sg is None else sg)
 
     @classmethod
-    def empty(cls, out_features: int, in_features: int) -> "QuantWeight":
-        return cls(torch.zeros((out_features, in_features), dtype=torch.int8),
-                   torch.zeros(out_features, dtype=torch.float32))
+    def empty(cls, out_features: int, in_features: int, groups: int = 0) -> "QuantWeight":
+        q = torch.zeros((out_features, in_features), dtype=torch.int8)
+        if groups:
+            return cls(q, sg=torch.zeros((groups, out_features), dtype=torch.float32))
+        return cls(q, torch.zeros(out_features, dtype=torch.float32))
+
+    @property
+    def grouped(self) -> bool:
+        return "sg" in self._buffers
+
+    @property
+    def scales(self) -> torch.Tensor:
+        """``sg`` (G, out) of a grouped weight, else ``s`` (out,)."""
+        return self.sg if self.grouped else self.s
+
+    def rows(self, start: int, stop: int) -> "QuantWeight":
+        """Output rows [start, stop), over the same storage."""
+        if self.grouped:
+            return QuantWeight(self.q[start:stop], sg=self.sg[:, start:stop])
+        return QuantWeight(self.q[start:stop], self.s[start:stop])
 
     def _apply(self, fn, recurse=True):
         # devices follow the module; the scales stay f32 whatever dtype the
         # module is cast to (``q`` is an integer tensor, which casts skip)
         self.q = fn(self.q)
-        self.s = self.s.to(self.q.device)
+        name = "sg" if self.grouped else "s"
+        setattr(self, name, getattr(self, name).to(self.q.device))
         return self
 
 
@@ -85,6 +111,20 @@ def quantize_weight_mse(w, levels: int, ratios=(1.0, 0.9, 0.8, 0.7, 0.6)):
             best_scale = torch.where(take, scale, best_scale)
     q = torch.round(wf / best_scale).clamp(-levels, levels)
     return q.to(torch.int8), best_scale.squeeze(-1)
+
+
+def quantize_weight_grouped(w, gsize: int, levels: int = 127):
+    """Per (output row, K group of ``gsize`` columns) symmetric quantization:
+    w (..., N, K) -> (q (..., N, K) int8, sg (..., G, N) f32), G = K / gsize,
+    the group axis ahead of the output axis as the kernels read it. Raises
+    ValueError when gsize does not divide K."""
+    k = w.shape[-1]
+    if gsize <= 0 or k % gsize:
+        raise ValueError(f"gsize {gsize} does not divide K={k}")
+    wf = w.float().reshape(*w.shape[:-1], k // gsize, gsize)
+    sg = div(wf.abs().amax(dim=-1, keepdim=True), levels)          # (..., N, G, 1)
+    q = torch.round(wf / sg.clamp_min(1e-12)).clamp(-levels, levels)
+    return q.to(torch.int8).reshape(w.shape), sg[..., 0].transpose(-1, -2).contiguous()
 
 
 def linear_q8(x, q, s):
@@ -132,12 +172,76 @@ def linear_w8a8(x, q, s, b=None):
     return y.to(x.dtype)
 
 
+def linear_w8a8_grouped(x, q, sg, b=None):
+    """W8A8 with per-K-group scales, the plain product the fused kernels'
+    grouped mode replaces off their route: for each of the G groups of K,
+    per-row int8 activations of that group, its int32 product with q's
+    columns, rescaled ``acc * (xs * sg[g])``; the groups summed in order from
+    the first, then the f32 bias, then one rounding to x's dtype. q (N, K)
+    int8, sg (G, N) f32."""
+    g_count = sg.shape[-2]
+    gs = x.shape[-1] // g_count
+    xf = x.float()
+    out = None
+    for g in range(g_count):
+        sl = slice(g * gs, (g + 1) * gs)
+        xq, xs = quantize_act(xf[..., sl])
+        part = int8_matmul(xq, q[:, sl].contiguous()).float() * (xs * sg[g])
+        out = part if out is None else out + part
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
 def linear_any(x, w, b=None):
-    """``linear`` for a plain weight tensor or a :class:`QuantWeight`."""
+    """``linear`` for a plain weight tensor or a :class:`QuantWeight` (per-row
+    or grouped scales)."""
     if isinstance(w, QuantWeight):
+        if w.grouped:
+            return linear_w8a8_grouped(x, w.q, w.sg, b)
         return linear_w8a8(x, w.q, w.s, b)
     from .attention import linear
     return linear(x, w, b)
+
+
+def slice_rows(w, start: int, stop: int):
+    """Output rows [start, stop) of a weight tensor or a :class:`QuantWeight`."""
+    return w.rows(start, stop) if isinstance(w, QuantWeight) else w[start:stop]
+
+
+# The JAX package's names of a decoder layer's quantized weights, and the
+# site (MARS5_NARF_SITES) whose fused GEMM reads each: only those may be
+# grouped. ca_in_w never is: its memory K/V rows take the unfused product.
+_GROUP_KEY_SITES = (("sa_in_w", "qkv"), ("sa_out_w", "saout"), ("ca_out_w", "caout"),
+                    ("WV", "ffn"), ("lin2_w", "ffn"))
+
+
+def nar_w_group_keys(sites) -> tuple:
+    """The decoder weights (by their JAX names) a grouped ``quantize_nar``
+    groups for a set of fused ``sites`` (JAX ``layers.nar_w_group_keys``):
+    exactly those whose GEMM runs in K3/K4 there."""
+    return tuple(k for k, site in _GROUP_KEY_SITES if site in sites)
+
+
+def _nar_sites(model):
+    """(owner module, attribute, JAX name or None) of every weight
+    ``quantize_nar`` quantizes; the JAX name only for the decoder stack's."""
+    for stack in (model.tfm.encoder, model.tfm.decoder):
+        def key(k, dec=stack is model.tfm.decoder):
+            return k if dec else None
+
+        for layer in stack.layers:
+            attns = [(layer.self_attn, "sa")]
+            if hasattr(layer, "multihead_attn"):
+                attns.append((layer.multihead_attn, "ca"))
+            for attn, pre in attns:
+                yield attn, "in_proj_weight", key(f"{pre}_in_w")
+                yield attn.out_proj, "weight", key(f"{pre}_out_w")
+            yield layer.activation.W, "weight", key("WV")
+            yield layer.activation.V, "weight", key("WV")
+            yield layer.linear2, "weight", key("lin2_w")
+    for head in model.residual_decoder:
+        yield head[1], "weight", None
 
 
 def nar_quant_sites(model):
@@ -145,19 +249,8 @@ def nar_quant_sites(model):
     the in- and out-projections and the FFN (``activation.W``/``.V``,
     ``linear2``) of every encoder and decoder layer, and the 8 head Linears.
     The speaker encoder stays unquantized, as in the JAX package."""
-    for stack in (model.tfm.encoder, model.tfm.decoder):
-        for layer in stack.layers:
-            attns = [layer.self_attn]
-            if hasattr(layer, "multihead_attn"):
-                attns.append(layer.multihead_attn)
-            for attn in attns:
-                yield attn, "in_proj_weight"
-                yield attn.out_proj, "weight"
-            yield layer.activation.W, "weight"
-            yield layer.activation.V, "weight"
-            yield layer.linear2, "weight"
-    for head in model.residual_decoder:
-        yield head[1], "weight"
+    for owner, name, _ in _nar_sites(model):
+        yield owner, name
 
 
 def set_weight(owner: nn.Module, name: str, w: nn.Module) -> None:
@@ -166,13 +259,42 @@ def set_weight(owner: nn.Module, name: str, w: nn.Module) -> None:
     setattr(owner, name, w)
 
 
-def quantize_nar(model):
-    """A new ``ResidualTransformer`` with W8A8 weights (per-row scales); the
-    given model is left as it was. Weights that are already quantized pass
-    through, so quantizing twice changes nothing."""
-    out = copy.deepcopy(model)
-    for owner, name in nar_quant_sites(out):
+def quantize_nar(model, w_gsize: int = 0, w_group_keys=()):
+    """A new ``ResidualTransformer`` with W8A8 weights; the given model is
+    left as it was. Per-row scales, except, with ``w_gsize > 0``, for the
+    decoder stack's weights named in ``w_group_keys`` (JAX names, see
+    ``nar_w_group_keys``): those take per-K-group scales of ``w_gsize``
+    columns (``quantize_weight_grouped``), or per-row scales where
+    ``w_gsize`` does not divide their K (as the JAX package falls back).
+    Weights already quantized in the requested mode pass through (a model
+    quantized throughout is returned as it is), so quantizing twice changes
+    nothing; one quantized in the other mode raises ValueError, since int8
+    weights cannot be requantized."""
+    def want_grouped(w, key):
+        k_dim = w.q.shape[-1] if isinstance(w, QuantWeight) else w.shape[-1]
+        return w_gsize > 0 and key in w_group_keys and k_dim % w_gsize == 0
+
+    todo = False
+    for owner, name, key in _nar_sites(model):
         w = getattr(owner, name)
         if not isinstance(w, QuantWeight):
+            todo = True
+        elif w.grouped != want_grouped(w, key):
+            mode = lambda g: "grouped" if g else "per-row"
+            raise ValueError(
+                f"quantize_nar: {key or name!r} is already quantized as {mode(w.grouped)} but "
+                f"{mode(not w.grouped)} was requested; int8 weights cannot change mode, start "
+                "from the bf16 model")
+    if not todo:
+        return model
+    out = copy.deepcopy(model)
+    for owner, name, key in _nar_sites(out):
+        w = getattr(owner, name)
+        if isinstance(w, QuantWeight):
+            continue
+        if want_grouped(w, key):
+            q, sg = quantize_weight_grouped(w.detach(), w_gsize)
+            set_weight(owner, name, QuantWeight(q, sg=sg))
+        else:
             set_weight(owner, name, QuantWeight(*quantize_weight(w.detach())))
     return out

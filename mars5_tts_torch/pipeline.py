@@ -24,8 +24,18 @@ tail of each reverse step: ``"heads"`` (K6, the default), ``"split"`` (the
 folded heads, then K5; JAX ``MARS5_FUSED_HEADTAIL=0``) or ``"dense"`` (the
 folded heads and the PyTorch tail; JAX ``MARS5_FUSED_TAIL=0``).
 
-Not ported yet: grouped NAR quantization, ``use_kv_cache=False``, the
-guidance interval and geometry buckets.
+The NAR's routes (``models.layers.NarOptions``), one to one with the JAX
+package's environment knobs: ``nar_fused`` (``MARS5_NAR_FUSED``: the fused
+W8A8 decoder layer; False runs its unfused products), ``nar_sites``
+(``MARS5_NARF_SITES``: which GEMM sites of the fused layer run in K3/K4),
+``nar_gsize`` (``MARS5_NARF_GSIZE``: per-K-group scales of that many
+columns, the weights quantized to match, ``quantize_nar(w_gsize=)``),
+``nar_qattn`` (``MARS5_QATTN``: K1's int8 mode for the unfused layers'
+attention) and ``nar_cross_k1`` (``MARS5_CROSS_PALLAS``: long-query
+cross-attention through K1, the bf16 NAR's too).
+
+Not ported yet: ``use_kv_cache=False``, the guidance interval and geometry
+buckets.
 """
 
 from __future__ import annotations
@@ -48,11 +58,12 @@ from .models.ar_decode_fused import ar_generate_fused, ar_generate_fused_batched
 from .models.convert import (infer_codeclm_config, infer_nar_config, load_codeclm,
                              load_nar)
 from .models.encodec import EncodecConfig, EncodecEncoder, encodec_from_pytree
+from .models.layers import DEFAULT_OPTIONS, NarOptions
 from .models.nar import ResidualTransformer, ResidualTransformerConfig
 from .models.vocos import Vocos, VocosConfig, codes_to_features, vocos_from_pytree
 from .ops.kernels.decode_layer import make_dims
 from .ops.kernels.nar_mega import build_mega_pack, mega_supported
-from .ops.quant import quantize_nar
+from .ops.quant import nar_w_group_keys, quantize_nar
 from .utils.profiling import StageTimer
 
 
@@ -76,13 +87,15 @@ class Mars5TTS:
                  vocos_cfg: Optional[VocosConfig] = None,
                  device=None, dtype=torch.float32, ar_backend: str = "bf16",
                  nar_backend: str = "bf16", head4: bool = False, nar_mega: bool = False,
-                 nar_tail: str = "heads"):
+                 nar_tail: str = "heads", nar_fused: bool = True,
+                 nar_sites: tuple = DEFAULT_OPTIONS.sites, nar_gsize: int = 0,
+                 nar_qattn: bool = False, nar_cross_k1: bool = False):
         """From reference-layout checkpoints ({'vocab', 'model'[, 'config']}),
         with Encodec/Vocos given as the JAX package's parameter pytrees.
         ``device`` defaults to ``default_device()``. ``nar_backend="int8"``
         quantizes the NAR after loading, unless its checkpoint is already
-        quantized; ``ar_backend``, ``head4``, ``nar_mega`` and ``nar_tail`` as
-        in the module docstring."""
+        quantized; ``ar_backend``, ``head4``, ``nar_mega``, ``nar_tail`` and
+        the ``nar_*`` routes as in the module docstring."""
         device = torch.device(device) if device is not None else default_device()
         texttok, speechtok = load_tokenizers(ar_ckpt)
         n_vocab = len(texttok.vocab) + len(speechtok.vocab)
@@ -98,7 +111,8 @@ class Mars5TTS:
                    if encodec_params is not None else None)
         vocos = vocos_from_pytree(vocos_params, vocos_cfg) if vocos_params is not None else None
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-                    ar_backend, nar_backend, head4, nar_mega, nar_tail)
+                    ar_backend, nar_backend, head4, nar_mega, nar_tail,
+                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1))
 
     @classmethod
     def from_local(cls, ar_path, nar_path, **kwargs) -> "Mars5TTS":
@@ -112,20 +126,24 @@ class Mars5TTS:
                     vocos: Optional[Vocos] = None, device=None,
                     ar_backend: str = "bf16", nar_backend: str = "bf16",
                     head4: bool = False, nar_mega: bool = False,
-                    nar_tail: str = "heads") -> "Mars5TTS":
+                    nar_tail: str = "heads", nar_fused: bool = True,
+                    nar_sites: tuple = DEFAULT_OPTIONS.sites, nar_gsize: int = 0,
+                    nar_qattn: bool = False, nar_cross_k1: bool = False) -> "Mars5TTS":
         """From already-built port modules and tokenizer objects. With
         ``nar_backend="int8"`` a bf16/f32 ``codecnar`` is quantized into a new
         module (the given one is left as it was); a quantized one is used as
-        it is. The quantized AR backends leave ``codeclm`` as it is. The
-        device defaults to that of ``codeclm``'s weights."""
+        it is when its scales are those ``nar_gsize`` and ``nar_sites`` ask
+        for, else ValueError. The quantized AR backends leave ``codeclm`` as
+        it is. The device defaults to that of ``codeclm``'s weights."""
         self = cls.__new__(cls)
         device = device or codeclm.embed.weight.device
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-                    ar_backend, nar_backend, head4, nar_mega, nar_tail)
+                    ar_backend, nar_backend, head4, nar_mega, nar_tail,
+                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1))
         return self
 
     def _setup(self, codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-               ar_backend, nar_backend, head4, nar_mega, nar_tail):
+               ar_backend, nar_backend, head4, nar_mega, nar_tail, opts):
         if ar_backend not in ("bf16", "fused", "fused4"):
             raise ValueError(f"unknown ar_backend {ar_backend!r}")
         if head4 and ar_backend != "fused4":
@@ -135,9 +153,21 @@ class Mars5TTS:
         self._mega_pack = None
         if nar_backend not in ("bf16", "int8"):
             raise ValueError(f"unknown nar_backend {nar_backend!r}")
-        if nar_backend == "int8" and not codecnar.is_quantized:
-            codecnar = quantize_nar(codecnar)
-        elif nar_backend == "bf16" and codecnar.is_quantized:
+        if opts.gsize and not opts.fused:
+            raise ValueError("nar_gsize > 0 needs nar_fused=True: group scales run only in "
+                             "the fused kernels")
+        if nar_backend == "bf16" and (opts.qattn or not opts.fused or opts.gsize
+                                      or opts.sites != DEFAULT_OPTIONS.sites):
+            raise ValueError("nar_fused, nar_sites, nar_gsize and nar_qattn need "
+                             "nar_backend='int8'")
+        if nar_mega and (opts.gsize or opts.sites != DEFAULT_OPTIONS.sites):
+            raise ValueError("nar_mega=True takes neither grouped scales (nar_gsize) nor "
+                             "another site set (nar_sites): kernel K9 runs every site with "
+                             "per-row scales")
+        if nar_backend == "int8":
+            codecnar = quantize_nar(codecnar, w_gsize=opts.gsize,
+                                    w_group_keys=nar_w_group_keys(opts.sites))
+        elif codecnar.is_quantized:
             raise ValueError("a quantized NAR needs nar_backend='int8'")
         if nar_tail not in TAILS:
             raise ValueError(f"unknown nar_tail {nar_tail!r}")
@@ -147,6 +177,7 @@ class Mars5TTS:
             raise ValueError("nar_mega=True: the NAR decoder's geometry does not fit kernel "
                              "K9 (head dim 64, D and F multiples of 128 up to 3072)")
         self.nar_backend, self.nar_mega, self.nar_tail = nar_backend, nar_mega, nar_tail
+        self.nar_options = opts
         self.device = torch.device(device)
 
         def ready(m):
@@ -289,7 +320,7 @@ class Mars5TTS:
         gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         return perform_simple_inference(self.codecnar, batch, diff, T, dsh, retain_quant0=True,
                                         generator=gen, tail=self.nar_tail,
-                                        mega=self._get_mega())
+                                        mega=self._get_mega(), options=self.nar_options)
 
     def _synthesize_codes(self, text, ref_audio, ref_transcript, cfg, seed, timer):
         """Text and reference prep, AR decode and parse. Returns

@@ -1056,3 +1056,128 @@ def test_heads_tail_kernel_ragged_frames(dev, rows, length):
     assert not bool(((got != want) & ((top2[..., 0] - top2[..., 1]) > 1e-5)).any())
     k5 = D.diffusion_tail(nar_heads_folded(folded, out), u0, x_t, scal, w=3.0, temp=0.7)
     assert torch.equal(k5, got)
+
+
+# ------------------------------------------------- K3/K4 grouped, K1 int8
+
+def _qwg(n, k, gsize, g, dev):
+    """A weight with per-K-group scales (G, N), or per-row ones at gsize 0."""
+    from mars5_tts_torch.ops.quant import quantize_weight_grouped
+    if not gsize:
+        return _qw(n, k, g, dev)
+    return quantize_weight_grouped(torch.randn((n, k), generator=g, device=dev) * 0.05, gsize)
+
+
+@pytest.mark.parametrize("m,k,n,gsize,w_grouped,variant", [
+    # the decoder's sites at gsize 128: qkv (G = 8), caq (per-row weights),
+    # an out-projection with its residual
+    (2400, 1024, 3072, 128, True, "ln_bias_bf16"), (2400, 1024, 1024, 128, False, "ln_bias_bf16"),
+    (2400, 1024, 1024, 128, True, "residual_bf16"),
+    # groups inside a stage (32, 64), across stages (256, 384), a group of
+    # three k-steps (96), ragged rows and column tiles
+    (300, 256, 192, 32, True, "ln_bias"), (63, 1024, 192, 64, False, "residual"),
+    (1, 1024, 64, 256, True, "plain"), (129, 3072, 1024, 384, True, "residual"),
+    (70, 3072, 128, 96, True, "plain"), (65, 3072, 192, 96, False, "ln_bias")])
+def test_fused_linear_grouped_kernel_matches_ref(dev, m, k, n, gsize, w_grouped, variant):
+    """Grouped K3 equals its twin bit for bit: exact int32 partials, each
+    group's rescale and the sum in the twin's order, unfused."""
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(m + n + gsize)
+    x = torch.randn((1, m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = _qwg(n, k, gsize if w_grouped else 0, g, dev)
+    kw = _k3_kwargs(variant, k, n, (1, m), g, dev)
+    n0, g0 = F.fused_linear_launches, F.fused_linear_grouped_launches
+    out = F.fused_linear(x, w, groups=k // gsize, **kw)
+    torch.cuda.synchronize()
+    assert (F.fused_linear_launches, F.fused_linear_grouped_launches) == (n0 + 1, g0 + 1)
+    assert torch.equal(out, F.fused_linear_ref(x, w, groups=k // gsize, **kw))
+
+
+@pytest.mark.parametrize("m,k,f,gsize,gsize2,vec", [
+    (2400, 1024, 3072, 128, 128, torch.bfloat16),      # the decoder's: G = 8 and 24
+    (200, 256, 384, 32, 64, torch.float32), (63, 1024, 3072, 128, 0, torch.float32),
+    (1, 1024, 3072, 0, 384, torch.float32), (130, 3072, 1024, 96, 256, torch.bfloat16)])
+def test_fused_ffn_grouped_kernel_matches_ref(dev, m, k, f, gsize, gsize2, vec):
+    """Grouped K4 within the fused bound and at least 99.9% equal to its twin,
+    as K4 at one group: the GEMMs are exact, only ``expf`` in the sigmoid
+    may round differently."""
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(m + gsize)
+    lead = (2, m // 2) if m % 2 == 0 else (1, m)
+    x = torch.randn((*lead, k), generator=g, device=dev).to(torch.bfloat16)
+    ln = ((1 + 0.1 * torch.randn(k, generator=g, device=dev)).to(vec),
+          (0.1 * torch.randn(k, generator=g, device=dev)).to(vec))
+    args = (x, ln, _qwg(f, k, gsize, g, dev), _qwg(f, k, gsize, g, dev),
+            _qwg(k, f, gsize2, g, dev), (0.1 * torch.randn(k, generator=g, device=dev)).to(vec))
+    groups = dict(groups=k // gsize if gsize else 1, groups2=f // gsize2 if gsize2 else 1)
+    n0, g0 = F.fused_ffn_launches, F.fused_ffn_grouped_launches
+    out = F.fused_ffn(*args, **groups)
+    torch.cuda.synchronize()
+    assert (F.fused_ffn_launches, F.fused_ffn_grouped_launches) == (n0 + 1, g0 + 1)
+    _fused_eq(out, F.fused_ffn_ref(*args, **groups), exact_frac=0.999)
+
+
+def test_w8a8_grouped_kernels_refuse(dev):
+    """A group size that is not a multiple of 32, or does not divide K, and
+    scales of the wrong shape raise before any launch."""
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, 64, 1024), generator=g, device=dev).to(torch.bfloat16)
+    w = _qwg(128, 1024, 128, g, dev)
+    n0 = F.fused_linear_launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        F.fused_linear(x, _qwg(128, 1024, 64, g, dev), groups=64)      # 16-column groups
+    with pytest.raises(ValueError, match="divide"):
+        F.fused_linear(x, w, groups=3)
+    with pytest.raises(ValueError, match="scales"):
+        F.fused_linear(x, w, groups=4)                                  # sg (8, N) for 4 groups
+    with pytest.raises(ValueError, match="scales"):
+        F.fused_linear(x, w)                                            # sg at one group
+    assert F.fused_linear_launches == n0
+
+
+@pytest.mark.parametrize("b,lq,lk,h,masked", [
+    (2, 1200, 1200, 16, True), (2, 1200, 1200, 16, False),   # NAR self-attention
+    (2, 725, 66, 16, True),                                  # cross-attention, the smoke's
+    (1, 130, 70, 2, True), (2, 77, 13, 3, False), (1, 65, 33, 1, True), (1, 1, 1, 1, False)])
+def test_mha_int8_kernel_matches_ref(dev, b, lq, lk, h, masked):
+    """The int8 mode within ``int8_bound`` of its twin (two one-step p8 flips
+    and a bf16 ulp), one launch count a call, on strided views of a qkv
+    projection as the unfused decoder slices them."""
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    g = torch.Generator(device=dev).manual_seed(lq + lk)
+    d = h * 64
+    qp = (2 * torch.randn((b, lq, 3 * d), generator=g, device=dev)).to(torch.bfloat16)
+    kv = torch.randn((b, lk, 2 * d), generator=g, device=dev).to(torch.bfloat16)
+    q = qp[..., :d].reshape(b, lq, h, 64)
+    k, v = (kv[..., i * d:(i + 1) * d].reshape(b, lk, h, 64) for i in range(2))
+    mask = None
+    if masked:
+        mask = torch.zeros((b, lk), dtype=torch.bool, device=dev)
+        mask[-1, lk - lk // 5:] = True
+        mask[0, min(3, lk - 1)] = lk > 1
+    n0, i0 = K.launch_count, K.int8_launch_count
+    out = K.mha(q, k, v, mask, quantized=True)
+    torch.cuda.synchronize()
+    assert (K.launch_count, K.int8_launch_count) == (n0 + 1, i0 + 1)
+    ref, tol = K.int8_bound(q, k, v, mask)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= tol).all()), (err - tol).max().item()
+
+
+def test_mha_int8_kernel_refuses(dev):
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    q = torch.zeros((1, 8, 2, 64), device=dev)
+    n0 = K.launch_count
+    with pytest.raises(ValueError, match="bf16"):
+        K.mha(q, q, q, quantized=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.mha(q[..., :32].bfloat16(), q[..., :32].bfloat16(), q[..., :32].bfloat16(),
+              quantized=True)
+    assert K.launch_count == n0

@@ -232,18 +232,18 @@ def _pallas_gemms():
     def back(y, like):
         return torch.from_numpy(np.array(y.astype(jnp.float32))).to(like.dtype)
 
-    def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps=4e-5):
+    def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps=4e-5, groups=1):
         wd = {"q": jnp.asarray(w[0].numpy()), "s": jnp.asarray(w[1].numpy())}
         return back(JF.fused_linear(j(x), wd, ln=None if ln is None else (j(ln[0]), j(ln[1])),
-                                    bias=j(bias), residual=j(residual), eps=eps, bm=64,
-                                    interpret=True), x)
+                                    bias=j(bias), residual=j(residual), eps=eps, groups=groups,
+                                    bm=64, interpret=True), x)
 
-    def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps=4e-5):
+    def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps=4e-5, groups=1, groups2=None):
         wv = {"q": jnp.asarray(torch.cat([w[0], v[0]]).numpy()),
               "s": jnp.asarray(torch.cat([w[1], v[1]]).numpy())}
         l2 = {"q": jnp.asarray(lin2[0].numpy()), "s": jnp.asarray(lin2[1].numpy())}
-        return back(JF.fused_ffn(j(x), j(ln[0]), j(ln[1]), wv, l2, j(lin2_b), eps=eps, bm=64,
-                                 interpret=True), x)
+        return back(JF.fused_ffn(j(x), j(ln[0]), j(ln[1]), wv, l2, j(lin2_b), eps=eps,
+                                 groups=groups, groups2=groups2, bm=64, interpret=True), x)
 
     return fused_linear, fused_ffn
 

@@ -4,7 +4,9 @@ launch arguments, K7's cluster size for a slot count and its launch
 arguments, K3/K4's GEMM plan (tile width and persistent grid,
 ``nar_fused.gemm_plan``), the rows and LN/bias vectors they read, K6's tile
 plan (``diffusion_tail.heads_tail_plan``) and its padded classes, and the
-refusals of these wrappers on inputs a CPU can build. K2's plan is in
+refusals of these wrappers on inputs a CPU can build: among them K3/K4's
+group sizes and group scales, K1's int8 mode off head dim 64, K9 on grouped
+weights and ``Mars5TTS``'s NAR options. K2's plan is in
 ``test_torch_persistent_decode.py``.
 """
 
@@ -430,3 +432,103 @@ def test_padded_classes_never_win():
                             temp=0.7).argmax(-1)
     want = D.diffusion_tail_ref(logits, u0[..., :1025].contiguous(), x_t, scal, w=3.0, temp=0.7)
     assert torch.equal(masked, want)
+
+
+# ---------------------------------- K3/K4 groups, K1's int8 mode, NAR options
+
+@pytest.mark.parametrize("k,groups,match", [
+    (1024, 64, "multiple of 32"),       # 16-column groups: half an s8 wgmma step
+    (1024, 3, "does not divide"), (3072, 5, "does not divide"), (1024, 0, "does not divide")])
+def test_w8a8_group_sizes_refused(k, groups, match):
+    with pytest.raises(ValueError, match=match):
+        F._gsize(k, groups, "fused_linear")
+
+
+@pytest.mark.parametrize("k,groups,gsize", [(1024, 1, 1024), (1024, 8, 128), (3072, 24, 128),
+                                            (1024, 32, 32), (3072, 32, 96), (3072, 8, 384)])
+def test_w8a8_group_sizes_taken(k, groups, gsize):
+    assert F._gsize(k, groups, "fused_linear") == gsize
+
+
+def test_w8a8_group_scales_of_the_wrong_shape_refused():
+    q = torch.zeros((64, 256), dtype=torch.int8)
+    for s, groups in ((torch.ones((4, 64)), 2), (torch.ones((2, 32)), 2),
+                      (torch.ones((4, 64)), 1), (torch.ones((2, 64), dtype=torch.float64), 2)):
+        with pytest.raises(ValueError, match="scales"):
+            F._check_w((q, s), 256, "w", groups)
+    assert F._check_w((q, torch.ones((2, 64))), 256, "w", 2)[2] is True
+    _, s, grouped = F._check_w((q, torch.ones((1, 64))), 256, "w", 2)   # one group: per row
+    assert s.shape == (64,) and grouped is False
+
+
+def test_w8a8_gemm_plan_takes_the_narrow_tile_grouped():
+    assert F.gemm_plan(2400, 3072, 1024, 0, 132) == (256, 132)
+    assert F.gemm_plan(2400, 3072, 1024, 0, 132, True) == (128, 132)
+    assert F.gemm_plan(2400, 3072, 1024, 1, 132, True) == (128, 132)
+
+
+def test_mha_int8_mode_refuses_head_dims_and_devices():
+    q, k, v = _qkv_views(2, 40, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.launch_args(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.mha(*(torch.zeros((1, 4, 1, 64), device="meta") for _ in range(3)), quantized=True)
+
+
+def _mega_geometry_nar(gsize):
+    """A NAR whose decoder K9 takes (2 heads of 64, D 128, F 256), quantized
+    per row or with group scales."""
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.quant import nar_w_group_keys, quantize_nar
+
+    cfg = ResidualTransformerConfig(259, dim=128, nhead=2, enc_layers=1, dec_layers=1,
+                                    n_spk_layers=1, t_emb_dim=64, hidden_dim=256)
+    nar = ResidualTransformer(cfg).init_(torch.Generator().manual_seed(0)).eval()
+    return nar, quantize_nar(nar, w_gsize=gsize,
+                             w_group_keys=nar_w_group_keys(("qkv", "caq", "ffn")))
+
+
+def test_mega_refuses_grouped_weights():
+    from mars5_tts_torch.ops.kernels.nar_mega import build_mega_pack, mega_supported
+
+    _, per_row = _mega_geometry_nar(0)
+    _, grouped = _mega_geometry_nar(64)
+    assert mega_supported(per_row.tfm.decoder)
+    assert not mega_supported(grouped.tfm.decoder)
+    with pytest.raises(ValueError, match="per-row"):
+        build_mega_pack(grouped.tfm.decoder)
+
+
+@pytest.mark.parametrize("kw,backend,match", [
+    (dict(nar_sites=("qkv", "attn")), "int8", "unknown NAR sites"),
+    (dict(nar_gsize=64, nar_mega=True), "int8", "nar_mega"),
+    (dict(nar_sites=("qkv", "saout", "caq", "ffn"), nar_mega=True), "int8", "nar_mega"),
+    (dict(nar_gsize=64, nar_fused=False), "int8", "nar_fused=True"),
+    (dict(nar_gsize=-32), "int8", "gsize"),
+    (dict(nar_fused=False), "bf16", "nar_backend='int8'"),
+    (dict(nar_qattn=True), "bf16", "nar_backend='int8'"),
+    (dict(nar_gsize=64), "bf16", "nar_backend='int8'"),
+    (dict(nar_sites=("qkv",)), "bf16", "nar_backend='int8'")])
+def test_pipeline_refuses_nar_options(kw, backend, match):
+    """``Mars5TTS``'s NAR options: an unknown site, a grouped or site-set NAR
+    with K9, group scales off the fused route, the int8-only options on the
+    bf16 NAR; ``nar_cross_k1`` is taken by both NARs, and a per-row int8
+    NAR cannot be taken as a grouped one."""
+    from mars5_tts_torch import Mars5TTS
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.text import CodebookTokenizer, GPT4_SPLIT_PATTERN, RegexTokenizer
+
+    texttok = RegexTokenizer(GPT4_SPLIT_PATTERN)
+    texttok.register_special_tokens({"<|startoftext|>": 256, "<|endoftext|>": 257})
+    speechtok = CodebookTokenizer(GPT4_SPLIT_PATTERN, codebook_size=1024)
+    speechtok.register_special_tokens({"<|endofspeech|>": 1024})
+    ar = CodecLM(CodecLMConfig.tiny(1283)).init_(torch.Generator().manual_seed(1)).eval()
+    nar, per_row = _mega_geometry_nar(0)
+    common = dict(texttok=texttok, speechtok=speechtok)
+    with pytest.raises(ValueError, match=match):
+        Mars5TTS.from_params(ar, nar, nar_backend=backend, **kw, **common)
+    for b in ("bf16", "int8"):
+        tts = Mars5TTS.from_params(ar, nar, nar_backend=b, nar_cross_k1=True, **common)
+        assert tts.nar_options.cross_k1 and tts.nar_options.sites == ("qkv", "caq", "ffn")
+    with pytest.raises(ValueError, match="already quantized"):
+        Mars5TTS.from_params(ar, per_row, nar_backend="int8", nar_gsize=64, **common)
