@@ -28,7 +28,8 @@
    NAR's other routes: K1's int8 mode at (2, 1200, 16, 64) masked and
    unmasked, at the request's 725 frames and across over its 66-token
    memory, and K1's bf16 kernel on that cross-attention; K3 (qkv, caq,
-   residual) and K4 with per-K-group scales at gsize 128 (K3 bitwise).
+   residual) and K4 with per-K-group scales at gsize 128 (K3 bitwise), with
+   the grouped plan's tile and grid per site.
    Every kernel also prints the wrapper's host time (``host_ms``) and its device time (``device_ms``);
    K2, K6, K8 and K9 their kernel launches a call by their C entries' own
    count (K2: one a decode step, K6: two, at most two each allowed; K8: one;
@@ -61,6 +62,14 @@
    ``GEN_FRAMES`` generated frames. Each request's launch counts are reset
    before it and read after it.
 
+After the requests (``torch.profiler`` slows a process's later launches),
+the device time of each launch of K3 and K4 (prologue and GEMM; K4's four)
+at one group and grouped, and the grouped calls' device time with their
+GEMMs forced to each tile width, beside the plan's, at M = 2400 and at a
+short request's M = 800 (where the plan takes 64-wide tiles for caq, the
+residual sites and lin2). The build prints the ptxas registers and spills
+of every K3/K4 GEMM instantiation and fails on a spill or a missing log.
+
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the H100 SXM peak for their type
 (int8 1,979 TOP/s, bf16 989 TFLOP/s), from the inputs of this run.
@@ -88,6 +97,7 @@ STEPS = 200
 # W8A8 kernels at the bench geometry (bench.py:47-49): M = 2 CFG rows x 1200
 # frames, 750 generated frames, model dim 1024, FFN 3072, 7 lanes x 1025
 M_ROWS, DIM, FFN = 2400, 1024, 3072
+SHORT_M = 800                       # the grouped tile A/B's short request: 2 x 400 frames
 GEN_LEN, LANES, CLASSES = 750, 7, 1025
 AR_MAX_LEN = 2000                   # K2 check: window min(3000, 2001)
 AR_POSITIONS = (600, 1900)
@@ -305,6 +315,7 @@ def check_w8a8(name, run, twin, moved, int8_ops, min_exact):
     st.update(ms=cuda_ms(run), plain_ms=cuda_ms(twin), device_ms=device_ms(run),
               host_ms=host_ms(run))
     st["bound_ms"], st["bound_by"] = bound(moved + nbytes(out), int8=int8_ops)
+    st["run"] = run           # for w8a8_launch_split, after the requests
     rate = "not measured"
     if st["device_ms"] is not None:
         st["tops"] = int8_ops / (st["device_ms"] * 1e-3) / 1e12
@@ -468,13 +479,13 @@ def check_k1_modes(dev):
     return res
 
 
-def check_nar_fused_grouped(dev):
+def check_nar_fused_grouped(dev, m=M_ROWS):
     """K3 and K4 with per-K-group scales at gsize 128 (``nar_gsize=128``) at
-    the decoder's shapes: K3 qkv (G = 8 weight groups), caq (8 activation
-    groups over per-row weight scales) and a residual site (saout), bitwise
-    equal to the twin; K4 (G = 8 for W and V, 24 for lin2) within the fused
-    bound and at least 99.9% equal (the GEMMs exact, the sigmoid's expf as
-    at one group)."""
+    the decoder's shapes over ``m`` rows (two CFG rows of m / 2 frames): K3
+    qkv (G = 8 weight groups), caq (8 activation groups over per-row weight
+    scales) and a residual site (saout), bitwise equal to the twin; K4 (G = 8
+    for W and V, 24 for lin2) within the fused bound and at least 99.9% equal
+    (the GEMMs exact, the sigmoid's expf as at one group)."""
     import torch
     from mars5_tts_torch.ops.kernels import nar_fused as F
     from mars5_tts_torch.ops.quant import quantize_weight_grouped
@@ -488,37 +499,185 @@ def check_nar_fused_grouped(dev):
     def gweight(n, k):
         return quantize_weight_grouped(torch.randn((n, k), generator=gen, device=dev) * 0.03, gs)
 
-    x = torch.randn((2, M_ROWS // 2, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((2, m // 2, DIM), generator=gen, device=dev).to(torch.bfloat16)
     ln = (vec(DIM, 1.0), vec(DIM))
     g1, g2 = DIM // gs, FFN // gs
+    sms = sm_count(dev)
+    sites = grouped_sites(m)
+    plans = {site: F.gemm_plan(*shape, sms, True) for site, shape in sites.items()}
+    print(f"K3/K4 grouped plan on {sms} SMs (tile rows x weight rows, persistent grid): "
+          + ", ".join(f"{site} {shape[:3]}{' mode 1' if shape[3] else ''}: 128 x {bn}, grid "
+                      f"{grid}" for (site, shape), (bn, grid)
+                      in zip(sites.items(), plans.values())), flush=True)
+    rows = f"(2, {m // 2}, 1024)"
     qkv_w, qkv_b = gweight(3 * DIM, DIM), vec(3 * DIM)
     caq_w, caq_b = rand_qweight(DIM, DIM, gen, dev), vec(DIM)
     out_w, out_b = gweight(DIM, DIM), vec(DIM)
     a = (x * 0.5).contiguous()
     res = {}
     res["qkv"] = check_w8a8(
-        f"K3 grouped qkv (2, 1200, 1024) -> 3072, G = {g1}, LN + bias",
+        f"K3 grouped qkv {rows} -> 3072, G = {g1}, LN + bias",
         lambda: F.fused_linear(x, qkv_w, ln=ln, bias=qkv_b, groups=g1),
         lambda: F.fused_linear_ref(x, qkv_w, ln=ln, bias=qkv_b, groups=g1),
-        nbytes(x, *qkv_w, qkv_b, *ln), 2 * M_ROWS * 3 * DIM * DIM, 1.0)
+        nbytes(x, *qkv_w, qkv_b, *ln), 2 * m * 3 * DIM * DIM, 1.0)
     res["caq"] = check_w8a8(
-        f"K3 grouped caq (2, 1200, 1024) -> 1024, {g1} activation groups, per-row weights",
+        f"K3 grouped caq {rows} -> 1024, {g1} activation groups, per-row weights",
         lambda: F.fused_linear(x, caq_w, ln=ln, bias=caq_b, groups=g1),
         lambda: F.fused_linear_ref(x, caq_w, ln=ln, bias=caq_b, groups=g1),
-        nbytes(x, *caq_w, caq_b, *ln), 2 * M_ROWS * DIM * DIM, 1.0)
+        nbytes(x, *caq_w, caq_b, *ln), 2 * m * DIM * DIM, 1.0)
     res["residual"] = check_w8a8(
-        f"K3 grouped residual (2, 1200, 1024) -> 1024, G = {g1}, bias + residual",
+        f"K3 grouped residual {rows} -> 1024, G = {g1}, bias + residual",
         lambda: F.fused_linear(a, out_w, bias=out_b, residual=x, groups=g1),
         lambda: F.fused_linear_ref(a, out_w, bias=out_b, residual=x, groups=g1),
-        nbytes(a, *out_w, out_b, x), 2 * M_ROWS * DIM * DIM, 1.0)
+        nbytes(a, *out_w, out_b, x), 2 * m * DIM * DIM, 1.0)
     w, v, l2 = gweight(FFN, DIM), gweight(FFN, DIM), gweight(DIM, FFN)
     l2_b = vec(DIM)
     res["ffn"] = check_w8a8(
-        f"K4 grouped ffn (2, 1200, 1024), F 3072, G = {g1} / {g2}",
+        f"K4 grouped ffn {rows}, F 3072, G = {g1} / {g2}",
         lambda: F.fused_ffn(x, ln, w, v, l2, l2_b, groups=g1, groups2=g2),
         lambda: F.fused_ffn_ref(x, ln, w, v, l2, l2_b, groups=g1, groups2=g2),
-        nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * M_ROWS * 3 * DIM * FFN, 0.999)
+        nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * m * 3 * DIM * FFN, 0.999)
+    res["plan"] = plans
     return res
+
+
+def grouped_sites(m):
+    """(M, N, K, mode) of the grouped K3 / K4 GEMMs at the decoder's shapes
+    over m rows."""
+    return {"qkv": (m, 3 * DIM, DIM, 0), "caq": (m, DIM, DIM, 0), "residual": (m, DIM, DIM, 0),
+            "WV": (m, FFN, DIM, 1), "lin2": (m, DIM, FFN, 0)}
+W8A8_KERNELS = ("w8a8_prologue", "w8a8_wgmma_gemm", "w8a8_wgmma_swiglu")
+
+
+def launch_split(run, n=5):
+    """Device microseconds of each kernel one call of ``run`` launches, in
+    launch order: [(kernel with its template arguments, median us over n
+    profiled calls)], from ``torch.profiler``'s kernel records; None when it
+    records none. Run it after the requests (the profiler slows a process's
+    later launches: PERF.md)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events() if any(k in e.name for k in W8A8_KERNELS)),
+                  key=lambda e: e.time_range.start)
+    if not kern or len(kern) % n:
+        return None
+    per = len(kern) // n
+    out = []
+    for i in range(per):
+        m = re.search(r"(w8a8_\w+)(<[^>]*>)?", kern[i].name)
+        us = [kern[i + j * per].time_range.elapsed_us() for j in range(n)]
+        out.append((m.group(0) if m else kern[i].name, statistics.median(us)))
+    return out
+
+
+def ring_bytes(m, n, k, mode, tile_b):
+    """Bytes a K3/K4 GEMM's TMA ring pulls from L2: every tile's 128-deep
+    stages, 128 rows of A and tile_b weight rows each."""
+    cols = tile_b if mode == 0 else tile_b // 2
+    return -(-m // 128) * -(-n // cols) * (k // 128) * 128 * (128 + tile_b)
+
+
+def w8a8_launch_split(one_group, grouped):
+    """Prints and returns the per-launch device split of K3 (prologue, GEMM)
+    and K4 (prologue, W and V GEMM, u's prologue, lin2) at one group and
+    grouped, from the results of ``check_nar_fused`` /
+    ``check_nar_fused_grouped``; beside each GEMM, the bytes its ring pulls
+    from L2 (``ring_bytes``, at the plan's tile) over its device time."""
+    import torch
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    out, sms = {}, sm_count(torch.cuda.current_device())
+    for tag, res in (("", one_group), ("grouped ", grouped)):
+        for site in ("qkv", "caq", "residual", "ffn"):
+            if site not in res or "run" not in res[site]:
+                continue
+            split = launch_split(res[site]["run"])
+            name = f"K{4 if site == 'ffn' else 3} {tag}{site}"
+            out[name] = split
+            gemms = [grouped_sites(M_ROWS)[s] for s in (("WV", "lin2") if site == "ffn" else (site,))]
+            txt = "not measured"
+            if split is not None:
+                parts = []
+                for kname, us in split:
+                    if "wgmma" in kname and gemms:
+                        shape = gemms.pop(0)
+                        tile_b = F.gemm_plan(*shape, sms, tag != "")[0]
+                        nb = ring_bytes(*shape, tile_b)
+                        kname += f" {us:.1f} (ring {nb / 1e6:.1f} MB, {nb / us / 1e6:.2f} TB/s)"
+                    else:
+                        kname += f" {us:.1f}"
+                    parts.append(kname)
+                txt = ", ".join(parts) + f" (sum {sum(us for _, us in split):.1f})"
+            print(f"{name} per launch, device us (torch.profiler, median of 5 calls): {txt}",
+                  flush=True)
+    return out
+
+
+def grouped_tile_ab(grouped, m=M_ROWS):
+    """The device time of each grouped K3/K4 call of ``check_nar_fused_grouped``
+    over m rows with its grouped GEMMs forced to each tile width
+    (``nar_fused.TILE_B_GROUPED``) beside the plan's choice, a check of the
+    wave-tail rule; each forced output must equal the plan's bit for bit.
+    Returns {site: {width: device ms}}."""
+    import torch
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    plan, out = F.gemm_plan, {}
+    for site in ("qkv", "caq", "residual", "ffn"):
+        if site not in grouped or "run" not in grouped[site]:
+            continue
+        run = grouped[site]["run"]
+        want, times = run(), {}
+        try:
+            for bn in F.TILE_B_GROUPED:
+                F.gemm_plan = (lambda m, n, k, mode, sms=F.H100_SMS, grouped=False, bn=bn:
+                               F.wave_plan(m, n, k, mode, (bn,), sms) if grouped
+                               else plan(m, n, k, mode, sms))
+                if not torch.equal(run(), want):
+                    raise RuntimeError(f"grouped {site} at {bn}-wide tiles differs from the plan's")
+                times[bn] = device_ms(run)
+        finally:
+            F.gemm_plan = plan
+        out[site] = times
+        print(f"K{4 if site == 'ffn' else 3} grouped {site} M = {m} tile A/B, device us: plan "
+              f"{fmt_us(grouped[site]['device_ms'])}, "
+              + ", ".join(f"all {bn}-wide {fmt_us(ms)}" for bn, ms in times.items()), flush=True)
+    return out
+
+
+def ptxas_lines(log, kernels):
+    """{kernel with its template arguments: "N registers, S bytes spill
+    stores, L bytes spill loads"} of the entry functions whose names start
+    with one of ``kernels`` in an nvcc -Xptxas -v log, and [ptxas lines
+    about wgmma instructions or a performance loss] (serialisation
+    warnings)."""
+    import re
+    out, cur, spill = {}, None, ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", ln)
+        if m:
+            # ...<name>I<template arguments>E...: the (lower-case) name, its int
+            # and bool arguments
+            n = re.search(r"(w8a8_[a-z0-9_]+)I(\w*)", m.group(1))
+            k, rest = (n.group(1), n.group(2)) if n else ("", "")
+            args = re.findall(r"L[ib](\d+)E", rest)
+            cur = f"{k}<{', '.join(args)}>" if k.startswith(kernels) else None
+            continue
+        if cur and "spill" in ln:
+            spill = ", ".join(p.strip() for p in ln.split(",")[1:])
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur] = re.search(r"Used \d+ registers", ln).group(0)[5:] + ", " + spill
+            cur = None
+    return out, [ln.strip() for ln in log.splitlines()
+                 if "wgmma." in ln or "Performance Loss" in ln]
 
 
 def check_heads_tail(gen, dev):
@@ -1315,6 +1474,18 @@ def main():
         print(f"build: {lib.name} ({'compiled in %.1f s' % build.build_seconds[name] if name in build.build_seconds else 'already built'}); "
               + " | ".join(regs), flush=True)
     print(f"build: all libraries in {build_s:.1f} s", flush=True)
+    # every GEMM of K3/K4 (kG, the last template argument, 1 or 2: grouped),
+    # from this build's ptxas log or the one kept beside a library built before
+    regs, wgmma_lines = ptxas_lines(build.build_log.get("nar_fused", ""),
+                                    ("w8a8_wgmma_gemm", "w8a8_wgmma_swiglu"))
+    for name, txt in sorted(regs.items()):
+        print(f"build: nar_fused ptxas {name}: {txt}", flush=True)
+    for ln in wgmma_lines:
+        print(f"build: nar_fused ptxas: {ln}", flush=True)
+    spilled = [n for n, txt in regs.items() if not txt.endswith(
+        "0 bytes spill stores, 0 bytes spill loads")]
+    if spilled or not regs:
+        raise RuntimeError(f"nar_fused GEMMs spill or no ptxas log: {spilled}")
 
     # -- 3. kernels against plain, on the card
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1335,11 +1506,17 @@ def main():
     k7 = check_decode_attention(models["ar"].cfg, dev)
     k1_modes = check_k1_modes(dev)
     w8a8_g = check_nar_fused_grouped(dev)
+    # a short request (2 x 400 frames), where the plan takes 64-wide tiles for
+    # caq, the residual sites and lin2
+    w8a8_g_short = check_nar_fused_grouped(dev, SHORT_M)
 
     # -- 4. main paths, each request with its launch counts from 0
     records, main_launches, path_launches, nar8 = serve_paths(models, dev)
     # K9 on the served NAR's own int8 decoder weights
     k9 = check_mega(nar8.tfm.decoder, dev)
+    w8a8_split = w8a8_launch_split(w8a8, w8a8_g)
+    tile_ab = {m: grouped_tile_ab(res, m) for m, res in ((M_ROWS, w8a8_g),
+                                                         (SHORT_M, w8a8_g_short))}
     if any(m.split(".")[0] in ("jax", "mars5_tts_tpu") for m in sys.modules):
         raise RuntimeError("the port pulled in jax or the JAX package")
 
@@ -1390,12 +1567,15 @@ def main():
                "mars5_tts_tpu/ops/pallas/nar_fused.py:111", w8a8_g["qkv"],
                launches=path_launches["fused_linear_grouped"]),
          "max_abs_err": max(w8a8_g[v]["max_abs_err"] for v in ("qkv", "caq", "residual")),
-         **w8a8_extra(w8a8_g["qkv"], None),
+         **w8a8_extra(w8a8_g["qkv"], None), "plan": w8a8_g["plan"], "tile_ab_ms": tile_ab,
+         "launch_us": w8a8_split.get("K3 grouped qkv"),
          "cases": {v: {**{k: w8a8_g[v][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
-                       **w8a8_extra(w8a8_g[v], None)} for v in ("caq", "residual")}},
+                       **w8a8_extra(w8a8_g[v], None),
+                       "launch_us": w8a8_split.get(f"K3 grouped {v}")}
+                   for v in ("caq", "residual")}},
         {**row("fused_ffn_grouped", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:144",
                w8a8_g["ffn"], launches=path_launches["fused_ffn_grouped"]),
-         **w8a8_extra(w8a8_g["ffn"], None)},
+         **w8a8_extra(w8a8_g["ffn"], None), "launch_us": w8a8_split.get("K4 grouped ffn")},
         {**row("fused_decode_layers", "decode_layer.cu",
                "mars5_tts_tpu/ops/pallas/decode_layer.py:139", k2_main),
          "max_abs_err": max(st["max_abs_err"] for st in k2.values()),
@@ -1409,10 +1589,12 @@ def main():
                w8a8["qkv"]),
          "max_abs_err": max(w8a8[v]["max_abs_err"] for v in ("qkv", "caq", "residual")),
          **w8a8_extra(w8a8["qkv"], w8a8["int_mm"]["qkv"]),
+         "launch_us": w8a8_split.get("K3 qkv"),
          "cases": {v: {**{k: w8a8[v][k] for k in ("ms", "bound_ms", "max_abs_err")},
                        **w8a8_extra(w8a8[v], w8a8["int_mm"].get(v))} for v in ("caq", "residual")}},
         {**row("fused_ffn", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:144",
-               w8a8["ffn"]), **w8a8_extra(w8a8["ffn"], w8a8["int_mm"]["ffn"])},
+               w8a8["ffn"]), **w8a8_extra(w8a8["ffn"], w8a8["int_mm"]["ffn"]),
+         "launch_us": w8a8_split.get("K4 ffn")},
         {**row("heads_diffusion_tail", "diffusion_tail.cu",
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:149", k6[-1]),
          "max_abs_err": k6_worst["max_abs_err"],

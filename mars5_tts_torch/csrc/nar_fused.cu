@@ -4,7 +4,7 @@
 // Replaces the TPU kernels mars5_tts_tpu/ops/pallas/nar_fused.py::_lin_kernel
 // (entry fused_linear) and ::_ffn_kernel (entry fused_ffn), groups = 1 and,
 // with gsize < K, per-K-group scales (_qdot with groups > 1: w8a8_wgmma.cuh's
-// grouped prologue and GEMM, 128-wide tiles).
+// grouped prologue and GEMM, 64- or 128-wide tiles).
 //
 //   K3 (mars5_w8a8_linear): prologue([LN](x)) -> q, xs; then
 //     out = bf16(rescale(q . W^T) [+ bias]) [+ residual]          (2 launches)
@@ -32,14 +32,19 @@
 // tile (qkv: 19 x 12 = 228 tiles at M = 2400; K4's W and V GEMM 19 x 24,
 // 128 u columns each), else 128 x 128 (caq and lin2: 19 x 8 = 152, 1.15 a
 // SM: the wave quantisation is kept, a narrower tile would halve each
-// slice's reuse); ops/kernels/nar_fused.py gemm_plan decides.
+// slice's reuse); ops/kernels/nar_fused.py gemm_plan decides. A grouped
+// GEMM takes 128- or 64-wide tiles by the wave tail, a tile's time taken as
+// the A and weight rows its stages pull (the decoder's sites: 128-wide, e.g.
+// qkv 456 tiles in 4 rounds against 912 of 64 in 7).
 //
 // The C entry points encode the tensor maps (cuTensorMapEncodeTiled through
 // the runtime), launch, and return cudaGetLastError() after each launch, or
 // cudaErrorInvalidValue for arguments the kernels do not take. The caller
 // gives the grid and the tile's weight rows (ops/kernels/nar_fused.py
 // gemm_plan; the tiles and TMA boxes follow from them here and in
-// w8a8_wgmma.cuh) and the scratch: q (M x max(K, F) int8), then xs (M f32).
+// w8a8_wgmma.cuh) and the scratch: q (M x max(K, F) int8), then xs (M f32;
+// grouped G x xs_pitch f32, G the larger group count, xs_pitch the caller's:
+// nar_fused.py xs_pitch).
 
 #include "w8a8_wgmma.cuh"
 
@@ -47,56 +52,79 @@ namespace {
 
 bool bad_shape(int M, int N, int K, int grid, int bn) {
   return M <= 0 || N <= 0 || N % 64 || K <= 0 || K % kBK || K > kMaxK || grid <= 0 ||
-         (bn != 128 && bn != 256);
+         (bn != 64 && bn != 128 && bn != 256);
 }
 
 // A group size the grouped kernels take over K (gsize == K: one group, the
-// ungrouped kernels): a multiple of 32 (one s8 wgmma step) dividing K, and
-// 128-wide tiles.
+// ungrouped kernels, 128- or 256-wide tiles): a multiple of 32 (one s8 wgmma
+// step) dividing K, and 64- or 128-wide tiles.
 bool bad_groups(int K, int gsize, int bn) {
-  return gsize <= 0 || gsize % 32 || K % gsize || (gsize != K && bn != 128);
+  return gsize <= 0 || gsize % 32 || K % gsize || (gsize != K ? bn == 256 : bn == 64);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
+// The grouped scales' row pitch: whole 16-byte rows that hold M floats.
+bool bad_pitch(int M, int xs_pitch) { return xs_pitch < M || xs_pitch % 4; }
+
 // The per-row prologue, or the grouped one when gsize < K.
 cudaError_t prologue(const __nv_bfloat16* x, const void* ln_w, const void* ln_b, int vec_bf16,
-                     float eps, int8_t* q, float* xs, int M, int K, int gsize, cudaStream_t st) {
+                     float eps, int8_t* q, float* xs, int M, int K, int gsize, int xs_pitch,
+                     cudaStream_t st) {
   if (gsize == K) return launch_prologue(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st);
-  return launch_prologue_grouped(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize, st);
+  return launch_prologue_grouped(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize, xs_pitch, st);
 }
 
 cudaError_t gemm0(int bn, bool bf16_bias, int gsize, bool w_grouped, int grid, cudaStream_t st,
                   const CUtensorMap& ta, const CUtensorMap& tw, const Epilogue& p) {
   if (gsize == p.K) return launch_gemm0(bn, bf16_bias, grid, st, ta, tw, p);
-  return launch_gemm0_grouped(w_grouped, bf16_bias, grid, st, ta, tw, p);
+  if (bn == 64)
+    return w_grouped ? launch_gemm0_grouped<64, 1>(bf16_bias, grid, st, ta, tw, p)
+                     : launch_gemm0_grouped<64, 2>(bf16_bias, grid, st, ta, tw, p);
+  return w_grouped ? launch_gemm0_grouped<128, 1>(bf16_bias, grid, st, ta, tw, p)
+                   : launch_gemm0_grouped<128, 2>(bf16_bias, grid, st, ta, tw, p);
+}
+
+cudaError_t swiglu(int bn, int gsize, bool w_grouped, int grid, cudaStream_t st,
+                   const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& tv,
+                   const Epilogue& p) {
+  if (gsize == p.K) return launch_swiglu(bn, grid, st, ta, tw, tv, p);
+  if (bn == 64)
+    return w_grouped ? launch_swiglu_grouped<64, 1>(grid, st, ta, tw, tv, p)
+                     : launch_swiglu_grouped<64, 2>(grid, st, ta, tw, tv, p);
+  return w_grouped ? launch_swiglu_grouped<128, 1>(grid, st, ta, tw, tv, p)
+                   : launch_swiglu_grouped<128, 2>(grid, st, ta, tw, tv, p);
 }
 
 }  // namespace
 
 // gsize: K columns a group of activation (and, with w_grouped, weight)
-// scales, K for one scale a row; ws (G, N) when w_grouped, else (N,).
+// scales, K for one scale a row; ws (G, N) when w_grouped (16-byte aligned:
+// the GEMM copies its rows in bulk), else (N,); xs_pitch: the row pitch of
+// the grouped activation scales (G, xs_pitch) in the scratch, a multiple of 4
+// floats >= M (read only when grouped).
 extern "C" int mars5_w8a8_linear(const void* x, const void* ln_w, const void* ln_b,
                                  const void* bias, int vec_bf16, float eps, const void* wq,
                                  const void* ws, const void* res, void* out, void* scratch, int M,
                                  int N, int K, int grid, int bn, int gsize, int w_grouped,
-                                 void* stream) {
+                                 int xs_pitch, void* stream) {
   if (bad_shape(M, N, K, grid, bn) || bad_groups(K, gsize, bn) || (w_grouped && gsize == K) ||
+      (gsize != K && bad_pitch(M, xs_pitch)) ||
       misaligned(x) || misaligned(res) || misaligned(ln_w) || misaligned(ln_b) ||
-      misaligned(bias) || (ln_w == nullptr) != (ln_b == nullptr))
+      misaligned(bias) || (w_grouped && misaligned(ws)) || (ln_w == nullptr) != (ln_b == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   int8_t* q = static_cast<int8_t*>(scratch);
-  float* xs = reinterpret_cast<float*>(q + (long long)M * K);
+  float* xs = reinterpret_cast<float*>(q + (long long)M * K);   // grouped: (G, xs_pitch)
   CUtensorMap ta, tw;
   if (!encode_map_s8(&ta, q, M, K, kBM) || !encode_map_s8(&tw, wq, N, K, bn))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize, st);
+  cudaError_t err = prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize, xs_pitch, st);
   if (err != cudaSuccess) return (int)err;
   const Epilogue p{xs, static_cast<const float*>(ws), nullptr, bias,
                    static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
-                   M, N, K, gsize};
+                   M, N, K, gsize, xs_pitch};
   return (int)gemm0(bn, vec_bf16 != 0, gsize, w_grouped != 0, grid, st, ta, tw, p);
 }
 
@@ -107,11 +135,14 @@ extern "C" int mars5_w8a8_ffn(const void* x, const void* ln_w, const void* ln_b,
                               const void* ws, const void* vq, const void* vs, const void* l2q,
                               const void* l2s, void* u, void* out, void* scratch, int M, int K,
                               int F, int grid1, int bn1, int grid2, int bn2, int gsize1,
-                              int w1_grouped, int gsize2, int w2_grouped, void* stream) {
+                              int w1_grouped, int gsize2, int w2_grouped, int xs_pitch,
+                              void* stream) {
   if (bad_shape(M, F, K, grid1, bn1) || F % (bn1 / 2) || bad_shape(M, K, F, grid2, bn2) ||
       bad_groups(K, gsize1, bn1) || bad_groups(F, gsize2, bn2) || (w1_grouped && gsize1 == K) ||
-      (w2_grouped && gsize2 == F) || misaligned(x) || ln_w == nullptr || ln_b == nullptr ||
-      l2b == nullptr || misaligned(ln_w) || misaligned(ln_b) || misaligned(l2b))
+      (w2_grouped && gsize2 == F) || ((gsize1 != K || gsize2 != F) && bad_pitch(M, xs_pitch)) ||
+      misaligned(x) || ln_w == nullptr || ln_b == nullptr ||
+      l2b == nullptr || misaligned(ln_w) || misaligned(ln_b) || misaligned(l2b) ||
+      (w1_grouped && (misaligned(ws) || misaligned(vs))) || (w2_grouped && misaligned(l2s)))
     return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   int8_t* q = static_cast<int8_t*>(scratch);
@@ -124,18 +155,17 @@ extern "C" int mars5_w8a8_ffn(const void* x, const void* ln_w, const void* ln_b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* ub = static_cast<__nv_bfloat16*>(u);
 
-  cudaError_t err = prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize1, st);
+  cudaError_t err = prologue(xb, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize1, xs_pitch, st);
   if (err != cudaSuccess) return (int)err;
   const Epilogue p1{xs, static_cast<const float*>(ws), static_cast<const float*>(vs), nullptr,
-                    nullptr, ub, M, F, K, gsize1};
-  err = gsize1 == K ? launch_swiglu(bn1, grid1, st, ta1, tw, tv, p1)
-                    : launch_swiglu_grouped(w1_grouped != 0, grid1, st, ta1, tw, tv, p1);
+                    nullptr, ub, M, F, K, gsize1, xs_pitch};
+  err = swiglu(bn1, gsize1, w1_grouped != 0, grid1, st, ta1, tw, tv, p1);
   if (err != cudaSuccess) return (int)err;
 
   // u's rows quantised over all F columns (or per group) into the same scratch
-  err = prologue(ub, nullptr, nullptr, vec_bf16, eps, q, xs, M, F, gsize2, st);
+  err = prologue(ub, nullptr, nullptr, vec_bf16, eps, q, xs, M, F, gsize2, xs_pitch, st);
   if (err != cudaSuccess) return (int)err;
   const Epilogue p2{xs, static_cast<const float*>(l2s), nullptr, l2b, xb,
-                    static_cast<__nv_bfloat16*>(out), M, K, F, gsize2};
+                    static_cast<__nv_bfloat16*>(out), M, K, F, gsize2, xs_pitch};
   return (int)gemm0(bn2, vec_bf16 != 0, gsize2, w2_grouped != 0, grid2, st, ta2, tl, p2);
 }

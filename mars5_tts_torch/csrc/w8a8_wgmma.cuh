@@ -16,16 +16,16 @@
 //   mode 0: out = bf16(acc * (xs * s) [+ bias]) [+ residual]
 //   mode 1: u = bf16(bf16(silu(wo)) * vo), wo / vo = bf16(acc * (xs * s))
 //   with acc the exact int32 product of q (M, K) and W (N, K), both K-major.
-//   - A CTA tile is 128 rows x kBN B rows (128 or 256, the host's choice):
-//     two consumer warpgroups of 64 rows run wgmma.m64n{kBN}k32.s32.s8.s8, A
-//     and B from shared memory. In mode 1 the kBN B rows are kBN / 2 W rows
-//     and the same rows of V, so a thread holds w (fragment column j) and v
-//     (column j + kBN / 2) of one u column.
+//   - A CTA tile is 128 rows x kBN B rows (128 or 256, the host's choice;
+//     grouped: 64 or 128): two consumer warpgroups of 64 rows run
+//     wgmma.m64n{kBN}k32.s32.s8.s8, A and B from shared memory. In mode 1 the
+//     kBN B rows are kBN / 2 W rows and the same rows of V, so a thread holds
+//     w (fragment column j) and v (column j + kBN / 2) of one u column.
 //   - One producer thread loads 128-deep k slices of A and B with TMA
 //     (2-D maps, 128-byte swizzle, zero fill past M and N) into a ring of
-//     6 (kBN 128) or 4 (kBN 256) stages of 32 or 48 KB, each with a full and
-//     an empty mbarrier; its warpgroup gives its registers to the consumers
-//     (setmaxnreg 40 / 232).
+//     6 (kBN 128), 4 (kBN 256) or 8 (kBN 64) stages of 32, 48 or 24 KB, each
+//     with a full and an empty mbarrier; its warpgroup gives its registers
+//     to the consumers (setmaxnreg 40 / 232).
 //   - Persistent: a CTA a SM walks the tiles t = blockIdx.x + i * gridDim.x
 //     (row block t / tiles_n, column block t % tiles_n); the producer loads
 //     the next tile's slices while the consumers run this tile's epilogue.
@@ -37,15 +37,36 @@
 //     waited on each store left a 128 x 128 tile's epilogue latency-bound).
 //
 // Grouped mode (the TPU kernels' _qdot with groups > 1; kGrouped prologue,
-// kG 1 or 2 GEMM, 128-wide tiles): the prologue writes a scale a (row, group
-// of gsize columns), xs (M, G), from each 32-column segment's amax; the
-// consumers flush the int32 accumulator at each group's last 32-deep wgmma
-// step (several flushes a 128-deep stage for gsize 32 or 64, one every
-// gsize / 128 stages above) into an f32 sum, (float(acc) * xs[row, g]) *
-// sg[g, col] (kG 1, weight scales (G, N)) or float(acc) * xs[row, g] (kG
-// 2, per-row weight scales, applied after the sum), in group order; the
-// epilogue then adds the bias, casts and adds the residual as above.
-//
+// kG 1 or 2 GEMM, 64- or 128-wide tiles): the prologue writes a scale a
+// (row, group of gsize columns), xs (G, xs_pitch), from each 32-column
+// segment's amax (the pitch the host's, a multiple of 4 floats >= M, so a
+// group's row starts on 16 bytes for the GEMM's bulk copies); the GEMM folds each group's exact int32 partial into an
+// f32 sum, (float(acc) * xs[g, row]) * sg[g, col] (kG 1, weight scales
+// (G, N)) or float(acc) * xs[g, row] (kG 2, per-row weight scales, applied
+// after the sum), in group order; the epilogue then adds the bias, casts and
+// adds the residual as above.
+//   - Two int32 accumulator sets take the groups in turn: group g + 1's
+//     wgmma steps are issued and committed into one set, then wgmma_wait<1>
+//     retires group g's set, which is folded while g + 1's products are in
+//     flight (the one-group loop's overlap). A commit closes every stage and
+//     every group; a stage goes back to the producer once the commit after
+//     its last one has retired.
+//   - The fold converts with the int-to-float unit, (float)acc: the exact
+//     add (__int_as_float(acc + 0x4B400000) - 1.5 * 2^23, |acc| <= 2^22)
+//     costs a second issue slot an element and was 3-5% slower on the card
+//     (PERF.md).
+//   - Scales off the critical path: the producer copies each group's scales
+//     into the stage where the group ends, beside the A and B slices, with
+//     bulk copies on the stage's mbarrier: the tile's 128 row scales of xs
+//     and (kG 1) its columns of sg (mode 1: W's, then V's). The consumers
+//     read them from shared memory when they fold.
+//   - At 128-wide tiles a consumer thread holds 64 + 64 int32 and 64 f32
+//     sums; it fits without spills (-Xptxas -v) with its scales in shared
+//     memory rather than registers, the accumulator sets scoped to a tile
+//     (no value of theirs live across the epilogue) and an epilogue that
+//     loads four or two column groups a batch (sums kept in shared memory
+//     instead were slower on the card: PERF.md).
+
 // Numerics (those of the twins and the TPU kernels): LN in f32 (mean, then
 // the mean of squared deviations, (x - mean) * (1 / sqrt(var + eps)), * w +
 // b), rounded to bf16, with the two means summed in f64 and rounded once
@@ -107,7 +128,7 @@ template <bool kLN, int kChunks, bool kGrouped>
 __global__ void __launch_bounds__(kRowWarps * 32)
 w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void* ln_b,
               int vec_bf16, float eps, int8_t* __restrict__ q, float* __restrict__ xs_out, int M,
-              int K, int gsize) {
+              int K, int gsize, int xs_pitch) {
   // the block's LN vectors, loaded once while the rows are in flight
   __shared__ float4 lnp[2][kLN ? kChunks * 32 : 1];
   // kGrouped: each warp's 32-column maxima, then its row's group scales
@@ -184,7 +205,8 @@ w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void*
   if (kGrouped) {
     // groups of gsize columns (a multiple of 32 dividing K): the maximum of
     // each 32-column segment (8 lanes of a chunk), then each group's over
-    // its segments; the scales go out as xs (M, G) row-major
+    // its segments; the scales go out as xs (G, xs_pitch), a group's
+    // scales of all rows in one row
     const int w = threadIdx.x >> 5, G = K / gsize, nseg = gsize / 32;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c)
@@ -201,7 +223,7 @@ w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void*
       for (int i = 0; i < nseg; ++i) m = fmaxf(m, seg_sh[w][g * nseg + i]);
       const float xs = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
       xs_sh[w][g] = xs;
-      xs_out[(long long)row * G + g] = xs;
+      xs_out[(long long)g * xs_pitch + row] = xs;
     }
     __syncwarp();
 #pragma unroll
@@ -247,10 +269,10 @@ w8a8_prologue(const __nv_bfloat16* __restrict__ x, const void* ln_w, const void*
 template <bool kLN, int kChunks, bool kGrouped = false>
 cudaError_t launch_prologue_k(const __nv_bfloat16* x, const void* ln_w, const void* ln_b,
                               int vec_bf16, float eps, int8_t* q, float* xs, int M, int K,
-                              cudaStream_t st, int gsize = 0) {
+                              cudaStream_t st, int gsize = 0, int xs_pitch = 0) {
   const dim3 grid((M + kRowWarps - 1) / kRowWarps);
   w8a8_prologue<kLN, kChunks, kGrouped><<<grid, kRowWarps * 32, 0, st>>>(
-      x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize);
+      x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, gsize, xs_pitch);
   return cudaGetLastError();
 }
 
@@ -268,20 +290,21 @@ cudaError_t launch_prologue(const __nv_bfloat16* x, const void* ln_w, const void
                                                     st);
 }
 
-// The prologue with per-(row, group of gsize columns) scales, xs (M, K / gsize).
+// The prologue with per-(row, group of gsize columns) scales, xs
+// (K / gsize, xs_pitch): a group's scales in a row of xs_pitch floats.
 cudaError_t launch_prologue_grouped(const __nv_bfloat16* x, const void* ln_w, const void* ln_b,
                                     int vec_bf16, float eps, int8_t* q, float* xs, int M, int K,
-                                    int gsize, cudaStream_t st) {
+                                    int gsize, int xs_pitch, cudaStream_t st) {
   const bool ln = ln_w != nullptr;
   if (K <= 1024)
     return ln ? launch_prologue_k<true, 8, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st,
-                                                 gsize)
+                                                 gsize, xs_pitch)
               : launch_prologue_k<false, 8, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M, K, st,
-                                                  gsize);
+                                                  gsize, xs_pitch);
   return ln ? launch_prologue_k<true, kMaxK / 128, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M,
-                                                         K, st, gsize)
+                                                         K, st, gsize, xs_pitch)
             : launch_prologue_k<false, kMaxK / 128, true>(x, ln_w, ln_b, vec_bf16, eps, q, xs, M,
-                                                          K, st, gsize);
+                                                          K, st, gsize, xs_pitch);
 }
 
 // ---- GEMM ------------------------------------------------------------------
@@ -291,22 +314,34 @@ constexpr int kBK = 128;                 // k depth of a stage: one 128-byte swi
 constexpr int kWarpgroup = 128;
 constexpr int kGemmThreads = 3 * kWarpgroup;         // two consumers, one producer
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 64 K
-constexpr int kTileA = kBM * kBK;        // bytes
 
-// A tile of kBN B rows (128 or 256; mode 1: half W, half V): a stage holds
+constexpr int kTileA = kBM * kBK;        // bytes
+constexpr int kStepsPerStage = kBK / 32;  // s8 wgmma steps (32 deep) a stage
+
+// A tile of kBN B rows (64, 128 or 256; mode 1: half W, half V): a stage holds
 // 128 rows of A and the kBN rows, and the ring as many stages as fit in
-// 192 KB (6 or 4).
-template <int kBN>
+// 192 KB (8, 6 or 4). Grouped (kSlot floats > 0): a stage also holds the
+// scales of the groups that end in it, a slot per 32-deep step: the tile's
+// 128 row scales of A, then (kG 1) its kBN weight scales (mode 1: W's kBN / 2,
+// then V's).
+template <int kBN, int kSlot = 0>
 struct Ring {
   static constexpr int kTileB = kBN * kBK;
   static constexpr int kStageBytes = kTileA + kTileB;
   static constexpr int kStages = (192 * 1024) / kStageBytes;
-  static constexpr int kOffBars = kStages * kStageBytes;
+  static constexpr int kSlotBytes = 4 * kSlot;
+  static constexpr int kOffSlots = kStages * kStageBytes;
+  static constexpr int kOffBars = kOffSlots + kStages * kStepsPerStage * kSlotBytes;
   static constexpr int kSmem = kOffBars + 2 * kStages * 8 + 1024;   // + alignment slack
 };
 
+// The slot floats of a grouped GEMM (kG 1 or 2) with kBN-wide tiles.
+__host__ __device__ constexpr int slot_floats(int kBN, int kG) {
+  return kG == 0 ? 0 : kBM + (kG == 1 ? kBN : 0);
+}
+
 struct Epilogue {
-  const float* xs;       // (M,) row scales of A; grouped: (M, G) row-major
+  const float* xs;       // (M,) row scales of A; grouped: (G, xs_pitch) row-major
   const float* ws;       // (N,) scales of W; kG 1: (G, N) row-major
   const float* vs;       // mode 1: (N,) scales of V; kG 1: (G, N)
   const void* bias;      // mode 0: (N,) bf16 or f32 (the kernel's kBf16Bias), or null
@@ -314,11 +349,14 @@ struct Epilogue {
   __nv_bfloat16* out;    // (M, N) row-major
   int M, N, K;           // N: output columns (mode 1: u columns, F)
   int gsize = 0;         // grouped kernels: K columns a group (a multiple of 32), G = K / gsize
+  int xs_pitch = 0;      // grouped kernels: xs's row pitch, a multiple of 4 floats >= M
 };
 
 template <int kBN>
 __device__ __forceinline__ void wgmma_s8(int* acc, uint64_t da, uint64_t db, int accumulate) {
-  if (kBN == 128)
+  if (kBN == 64)
+    wgmma_m64n64k32_s8(acc, da, db, accumulate);
+  else if (kBN == 128)
     wgmma_m64n128k32_s8(acc, da, db, accumulate);
   else
     wgmma_m64n256k32_s8(acc, da, db, accumulate);
@@ -335,77 +373,120 @@ __device__ __forceinline__ float rescaled(const int* acc, const float* sum, int 
   else return __fmul_rn(sum[i], ws);
 }
 
-// The k loop of one tile in a grouped mode (kG 1 or 2, see gemm), for the
-// consumer thread of rows r0 and r0 + 8, columns n0 + 8 j + 2 q4 + {0, 1}.
-// The wgmma steps (32 deep) of each gsize-column group accumulate in acc; at
-// the group's last step the consumer waits for them and adds the group's
-// partial to sum: (float(acc) * xs[row, g]) * sg[g, col] (kG 1) or
-// float(acc) * xs[row, g] (kG 2), summed in group order from the first, as
-// the twins' _qdot does. A stage goes back to the producer once its
-// products are done. One wgmma group in flight at a time: the flushes need
-// the int32 sums, so the grouped modes give up the overlap of the slice
-// before with the next.
+// Adds one group's rescaled partial to the f32 sums (started at -0, so the
+// first group's partial comes out as it is, as in the twins): sum +=
+// (float(acc) * xs[row]) [* sg[col]], rows rl and rl + 8 of the tile, acc
+// taken from a0 when first, else a1. slot: the group's scales (Ring).
 template <int kMode, int kBN, int kG>
-__device__ __forceinline__ void grouped_mainloop(int* acc, float* sum, uint32_t base,
-                                                 uint32_t full, uint32_t empty, int& s,
-                                                 int& phase, int wg, int lane, int r0, int n0,
-                                                 int q4, const Epilogue& p) {
-  using R = Ring<kBN>;
-  const int n_k = p.K / kBK, G = p.K / p.gsize;
-  const bool live0 = r0 < p.M, live1 = r0 + 8 < p.M;
-  for (int kc = 0; kc < n_k; ++kc) {
-    mbar_wait(full + 8 * s, phase);
-    const uint32_t a = base + s * R::kStageBytes + wg * 64 * kBK;
-    const uint32_t b = base + s * R::kStageBytes + kTileA;
+__device__ __forceinline__ void fold_group(const int* a0, const int* a1, bool first,
+                                           float* sum, const float* slot, int rl, int q4) {
+  const float xa = slot[rl], xb = slot[rl + 8];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk) {
-      const int k0 = kc * kBK + kk * 32;
-      const bool flush = (k0 + 32) % p.gsize == 0;
-      fence_regs<kBN / 2>(acc);
-      wgmma_fence();
-      wgmma_s8<kBN>(acc, wgmma_desc_sw128(a + 32 * kk, 0, 1024),
-                    wgmma_desc_sw128(b + 32 * kk, 0, 1024), k0 % p.gsize != 0);
-      if (!flush && kk != kBK / 32 - 1) continue;
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<kBN / 2>(acc);
-      if (!flush) continue;
-      const int gi = (k0 + 32) / p.gsize - 1;
-      const float xa = live0 ? __ldg(p.xs + (long long)r0 * G + gi) : 0.f;
-      const float xb = live1 ? __ldg(p.xs + (long long)(r0 + 8) * G + gi) : 0.f;
+  for (int j = 0; j < kBN / 8; ++j) {
+    // mode 1: fragment groups j < kBN / 16 are W's columns, the rest V's
+    const bool is_v = kMode == 1 && j >= kBN / 16;
+    float2 w2 = make_float2(0.f, 0.f);
+    if constexpr (kG == 1)
+      w2 = *reinterpret_cast<const float2*>(
+          slot + kBM + (is_v ? kBN / 2 + 8 * (j - kBN / 16) : 8 * j) + 2 * q4);
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        // mode 1: fragment groups j < kBN / 16 are W's columns, the rest V's
-        const bool is_v = kMode == 1 && j >= kBN / 16;
-        const int col = n0 + 8 * (is_v ? j - kBN / 16 : j) + 2 * q4;
-        float w2[2] = {0.f, 0.f};
-        if (kG == 1 && col < p.N) {
-          const float* sg = (is_v ? p.vs : p.ws) + (long long)gi * p.N + col;
-          w2[0] = __ldg(sg);
-          w2[1] = __ldg(sg + 1);
-        }
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * h + e;
-            float part = __fmul_rn((float)acc[i], h ? xb : xa);
-            if (kG == 1) part = __fmul_rn(part, w2[e]);
-            sum[i] = gi == 0 ? part : __fadd_rn(sum[i], part);
-          }
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        const int v = first ? a0[i] : a1[i];
+        float part = __fmul_rn((float)v, h ? xb : xa);
+        if (kG == 1) part = __fmul_rn(part, e ? w2.y : w2.x);
+        sum[i] = __fadd_rn(sum[i], part);
       }
-    }
-    if (lane == 0) mbar_arrive(empty + 8 * s);
-    if (++s == R::kStages) s = 0, phase ^= 1;
   }
 }
 
+// A consumer warpgroup's place in the grouped k loop, carried across tiles
+// (s, phase) and across the groups of a tile (the rest).
+struct GroupLoop {
+  int s, phase;   // the ring stage read next and its parity
+  int rel;        // the stage handed back when the last commit retires, or -1
+  int fold;       // the scale slot (stage x 4 + step) of the group awaiting its fold, or -1
+};
+
+// What the grouped k loop of a consumer thread reads: the ring, its scale
+// slots, its rows rl and rl + 8 of the tile, its columns 8 j + 2 q4 + {0, 1}.
+struct GroupCtx {
+  uint32_t base, full, empty;
+  const float* slots;
+  int wg, lane, q4, rl, G;
+};
+
+// Issues group g's wgmma steps into accumulator set kSet (acc) and, at the
+// first commit, folds the group before it out of the other set (other).
+template <int kMode, int kBN, int kG, int kSet>
+__device__ __forceinline__ void grouped_issue(int* acc, int* other, float* sum, GroupLoop& L,
+                                              int g, const GroupCtx& c, const Epilogue& p) {
+  using R = Ring<kBN, slot_floats(kBN, kG)>;
+  const int spg = p.gsize / 32;
+  for (int i = 0; i < spg; ++i) {
+    const int kk = (g * spg + i) % kStepsPerStage;
+    if (kk == 0) mbar_wait(c.full + 8 * L.s, L.phase);
+    const uint32_t a = c.base + L.s * R::kStageBytes + c.wg * 64 * kBK;
+    const uint32_t b = c.base + L.s * R::kStageBytes + kTileA;
+    if (i == 0 || kk == 0) {
+      fence_regs<kBN / 2>(acc);
+      wgmma_fence();
+    }
+    wgmma_s8<kBN>(acc, wgmma_desc_sw128(a + 32 * kk, 0, 1024),
+                  wgmma_desc_sw128(b + 32 * kk, 0, 1024), i != 0);
+    const bool stage_end = kk == kStepsPerStage - 1, group_end = i == spg - 1;
+    if (!stage_end && !group_end) continue;
+    wgmma_commit();
+    fence_regs<kBN / 2>(acc);
+    wgmma_wait<1>();                      // the commit before this one has retired
+    if (L.fold >= 0) {                    // group g - 1, in the other set
+      fence_regs<kBN / 2>(other);
+      fold_group<kMode, kBN, kG>(other, other, true, sum,
+                                 c.slots + L.fold * slot_floats(kBN, kG), c.rl, c.q4);
+      L.fold = -1;
+    }
+    if (L.rel >= 0) {
+      if (c.lane == 0) mbar_arrive(c.empty + 8 * L.rel);
+      L.rel = -1;
+    }
+    if (group_end) L.fold = L.s * kStepsPerStage + kk;
+    if (stage_end) {
+      L.rel = L.s;
+      if (++L.s == R::kStages) L.s = 0, L.phase ^= 1;
+    }
+  }
+}
+
+// The k loop of one tile in a grouped mode (kG 1 or 2, see gemm): the groups
+// alternate between the accumulator sets acc0 (even) and acc1 (odd); at the
+// end the last group is retired and folded into sum.
+template <int kMode, int kBN, int kG>
+__device__ __forceinline__ void grouped_mainloop(int* acc0, int* acc1, float* sum, GroupLoop& L,
+                                                 const GroupCtx& c, const Epilogue& p) {
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) sum[i] = -0.f;
+  L.rel = L.fold = -1;
+  for (int g = 0; g < c.G; g += 2) {
+    grouped_issue<kMode, kBN, kG, 0>(acc0, acc1, sum, L, g, c, p);
+    if (g + 1 < c.G) grouped_issue<kMode, kBN, kG, 1>(acc1, acc0, sum, L, g + 1, c, p);
+  }
+  wgmma_wait<0>();
+  fence_regs<kBN / 2>(acc0);
+  fence_regs<kBN / 2>(acc1);
+  // the last group: in acc0 when G is odd
+  fold_group<kMode, kBN, kG>(acc0, acc1, c.G % 2 != 0, sum,
+                             c.slots + L.fold * slot_floats(kBN, kG), c.rl, c.q4);
+  if (c.lane == 0) mbar_arrive(c.empty + 8 * L.rel);
+}
+
 // kG: 0 one scale a row of A and of W; grouped (gsize-column groups of K,
-// A's scales (M, G)), 1 with W's scales (G, N) too, 2 with W's per row.
+// A's scales (G, M)), 1 with W's scales (G, N) too, 2 with W's per row.
 template <int kMode, int kBN, bool kBf16Bias, int kG = 0>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* tw,
                                      const CUtensorMap* tv, const Epilogue& p) {
-  using R = Ring<kBN>;
+  using R = Ring<kBN, slot_floats(kBN, kG)>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_addr(smem);
@@ -435,7 +516,34 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
       for (int kc = 0; kc < n_k; ++kc) {
         mbar_wait(empty + 8 * s, phase ^ 1);
         const uint32_t a = base + s * R::kStageBytes, b = a + kTileA, bar = full + 8 * s;
-        mbar_arrive_expect_tx(bar, R::kStageBytes);
+        if constexpr (kG != 0) {
+          // the scales of the groups ending in this stage, each in the slot
+          // of its last step: xs[g, m0 ..] and (kG 1) sg[g, n0 ..] (mode 1:
+          // W's, then V's), rows clipped to the arrays
+          const int spg = p.gsize / 32, pitch = p.xs_pitch;
+          const uint32_t xrow = 4 * min(kBM, pitch - m0);
+          const uint32_t wrow = kG == 1 ? 4 * (kMode == 0 ? min(kCols, p.N - n0) : kCols) : 0;
+          uint32_t bytes = R::kStageBytes;
+#pragma unroll
+          for (int kk = 0; kk < kStepsPerStage; ++kk)
+            if ((kc * kStepsPerStage + kk + 1) % spg == 0) bytes += xrow + (kMode + 1) * wrow;
+          mbar_arrive_expect_tx(bar, bytes);
+#pragma unroll
+          for (int kk = 0; kk < kStepsPerStage; ++kk) {
+            const int end = kc * kStepsPerStage + kk + 1;
+            if (end % spg) continue;
+            const int gi = end / spg - 1;
+            const uint32_t slot = base + R::kOffSlots + (s * kStepsPerStage + kk) * R::kSlotBytes;
+            bulk_load(slot, p.xs + (long long)gi * pitch + m0, xrow, bar);
+            if constexpr (kG == 1) {
+              const long long off = (long long)gi * p.N + n0;
+              bulk_load(slot + 4 * kBM, p.ws + off, wrow, bar);
+              if (kMode == 1) bulk_load(slot + 4 * (kBM + kBN / 2), p.vs + off, wrow, bar);
+            }
+          }
+        } else {
+          mbar_arrive_expect_tx(bar, R::kStageBytes);
+        }
         tma_load_2d(a, ta, bar, kc * kBK, m0);
         tma_load_2d(b, tw, bar, kc * kBK, n0);
         if (kMode == 1) tma_load_2d(b + R::kTileB / 2, tv, bar, kc * kBK, n0);
@@ -449,14 +557,19 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
   warpgroup_regs_inc<kConsumerRegs>();
   const int tid = threadIdx.x % kWarpgroup, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q4 = lane & 3;
-  int acc[kBN / 2];
-  float sum[kBN / 2];                   // grouped: the f32 sum of the groups' rescaled partials
+  int acc[kG == 0 ? kBN / 2 : 1];
+  float sum[kBN / 2];                   // grouped: the f32 sum of the folded groups
   int s = 0, phase = 0, prev = 0;
+  GroupLoop L{0, 0, -1, -1};            // grouped: carried across tiles
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = (t / tiles_n) * kBM, n0 = (t % tiles_n) * kCols;
     if constexpr (kG != 0) {
-      grouped_mainloop<kMode, kBN, kG>(acc, sum, base, full, empty, s, phase, wg, lane,
-                                       m0 + wg * 64 + warp * 16 + g, n0, q4, p);
+      const GroupCtx c{base, full, empty, reinterpret_cast<const float*>(smem + R::kOffSlots),
+                       wg, lane, q4, wg * 64 + warp * 16 + g, p.K / p.gsize};
+      // the accumulator sets live for one tile: none of their values is live
+      // across the epilogue
+      int a0[kBN / 2], a1[kBN / 2];
+      grouped_mainloop<kMode, kBN, kG>(a0, a1, sum, L, c, p);
     } else {
     for (int kc = 0; kc < n_k; ++kc) {
       mbar_wait(full + 8 * s, phase);
@@ -497,7 +610,9 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
       }
     }
     constexpr int kGroups = kMode == 0 ? kBN / 8 : kBN / 16;   // 8-column groups a thread
-    constexpr int kBatch = 8;
+    // grouped: four column groups a batch (kG 1) or two (kG 2, which loads
+    // W's scales too): the sums beside eight groups' loads spilled
+    constexpr int kBatch = kG == 1 ? 4 : kG == 2 ? 2 : kGroups < 8 ? kGroups : 8;
 #pragma unroll
     for (int j0 = 0; j0 < kGroups; j0 += kBatch) {
       float sa[kBatch][2], sb[kBatch][2];      // mode 0: ws, bias; mode 1: ws, vs
@@ -568,9 +683,9 @@ w8a8_wgmma_swiglu(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 
 // ---- host launchers ----------------------------------------------------------
 
-// Launches a GEMM kernel with kBN-wide tiles, its dynamic shared memory
-// (above 48 KB) allowed once a device.
-template <auto kKernel, int kBN, typename... Args>
+// Launches a GEMM kernel with kBN-wide tiles (and, grouped, kSlot floats a
+// scale slot), its dynamic shared memory (above 48 KB) allowed once a device.
+template <auto kKernel, int kBN, int kSlot = 0, typename... Args>
 cudaError_t launch_gemm(int grid, cudaStream_t st, Args... args) {
   static std::atomic<unsigned> smem_set{0};   // one bit a device
   int dev = 0;
@@ -578,11 +693,11 @@ cudaError_t launch_gemm(int grid, cudaStream_t st, Args... args) {
   if (dev >= 32 || !(smem_set.load() & (1u << dev))) {
     const cudaError_t err = cudaFuncSetAttribute(
         reinterpret_cast<const void*>(kKernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Ring<kBN>::kSmem);
+        Ring<kBN, kSlot>::kSmem);
     if (err != cudaSuccess) return err;
     if (dev < 32) smem_set.fetch_or(1u << dev);
   }
-  kKernel<<<grid, kGemmThreads, Ring<kBN>::kSmem, st>>>(args...);
+  kKernel<<<grid, kGemmThreads, Ring<kBN, kSlot>::kSmem, st>>>(args...);
   return cudaGetLastError();
 }
 
@@ -596,25 +711,24 @@ inline cudaError_t launch_gemm0(int bn, bool bf16_bias, int grid, cudaStream_t s
                    : launch_gemm<w8a8_wgmma_gemm<256, false>, 256>(grid, st, ta, tw, p);
 }
 
-// The grouped mode-0 GEMM (128-wide tiles: the f32 sums and the int32
-// accumulators together fit a consumer's registers only there), W's scales
-// (G, N) (w_grouped) or (N,).
-inline cudaError_t launch_gemm0_grouped(bool w_grouped, bool bf16_bias, int grid,
-                                        cudaStream_t st, const CUtensorMap& ta,
-                                        const CUtensorMap& tw, const Epilogue& p) {
-  if (w_grouped)
-    return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<128, true, 1>, 128>(grid, st, ta, tw, p)
-                     : launch_gemm<w8a8_wgmma_gemm<128, false, 1>, 128>(grid, st, ta, tw, p);
-  return bf16_bias ? launch_gemm<w8a8_wgmma_gemm<128, true, 2>, 128>(grid, st, ta, tw, p)
-                   : launch_gemm<w8a8_wgmma_gemm<128, false, 2>, 128>(grid, st, ta, tw, p);
+// The grouped mode-0 and mode-1 GEMMs with kBN-wide tiles (64 or 128: the f32
+// sums beside two int32 accumulator sets fit a consumer's registers up to
+// 128), kG 1 (W's scales (G, N)) or 2 ((N,)); nar_fused.cu picks them.
+template <int kBN, int kG>
+cudaError_t launch_gemm0_grouped(bool bf16_bias, int grid, cudaStream_t st,
+                                 const CUtensorMap& ta, const CUtensorMap& tw,
+                                 const Epilogue& p) {
+  constexpr int kSlot = slot_floats(kBN, kG);
+  return bf16_bias
+             ? launch_gemm<w8a8_wgmma_gemm<kBN, true, kG>, kBN, kSlot>(grid, st, ta, tw, p)
+             : launch_gemm<w8a8_wgmma_gemm<kBN, false, kG>, kBN, kSlot>(grid, st, ta, tw, p);
 }
-
-// The grouped mode-1 GEMM, 128-wide tiles (64 rows of W, 64 of V).
-inline cudaError_t launch_swiglu_grouped(bool w_grouped, int grid, cudaStream_t st,
-                                         const CUtensorMap& ta, const CUtensorMap& tw,
-                                         const CUtensorMap& tv, const Epilogue& p) {
-  return w_grouped ? launch_gemm<w8a8_wgmma_swiglu<128, 1>, 128>(grid, st, ta, tw, tv, p)
-                   : launch_gemm<w8a8_wgmma_swiglu<128, 2>, 128>(grid, st, ta, tw, tv, p);
+template <int kBN, int kG>
+cudaError_t launch_swiglu_grouped(int grid, cudaStream_t st, const CUtensorMap& ta,
+                                  const CUtensorMap& tw, const CUtensorMap& tv,
+                                  const Epilogue& p) {
+  return launch_gemm<w8a8_wgmma_swiglu<kBN, kG>, kBN, slot_floats(kBN, kG)>(grid, st, ta, tw,
+                                                                           tv, p);
 }
 
 // The mode-1 (SwiGLU) GEMM with bn-wide tiles: bn / 2 rows of W and of V.

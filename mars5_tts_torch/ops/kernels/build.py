@@ -58,9 +58,15 @@ def library_path(name: str, sources: tuple[str, ...]) -> Path:
 
 def build(name: str, sources: tuple[str, ...]) -> Path:
     """Compile ``sources`` (relative to csrc/) into one shared library;
-    headers (``.cuh``) among them count in the library's hash only."""
+    headers (``.cuh``) among them count in the library's hash only. nvcc's
+    output (the ptxas register and spill lines) goes to ``build_log[name]``
+    and beside the library as ``.log``, from where a library built before is
+    read back (no entry when that file is missing)."""
     out = library_path(name, sources)
+    log = out.with_suffix(".log")
     if out.exists():
+        if name not in build_log and log.exists():
+            build_log[name] = log.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -72,6 +78,9 @@ def build(name: str, sources: tuple[str, ...]) -> Path:
     build_log[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{build_log[name]}")
+    tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
+    tmp_log.write_text(build_log[name])
+    os.replace(tmp_log, log)  # before the library: a library found has its log
     os.replace(tmp, out)  # atomic: a concurrent process never sees a partial file
     return out
 

@@ -45,10 +45,11 @@ per (row, group of K / groups columns), scales (M, G); each group's int32
 partial becomes ``(acc * xs_g) * sg[g]`` for weights with group scales sg
 (G, N), or ``acc * xs_g`` for per-row weights (times s after the sum); the
 partials are summed in group order from the first, then the bias, the cast
-and the residual as above. The kernels flush the int32 accumulator into an
-f32 sum at each group's end (a group a multiple of 32 columns, one s8 wgmma
-step) on 128-wide tiles (the sum and the accumulator together fit the
-registers only there).
+and the residual as above. The kernels fold each group's int32 partial into
+an f32 sum (a group a multiple of 32 columns, one s8 wgmma step) from one of
+two accumulator sets while the next group's products are in flight, and
+take 64- or 128-wide tiles, whichever's last wave ends first by the rows a
+tile pulls (``gemm_plan``).
 
 ``fused_linear``/``fused_ffn`` take the twins only for CPU tensors. For CUDA
 tensors they launch the kernels or raise; nothing falls back.
@@ -70,6 +71,7 @@ N_MULTIPLE = 64      # output columns: a multiple of 64 (tiles may be ragged)
 MAX_K = 3072         # a prologue warp holds a row of up to 3072 values in registers
 TILE_M = 128         # rows a GEMM tile: two consumer warpgroups of 64
 TILE_B = (256, 128)  # weight rows a GEMM tile, the wider first (K4's W and V GEMM: half each)
+TILE_B_GROUPED = (128, 64)   # the grouped kernels' (two accumulator sets and a sum)
 GROUP_MULTIPLE = 32  # a K group of the grouped kernels: whole s8 wgmma steps (32 deep)
 H100_SMS = 132
 
@@ -215,6 +217,31 @@ def check_gemm(m: int, n: int, k: int, mode: int) -> None:
         raise ValueError(f"nar_fused kernel needs N a multiple of {N_MULTIPLE}, got {n}")
 
 
+def wave_plan(m: int, n: int, k: int, mode: int, widths: tuple, sms: int,
+              a_rows: int = 0) -> tuple:
+    """(tile_b, grid) of a GEMM launch, of the tile widths ``widths`` (widest
+    first) the one whose last wave ends first: cost = ceil(tiles / sms) x a
+    tile's time, taken as the rows its stages pull, tile_b weight rows and
+    ``a_rows`` rows of A (0: a tile's time as its width, K9's sites; TILE_M:
+    as the bytes it moves, the grouped GEMMs). A tie keeps the wider tile,
+    which moves fewer bytes a product. In mode 1 a width is
+    taken only where its tile_b / 2 u columns divide n. The persistent grid
+    is min(tiles, sms). Raises ValueError on a shape the kernels do not take
+    (``check_gemm``)."""
+    check_gemm(m, n, k, mode)
+    tiles_m = -(-m // TILE_M)
+    best = None
+    for bn in widths:
+        cols = bn if mode == 0 else bn // 2
+        if mode == 1 and n % cols:
+            continue
+        tiles = tiles_m * -(-n // cols)
+        cost = -(-tiles // sms) * (a_rows + bn)
+        if best is None or cost < best[0]:
+            best = (cost, bn, min(tiles, sms))
+    return best[1], best[2]
+
+
 @functools.lru_cache(maxsize=256)
 def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS,
               grouped: bool = False) -> tuple:
@@ -224,18 +251,31 @@ def gemm_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS,
     CTAs, each walking tiles grid apart. The wider 256-row tile moves a
     quarter fewer bytes per product than the 128-row one; it is taken when
     its tiles still give every SM one (and, in mode 1, its 128 u columns
-    divide n). A grouped GEMM takes the 128-row tile: its f32 sums beside
-    the int32 accumulators fit a consumer's registers only there. The
-    kernels derive the tiles and TMA boxes from tile_b. Raises ValueError on
-    a shape they do not take (``check_gemm``)."""
+    divide n). A grouped GEMM takes the 128- or the 64-row tile whose last
+    wave ends first, a tile's time taken as the A and weight rows its stages
+    pull (``wave_plan(a_rows=TILE_M)``; by width, the decoder's sites took
+    64-row tiles that were no faster on the card than 128-row ones in fewer
+    rounds); its f32 sums beside two int32 accumulator sets fit a consumer's
+    registers up to 128. The kernels derive the tiles and TMA boxes from
+    tile_b. Raises ValueError on a shape they do not take (``check_gemm``)."""
+    if grouped:
+        return wave_plan(m, n, k, mode, TILE_B_GROUPED, sms, TILE_M)
     check_gemm(m, n, k, mode)
     tiles_m = -(-m // TILE_M)
-    for bn in TILE_B[1:] if grouped else TILE_B:
+    for bn in TILE_B:
         cols = bn if mode == 0 else bn // 2
         tiles = tiles_m * -(-n // cols)
         if tiles >= sms and (mode == 0 or n % cols == 0):
             break
     return bn, min(tiles, sms)
+
+
+def xs_pitch(m: int) -> int:
+    """The row pitch of the grouped kernels' activation scales (G, pitch) in
+    the scratch, passed to the kernels with it: m rounded up to 4 floats, so
+    each row starts on 16 bytes (the GEMM copies a tile's rows of a group in
+    one bulk copy)."""
+    return -(-m // 4) * 4
 
 
 def _rows(t, what) -> int:
@@ -286,14 +326,14 @@ def _lib():
     if lib.mars5_w8a8_linear.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # x, ln_w, ln_b, bias, vec_bf16, eps, wq, ws, res, out, scratch, M, N,
-        # K, grid, tile_b, gsize, w_grouped, stream
+        # K, grid, tile_b, gsize, w_grouped, xs_pitch, stream
         lib.mars5_w8a8_linear.argtypes = [vp, vp, vp, vp, i, f, vp, vp, vp, vp, vp,
-                                          i, i, i, i, i, i, i, vp]
+                                          i, i, i, i, i, i, i, i, vp]
         # x, ln_w, ln_b, l2b, vec_bf16, eps, wq, ws, vq, vs, l2q, l2s, u, out,
         # scratch, M, K, F, grid1, tile_b1, grid2, tile_b2, gsize1, w1_grouped,
-        # gsize2, w2_grouped, stream
+        # gsize2, w2_grouped, xs_pitch, stream
         lib.mars5_w8a8_ffn.argtypes = [vp, vp, vp, vp, i, f, vp, vp, vp, vp, vp, vp, vp,
-                                       vp, vp, i, i, i, i, i, i, i, i, i, i, i, vp]
+                                       vp, vp, i, i, i, i, i, i, i, i, i, i, i, i, vp]
         lib.mars5_w8a8_linear.restype = lib.mars5_w8a8_ffn.restype = ctypes.c_int
     return lib
 
@@ -319,7 +359,10 @@ def _check_w(w, k, what, groups=1):
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError(f"{what}: TMA reads the weight as a contiguous (N, K) matrix on a "
                          f"16-byte boundary")
-    return q, s.contiguous(), s.ndim == 2
+    s = s.contiguous()
+    if s.ndim == 2 and s.data_ptr() % 16:     # the GEMM copies its rows in bulk
+        s = s.clone()
+    return q, s, s.ndim == 2
 
 
 def _gsize(k, groups, what):
@@ -370,10 +413,11 @@ def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5,
                                       (ln[1], k, "fused_linear: LN bias"),
                                       (bias, n, "fused_linear: bias"))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    scratch = torch.empty(m * k + 4 * m * groups, dtype=torch.int8, device=x.device)
+    scratch = torch.empty(m * k + 4 * xs_pitch(m) * groups, dtype=torch.int8, device=x.device)
     build.call(x.device, _lib().mars5_w8a8_linear, x.data_ptr(), _ptr(lnw), _ptr(lnb),
                _ptr(bias), bf16, eps, q.data_ptr(), s.data_ptr(), _ptr(residual),
-               out.data_ptr(), scratch.data_ptr(), m, n, k, grid, tile_b, gsize, w_grouped)
+               out.data_ptr(), scratch.data_ptr(), m, n, k, grid, tile_b, gsize, w_grouped,
+               xs_pitch(m))
     global fused_linear_launches, fused_linear_grouped_launches
     fused_linear_launches += 1
     fused_linear_grouped_launches += groups > 1
@@ -416,12 +460,13 @@ def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5, groups: int = 1,
                                      (lin2_b, k, "fused_ffn: lin2 bias"))
     u = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
-    scratch = torch.empty(m * max(k, f) + 4 * m * max(groups, groups2), dtype=torch.int8,
-                          device=x.device)
+    scratch = torch.empty(m * max(k, f) + 4 * xs_pitch(m) * max(groups, groups2),
+                          dtype=torch.int8, device=x.device)
     build.call(x.device, _lib().mars5_w8a8_ffn, x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
                l2b.data_ptr(), bf16, eps, wq.data_ptr(), ws.data_ptr(), vq.data_ptr(),
                vs.data_ptr(), l2q.data_ptr(), l2s.data_ptr(), u.data_ptr(), out.data_ptr(),
-               scratch.data_ptr(), m, k, f, g1, b1, g2, b2, gsize1, wg1, gsize2, wg2)
+               scratch.data_ptr(), m, k, f, g1, b1, g2, b2, gsize1, wg1, gsize2, wg2,
+               xs_pitch(m))
     global fused_ffn_launches, fused_ffn_grouped_launches
     fused_ffn_launches += 1
     fused_ffn_grouped_launches += groups > 1 or groups2 > 1

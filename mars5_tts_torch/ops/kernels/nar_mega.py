@@ -57,8 +57,8 @@ import torch
 
 from ..quant import int8_matmul, is_quantized, quantize_act
 from . import build
-from .nar_fused import (H100_SMS, K_CHUNK, MAX_K, TILE_B, TILE_M, _ln_bf16_f32 as _ln,
-                        _silu_mul_bf16, _sms, _sum, check_gemm)
+from .nar_fused import (H100_SMS, K_CHUNK, MAX_K, TILE_B, _ln_bf16_f32 as _ln,
+                        _silu_mul_bf16, _sms, _sum, wave_plan)
 
 SOURCES = build.LIBRARIES["nar_mega"]
 HEAD_DIM = 64
@@ -276,23 +276,9 @@ def site_shapes(dims: MegaDims, m: int, mk: int):
 def site_plan(m: int, n: int, k: int, mode: int, sms: int = H100_SMS) -> tuple:
     """(tile_b, grid) of one K9 GEMM site, as ``nar_fused.gemm_plan`` gives
     K3/K4's but chosen by the wave tail: of the 256- and 128-row tiles, the
-    one whose last wave ends first, a tile's time taken as its width
-    (rounds = ceil(tiles / sms), cost = rounds x tile_b; a tie keeps the
-    wider tile, which moves a quarter fewer bytes a product). The persistent
-    grid is min(tiles, sms). Raises ValueError on a shape the kernels do not
-    take (``nar_fused.check_gemm``)."""
-    check_gemm(m, n, k, mode)
-    tiles_m = -(-m // TILE_M)
-    best = None
-    for bn in TILE_B:
-        cols = bn if mode == 0 else bn // 2
-        if mode == 1 and n % cols:
-            continue
-        tiles = tiles_m * -(-n // cols)
-        cost = -(-tiles // sms) * bn
-        if best is None or cost < best[0]:
-            best = (cost, bn, min(tiles, sms))
-    return best[1], best[2]
+    one whose last wave ends first (``nar_fused.wave_plan``). Raises
+    ValueError on a shape the kernels do not take (``nar_fused.check_gemm``)."""
+    return wave_plan(m, n, k, mode, TILE_B, sms)
 
 
 def mega_plan(dims: MegaDims, m: int, mk: int, sms: int = H100_SMS) -> tuple:

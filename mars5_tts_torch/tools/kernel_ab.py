@@ -1,17 +1,21 @@
 """Two checkouts' kernel checks in turns (A, B, B, A) on one GPU.
 
-    python3 mars5_tts_torch/tools/kernel_ab.py ROOT_A ROOT_B [--checks k6,k2,k8,k9]
+    python3 mars5_tts_torch/tools/kernel_ab.py ROOT_A ROOT_B [--checks k6,k2,k8,k9,k3,k3g]
 
 Each turn is a process of its own that imports that checkout's
 ``chip_smoke.py`` and runs the checks named by ``--checks`` (default
 ``k6,k2``): ``k6`` its ``check_heads_tail`` (K6 and K5 at the bench shape,
 t = 0 and 100), ``k2`` its ``check_decode_layer`` (K2, W8 and W4 at the
 released AR widths, one row at pos 600 and 1900, then four rows), ``k8`` its
-``check_head4`` (K8 on the released AR's head, one row and four) and ``k9``
-its ``check_mega`` (K9 on a released-width int8 NAR decoder), which build
-that checkout's kernels and print their times beside the twins'. Use it to
-compare two versions of a kernel within one call, where the card and its
-host are the same for both.
+``check_head4`` (K8 on the released AR's head, one row and four), ``k9``
+its ``check_mega`` (K9 on a released-width int8 NAR decoder), ``k3`` its
+``check_nar_fused`` (K3 qkv, caq and residual, K4, one group) and ``k3g``
+its ``check_nar_fused_grouped`` (the same at gsize 128, with the grouped
+plan; then each launch's device time and the tile widths' A/B where the
+checkout has ``w8a8_launch_split`` and ``grouped_tile_ab``). The checks
+build that checkout's kernels and print their times beside the twins'.
+Use it to compare two versions of a kernel within one call, where the card
+and its host are the same for both.
 """
 
 from __future__ import annotations
@@ -43,6 +47,13 @@ if "k2" in checks or "k8" in checks:
         S.check_decode_layer(ar, gen, dev)
     if "k8" in checks:
         S.check_head4(ar, gen, dev)
+if "k3" in checks or "k3g" in checks:
+    one = S.check_nar_fused(gen, dev) if "k3" in checks else {}
+    grouped = S.check_nar_fused_grouped(dev) if "k3g" in checks else {}
+    if hasattr(S, "w8a8_launch_split"):
+        S.w8a8_launch_split(one, grouped)
+    if hasattr(S, "grouped_tile_ab") and grouped:
+        S.grouped_tile_ab(grouped)
 if "k9" in checks:
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
     from mars5_tts_torch.ops.quant import quantize_nar
@@ -51,7 +62,7 @@ if "k9" in checks:
         nar = ResidualTransformer(ResidualTransformerConfig.mars5(4_096)).init_(g)
     S.check_mega(quantize_nar(nar.to(torch.bfloat16)).tfm.decoder, dev)
 """
-PREFIXES = ("K2 W", "K5 ", "K6 ", "K8 ", "K9 ")
+PREFIXES = ("K2 W", "K3", "K4 ", "K5 ", "K6 ", "K8 ", "K9 ", "torch._int_mm")
 
 
 def main() -> int:
@@ -60,7 +71,7 @@ def main() -> int:
     ap.add_argument("root_b")
     ap.add_argument("--checks", default="k6,k2")
     args = ap.parse_args()
-    if not set(args.checks.split(",")) <= {"k6", "k2", "k8", "k9"}:
+    if not set(args.checks.split(",")) <= {"k6", "k2", "k8", "k9", "k3", "k3g"}:
         ap.error(f"unknown checks {args.checks}")
     roots = {"A": args.root_a, "B": args.root_b}
     rc = 0

@@ -1094,10 +1094,70 @@ def test_fused_linear_grouped_kernel_matches_ref(dev, m, k, n, gsize, w_grouped,
     assert torch.equal(out, F.fused_linear_ref(x, w, groups=k // gsize, **kw))
 
 
+@pytest.mark.parametrize("m,k,n,gsize,w_grouped,variant,tile", [
+    # 128-wide plans on 132 SMs (the caq site; 120 tiles of 128 in one
+    # round), then 64-wide ones: ragged rows and columns, groups inside a
+    # stage and across two and three stages (256, 384)
+    (1200, 1024, 1536, 128, True, "ln_bias_bf16", 128),
+    (2400, 1024, 1024, 128, False, "ln_bias_bf16", 128),
+    (130, 1024, 192, 128, True, "residual", 64), (97, 512, 320, 32, True, "ln_bias", 64),
+    (300, 3072, 320, 256, True, "residual_bf16", 64), (257, 3072, 192, 384, False, "plain", 64),
+    (1200, 3072, 1536, 384, True, "ln_bias", 128)])
+def test_fused_linear_grouped_kernel_tiles(dev, m, k, n, gsize, w_grouped, variant, tile):
+    """Grouped K3 on the tile the plan takes (64 or 128 wide, asserted) equals
+    its twin bit for bit."""
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    assert F.gemm_plan(m, n, k, 0, F._sms(dev), True)[0] == tile
+    g = torch.Generator(device=dev).manual_seed(m + n + gsize + 7)
+    x = torch.randn((1, m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = _qwg(n, k, gsize if w_grouped else 0, g, dev)
+    kw = _k3_kwargs(variant, k, n, (1, m), g, dev)
+    out = F.fused_linear(x, w, groups=k // gsize, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, F.fused_linear_ref(x, w, groups=k // gsize, **kw))
+
+
+@pytest.mark.parametrize("m,k,n,gsize,w_grouped,low", [
+    (256, 1024, 1024, 128, True, -127), (130, 3072, 192, 256, True, -127),
+    (130, 3072, 192, 256, False, -128), (200, 3072, 256, 384, True, -127),
+    (200, 3072, 256, 384, False, -128), (1200, 1024, 1536, 128, True, -128)])
+def test_fused_linear_grouped_kernel_at_the_largest_partials(dev, m, k, n, gsize, w_grouped,
+                                                             low):
+    """Activations and weights of one magnitude, +-127 after quantization
+    (the weights' negative ones ``low``), with two rows of x and sixteen of
+    W all of one sign: a group's int32 partial reaches +-gsize x 127^2, or
+    +-gsize x 128 x 127 with -128 weights (6,242,304 at gsize 384), which
+    the fold must convert and rescale exactly. Each output equals the
+    twin's bit for bit."""
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    g = torch.Generator(device=dev).manual_seed(m + gsize - low)
+    sx = torch.randint(0, 2, (1, m, k), generator=g, device=dev) * 2 - 1
+    sx[0, 0], sx[0, 1] = 1, -1
+    x = (0.5 * sx).to(torch.bfloat16)
+    sw = torch.randint(0, 2, (n, k), generator=g, device=dev) * 2 - 1
+    sw[:8], sw[8:16] = -1, 1
+    q = torch.where(sw > 0, 127, low).to(torch.int8)
+    groups = k // gsize
+    shape = (groups, n) if w_grouped else (n,)
+    s = 1e-3 * (1 + torch.rand(shape, generator=g, device=dev))
+    kw = _k3_kwargs("residual", k, n, (1, m), g, dev)
+    out = F.fused_linear(x, (q, s), groups=groups, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, F.fused_linear_ref(x, (q, s), groups=groups, **kw))
+    part = (127 * sx[0, :, :gsize]).double() @ q[:, :gsize].double().t()
+    top = gsize * 127 * -low
+    assert part.max().item() == top and part.min().item() == -top
+
+
 @pytest.mark.parametrize("m,k,f,gsize,gsize2,vec", [
     (2400, 1024, 3072, 128, 128, torch.bfloat16),      # the decoder's: G = 8 and 24
     (200, 256, 384, 32, 64, torch.float32), (63, 1024, 3072, 128, 0, torch.float32),
-    (1, 1024, 3072, 0, 384, torch.float32), (130, 3072, 1024, 96, 256, torch.bfloat16)])
+    (1, 1024, 3072, 0, 384, torch.float32), (130, 3072, 1024, 96, 256, torch.bfloat16),
+    # the smoke request's 725 frames (128-wide tiles); 64-wide ones on a
+    # ragged M for both GEMMs
+    (1450, 1024, 3072, 128, 128, torch.bfloat16), (97, 512, 1536, 256, 384, torch.float32)])
 def test_fused_ffn_grouped_kernel_matches_ref(dev, m, k, f, gsize, gsize2, vec):
     """Grouped K4 within the fused bound and at least 99.9% equal to its twin,
     as K4 at one group: the GEMMs are exact, only ``expf`` in the sigmoid

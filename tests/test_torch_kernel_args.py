@@ -463,8 +463,65 @@ def test_w8a8_group_scales_of_the_wrong_shape_refused():
 
 def test_w8a8_gemm_plan_takes_the_narrow_tile_grouped():
     assert F.gemm_plan(2400, 3072, 1024, 0, 132) == (256, 132)
+    # 456 tiles of 128 (4 rounds of 256 rows pulled a stage) end before 912
+    # of 64 (7 rounds of 192)
     assert F.gemm_plan(2400, 3072, 1024, 0, 132, True) == (128, 132)
     assert F.gemm_plan(2400, 3072, 1024, 1, 132, True) == (128, 132)
+    # 8 tiles of 128 rows by 128 take a round of 256 rows a stage, 16 of 64
+    # one of 192: the narrow tile
+    assert F.gemm_plan(128, 1024, 1024, 0, 132, True) == (64, 16)
+
+
+def _last_wave_end(m, n, mode, bn, sms):
+    """When the last wave of bn-row tiles ends, a tile's time taken as the
+    rows its stages pull (128 of A and bn of weights), or None where mode
+    1's bn / 2 u columns do not divide n; and the tile count."""
+    cols = bn if mode == 0 else bn // 2
+    if mode == 1 and n % cols:
+        return None
+    tiles = -(-m // F.TILE_M) * -(-n // cols)
+    return -(-tiles // sms) * (F.TILE_M + bn), tiles
+
+
+# (M, N, K, mode) of the decoder's grouped sites -> (tile_b, grid) on 132 SMs
+W8A8_GROUPED_PLANS = [
+    ((2400, 3072, 1024, 0), (128, 132)),   # qkv: 456 tiles of 128, 4 rounds (912 of 64: 7)
+    ((2400, 1024, 1024, 0), (128, 132)),   # caq, sa_out: 152 of 128, 2 (304 of 64: 3)
+    ((2400, 3072, 1024, 1), (128, 132)),   # WV: 912 of 128, 7 (1,824 of 64: 14)
+    ((2400, 1024, 3072, 0), (128, 132)),   # lin2, as caq
+    ((1450, 3072, 1024, 0), (128, 132)),   # the smoke request's 725 frames: 288 of 128, 3 (5)
+    ((1450, 1024, 1024, 0), (128, 96)),    # 96 of 128 in one round (192 of 64: 2)
+    ((1450, 3072, 1024, 1), (128, 132)),   # 576 of 128, 5 (1,152 of 64: 9)
+    ((1450, 1024, 3072, 0), (128, 96)),
+    ((256, 1024, 1024, 0), (64, 32)),      # 16 of 128 or 32 of 64, one round each
+    ((200, 384, 256, 1), (64, 24)),
+]
+
+
+@pytest.mark.parametrize("shape,want", W8A8_GROUPED_PLANS)
+def test_w8a8_grouped_plan_by_the_wave_tail(shape, want):
+    """The grouped plan takes the tile whose last wave ends first, by K9's
+    ``site_plan`` rule, a tile's time taken as the rows its stages pull
+    (the grouped GEMMs run at the rate L2 feeds their rings), a tie keeping
+    the wider tile."""
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    m, n, k, mode = shape
+    assert F.gemm_plan(*shape, 132, True) == want
+    ends = {bn: _last_wave_end(m, n, mode, bn, 132) for bn in F.TILE_B_GROUPED}
+    best = min((e[0], -bn) for bn, e in ends.items() if e is not None)
+    assert want == (-best[1], min(ends[-best[1]][1], 132))
+    assert F.wave_plan(*shape, F.TILE_B_GROUPED, 132, F.TILE_M) == want
+    assert F.wave_plan(*shape, F.TILE_B, 132) == M.site_plan(*shape)
+
+
+@pytest.mark.parametrize("m,pitch", [(1, 4), (3, 4), (4, 4), (63, 64), (1450, 1452),
+                                     (2400, 2400), (2401, 2404)])
+def test_grouped_scales_pitch(m, pitch):
+    """The grouped kernels' activation scales are (G, pitch) in the scratch,
+    each group's row on a 16-byte boundary, as the GEMM's bulk copies need
+    (the C entries refuse a pitch below M or not a multiple of 4)."""
+    assert F.xs_pitch(m) == pitch and pitch % 4 == 0 and m <= pitch < m + 4
 
 
 def test_mha_int8_mode_refuses_head_dims_and_devices():

@@ -155,6 +155,55 @@ def test_kernel_ab_checks(monkeypatch):
     assert done.value.code == 2
 
 
+def test_kernel_ab_takes_the_w8a8_checks(monkeypatch, capsys):
+    """``k3`` and ``k3g`` (K3/K4 at one group and grouped) are checks
+    kernel_ab.py knows; their lines pass its filter."""
+    tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/kernel_ab.py")
+    assert 'S.check_nar_fused_grouped(dev)' in tool["CHECKS"]
+    for line in ("K3 grouped qkv (2, 1200, 1024) -> 3072, G = 8, LN + bias: ...",
+                 "K3/K4 grouped plan on 132 SMs ...", "K4 grouped ffn per launch, device us",
+                 "K3 qkv (2, 1200, 1024) -> 3072, LN + bias: ..."):
+        assert line.startswith(tool["PREFIXES"])
+    monkeypatch.setattr(sys, "argv", ["kernel_ab.py", ROOT, ROOT, "--checks", "k3,k3x"])
+    with pytest.raises(SystemExit) as done:
+        tool["main"]()
+    assert done.value.code == 2 and "k3x" in capsys.readouterr().err
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115w8a8_wgmma_gemmILi64ELb1ELi1EEEv14CUtensorMap_stS1_NS_8EpilogueE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115w8a8_wgmma_gemmILi64ELb1ELi1EEEv14CUtensorMap_stS1_NS_8EpilogueE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117w8a8_wgmma_swigluILi128ELi2EEEv14CUtensorMap_stS1_S1_NS_8EpilogueE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117w8a8_wgmma_swigluILi128ELi2EEEv14CUtensorMap_stS1_S1_NS_8EpilogueE
+    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115w8a8_wgmma_gemmILi128ELb0ELi2EEEv14CUtensorMap_stS1_NS_8EpilogueE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115w8a8_wgmma_gemmILi128ELb0ELi2EEEv14CUtensorMap_stS1_NS_8EpilogueE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113w8a8_prologueILb1ELi8ELb0EEEvPK13__nv_bfloat16PKvS5_ifPaPfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113w8a8_prologueILb1ELi8ELb0EEEvPK13__nv_bfloat16PKvS5_ifPaPfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 4096 bytes smem, 400 bytes cmem[0]
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized
+"""
+
+
+def test_chip_smoke_reads_the_ptxas_log():
+    """chip_smoke.py's reading of nvcc's -Xptxas -v log: each GEMM's template
+    arguments, registers and spills, and the lines about wgmma."""
+    smoke = runpy.run_path(f"{ROOT}/chip_smoke.py")
+    regs, wgmma = smoke["ptxas_lines"](PTXAS_LOG, ("w8a8_wgmma_gemm", "w8a8_wgmma_swiglu"))
+    assert regs == {
+        "w8a8_wgmma_gemm<64, 1, 1>": "168 registers, 0 bytes spill stores, 0 bytes spill loads",
+        "w8a8_wgmma_gemm<128, 0, 2>": "168 registers, 0 bytes spill stores, 0 bytes spill loads",
+        "w8a8_wgmma_swiglu<128, 2>": "168 registers, 16 bytes spill stores, 12 bytes spill loads"}
+    assert wgmma == ["ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+                     "instructions are serialized"]
+
+
 @pytest.mark.parametrize("name,label", [
     ("void (anonymous namespace)::w8a8_wgmma_gemm<256, true>(CUtensorMap, CUtensorMap, "
      "Epilogue)", "w8a8_wgmma_gemm<256, true>"),
@@ -201,3 +250,22 @@ def test_profile_nar_marks_the_w8a8_sites(site, monkeypatch):
     assert torch.equal(got, want)
     counts = {e.key: e.count for e in prof.key_averages()}
     assert counts.get(tool["SITES"][site]) == 1
+
+
+@pytest.mark.parametrize("with_log", [True, False])
+def test_build_reads_back_the_log_of_a_library_built_before(with_log, tmp_path, monkeypatch):
+    """A library found built (no nvcc run) brings back the nvcc log kept
+    beside it, which chip_smoke.py's spill gate reads; without that file
+    there is no log, and the gate fails."""
+    from mars5_tts_torch.ops.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "build_log", {})
+    monkeypatch.setattr(build, "nvcc", lambda: pytest.fail("a built library is not rebuilt"))
+    sources = build.LIBRARIES["nar_fused"]
+    lib = build.library_path("nar_fused", sources)
+    lib.write_bytes(b"")
+    if with_log:
+        lib.with_suffix(".log").write_text(PTXAS_LOG)
+    assert build.build("nar_fused", sources) == lib
+    assert build.build_log.get("nar_fused") == (PTXAS_LOG if with_log else None)
