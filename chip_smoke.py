@@ -27,7 +27,8 @@
    phase; then at the bench's 1,200 frames), then the modes of the int8
    NAR's other routes: K1's int8 mode at (2, 1200, 16, 64) masked and
    unmasked, at the request's 725 frames and across over its 66-token
-   memory, and K1's bf16 kernel on that cross-attention; K3 (qkv, caq,
+   memory (three kernel launches a call, by the C entry's own count), and
+   K1's bf16 kernel on that cross-attention; K3 (qkv, caq,
    residual) and K4 with per-K-group scales at gsize 128 (K3 bitwise), with
    the grouped plan's tile and grid per site.
    Every kernel also prints the wrapper's host time (``host_ms``) and its device time (``device_ms``);
@@ -67,8 +68,11 @@ the device time of each launch of K3 and K4 (prologue and GEMM; K4's four)
 at one group and grouped, and the grouped calls' device time with their
 GEMMs forced to each tile width, beside the plan's, at M = 2400 and at a
 short request's M = 800 (where the plan takes 64-wide tiles for caq, the
-residual sites and lin2). The build prints the ptxas registers and spills
-of every K3/K4 GEMM instantiation and fails on a spill or a missing log.
+residual sites and lin2), and the device time of each launch of K1's int8
+mode (its two pre-pass kernels and the attention) at its four shapes. The
+build prints the ptxas registers and spills of every K3/K4 GEMM
+instantiation and of K1's three int8 kernels and fails on a spill or a
+missing log.
 
 Every kernel's row carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the H100 SXM peak for their type
@@ -442,7 +446,8 @@ def check_k1_modes(dev):
         if masked:
             mask = torch.zeros((b, lk), dtype=torch.bool, device=dev)
             mask[-1, lk - lk // 6:] = True
-        run = lambda: K.mha(q, k, v, mask, quantized=quantized)
+        def run(q=q, k=k, v=v, mask=mask, quantized=quantized):     # this case's inputs
+            return K.mha(q, k, v, mask, quantized=quantized)
         out = run()
         if quantized:
             ref, tol = K.int8_bound(q, k, v, mask)
@@ -461,7 +466,10 @@ def check_k1_modes(dev):
               "max_bound": tol.max().item(), "min_bound": tol.min().item(),
               "ms": cuda_ms(run), "plain_ms": cuda_ms(lambda: K.mha_ref(q, k, v, mask, quantized)),
               "device_ms": device_ms(run), "host_ms": host_ms(run),
-              "library_ms": None if quantized else sdpa_ms, "sdpa_yardstick_ms": sdpa_ms}
+              "library_ms": None if quantized else sdpa_ms, "sdpa_yardstick_ms": sdpa_ms,
+              "kernel_launches_per_call": kernel_launches_per_call(K, run),
+              "run": run}           # for k1_int8_launch_split, after the requests
+        ok = ok and st["kernel_launches_per_call"] == (3 if quantized else 1)
         keys = lk * b if mask is None else int((~mask).sum())
         ops = 4 * h * lq * d * keys
         st["bound_ms"], st["bound_by"] = bound(nbytes(q, k, v, out, mask),
@@ -470,11 +478,12 @@ def check_k1_modes(dev):
               f"{st['max_abs_err']:.3e} mean_abs_err={st['mean_abs_err']:.3e} bound={bound_txt} "
               f"(per element, {st['min_bound']:.3e} .. {st['max_bound']:.3e}) within={ok} | "
               f"kernel {st['ms'] * 1e3:.1f} us (device {fmt_us(st['device_ms'])}, wrapper host "
-              f"{st['host_ms'] * 1e3:.1f} us), plain {st['plain_ms'] * 1e3:.1f} us, sdpa bf16 "
+              f"{st['host_ms'] * 1e3:.1f} us; {st['kernel_launches_per_call']} kernel launches a "
+              f"call), plain {st['plain_ms'] * 1e3:.1f} us, sdpa bf16 "
               f"{sdpa_ms * 1e3:.1f} us{'' if quantized else ' (library)'}, roofline "
               f"{st['bound_ms'] * 1e3:.1f} us ({st['bound_by']})", flush=True)
         if not ok:
-            raise RuntimeError(f"K1 {name}: error above its bound")
+            raise RuntimeError(f"K1 {name}: error above its bound or other kernels a call")
         res[name] = st
     return res
 
@@ -549,30 +558,35 @@ def grouped_sites(m):
 W8A8_KERNELS = ("w8a8_prologue", "w8a8_wgmma_gemm", "w8a8_wgmma_swiglu")
 
 
-def launch_split(run, n=5):
+MHA_KERNELS = ("mha_",)
+
+
+def launch_split(run, n=5, kernels=None):
     """Device microseconds of each kernel one call of ``run`` launches, in
     launch order: [(kernel with its template arguments, median us over n
-    profiled calls)], from ``torch.profiler``'s kernel records; None when it
-    records none. Run it after the requests (the profiler slows a process's
-    later launches: PERF.md)."""
+    profiled calls)], from ``torch.profiler``'s kernel records of the
+    kernels whose names hold one of ``kernels`` (default ``W8A8_KERNELS``);
+    None when it records none. Run it after the requests (the profiler slows
+    a process's later launches: PERF.md)."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    kernels = kernels or W8A8_KERNELS
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
         torch.cuda.synchronize()
-    kern = sorted((e for e in prof.events() if any(k in e.name for k in W8A8_KERNELS)),
+    kern = sorted((e for e in prof.events() if any(k in e.name for k in kernels)),
                   key=lambda e: e.time_range.start)
     if not kern or len(kern) % n:
         return None
     per = len(kern) // n
     out = []
     for i in range(per):
-        m = re.search(r"(w8a8_\w+)(<[^>]*>)?", kern[i].name)
+        m = re.search(r"((?:%s)\w*)(<[^>]*>)?" % "|".join(map(re.escape, kernels)), kern[i].name)
         us = [kern[i + j * per].time_range.elapsed_us() for j in range(n)]
         out.append((m.group(0) if m else kern[i].name, statistics.median(us)))
     return out
@@ -621,6 +635,24 @@ def w8a8_launch_split(one_group, grouped):
     return out
 
 
+def k1_int8_launch_split(k1_modes):
+    """Prints and returns the per-launch device split of K1's int8 mode at
+    ``check_k1_modes``' four int8 shapes: {case: [(kernel, us)]}, the two
+    pre-pass kernels and the attention."""
+    out = {}
+    for name, st in k1_modes.items():
+        if not name.startswith("int8"):
+            continue
+        split = out[name] = launch_split(st["run"], kernels=MHA_KERNELS)
+        txt = "not measured" if split is None else (
+            ", ".join(f"{k} {us:.1f}" for k, us in split)
+            + f" (sum {sum(us for _, us in split):.1f}; pre-pass "
+            f"{sum(us for k, us in split if 'prepass' in k):.1f})")
+        print(f"K1 {name} per launch, device us (torch.profiler, median of 5 calls): {txt}",
+              flush=True)
+    return out
+
+
 def grouped_tile_ab(grouped, m=M_ROWS):
     """The device time of each grouped K3/K4 call of ``check_nar_fused_grouped``
     over m rows with its grouped GEMMs forced to each tile width
@@ -654,22 +686,25 @@ def grouped_tile_ab(grouped, m=M_ROWS):
 
 
 def ptxas_lines(log, kernels):
-    """{kernel with its template arguments: "N registers, S bytes spill
-    stores, L bytes spill loads"} of the entry functions whose names start
-    with one of ``kernels`` in an nvcc -Xptxas -v log, and [ptxas lines
-    about wgmma instructions or a performance loss] (serialisation
-    warnings)."""
+    """{kernel, with its template arguments if it has any: "N registers, S
+    bytes spill stores, L bytes spill loads"} of the entry functions whose
+    names start with one of ``kernels`` in an nvcc -Xptxas -v log, and
+    [ptxas lines about wgmma instructions or a performance loss]
+    (serialisation warnings)."""
     import re
     out, cur, spill = {}, None, ""
+    pat = re.compile(r"(?<![A-Za-z])((?:%s)[a-z0-9_]*)" % "|".join(map(re.escape, kernels)))
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", ln)
         if m:
-            # ...<name>I<template arguments>E...: the (lower-case) name, its int
-            # and bool arguments
-            n = re.search(r"(w8a8_[a-z0-9_]+)I(\w*)", m.group(1))
-            k, rest = (n.group(1), n.group(2)) if n else ("", "")
-            args = re.findall(r"L[ib](\d+)E", rest)
-            cur = f"{k}<{', '.join(args)}>" if k.startswith(kernels) else None
+            # ..._<len><name>[I<template arguments>E]...: the (lower-case)
+            # name, then its int and bool arguments
+            n = pat.search(m.group(1))
+            cur = None
+            if n:
+                rest = m.group(1)[n.end():]
+                args = re.findall(r"L[ib](\d+)E", rest) if rest.startswith("I") else []
+                cur = n.group(1) + (f"<{', '.join(args)}>" if args else "")
             continue
         if cur and "spill" in ln:
             spill = ", ".join(p.strip() for p in ln.split(",")[1:])
@@ -678,6 +713,23 @@ def ptxas_lines(log, kernels):
             cur = None
     return out, [ln.strip() for ln in log.splitlines()
                  if "wgmma." in ln or "Performance Loss" in ln]
+
+
+def check_ptxas(lib, kernels):
+    """Prints the ptxas registers and spills of ``lib``'s kernels named by
+    ``kernels`` (this build's log, or the one kept beside a library built
+    before) and raises on a spill, or when the log names none of them."""
+    from mars5_tts_torch.ops.kernels import build
+    regs, wgmma_lines = ptxas_lines(build.build_log.get(lib, ""), kernels)
+    for name, txt in sorted(regs.items()):
+        print(f"build: {lib} ptxas {name}: {txt}", flush=True)
+    for ln in wgmma_lines:
+        print(f"build: {lib} ptxas: {ln}", flush=True)
+    spilled = [n for n, txt in regs.items() if not txt.endswith(
+        "0 bytes spill stores, 0 bytes spill loads")]
+    if spilled or not regs:
+        raise RuntimeError(f"{lib} kernels spill or no ptxas log: {spilled}")
+    return regs
 
 
 def check_heads_tail(gen, dev):
@@ -1474,18 +1526,11 @@ def main():
         print(f"build: {lib.name} ({'compiled in %.1f s' % build.build_seconds[name] if name in build.build_seconds else 'already built'}); "
               + " | ".join(regs), flush=True)
     print(f"build: all libraries in {build_s:.1f} s", flush=True)
-    # every GEMM of K3/K4 (kG, the last template argument, 1 or 2: grouped),
-    # from this build's ptxas log or the one kept beside a library built before
-    regs, wgmma_lines = ptxas_lines(build.build_log.get("nar_fused", ""),
-                                    ("w8a8_wgmma_gemm", "w8a8_wgmma_swiglu"))
-    for name, txt in sorted(regs.items()):
-        print(f"build: nar_fused ptxas {name}: {txt}", flush=True)
-    for ln in wgmma_lines:
-        print(f"build: nar_fused ptxas: {ln}", flush=True)
-    spilled = [n for n, txt in regs.items() if not txt.endswith(
-        "0 bytes spill stores, 0 bytes spill loads")]
-    if spilled or not regs:
-        raise RuntimeError(f"nar_fused GEMMs spill or no ptxas log: {spilled}")
+    # every GEMM of K3/K4 (kG, the last template argument, 1 or 2: grouped)
+    # and K1's int8 kernels: registers and spills, none allowed
+    check_ptxas("nar_fused", ("w8a8_wgmma_gemm", "w8a8_wgmma_swiglu"))
+    if len(check_ptxas("mha", ("mha_int8_",))) != 3:
+        raise RuntimeError("mha: the ptxas log lacks one of the int8 mode's three kernels")
 
     # -- 3. kernels against plain, on the card
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1515,6 +1560,7 @@ def main():
     # K9 on the served NAR's own int8 decoder weights
     k9 = check_mega(nar8.tfm.decoder, dev)
     w8a8_split = w8a8_launch_split(w8a8, w8a8_g)
+    k1_split = k1_int8_launch_split(k1_modes)
     tile_ab = {m: grouped_tile_ab(res, m) for m, res in ((M_ROWS, w8a8_g),
                                                          (SHORT_M, w8a8_g_short))}
     if any(m.split(".")[0] in ("jax", "mars5_tts_tpu") for m in sys.modules):
@@ -1559,9 +1605,11 @@ def main():
         {**row("mha_int8", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46",
                k1_int8["int8 (2, 1200) masked"], launches=path_launches["mha_int8"]),
          "max_abs_err": max(st["max_abs_err"] for st in k1_int8.values()),
-         "cases": {name: {k: st[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
-                                             "bound_ms", "bound_by", "max_abs_err", "max_bound",
-                                             "sdpa_yardstick_ms")}
+         "cases": {name: {**{k: st[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
+                                                "bound_ms", "bound_by", "max_abs_err",
+                                                "max_bound", "sdpa_yardstick_ms",
+                                                "kernel_launches_per_call")},
+                          "launch_us": k1_split.get(name)}
                    for name, st in k1_int8.items()}},
         {**row("fused_linear_grouped", "nar_fused.cu",
                "mars5_tts_tpu/ops/pallas/nar_fused.py:111", w8a8_g["qkv"],

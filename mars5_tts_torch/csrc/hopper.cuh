@@ -15,7 +15,11 @@
 //   atoms along N) is never used; it is set to 1024 as well.
 //
 // An s8 tile is laid out the same way: rows of 128 int8 (128 bytes) K-major,
-// and a 32-deep K step (k32) advances the start address by 32 bytes.
+// and a 32-deep K step (k32) advances the start address by 32 bytes. Rows of
+// 64 int8 (64 bytes) use the 64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B, the
+// descriptor's layout type 2): 8-row groups 512 bytes apart, 16-byte chunk c
+// of row r stored at chunk c ^ ((r >> 1) & 3), a tile on a 512-byte boundary,
+// and a k32 step again 32 bytes.
 //
 // wgmma's f32 accumulator layout for m64nNk16, and the s32 one for m64nNk32
 // (per warpgroup thread t, warp w = t / 32, lane = 4 g + q): d[4 j + 0..1]
@@ -185,6 +189,24 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr, uint32_t lbo
          (1ull << 62);
 }
 
+// The same for a 64-byte-swizzled K-major tile (rows of 64 bytes).
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (2ull << 62);
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier ``id`` (1-15; 0 is __syncthreads) over ``threads`` threads, a
+// multiple of 32: e.g. one warpgroup.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -274,6 +296,26 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int* d, uint64_t desc_a, uint
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, s32) += A (64 x 32, s8 in registers) B^T; B (64 x 32, s8)
+// K-major in shared memory. A's per-warp layout is mma.sync m16n8k32's: warp
+// w holds rows 16 w .. 16 w + 15, lane 4 g + t registers a0 = row g, columns
+// 4 t .. 4 t + 3 (byte i column 4 t + i), a1 = row g + 8 of the same
+// columns, a2 / a3 = rows g / g + 8, columns 16 + 4 t .. 16 + 4 t + 3. The
+// int32 sums are exact.
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int* d, const uint32_t* a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 // D (64 x 128, s32) = A (64 x 32, s8) B^T (+ D when accumulate != 0); A and B

@@ -1,7 +1,7 @@
 // Bidirectional multi-head attention forward for Hopper (sm_90a): kernel K1.
 //
 // Replaces the TPU kernel mars5_tts_tpu/ops/pallas/mha.py::_mha_kernel
-// (public entry sdpa_pallas, quantized=False): the NAR decoder's long
+// (public entry sdpa_pallas; quantized=True below): the NAR decoder's long
 // self-attention (bf16 NAR: Lq = Lk; int8 NAR: q, k, v strided views of one
 // (B, L, 3 D) projection, the last layer 750 queries over 1,200 keys) and the
 // speaker encoders' self-attention once the sequence reaches 512 frames.
@@ -65,22 +65,45 @@
 //   o = (float(rint(p * 127) . v8) * (vs / 127)) / r
 // p is rounded to int8 against the full row's max, so the keys are walked
 // twice: pass 1 takes the max, pass 2 the exponentials, their sum and the PV
-// product (an online softmax would round other integers). A pre-pass writes
-// q8 and k8 (row-major, (B H, L, 64), zero rows past L) with their scales,
-// and v8 transposed to (B H, 64, Lk) (K-major for the PV product) with vs,
-// in four launches (q rows, k rows, v's channel scales, v8 a 32-key block a
-// CTA); the attention is the fifth. A CTA is 64 queries of
-// one (batch, head), four warps of 16 rows; both products run on the
-// legacy mma.sync m16n8k32 s8 instruction with s32 sums, the operands read
-// straight from global memory (each (B H) slice of k8 and v8 is 4.9 KB
-// every 64 keys, shared by the CTA's warps through L1). The QK
-// accumulators of a 32-key tile become the A fragment of the PV product in
-// registers: a thread holds keys {2t, 2t + 1, 8 + 2t, 9 + 2t} (+ 16) of
-// its rows where the 8-bit A layout wants keys 4t .. 4t + 3 (+ 16), so the
-// pre-pass stores v8's keys in that order inside each 32-key block (a
-// reduction's order is free) and no register is moved. The int32 PV sum
-// is at most 127^2 Lk, far inside int32 for any NAR length. Not yet tuned:
-// wgmma and a shared-memory K/V ring are the next step (ROADMAP B).
+// product (an online softmax would round other integers). What bounds it:
+// at (2, 1200, 16, 64) one call moves ~20 MB (5.9 us at 3.35 TB/s) and
+// does 11.8 G int8 operations a pass (6.0 us at 1,979 TOP/s), so only wgmma
+// s8 and operands staged once in shared memory come near it. The design:
+// - Three launches. Pre-pass one (a block a 64 keys of one (batch, head),
+//   the whole card busy): k's rows int8 into k8 (B H, Lk, 64) with ks, and
+//   each block's per-channel max |v| (exact in any order). Pre-pass two: vs
+//   from those maxima, then v8 transposed to (B H, 64, Lkp) (K-major: wgmma
+//   takes 8-bit operands K-major only), its keys permuted inside each
+//   32-key block (v8_key, below). q is quantized inside the attention.
+// - The attention is the bf16 kernel's shape: a CTA takes 192 queries of
+//   one (batch, head), three consumer warpgroups of 64 rows and a producer
+//   warpgroup (setmaxnreg 32 / 160), grid (B H, query tiles) with the ragged
+//   last tile launched last. TMA brings the bf16 q rows through the bf16
+//   kernel's 4-D map; each consumer warp takes its 16 rows' amax, writes q8
+//   into a 64-byte-swizzled A tile and keeps qs * scale of its rows in
+//   registers.
+// - A four-stage ring of 128-key tiles: k8 (128 x 64 B, 64-byte swizzle)
+//   and v8t (64 x 128 B, 128-byte swizzle) by TMA through 3-D maps over the
+//   scratch that zero-fill past Lk; the producer warp's lanes write each
+//   tile's ks and a 0 / -inf bias row (masked keys, keys past Lk) into the
+//   stage, so nothing in the key loop reads global memory. Ring tiles t <
+//   n_tiles are pass 1 (k8 alone), the next n_tiles pass 2 (k8 and v8t).
+// - S = Q8 K8^T on wgmma m64n128k32 s8 (two k32 steps); pass 1 takes s and
+//   each row's max; pass 2 takes s again, p, the f32 row sum, and packs p8
+//   straight into the register A operand of O += P8 V8t on m64n64k32 s8. A
+//   thread's accumulators hold keys {2t, 2t + 1, 8 + 2t, 9 + 2t} (+ 16) of
+//   its rows where the 8-bit A layout wants keys 4t .. 4t + 3 (+ 16); v8t
+//   stores its keys in that order inside each 32-key block (v8_key; the
+//   PV sum is exact in any order), so no register moves. The int32 PV sum
+//   is at most 127^2 Lk, far inside int32 for any NAR length.
+// - The score math, not the tensor cores, holds the attention: a score
+//   costs about 20 instructions over both passes against 4 s8 MACs. Three
+//   of them ran on the quarter-rate conversion / MUFU unit (the s32 -> f32
+//   conversion, exp2f, rint(p * 127) to int), so pass 1 converts by a
+//   1.5 x 2^23 integer and f32 add, p8 is the low byte of p * 127 + 1.5 x
+//   2^23, and 2^x is one ex2.approx.ftz: each exact for these ranges
+//   (|acc| < 2^22; 0 <= p * 127 <= 127; p < 2^-126 gives p8 0 either way).
+// - Epilogue: o = float(acc) * (vs / 127) / r, vs / 127 staged once a CTA.
 //
 // The C entry point returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments or views it does not take.
@@ -364,65 +387,88 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ---- int8 mode (see the header): pre-pass, then a two-pass attention
-constexpr int kQ8Rows = 64;         // queries a CTA: four warps of 16
-constexpr int kKeyTile = 32;        // keys a step: one s8 k32 step of the PV product
+// ---- int8 mode (see the header): a two-launch pre-pass over k and v, then
+// a two-pass wgmma s8 attention with q quantized inside
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPreKeys = 64;        // keys a pre-pass block
+constexpr int kVBlock = 32;         // v8t's keys are padded to it: one k32 step of PV
+constexpr int kQ8Row = kD;          // bytes of an int8 q or k row: one 64-byte swizzle row
+constexpr int kI8Stages = 4;        // depth of the int8 K/V ring
+constexpr int kI8TileK = kBN * kQ8Row;     // k8 tile: 128 keys x 64 bytes, 64-byte swizzle
+constexpr int kI8TileV = kD * kBN;         // v8t tile: 64 channels x 128 keys, 128-byte swizzle
+constexpr int kI8Stage = kI8TileK + kI8TileV;
 
-__device__ __forceinline__ uint32_t ld_s8x4(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// Shared memory, from a 1024-byte aligned base: Q bf16 (kBM rows, TMA); Q8
+// (kBM rows of 64 bytes, written by the consumers); per stage k8 then v8t;
+// per stage ks then the bias row (kBN floats each); vs / 127 (kD floats);
+// the barriers full[kI8Stages], empty[kI8Stages], q.
+constexpr int kI8OffQ8 = kBM * kRow;
+constexpr int kI8OffKV = kI8OffQ8 + kBM * kQ8Row;
+constexpr int kI8OffKs = kI8OffKV + kI8Stages * kI8Stage;
+constexpr int kI8OffBias = kI8OffKs + kI8Stages * kBN * 4;
+constexpr int kI8OffVsd = kI8OffBias + kI8Stages * kBN * 4;
+constexpr int kI8OffBars = kI8OffVsd + kD * 4;
+constexpr int kI8Smem = kI8OffBars + (2 * kI8Stages + 1) * 8 + 1024;   // + alignment slack
+static_assert(kI8OffQ8 % 1024 == 0 && kI8OffKV % 1024 == 0 && kI8Stage % 1024 == 0,
+              "swizzled tiles must start on 1024-byte boundaries");
 
 __device__ __forceinline__ int quant127(float v, float s) {
   return max(-127, min(127, __float2int_rn(__fdiv_rn(v, s))));
 }
 
-// Key order inside a 32-key block of v8: position 4 t + i (+ 16) holds key
-// {2t, 2t + 1, 8 + 2t, 9 + 2t}[i] (+ 16), the keys a thread's QK
+// 1.5 x 2^23: for |i| < 2^22, float(i) is the bits of this value plus i, less
+// this value (exact; an integer and an f32 add in place of the conversion
+// unit's quarter-rate I2F); for 0 <= x < 2^22, the f32 sum x + this value
+// holds rint(x) (round half to even, as __float2int_rn) in its low bits.
+constexpr float kMagic = 12582912.f;
+constexpr int kMagicBits = 0x4B400000;
+
+// 2^x as one MUFU.EX2: exp2f's own rounding (ex2.approx), with results below
+// 2^-126 flushed to 0, which leaves p8 (0 there) and the row sum (>= 1 from
+// the row's max) as they are, without exp2f's fix-ups for them.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint16_t pack_s8x2(int lo, int hi) {
+  return (uint16_t)((uint32_t)(uint8_t)lo | ((uint32_t)(uint8_t)hi << 8));
+}
+
+// Key order inside each 32-key block of v8t: position 4 t + i (+ 16) holds
+// key {2t, 2t + 1, 8 + 2t, 9 + 2t}[i] (+ 16), the keys a thread's QK
 // accumulators give it.
 __device__ __forceinline__ int v8_key(int p) {
   const int r = p & 15, t = r >> 2, i = r & 3;
-  return (p & 16) + (i < 2 ? 2 * t + i : 6 + 2 * t + i);
+  return (p & ~15) + (i < 2 ? 2 * t + i : 6 + 2 * t + i);
 }
 
-// One warp a row of x (B, L, H, 64) bf16 viewed with element strides (sb,
-// sl, sh): the row's int8 values at x8 (B H, Lp, 64) and its scale at xs
-// (B H, Lp); rows past L get zeros.
+// Launch one: a block a (64-key block, (batch, head)), a warp a key at a
+// time: k's rows int8 into k8 (B H, Lk, 64) with their scales ks (B H, Lk),
+// and the block's per-channel max |v| into vmax (B H, n_kb, 64).
 __global__ void __launch_bounds__(256)
-mha_quant_rows(const __nv_bfloat16* __restrict__ x, int L, int Lp, int H, Strides st,
-               int8_t* __restrict__ x8, float* __restrict__ xs, int rows) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int l = row % Lp, bh = row / Lp, b = bh / H, h = bh % H;
-  auto* dst = reinterpret_cast<uint16_t*>(x8 + (long long)row * kD + 2 * lane);
-  if (l >= L) {
-    *dst = 0;
-    if (lane == 0) xs[row] = 0.f;
-    return;
-  }
-  const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(
-      x + b * st.b + l * st.l + h * st.h + 2 * lane);
-  const float v0 = __low2float(v2), v1 = __high2float(v2);
-  const float s = __fdiv_rn(fmaxf(warp_max(fmaxf(fabsf(v0), fabsf(v1))), 1e-8f), 127.f);
-  *dst = (uint16_t)((uint8_t)quant127(v0, s) | ((uint32_t)(uint8_t)quant127(v1, s) << 8));
-  if (lane == 0) xs[row] = s;
-}
-
-// A block a (batch, head): v's per-channel scales over all Lk keys into vs
-// (B H, 64).
-__global__ void __launch_bounds__(256)
-mha_v_scales(const __nv_bfloat16* __restrict__ v, int Lk, int H, Strides st,
-             float* __restrict__ vs) {
+mha_int8_prepass_k(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                   int Lk, int H, Strides sk, Strides sv, int8_t* __restrict__ k8,
+                   float* __restrict__ ks, float* __restrict__ vmax, int n_kb) {
   __shared__ float red[8][kD];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * kPreKeys;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const __nv_bfloat16* vb = v + b * st.b + h * st.h;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
   float m0 = 0.f, m1 = 0.f;
-  for (int key = warp; key < Lk; key += 8) {
-    const __nv_bfloat162 v2 =
-        *reinterpret_cast<const __nv_bfloat162*>(vb + key * st.l + 2 * lane);
-    m0 = fmaxf(m0, fabsf(__low2float(v2)));
-    m1 = fmaxf(m1, fabsf(__high2float(v2)));
+  for (int key = k0 + warp; key < min(Lk, k0 + kPreKeys); key += 8) {
+    const float2 kf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(kb + key * sk.l + 2 * lane));
+    const float2 vf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(vb + key * sv.l + 2 * lane));
+    const float s = __fdiv_rn(fmaxf(warp_max(fmaxf(fabsf(kf.x), fabsf(kf.y))), 1e-8f), 127.f);
+    const long long row = (long long)bh * Lk + key;
+    *reinterpret_cast<uint16_t*>(k8 + row * kD + 2 * lane) =
+        pack_s8x2(quant127(kf.x, s), quant127(kf.y, s));
+    if (lane == 0) ks[row] = s;
+    m0 = fmaxf(m0, fabsf(vf.x));
+    m1 = fmaxf(m1, fabsf(vf.y));
   }
   red[warp][2 * lane] = m0;
   red[warp][2 * lane + 1] = m1;
@@ -431,160 +477,305 @@ mha_v_scales(const __nv_bfloat16* __restrict__ v, int Lk, int H, Strides st,
     float m = 0.f;
 #pragma unroll
     for (int w = 0; w < 8; ++w) m = fmaxf(m, red[w][threadIdx.x]);
-    vs[bh * kD + threadIdx.x] = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+    vmax[((long long)bh * n_kb + blockIdx.x) * kD + threadIdx.x] = m;
   }
 }
 
-// A block a (32-key block, (batch, head)): those keys of v, int8 at vs's
-// scales, into v8 (B H, 64, Lkp), each channel's keys in v8_key order,
-// zeros past Lk; the block stages its 32 x 64 tile in shared memory so that
-// both the reads and the transposed writes are coalesced.
+// Launch two: a block a (64-key block, (batch, head)): v's channel scales vs
+// = max(amax, 1e-8) / 127 from the blocks' maxima (four threads a channel;
+// written by the first block of each (batch, head)), then the block's keys
+// of v, int8, into v8t (B H, 64, Lkp), each channel's keys in v8_key order,
+// zeros past Lk. The keys are loaded first and staged in shared memory, so
+// that both the reads and the transposed writes are coalesced.
 __global__ void __launch_bounds__(256)
-mha_quant_v(const __nv_bfloat16* __restrict__ v, int Lk, int Lkp, int H, Strides st,
-            const float* __restrict__ vs, int8_t* __restrict__ v8t) {
-  __shared__ float tile[kKeyTile][kD + 1];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * kKeyTile;
-  const __nv_bfloat16* vb = v + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < kKeyTile * kD / 2; i += 256) {
-    const int key = i / (kD / 2), c = 2 * (i % (kD / 2));
-    float2 f = make_float2(0.f, 0.f);
+mha_int8_prepass_v(const __nv_bfloat16* __restrict__ v, int Lk, int Lkp, int H, Strides sv,
+                   const float* __restrict__ vmax, int n_kb, float* __restrict__ vs,
+                   int8_t* __restrict__ v8t) {
+  constexpr int kPairs = kPreKeys * kD / 2 / 256;   // bf16 pairs of v a thread
+  __shared__ float red[4][kD];
+  __shared__ float vsc[kD];
+  __shared__ float tile[kPreKeys][kD + 1];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * kPreKeys;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+  float2 f[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = threadIdx.x + 256 * j, key = i / (kD / 2), c = 2 * (i % (kD / 2));
+    f[j] = make_float2(0.f, 0.f);
     if (k0 + key < Lk)
-      f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vb + (k0 + key) * st.l + c));
-    tile[key][c] = f.x;
-    tile[key][c + 1] = f.y;
+      f[j] = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(vb + (k0 + key) * sv.l + c));
+  }
+  {
+    const int c = threadIdx.x & (kD - 1), part = threadIdx.x / kD;
+    const float* pm = vmax + (long long)bh * n_kb * kD + c;
+    float m = 0.f;
+#pragma unroll 4
+    for (int i = part; i < n_kb; i += 4) m = fmaxf(m, pm[i * kD]);
+    red[part][c] = m;
+  }
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = threadIdx.x + 256 * j, key = i / (kD / 2), c = 2 * (i % (kD / 2));
+    tile[key][c] = f[j].x;
+    tile[key][c + 1] = f[j].y;
+  }
+  __syncthreads();
+  if (threadIdx.x < kD) {
+    const float m = fmaxf(fmaxf(red[0][threadIdx.x], red[1][threadIdx.x]),
+                          fmaxf(red[2][threadIdx.x], red[3][threadIdx.x]));
+    const float s = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+    vsc[threadIdx.x] = s;
+    if (blockIdx.x == 0) vs[bh * kD + threadIdx.x] = s;
   }
   __syncthreads();
   int8_t* dst = v8t + (long long)bh * kD * Lkp + k0;
-  for (int i = threadIdx.x; i < kD * kKeyTile / 4; i += 256) {
-    const int c = i / (kKeyTile / 4), p0 = (i % (kKeyTile / 4)) * 4;
-    const float s = __ldg(vs + bh * kD + c);
+#pragma unroll
+  for (int i = threadIdx.x; i < kD * kPreKeys / 4; i += 256) {
+    const int c = i / (kPreKeys / 4), p0 = (i % (kPreKeys / 4)) * 4;
+    if (k0 + p0 >= Lkp) continue;
     uint32_t packed = 0u;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int key = v8_key(p0 + j);
-      const int qv = k0 + key < Lk ? quant127(tile[key][c], s) : 0;
+      const int qv = k0 + key < Lk ? quant127(tile[key][c], vsc[c]) : 0;
       packed |= (uint32_t)(uint8_t)qv << (8 * j);
     }
     *reinterpret_cast<uint32_t*>(dst + (long long)c * Lkp + p0) = packed;
   }
 }
 
-// The attention over the pre-pass's tensors: grid (query tiles of 64, B H),
-// 128 threads; warp w takes rows 16 w .. 16 w + 15 of its tile, lane 4 g + t
-// rows g and g + 8 (the mma fragments' layout).
-__global__ void __launch_bounds__(128)
-mha_int8_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
-                const int8_t* __restrict__ k8, const float* __restrict__ ks,
-                const int8_t* __restrict__ v8t, const float* __restrict__ vs,
-                const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out, int Lq,
-                int Lqp, int Lk, int Lkp, int H, float scale) {
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kQ8Rows + warp * 16;
-  const int8_t* qb = q8 + ((long long)bh * Lqp + r0) * kD;
-  uint32_t qa[2][4];
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    qa[kk][0] = ld_s8x4(qb + g * kD + 32 * kk + 4 * t);
-    qa[kk][1] = ld_s8x4(qb + (g + 8) * kD + 32 * kk + 4 * t);
-    qa[kk][2] = ld_s8x4(qb + g * kD + 32 * kk + 16 + 4 * t);
-    qa[kk][3] = ld_s8x4(qb + (g + 8) * kD + 32 * kk + 16 + 4 * t);
-  }
-  const float qsc[2] = {__fmul_rn(qs[(long long)bh * Lqp + r0 + g], scale),
-                        __fmul_rn(qs[(long long)bh * Lqp + r0 + g + 8], scale)};
-  const int8_t* kb = k8 + (long long)bh * Lkp * kD;
-  const float* ksb = ks + (long long)bh * Lkp;
-  const int8_t* vb = v8t + (long long)bh * kD * Lkp;
-  const uint8_t* mrow = mask != nullptr ? mask + (long long)b * Lk : nullptr;
+// Launch three: the attention. Grid (B H, query tiles of kBM), the ragged
+// last tile launched last; 512 threads: three consumer warpgroups of 64 query
+// rows and a producer warpgroup whose first warp feeds the ring.
+__global__ void __launch_bounds__(kThreads, 1)
+mha_int8_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk8,
+                const __grid_constant__ CUtensorMap tv8, const float* __restrict__ ks,
+                const float* __restrict__ vs, const uint8_t* __restrict__ mask,
+                __nv_bfloat16* __restrict__ out, int Lq, int Lk, int H, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_addr(smem);
+  float* kss = reinterpret_cast<float*>(smem + kI8OffKs);
+  float* bias = reinterpret_cast<float*>(smem + kI8OffBias);
+  float* vsd = reinterpret_cast<float*>(smem + kI8OffVsd);
+  const uint32_t full = base + kI8OffBars, empty = full + 8 * kI8Stages,
+                 qbar = empty + 8 * kI8Stages;
 
-  // the scores of keys k0 .. k0 + 31: sc[j][e] is row g + 8 (e >> 1), key
-  // k0 + 8 j + 2 t + (e & 1)
-  auto scores = [&](int k0, float (&sc)[4][4]) {
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * kBM;
+  const int wg = threadIdx.x / kWarpgroup;
+  const int n_tiles = (Lk + kBN - 1) / kBN;
+  const int active = min(kConsumers, (Lq - q0 + 63) / 64);   // warpgroups with rows < Lq
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kI8Stages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, kWarpgroup * active);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer warpgroup: its first warp loads, the other three leave.
+    // Ring tiles t < n_tiles are pass 1 (k8 alone), the next n_tiles pass 2
+    // (k8 and v8t); the 32 lanes write each tile's ks and its 0 / -inf bias
+    // (masked keys and keys past Lk), so the consumers read neither from
+    // global memory.
+    warpgroup_regs_dec<kProducerRegs>();
+    if ((threadIdx.x >> 5) != kConsumers * 4) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, kBM * kRow);
+      tma_load_4d(base, &tq, qbar, 0, h, q0, b);
+    }
+    for (int c = lane; c < kD; c += 32) vsd[c] = __fdiv_rn(vs[bh * kD + c], 127.f);
+    const uint8_t* mrow = mask != nullptr ? mask + (long long)b * Lk : nullptr;
+    const float* ksb = ks + (long long)bh * Lk;
+    for (int t = 0; t < 2 * n_tiles; ++t) {
+      const int s = t % kI8Stages, k0 = (t % n_tiles) * kBN;
+      const bool pv = t >= n_tiles;
+      mbar_wait(empty + 8 * s, ((t / kI8Stages) & 1) ^ 1);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int c[4] = {0, 0, 0, 0};
-      const int8_t* kr = kb + (long long)(k0 + 8 * j + g) * kD;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const uint32_t bf[2] = {ld_s8x4(kr + 32 * kk + 4 * t), ld_s8x4(kr + 32 * kk + 16 + 4 * t)};
-        mma_s8_16832(c, qa[kk], bf);
+      for (int i = lane; i < kBN; i += 32) {
+        const int key = k0 + i;
+        const bool in = key < Lk;
+        kss[s * kBN + i] = in ? ksb[key] : 0.f;
+        bias[s * kBN + i] = (!in || (mrow != nullptr && mrow[key])) ? -INFINITY : 0.f;
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        const bool off = key >= Lk || (mrow != nullptr && mrow[key]);
-        sc[j][e] = off ? -INFINITY : __fmul_rn(__fmul_rn((float)c[e], qsc[e >> 1]), ksb[key]);
+      if (lane == 0) {
+        const uint32_t kd = base + kI8OffKV + s * kI8Stage;
+        mbar_arrive_expect_tx(full + 8 * s, pv ? kI8Stage : kI8TileK);
+        tma_load_3d(kd, &tk8, full + 8 * s, 0, k0, bh);
+        if (pv) tma_load_3d(kd + kI8TileK, &tv8, full + 8 * s, k0, 0, bh);
+      } else {
+        mbar_arrive(full + 8 * s);
       }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup c: query rows q0 + 64 c .. + 63
+  warpgroup_regs_inc<kConsumerRegs>();
+  const int c = wg;
+  if (c >= active) return;
+  const int tid = threadIdx.x % kWarpgroup, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq4 = lane & 3;
+  const uint32_t q8a = base + kI8OffQ8 + c * 64 * kQ8Row;
+
+  // q rows to int8, a warp a row (its own 16): the bf16 row from the
+  // 128-byte-swizzled TMA tile, q8 into the 64-byte-swizzled A tile, and
+  // qs * scale of rows g and g + 8 kept in registers
+  float qsc[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+  {
+    const uint8_t* qt = smem + c * 64 * kRow;
+    uint8_t* q8t = smem + kI8OffQ8 + c * 64 * kQ8Row;
+#pragma unroll 4
+    for (int i = 0; i < 16; ++i) {
+      const int r = warp * 16 + i;
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          qt + r * kRow + (((lane >> 2) ^ (r & 7)) << 4) + 4 * (lane & 3)));
+      const float sq = __fdiv_rn(fmaxf(warp_max(fmaxf(fabsf(f.x), fabsf(f.y))), 1e-8f), 127.f);
+      *reinterpret_cast<uint16_t*>(q8t + r * kQ8Row + (((lane >> 3) ^ ((r >> 1) & 3)) << 4) +
+                                   2 * (lane & 7)) = pack_s8x2(quant127(f.x, sq), quant127(f.y, sq));
+      if (i == g) qsc[0] = __fmul_rn(sq, scale);
+      if (i == g + 8) qsc[1] = __fmul_rn(sq, scale);
+    }
+  }
+  fence_proxy_async();
+  named_barrier_sync(1 + c, kWarpgroup);
+
+  // S = Q8 K8^T of ring tile t: 64 rows x kBN keys, two k32 steps. acc[i]
+  // is row g + 8 ((i >> 1) & 1) of this warp, key 8 (i >> 2) + 2 tq4 + (i & 1).
+  int acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+  auto qk = [&](int t) {
+    const int s = t % kI8Stages;
+    mbar_wait(full + 8 * s, (t / kI8Stages) & 1);
+    const uint32_t ka = base + kI8OffKV + s * kI8Stage;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 32; ++kk)
+      wgmma_m64n128k32_s8(acc, wgmma_desc_sw64(q8a + 32 * kk, 512),
+                          wgmma_desc_sw64(ka + 32 * kk, 512), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<kBN / 2>(acc);
+  };
+  // s = (float(acc) * (qs * scale)) * ks + bias of accumulators 4 j .. 4 j
+  // + 3; |acc| <= 127^2 x 64 < 2^22, so pass 1 (magic) converts on the ALU
+  // and pass 2, whose exp2f and p8 keep the conversion unit busy, with I2F
+  auto scores = [&](int s, int j, bool magic, float (&sc)[4]) {
+    const float2 kj = *reinterpret_cast<const float2*>(kss + s * kBN + 8 * j + 2 * tq4);
+    const float2 bj = *reinterpret_cast<const float2*>(bias + s * kBN + 8 * j + 2 * tq4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = magic ? __fsub_rn(__int_as_float(acc[4 * j + e] + kMagicBits), kMagic)
+                            : (float)acc[4 * j + e];
+      sc[e] = __fadd_rn(__fmul_rn(__fmul_rn(a, qsc[e >> 1]), (e & 1) ? kj.y : kj.x),
+                        (e & 1) ? bj.y : bj.x);
     }
   };
 
-  // pass 1: the row max over all keys
-  float m[2] = {-INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < Lkp; k0 += kKeyTile) {
-    float sc[4][4];
-    scores(k0, sc);
+  // pass 1: each row's max over all keys
+  float mx[2] = {-INFINITY, -INFINITY};
+  for (int t = 0; t < n_tiles; ++t) {
+    qk(t);
+    const int s = t % kI8Stages;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], sc[j][e]);
+    for (int j = 0; j < kBN / 8; ++j) {
+      float sc[4];
+      scores(s, j, true, sc);
+      mx[0] = fmaxf(mx[0], fmaxf(sc[0], sc[1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[2], sc[3]));
+    }
+    mbar_arrive(empty + 8 * s);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
   }
 
-  // pass 2: p, its sum, p8 and the PV product
-  float rsum[2] = {0.f, 0.f};
-  int o[8][4];
+  // pass 2: p, its f32 row sum, p8 = rint(p * 127) packed straight into the
+  // A fragments of O += P8 V8: the 8-key group j of the tile is byte (j & 1)
+  // * 2 + (e & 1) of register ((j & 3) >> 1) * 2 + (e >> 1) of 32-key slice
+  // j >> 2, which is where v8t's v8_key order puts its keys
+  int o[kD / 2];
 #pragma unroll
-  for (int c8 = 0; c8 < 8; ++c8)
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0;
+  float rs[2] = {0.f, 0.f};
+  for (int t = n_tiles; t < 2 * n_tiles; ++t) {
+    qk(t);
+    const int s = t % kI8Stages;
+    uint32_t pa[kBN / 32][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[c8][e] = 0;
-  for (int k0 = 0; k0 < Lkp; k0 += kKeyTile) {
-    float sc[4][4];
-    scores(k0, sc);
-    uint32_t p8[4] = {0u, 0u, 0u, 0u};   // bytes in the v8_key order of this thread's keys
+    for (int kk = 0; kk < kBN / 32; ++kk)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      float sc[4];
+      scores(s, j, false, sc);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(__fmul_rn(__fsub_rn(sc[j][e], m[e >> 1]), kLog2e));
-        rsum[e >> 1] = __fadd_rn(rsum[e >> 1], p);
-        const uint32_t byte = (uint32_t)(uint8_t)__float2int_rn(__fmul_rn(p, 127.f));
-        // a0: row g keys j 0-1; a1: row g + 8 keys j 0-1; a2 / a3: j 2-3
-        p8[(j >> 1) * 2 + (e >> 1)] |= byte << (8 * ((j & 1) * 2 + (e & 1)));
+        const float p = exp2_ftz(__fmul_rn(__fsub_rn(sc[e], mx[e >> 1]), kLog2e));
+        rs[e >> 1] = __fadd_rn(rs[e >> 1], p);
+        // rint(p * 127) in 0 .. 127 from the low byte of the magic sum
+        const uint32_t byte = __float_as_uint(__fadd_rn(__fmul_rn(p, 127.f), kMagic)) & 0xFFu;
+        pa[j >> 2][((j & 3) >> 1) * 2 + (e >> 1)] |= byte << (8 * ((j & 1) * 2 + (e & 1)));
       }
-#pragma unroll
-    for (int c8 = 0; c8 < 8; ++c8) {
-      const int8_t* vr = vb + (long long)(8 * c8 + g) * Lkp + k0;
-      const uint32_t bf[2] = {ld_s8x4(vr + 4 * t), ld_s8x4(vr + 16 + 4 * t)};
-      mma_s8_16832(o[c8], p8, bf);
     }
+    const uint32_t va = base + kI8OffKV + s * kI8Stage + kI8TileK;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 32; ++kk)
+      wgmma_m64n64k32_s8_rs(o, pa[kk], wgmma_desc_sw128(va + 32 * kk, 0, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<kD / 2>(o);
+    mbar_arrive(empty + 8 * s);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(0xffffffffu, rsum[r], 1));
-    rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(0xffffffffu, rsum[r], 2));
+    rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 1));
+    rs[r] = __fadd_rn(rs[r], __shfl_xor_sync(0xffffffffu, rs[r], 2));
   }
+  // o = (float(acc) * (vs / 127)) / r; o[4 j + 2 r + e] is row g + 8 r,
+  // channel 8 j + 2 tq4 + e
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
+    const int row = q0 + c * 64 + warp * 16 + g + 8 * r;
     if (row >= Lq) continue;
     __nv_bfloat16* orow = out + (((long long)b * Lq + row) * H + h) * kD;
 #pragma unroll
-    for (int c8 = 0; c8 < 8; ++c8) {
-      const int ch = 8 * c8 + 2 * t;
-      float y[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float vsd = __fdiv_rn(vs[bh * kD + ch + e], 127.f);
-        y[e] = __fdiv_rn(__fmul_rn((float)o[c8][2 * r + e], vsd), rsum[r]);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(orow + ch) = __floats2bfloat162_rn(y[0], y[1]);
+    for (int j = 0; j < kD / 8; ++j) {
+      const int ch = 8 * j + 2 * tq4;
+      *reinterpret_cast<__nv_bfloat162*>(orow + ch) = __floats2bfloat162_rn(
+          __fdiv_rn(__fmul_rn((float)o[4 * j + 2 * r], vsd[ch]), rs[r]),
+          __fdiv_rn(__fmul_rn((float)o[4 * j + 2 * r + 1], vsd[ch + 1]), rs[r]));
     }
   }
+}
+
+// The 3-D map (cols, rows, slices) of a contiguous int8 tensor: boxes of
+// box_cols x box_rows of one slice, zero fill past every edge (past ``rows``
+// in particular, so a box never reads the next slice).
+bool encode_map_s8_slices(CUtensorMap* map, const void* ptr, int slices, int rows, int cols,
+                          int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)slices};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols, (cuuint64_t)cols * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The 4-D map (head dim, heads, sequence, batch) of a bf16 (B, L, H, 64) view
@@ -602,6 +793,8 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, long lon
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+long long kernel_launches = 0;   // kernels this library has launched
 
 }  // namespace
 
@@ -664,55 +857,62 @@ extern "C" int mars5_mha_fwd(int is_bf16, const void* q, const void* k,
         static_cast<const float*>(v), m, static_cast<float*>(out), Lq, Lk, H, sq,
         sk, sv, scale_log2);
   }
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++kernel_launches;
+  return (int)err;
 }
 
-// Bytes of the int8 mode's scratch at (B, Lq, Lk, H): q8, k8, v8 and their
-// scales (row counts padded to 64 queries and 32 keys).
-extern "C" long long mars5_mha_int8_scratch_bytes(int B, int Lq, int Lk, int H) {
-  const long long bh = (long long)B * H, lqp = (Lq + kQ8Rows - 1) / kQ8Rows * kQ8Rows,
-                  lkp = (Lk + kKeyTile - 1) / kKeyTile * kKeyTile;
-  return bh * (lqp * kD + 2 * lkp * kD) + 4 * bh * (lqp + lkp + kD);
-}
-
-// The int8 mode on bf16 views (strides as mars5_mha_fwd's): five launches.
+// The int8 mode on bf16 views (strides as mars5_mha_fwd's), three launches:
+// the two pre-pass kernels and the attention. The scratch parts are the
+// caller's (ops/kernels/mha.py int8_plan): k8 (B H, Lk, 64) and v8t (B H, 64,
+// Lkp) int8, ks (B H, Lk), vs (B H, 64) and vmax (B H, n_kb, 64) f32, each
+// on a 16-byte boundary; Lkp is Lk rounded up to 32, n_kb the 64-key blocks.
 extern "C" int mars5_mha_int8_fwd(const void* q, const void* k, const void* v, const void* mask,
-                                  void* out, void* scratch, int B, int Lq, int Lk, int H, int D,
-                                  long long sqb, long long sql, long long sqh, long long skb,
-                                  long long skl, long long skh, long long svb, long long svl,
-                                  long long svh, float scale, void* stream) {
+                                  void* out, void* k8, void* v8t, void* ks, void* vs, void* vmax,
+                                  int B, int Lq, int Lk, int H, int D, long long sqb,
+                                  long long sql, long long sqh, long long skb, long long skl,
+                                  long long skh, long long svb, long long svl, long long svh,
+                                  int Lkp, int n_kb, float scale, void* stream) {
   if (D != kD || B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || (long long)B * H > 65535 ||
-      (Lq + kQ8Rows - 1) / kQ8Rows > 0x7fffffff / 2)
+      (Lq + kBM - 1) / kBM > 65535 || Lkp % kVBlock != 0 || Lkp < Lk || Lkp - Lk >= kVBlock ||
+      n_kb != (Lk + kPreKeys - 1) / kPreKeys)
     return (int)cudaErrorInvalidValue;
-  const int lqp = (Lq + kQ8Rows - 1) / kQ8Rows * kQ8Rows;
-  const int lkp = (Lk + kKeyTile - 1) / kKeyTile * kKeyTile;
-  const long long bh = (long long)B * H;
-  auto* q8 = static_cast<int8_t*>(scratch);
-  int8_t* k8 = q8 + bh * lqp * kD;
-  int8_t* v8t = k8 + bh * lkp * kD;
-  auto* qs = reinterpret_cast<float*>(v8t + bh * lkp * kD);
-  float* ks = qs + bh * lqp;
-  float* vs = ks + bh * lkp;
+  const int bh = B * H;
+  CUtensorMap mq, mk8, mv8;
+  if (!encode_map(&mq, q, B, Lq, H, sqb, sql, sqh, kBM) ||
+      !encode_map_s8_slices(&mk8, k8, bh, Lk, kD, kD, kBN, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_map_s8_slices(&mv8, v8t, bh, kD, Lkp, kBN, kD, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned> smem_set{0};   // one bit a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32 || !(smem_set.load() & (1u << dev))) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mha_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kI8Smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 32) smem_set.fetch_or(1u << dev);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const int q_rows = (int)(bh * lqp), k_rows = (int)(bh * lkp);
-  mha_quant_rows<<<(q_rows + 7) / 8, 256, 0, st>>>(qb, Lq, lqp, H, Strides{sqb, sql, sqh}, q8,
-                                                    qs, q_rows);
+  const Strides sv{svb, svl, svh};
+  mha_int8_prepass_k<<<dim3(n_kb, bh), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(k), vb, Lk, H, Strides{skb, skl, skh}, sv,
+      static_cast<int8_t*>(k8), static_cast<float*>(ks), static_cast<float*>(vmax), n_kb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mha_quant_rows<<<(k_rows + 7) / 8, 256, 0, st>>>(kb, Lk, lkp, H, Strides{skb, skl, skh}, k8,
-                                                    ks, k_rows);
+  ++kernel_launches;
+  mha_int8_prepass_v<<<dim3((Lkp + kPreKeys - 1) / kPreKeys, bh), 256, 0, st>>>(
+      vb, Lk, Lkp, H, sv, static_cast<const float*>(vmax), n_kb, static_cast<float*>(vs),
+      static_cast<int8_t*>(v8t));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mha_v_scales<<<(int)bh, 256, 0, st>>>(vb, Lk, H, Strides{svb, svl, svh}, vs);
+  ++kernel_launches;
+  mha_int8_kernel<<<dim3(bh, (Lq + kBM - 1) / kBM), kThreads, kI8Smem, st>>>(
+      mq, mk8, mv8, static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const uint8_t*>(mask), static_cast<__nv_bfloat16*>(out), Lq, Lk, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mha_quant_v<<<dim3(lkp / kKeyTile, (unsigned)bh), 256, 0, st>>>(
-      vb, Lk, lkp, H, Strides{svb, svl, svh}, vs, v8t);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 grid(lqp / kQ8Rows, (unsigned)bh);
-  mha_int8_kernel<<<grid, 128, 0, st>>>(q8, qs, k8, ks, v8t, vs, static_cast<const uint8_t*>(mask),
-                                        static_cast<__nv_bfloat16*>(out), Lq, lqp, Lk, lkp, H,
-                                        scale);
-  return (int)cudaGetLastError();
+  ++kernel_launches;
+  return 0;
 }
+
+// CUDA kernels this library has launched in this process, both modes.
+extern "C" long long mars5_mha_kernel_launches() { return kernel_launches; }

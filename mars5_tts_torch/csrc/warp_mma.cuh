@@ -1,15 +1,9 @@
-// Warp reductions and mma.sync wrappers shared by the port's kernels.
+// Warp reductions and bf16 packing shared by the port's kernels.
 //
 // warp_sum / warp_max reduce over the 32 lanes by butterfly shuffles, so
 // every lane gets the result. warp_sum(double) is how the kernels take f64
 // sums that round to f32 once, the same value in any order, as their plain
 // twins do.
-//
-// The mma wrappers are the Hopper (sm_90a) legacy tensor-core instructions,
-// fragments laid out as in the PTX tables (lane = 4 g + t holds A rows
-// {g, g+8}, C rows {g, g+8} x cols {2t, 2t+1}):
-//   mma_bf16_16816: m16n8k16, bf16 x bf16 -> f32;
-//   mma_s8_16832:   m16n8k32, s8 x s8 -> s32.
 
 #pragma once
 
@@ -35,31 +29,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Two floats as one bf16x2 register, lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two adjacent bf16 as one 32-bit fragment register.
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 }  // namespace mars5

@@ -17,9 +17,12 @@ each CTA 192 queries of one head (three consumer warpgroups) and streams
 4-D tensor maps over the caller's views while the consumers run both
 products on wgmma with an online softmax; the score matrix never reaches
 device memory. The f32 kernel (off the default path) runs on CUDA cores.
-The int8 mode (bf16 only) is a pre-pass that quantizes q and k per row and
-v per channel, then a kernel that walks the keys twice (the row max, then
-p, its sum and PV), both products on ``mma.sync`` s8 (``csrc/mha.cu``).
+The int8 mode (bf16 only) is three launches (``int8_plan``): a pre-pass that
+quantizes k per row and takes v's per-channel maxima by key blocks, one
+that quantizes v per channel into a transposed buffer, then the attention
+kernel: the bf16 kernel's CTA shape with q quantized inside it, a TMA-fed
+ring of int8 K / V tiles walked twice (the row max, then p, its sum and
+PV), both products on wgmma s8 (``csrc/mha.cu``).
 
 ``mha`` takes ``mha_ref`` only for CPU tensors. For CUDA tensors it launches
 the kernel or raises; nothing falls back.
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -39,8 +43,13 @@ LOG2E = 1.4426950408889634
 HEAD_DIM = 64
 SOURCES = build.LIBRARIES["mha"]
 
-# Launches of the CUDA kernels in this process, all modes, and of those the
-# int8 mode's (reset with reset_launch_count).
+# The int8 mode's geometry (csrc/mha.cu): queries a CTA, keys a ring tile,
+# keys a pre-pass block, keys a v8_key block (v8t's rows are padded to it).
+INT8_QUERIES, INT8_KEYS, INT8_PRE_KEYS, V8_BLOCK = 192, 128, 64, 32
+
+# Calls of the wrapper on CUDA tensors in this process, all modes, and of
+# those the int8 mode's (reset with reset_launch_count); the kernels they
+# launched are kernel_launches().
 launch_count = 0
 int8_launch_count = 0
 
@@ -52,8 +61,8 @@ def reset_launch_count() -> None:
 
 def _mha_int8_ref(q, k, v, key_padding_mask, stats: bool = False):
     """The int8 mode of ``mha_ref`` (JAX ``_mha_kernel(quantized=True)``);
-    ``stats`` also returns v's channel scales vs (B, 1, H, D) and the row
-    sums r (B, Lq, H, 1)."""
+    ``stats`` also returns v's channel scales vs (B, 1, H, D), the row sums
+    r (B, Lq, H, 1) and the integer PV sums p8 . v8 (B, Lq, H, D), f64."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     q8, qs = quantize_act(q.float())                      # (B, L, H, D), (B, L, H, 1)
     k8, ks = quantize_act(k.float())
@@ -70,10 +79,11 @@ def _mha_int8_ref(q, k, v, key_padding_mask, stats: bool = False):
     vs = div(vf.abs().amax(dim=1, keepdim=True).clamp_min(1e-8), 127.0)   # (B, 1, H, D)
     v8 = torch.round(vf / vs).clamp(-127, 127)
     p8 = torch.round(p * 127.0)
-    o = torch.einsum("bhqk,bkhd->bqhd", p8.double(), v8.double()).float() * div(vs, 127.0)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p8.double(), v8.double())
+    o = pv.float() * div(vs, 127.0)
     r = r.permute(0, 2, 1, 3)
     out = (o / r).to(q.dtype)
-    return (out, vs, r) if stats else out
+    return (out, vs, r, pv) if stats else out
 
 
 def mha_ref(q, k, v, key_padding_mask=None, quantized: bool = False):
@@ -110,7 +120,7 @@ def int8_bound(q, k, v, key_padding_mask=None, flips: int = 2):
     an output by |v8| vs / 127 / r <= vs / r (|v8| <= 127): the tolerance is
     ``flips`` such steps plus 1 bf16 ulp of the output (the kernel's f32 row
     sum, taken in another order, may round o / r across a bf16 boundary)."""
-    ref, vs, r = _mha_int8_ref(q, k, v, key_padding_mask, stats=True)
+    ref, vs, r, _ = _mha_int8_ref(q, k, v, key_padding_mask, stats=True)
     peak = ref.float().abs().clamp_min(2.0 ** -100)
     return ref, flips * vs / r + torch.exp2(torch.floor(torch.log2(peak)) - 7)
 
@@ -200,17 +210,70 @@ def launch_args(q, k, v, key_padding_mask=None):
             *tensor_map_strides(v))
 
 
+def int8_launch_args(q, k, v, key_padding_mask=None):
+    """``launch_args`` of the int8 mode, which takes bf16 only: q is read
+    through the bf16 kernel's tensor map, k and v by the pre-pass."""
+    args = launch_args(q, k, v, key_padding_mask)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"mha: the int8 mode takes bf16, got {q.dtype}")
+    return args
+
+
+@dataclass(frozen=True)
+class Int8Plan:
+    """The int8 mode's launches and scratch at one (B, Lq, Lk, H).
+
+    ``grids``: (x, y) of the three launches in order, the k pre-pass (64-key
+    blocks, B H), the v pre-pass (the same over Lkp) and the attention (B H,
+    192-query tiles, the ragged last tile launched last). ``parts``: name ->
+    (byte offset, shape, dtype) in one int8 scratch of ``scratch_bytes``,
+    each part on a 128-byte boundary. ``maps``: the TMA tensor maps over
+    the scratch, name -> (dims, byte strides of dims 1 and 2, box, swizzle
+    bytes), innermost first: k8 (B H, Lk, 64) read as 128-key x 64-byte
+    boxes, v8t (B H, 64, Lkp) as 64-channel x 128-key boxes; both zero-fill
+    past Lk (k8) or Lkp (v8t)."""
+    lkp: int
+    n_kb: int
+    grids: tuple
+    parts: dict
+    scratch_bytes: int
+    maps: dict
+
+
+def int8_plan(b: int, lq: int, lk: int, h: int) -> Int8Plan:
+    bh = b * h
+    lkp = -(-lk // V8_BLOCK) * V8_BLOCK
+    n_kb = -(-lk // INT8_PRE_KEYS)
+    shapes = {"k8": ((bh, lk, HEAD_DIM), torch.int8), "v8t": ((bh, HEAD_DIM, lkp), torch.int8),
+              "ks": ((bh, lk), torch.float32), "vs": ((bh, HEAD_DIM), torch.float32),
+              "vmax": ((bh, n_kb, HEAD_DIM), torch.float32)}
+    parts, off = {}, 0
+    for name, (shape, dt) in shapes.items():
+        parts[name] = (off, shape, dt)
+        off += -(-math.prod(shape) * dt.itemsize // 128) * 128
+    grids = ((n_kb, bh), (-(-lkp // INT8_PRE_KEYS), bh), (bh, -(-lq // INT8_QUERIES)))
+    maps = {"k8": ((HEAD_DIM, lk, bh), (HEAD_DIM, lk * HEAD_DIM), (HEAD_DIM, INT8_KEYS, 1), 64),
+            "v8t": ((lkp, HEAD_DIM, bh), (lkp, HEAD_DIM * lkp), (INT8_KEYS, HEAD_DIM, 1), 128)}
+    return Int8Plan(lkp, n_kb, grids, parts, off, maps)
+
+
 def _int8_lib():
-    lib = build.load("mha", SOURCES)
-    fn = lib.mars5_mha_int8_fwd
+    fn = build.load("mha", SOURCES).mars5_mha_int8_fwd
     if fn.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, ll, ll, ll, ctypes.c_float, vp]
+        # q, k, v, mask, out, k8, v8t, ks, vs, vmax, B, Lq, Lk, H, D, the
+        # views' strides, Lkp, n_kb, scale, stream
+        fn.argtypes = [vp] * 10 + [i] * 5 + [ll] * 9 + [i, i, ctypes.c_float, vp]
         fn.restype = ctypes.c_int
-        lib.mars5_mha_int8_scratch_bytes.argtypes = [i, i, i, i]
-        lib.mars5_mha_int8_scratch_bytes.restype = ll
-    return lib
+    return fn
+
+
+def kernel_launches() -> int:
+    """CUDA kernels the K1 library has launched in this process, counted by
+    its C entries (one a call in bf16 and f32, three in the int8 mode)."""
+    lib = build.load("mha", SOURCES)
+    lib.mars5_mha_kernel_launches.restype = ctypes.c_longlong
+    return lib.mars5_mha_kernel_launches()
 
 
 def mha(q, k, v, key_padding_mask=None, quantized: bool = False):
@@ -219,15 +282,14 @@ def mha(q, k, v, key_padding_mask=None, quantized: bool = False):
 
     CPU tensors take ``mha_ref``; CUDA tensors launch the kernel (bf16 or
     f32, the int8 mode bf16 only; D = 64, views as ``tensor_map_strides``
-    takes them) and raise on anything it does not take (``launch_args``).
+    takes them) and raise on anything it does not take (``launch_args``,
+    ``int8_launch_args``).
     """
     if q.device.type == "cpu":
         return mha_ref(q, k, v, key_padding_mask, quantized)
     if q.device.type != "cuda":
         raise ValueError(f"mha: unsupported device {q.device}")
-    args = launch_args(q, k, v, key_padding_mask)
-    if quantized and q.dtype != torch.bfloat16:
-        raise ValueError(f"mha: the int8 mode takes bf16, got {q.dtype}")
+    args = (int8_launch_args if quantized else launch_args)(q, k, v, key_padding_mask)
     mask_ptr = None
     if key_padding_mask is not None:
         key_padding_mask = key_padding_mask.to(q.device).contiguous()
@@ -236,11 +298,13 @@ def mha(q, k, v, key_padding_mask=None, quantized: bool = False):
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     global launch_count, int8_launch_count
     if quantized:
-        lib = _int8_lib()
-        scratch = torch.empty(lib.mars5_mha_int8_scratch_bytes(b, lq, lk, h), dtype=torch.int8,
-                              device=q.device)
-        build.call(q.device, lib.mars5_mha_int8_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   mask_ptr, out.data_ptr(), scratch.data_ptr(), *args, 1.0 / math.sqrt(d))
+        plan = int8_plan(b, lq, lk, h)
+        scratch = torch.empty(plan.scratch_bytes, dtype=torch.int8, device=q.device)
+        base = scratch.data_ptr()
+        build.call(q.device, _int8_lib(), q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                   out.data_ptr(),
+                   *(base + plan.parts[n][0] for n in ("k8", "v8t", "ks", "vs", "vmax")),
+                   *args, plan.lkp, plan.n_kb, 1.0 / math.sqrt(d))
         int8_launch_count += 1
     else:
         build.call(q.device, _lib(), int(q.dtype == torch.bfloat16), q.data_ptr(),

@@ -1,6 +1,6 @@
 """Two checkouts' kernel checks in turns (A, B, B, A) on one GPU.
 
-    python3 mars5_tts_torch/tools/kernel_ab.py ROOT_A ROOT_B [--checks k6,k2,k8,k9,k3,k3g]
+    python3 mars5_tts_torch/tools/kernel_ab.py ROOT_A ROOT_B [--checks k6,k2,k8,k9,k3,k3g,k1q]
 
 Each turn is a process of its own that imports that checkout's
 ``chip_smoke.py`` and runs the checks named by ``--checks`` (default
@@ -12,7 +12,12 @@ its ``check_mega`` (K9 on a released-width int8 NAR decoder), ``k3`` its
 ``check_nar_fused`` (K3 qkv, caq and residual, K4, one group) and ``k3g``
 its ``check_nar_fused_grouped`` (the same at gsize 128, with the grouped
 plan; then each launch's device time and the tile widths' A/B where the
-checkout has ``w8a8_launch_split`` and ``grouped_tile_ab``). The checks
+checkout has ``w8a8_launch_split`` and ``grouped_tile_ab``) and ``k1q`` its
+``check_k1_modes`` (K1's int8 mode at its four shapes and the bf16
+cross-attention), then each int8 call's kernels by device time
+(``launch_split`` over the kernels named ``mha_*``, on the calls that
+check timed, so a checkout whose smoke keeps no per-launch split of K1 is
+split the same way). The checks
 build that checkout's kernels and print their times beside the twins'.
 Use it to compare two versions of a kernel within one call, where the card
 and its host are the same for both.
@@ -26,7 +31,7 @@ import subprocess
 import sys
 
 CHECKS = """
-import os, sys
+import os, re, sys
 root = os.path.abspath(sys.argv[1])
 checks = sys.argv[2].split(",")
 os.chdir(root)
@@ -54,6 +59,23 @@ if "k3" in checks or "k3g" in checks:
         S.w8a8_launch_split(one, grouped)
     if hasattr(S, "grouped_tile_ab") and grouped:
         S.grouped_tile_ab(grouped)
+if "k1q" in checks:
+    names = list(S.check_k1_modes(dev))
+    # then each case's kernels by device time, in a second, silent pass
+    # (the profiler slows a process's later launches): each call the check
+    # times on the device is profiled there, while its inputs are that case's
+    import contextlib, io
+    splits, timed, w8a8 = [], S.device_ms, S.W8A8_KERNELS
+    S.W8A8_KERNELS = ("mha_",)
+    S.device_ms = lambda fn, *a, **kw: splits.append(S.launch_split(fn))
+    with contextlib.redirect_stdout(io.StringIO()):
+        S.check_k1_modes(dev)
+    S.device_ms, S.W8A8_KERNELS = timed, w8a8
+    for name, split in zip(names, splits):
+        if name.startswith("int8"):
+            print(f"K1 {name} per launch, device us: " + ("not measured" if split is None else
+                  ", ".join(f"{re.search(r'mha_\\w+', k).group(0)} {us:.1f}" for k, us in split)
+                  + f" (sum {sum(us for _, us in split):.1f})"), flush=True)
 if "k9" in checks:
     from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
     from mars5_tts_torch.ops.quant import quantize_nar
@@ -62,7 +84,7 @@ if "k9" in checks:
         nar = ResidualTransformer(ResidualTransformerConfig.mars5(4_096)).init_(g)
     S.check_mega(quantize_nar(nar.to(torch.bfloat16)).tfm.decoder, dev)
 """
-PREFIXES = ("K2 W", "K3", "K4 ", "K5 ", "K6 ", "K8 ", "K9 ", "torch._int_mm")
+PREFIXES = ("K1 ", "K2 W", "K3", "K4 ", "K5 ", "K6 ", "K8 ", "K9 ", "torch._int_mm")
 
 
 def main() -> int:
@@ -71,7 +93,7 @@ def main() -> int:
     ap.add_argument("root_b")
     ap.add_argument("--checks", default="k6,k2")
     args = ap.parse_args()
-    if not set(args.checks.split(",")) <= {"k6", "k2", "k8", "k9", "k3", "k3g"}:
+    if not set(args.checks.split(",")) <= {"k6", "k2", "k8", "k9", "k3", "k3g", "k1q"}:
         ap.error(f"unknown checks {args.checks}")
     roots = {"A": args.root_a, "B": args.root_b}
     rc = 0

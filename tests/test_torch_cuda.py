@@ -1202,11 +1202,15 @@ def test_w8a8_grouped_kernels_refuse(dev):
 @pytest.mark.parametrize("b,lq,lk,h,masked", [
     (2, 1200, 1200, 16, True), (2, 1200, 1200, 16, False),   # NAR self-attention
     (2, 725, 66, 16, True),                                  # cross-attention, the smoke's
-    (1, 130, 70, 2, True), (2, 77, 13, 3, False), (1, 65, 33, 1, True), (1, 1, 1, 1, False)])
+    (1, 130, 70, 2, True), (2, 77, 13, 3, False), (1, 65, 33, 1, True), (1, 1, 1, 1, False),
+    # a ragged last CTA and tile, 66-key cross, a fully masked tail tile,
+    # a row that keeps one key (as tests/test_torch_mha_int8.py)
+    (2, 200, 200, 2, True), (2, 150, 66, 2, True), (2, 100, 300, 2, "tail"),
+    (2, 70, 130, 2, "one"), (1, 192, 256, 3, False)])
 def test_mha_int8_kernel_matches_ref(dev, b, lq, lk, h, masked):
     """The int8 mode within ``int8_bound`` of its twin (two one-step p8 flips
-    and a bf16 ulp), one launch count a call, on strided views of a qkv
-    projection as the unfused decoder slices them."""
+    and a bf16 ulp), one launch count a call and three kernels, on strided
+    views of a qkv projection as the unfused decoder slices them."""
     from mars5_tts_torch.ops.kernels import mha as K
 
     g = torch.Generator(device=dev).manual_seed(lq + lk)
@@ -1218,12 +1222,19 @@ def test_mha_int8_kernel_matches_ref(dev, b, lq, lk, h, masked):
     mask = None
     if masked:
         mask = torch.zeros((b, lk), dtype=torch.bool, device=dev)
+    if masked is True:
         mask[-1, lk - lk // 5:] = True
         mask[0, min(3, lk - 1)] = lk > 1
-    n0, i0 = K.launch_count, K.int8_launch_count
+    elif masked == "tail":
+        mask[1, 140:] = True
+    elif masked == "one":
+        mask[0] = True
+        mask[0, lk // 2] = False
+    n0, i0, k0 = K.launch_count, K.int8_launch_count, K.kernel_launches()
     out = K.mha(q, k, v, mask, quantized=True)
     torch.cuda.synchronize()
     assert (K.launch_count, K.int8_launch_count) == (n0 + 1, i0 + 1)
+    assert K.kernel_launches() - k0 == 3
     ref, tol = K.int8_bound(q, k, v, mask)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     err = (out.float() - ref.float()).abs()

@@ -5,9 +5,10 @@ arguments, K3/K4's GEMM plan (tile width and persistent grid,
 ``nar_fused.gemm_plan``), the rows and LN/bias vectors they read, K6's tile
 plan (``diffusion_tail.heads_tail_plan``) and its padded classes, and the
 refusals of these wrappers on inputs a CPU can build: among them K3/K4's
-group sizes and group scales, K1's int8 mode off head dim 64, K9 on grouped
-weights and ``Mars5TTS``'s NAR options. K2's plan is in
-``test_torch_persistent_decode.py``.
+group sizes and group scales, K1's int8 mode off head dim 64, off bf16 and
+off 16-byte views, K9 on grouped weights and ``Mars5TTS``'s NAR options;
+K1's int8 plan (``mha.int8_plan``: grids, scratch parts, tensor maps). K2's
+plan is in ``test_torch_persistent_decode.py``.
 """
 
 import pytest
@@ -530,6 +531,57 @@ def test_mha_int8_mode_refuses_head_dims_and_devices():
         K.launch_args(q[..., :32], k[..., :32], v[..., :32])
     with pytest.raises(ValueError, match="unsupported device"):
         K.mha(*(torch.zeros((1, 4, 1, 64), device="meta") for _ in range(3)), quantized=True)
+
+
+@pytest.mark.parametrize("shape,grids,lkp,scratch", [
+    # (B, Lq, Lk, H): the bench's self-attention, the smoke request's, its
+    # cross-attention over 66 memory tokens, a tiny ragged one
+    ((2, 1200, 1200, 16), ((19, 32), (19, 32), (32, 7)), 1216,
+     32 * 1200 * 64 + 32 * 64 * 1216 + 32 * 1200 * 4 + 32 * 64 * 4 + 32 * 19 * 64 * 4),
+    ((2, 725, 725, 16), ((12, 32), (12, 32), (32, 4)), 736,
+     32 * 725 * 64 + 32 * 64 * 736 + 32 * 725 * 4 + 32 * 64 * 4 + 32 * 12 * 64 * 4),
+    ((2, 725, 66, 16), ((2, 32), (2, 32), (32, 4)), 96,
+     32 * 66 * 64 + 32 * 64 * 96 + 32 * 66 * 4 + 32 * 64 * 4 + 32 * 2 * 64 * 4),
+    ((1, 1, 1, 1), ((1, 1), (1, 1), (1, 1)), 32, 128 + 64 * 32 + 128 + 64 * 4 + 64 * 4),
+])
+def test_mha_int8_plan(shape, grids, lkp, scratch):
+    """The int8 mode's three launches and scratch: grids (the attention's
+    (B H, 192-query tiles)), v8t's keys padded to 32, each part on a
+    128-byte boundary in order, and the TMA maps' geometry over them."""
+    b, lq, lk, h = shape
+    plan = K.int8_plan(b, lq, lk, h)
+    assert plan.grids == grids and plan.lkp == lkp and plan.n_kb == -(-lk // 64)
+    assert plan.scratch_bytes == scratch
+    end = 0
+    for name, (off, shp, dt) in plan.parts.items():
+        assert off % 128 == 0 and off >= end
+        end = off + torch.Size(shp).numel() * dt.itemsize
+    assert end <= plan.scratch_bytes < end + 128
+    bh = b * h
+    assert plan.parts["k8"][1] == (bh, lk, 64) and plan.parts["v8t"][1] == (bh, 64, lkp)
+    assert plan.maps["k8"] == ((64, lk, bh), (64, 64 * lk), (64, 128, 1), 64)
+    assert plan.maps["v8t"] == ((lkp, 64, bh), (lkp, 64 * lkp), (128, 64, 1), 128)
+    for dims, strides, box, swizzle in plan.maps.values():
+        # TMA: strides multiples of 16 bytes, a box row of the swizzle's width
+        assert all(st % 16 == 0 for st in strides) and box[0] == swizzle
+
+
+@pytest.mark.parametrize("change,match", [
+    ("f32", "bf16"), ("head_dim", "head_dim"), ("offset", "16-byte boundary"),
+    ("stride", "16 bytes")])
+def test_mha_int8_launch_args_refuse(change, match):
+    q, k, v = _qkv_views(2, 40, 2)
+    if change == "f32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif change == "head_dim":
+        q, k, v = q[..., :32], k[..., :32], v[..., :32]
+    elif change == "offset":
+        q = torch.zeros((2, 40, 2 * 64 + 8), dtype=torch.bfloat16)[..., 1:129].reshape(2, 40, 2, 64)
+    else:
+        q = torch.zeros((2, 40, 2, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match=match):
+        K.int8_launch_args(q, k, v)
+    assert K.int8_launch_args(*_qkv_views(2, 40, 2)) == K.launch_args(*_qkv_views(2, 40, 2))
 
 
 def _mega_geometry_nar(gsize):

@@ -170,6 +170,44 @@ def test_kernel_ab_takes_the_w8a8_checks(monkeypatch, capsys):
     assert done.value.code == 2 and "k3x" in capsys.readouterr().err
 
 
+def test_kernel_ab_takes_the_k1_int8_check():
+    """``k1q`` (K1's int8 mode at the smoke's four shapes, with each call's
+    kernels by device time) is a check kernel_ab.py knows, for a checkout
+    whose smoke splits K1's launches or not; its lines pass the filter."""
+    tool = runpy.run_path(f"{ROOT}/mars5_tts_torch/tools/kernel_ab.py")
+    assert "S.check_k1_modes(dev)" in tool["CHECKS"] and 'S.W8A8_KERNELS = ("mha_",)' in tool["CHECKS"]
+    for line in ("K1 int8 (2, 1200) masked (2, 1200, 16, 64) over 1200 keys mask=True: ...",
+                 "K1 int8 (2, 725) strided per launch, device us: mha_int8_prepass_k 3.1"):
+        assert line.startswith(tool["PREFIXES"])
+
+
+MHA_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mha_int8_kernelE14CUtensorMap_stS0_S0_PKfS2_PKhP13__nv_bfloat16iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115mha_int8_kernelE14CUtensorMap_stS0_S0_PKfS2_PKhP13__nv_bfloat16iiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 1 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118mha_int8_prepass_vEPK13__nv_bfloat16iiiNS_7StridesEPKfiPfPa' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118mha_int8_prepass_vEPK13__nv_bfloat16iiiNS_7StridesEPKfiPfPa
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 8704 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119mha_fwd_bf16_kernelE14CUtensorMap_stS0_S0_PKhP13__nv_bfloat16iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119mha_fwd_bf16_kernelE14CUtensorMap_stS0_S0_PKhP13__nv_bfloat16iiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_reads_the_mha_ptxas_log():
+    """The same reading for K1's kernels, which take no template arguments:
+    only those named by the prefix, each with its registers and spills."""
+    smoke = runpy.run_path(f"{ROOT}/chip_smoke.py")
+    regs, wgmma = smoke["ptxas_lines"](MHA_PTXAS_LOG, ("mha_int8_",))
+    assert regs == {
+        "mha_int8_kernel": "128 registers, 0 bytes spill stores, 0 bytes spill loads",
+        "mha_int8_prepass_v": "30 registers, 4 bytes spill stores, 4 bytes spill loads"}
+    assert wgmma == []
+
+
 PTXAS_LOG = """\
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115w8a8_wgmma_gemmILi64ELb1ELi1EEEv14CUtensorMap_stS1_NS_8EpilogueE' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115w8a8_wgmma_gemmILi64ELb1ELi1EEEv14CUtensorMap_stS1_NS_8EpilogueE
