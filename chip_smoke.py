@@ -63,6 +63,31 @@
    ``GEN_FRAMES`` generated frames. Each request's launch counts are reset
    before it and read after it.
 
+5. Serving, on the int8 NAR of phase 4 at the released widths: the deploy
+   configuration (``deploy/predict.py``: fused4 + int8,
+   ``guidance_interval=(0, 0.5)``, ``nar_gen_bucket=64``,
+   ``nar_text_bucket=32``) through ``tts()`` on the default route and with
+   ``nar_mega=True`` (K6 or K9 200 calls: 100 with CFG, 100 on the cond
+   rows alone; NAR ms a step beside the default route's); ``stream_tts``
+   (segments of 192 frames, 192 of context, a 32-frame margin: at least two
+   segments, the streamed PCM one vocode of the emitted grid within atol
+   2e-5, rtol 1e-4, the time to the first chunk); ``synthesize_longform``
+   over a two-chunk text (the crossfade's length); a
+   ``FusedContinuousBatcher`` of 4 rows (fused4, chunks of 64 steps, prompt
+   buckets 64 and 576) over three shallow and three deep requests on
+   injected streams (K2 once a pool step, every row's tokens its solo
+   ``ar_generate_fused`` run's, tokens a second beside the solo runs'); a
+   ``NarWaveScheduler`` wave of the three deep rows (T = 200 on the
+   generator path, then T = 8 on injected streams, each wave row bit for
+   bit its one-row wave); ``use_kv_cache=False`` on the bf16 AR (ms a token,
+   tokens beside the cached run's, not a gate). Before the requests, phase 3
+   also holds the new shapes against their twins: K1 at one batch row
+   (1, 1200) masked, K3/K4 at M = 1200 (one row), K6 and K5 with the cond
+   rows alone, the greedy last step (``scalars[5] = 0``) and a wave of three
+   rows; after them, K9 at one row, (1, 725) and (1, 1200). Last of all
+   (the profiler slows what follows it), the device's idle share of the
+   pool's run and of a three-row wave at T = 20.
+
 After the requests (``torch.profiler`` slows a process's later launches),
 the device time of each launch of K3 and K4 (prologue and GEMM; K4's four)
 at one group and grouped, and the grouped calls' device time with their
@@ -1554,15 +1579,26 @@ def main():
     # a short request (2 x 400 frames), where the plan takes 64-wide tiles for
     # caq, the residual sites and lin2
     w8a8_g_short = check_nar_fused_grouped(dev, SHORT_M)
+    # the serving path's new shapes: one batch row (a cond-only step), the
+    # greedy last step, a wave of three rows
+    k1_one = check_kernel(K, (1, MAIN_SHAPE[1], 16, 64), True, torch.bfloat16,
+                          own_generator(dev, 22), dev)
+    w8a8_one = check_nar_fused_one_row(dev)
+    k6_serving = check_heads_tail_serving(dev)
 
     # -- 4. main paths, each request with its launch counts from 0
     records, main_launches, path_launches, nar8 = serve_paths(models, dev)
+    # -- 5. serving, before anything runs the profiler
+    serving = serve_serving(models, nar8, records, dev)
+    k9_one = {f"(1, {n})": check_mega_one_row(nar8.tfm.decoder, dev, n)
+              for n in (MEGA_L, MEGA_BENCH_L)}
     # K9 on the served NAR's own int8 decoder weights
     k9 = check_mega(nar8.tfm.decoder, dev)
     w8a8_split = w8a8_launch_split(w8a8, w8a8_g)
     k1_split = k1_int8_launch_split(k1_modes)
     tile_ab = {m: grouped_tile_ab(res, m) for m, res in ((M_ROWS, w8a8_g),
                                                          (SHORT_M, w8a8_g_short))}
+    idle = serving_idle_shares(serving)
     if any(m.split(".")[0] in ("jax", "mars5_tts_tpu") for m in sys.modules):
         raise RuntimeError("the port pulled in jax or the JAX package")
 
@@ -1588,6 +1624,10 @@ def main():
                 "device_ms", "one_row_device_ms", "library_ms", "library_device_ms",
                 "host_ms", "cluster", "kernel_launches_per_call")
         return {k: st[k] for k in keys if k in st}
+    def pick(st, keys=("ms", "plain_ms", "device_ms", "host_ms", "bound_ms", "bound_by",
+                       "max_abs_err", "exact_frac", "kernel_launches_per_call",
+                       "stack_mean_abs_err", "plan")):
+        return {k: st[k] for k in keys if k in st}
     k1_cross = k1_modes["bf16 cross (2, 725) over 66"]
     k1_int8 = {name: st for name, st in k1_modes.items() if name.startswith("int8")}
     print(json.dumps({"kernels": [
@@ -1601,7 +1641,9 @@ def main():
                    for name, st in (("(2, 525) unmasked", second),
                                     ("(2, 750) over 1200 strided", k1_views[0]),
                                     ("(2, 725) strided", k1_views[1]),
-                                    ("(2, 725) over 66 cross", k1_cross))}},
+                                    ("(2, 725) over 66 cross", k1_cross),
+                                    ("(1, 1200) masked", k1_one))},
+         "serving_launches": serving["deploy"]["launches"]["mha"]},
         {**row("mha_int8", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46",
                k1_int8["int8 (2, 1200) masked"], launches=path_launches["mha_int8"]),
          "max_abs_err": max(st["max_abs_err"] for st in k1_int8.values()),
@@ -1632,22 +1674,34 @@ def main():
                                         ("ms", "device_ms", "host_ms", "bound_ms",
                                          "max_abs_err", "kernel_launches_per_call")}
                    for wb in (4, 8) for pos in AR_POSITIONS},
-         "batch4": {f"W{wb}": batched(k2[(wb, "batch")]) for wb in (4, 8)}},
+         "batch4": {f"W{wb}": batched(k2[(wb, "batch")]) for wb in (4, 8)},
+         "pool": {**{k: serving["pool"][k] for k in ("rows", "steps", "k2_launches",
+                                                     "rows_equal_solo", "pool_tokens_per_s",
+                                                     "solo_tokens_per_s")},
+                  "idle_share": idle["pool"]["idle_share"]}},
         {**row("fused_linear", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:111",
                w8a8["qkv"]),
          "max_abs_err": max(w8a8[v]["max_abs_err"] for v in ("qkv", "caq", "residual")),
          **w8a8_extra(w8a8["qkv"], w8a8["int_mm"]["qkv"]),
          "launch_us": w8a8_split.get("K3 qkv"),
-         "cases": {v: {**{k: w8a8[v][k] for k in ("ms", "bound_ms", "max_abs_err")},
-                       **w8a8_extra(w8a8[v], w8a8["int_mm"].get(v))} for v in ("caq", "residual")}},
+         "cases": {**{v: {**{k: w8a8[v][k] for k in ("ms", "bound_ms", "max_abs_err")},
+                          **w8a8_extra(w8a8[v], w8a8["int_mm"].get(v))}
+                      for v in ("caq", "residual")},
+                   "qkv (1, 1200)": pick(w8a8_one["qkv"])}},
         {**row("fused_ffn", "nar_fused.cu", "mars5_tts_tpu/ops/pallas/nar_fused.py:144",
                w8a8["ffn"]), **w8a8_extra(w8a8["ffn"], w8a8["int_mm"]["ffn"]),
-         "launch_us": w8a8_split.get("K4 ffn")},
+         "launch_us": w8a8_split.get("K4 ffn"), "cases": {"(1, 1200)": pick(w8a8_one["ffn"])}},
         {**row("heads_diffusion_tail", "diffusion_tail.cu",
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:149", k6[-1]),
          "max_abs_err": k6_worst["max_abs_err"],
          **{k: k6[-1][k] for k in ("device_ms", "host_ms", "kernel_launches_per_call")},
-         "t0": {k: k6[0][k] for k in ("ms", "device_ms", "host_ms")}},
+         "t0": {k: k6[0][k] for k in ("ms", "device_ms", "host_ms")},
+         "max_abs_err_serving": max(st["max_abs_err"] for st in k6_serving.values()),
+         "serving": {name: {k: st[k] for k in ("mismatches", "near_ties", "max_abs_err", "ms",
+                                               "plain_ms", "device_ms", "bound_ms", "bound_by")}
+                     for name, st in k6_serving.items()},
+         "serving_launches": {n: serving[n]["launches"]["heads_diffusion_tail"]
+                              for n in ("deploy", "deploy_mega")}},
         {**row("head4_logits", "head4.cu", "mars5_tts_tpu/ops/pallas/head4.py:55", k8,
                launches=path_launches["head4_logits"]),
          **{k: k8[k] for k in ("device_ms", "host_ms", "kernel_launches_per_call")},
@@ -1662,14 +1716,17 @@ def main():
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:41", k5[-1],
                launches=path_launches["diffusion_tail"]),
          "device_ms": k5[-1]["device_ms"], "host_ms": k5[-1]["host_ms"],
-         "t0": {k: k5[0][k] for k in ("ms", "device_ms", "host_ms")}},
+         "t0": {k: k5[0][k] for k in ("ms", "device_ms", "host_ms")},
+         "serving": {name: {"vs_k6": st["k5_vs_k6"], "vs_twin": st["k5_vs_twin"],
+                            "device_ms": st["k5_device_ms"]} for name, st in k6_serving.items()}},
         {**row("mega_decoder_stack", "nar_mega.cu", "mars5_tts_tpu/ops/pallas/nar_mega.py:251",
                k9, launches=path_launches["mega_decoder_stack"]),
          **{k: k9[k] for k in ("device_ms", "host_ms", "kernel_launches_per_call", "phase_ms")},
          "cases": {name: {k: st[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
                                              "kernel_launches_per_call", "bound_ms", "bound_by",
                                              "max_abs_err", "stack_mean_abs_err")}
-                   for name, st in k9["cases"].items()}},
+                   for name, st in {**k9["cases"], **k9_one}.items()},
+         "serving_launches": serving["deploy_mega"]["launches"]["mega_decoder_stack"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1816,6 +1873,658 @@ def serve_paths(models, dev):
         "ms a batched step: " + ", ".join(
             f"{r['path']}: {r['ar_ms_per_step']:.2f}" for r in batch_records), flush=True)
     return records + batch_records, main_launches, path_launches, nar8
+
+
+# ---------------------------------------------------------------- 5. serving
+
+DEPLOY = dict(ar_backend="fused4", nar_backend="int8", guidance_interval=(0.0, 0.5),
+              nar_gen_bucket=64, nar_text_bucket=32)     # deploy/predict.py's defaults
+POOL_ROWS, POOL_CHUNK, POOL_BUCKETS = 4, 64, (64, 576)
+WAVE_T = 8     # the injected-stream wave check's depth (see check_waves)
+STREAM = dict(seg_frames=192, ctx_frames=192, vocode_margin=32)    # stream_tts's segments
+
+
+def reference_voice(tts, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(int(REF_SECONDS * tts.sr)) * 0.1).astype(np.float32)
+
+
+def request_prompt(tts, text, transcript, codes, deep):
+    """The AR prompt of a request as ``Mars5TTS._synthesize_codes`` builds it
+    from the reference's (1, n_q, S) ``codes``: (prompt ids, the text ids the
+    NAR reads, the index of the first parsed codec token)."""
+    import numpy as np
+    n_text = len(tts.texttok.vocab)
+    if deep:
+        tokens = tts.texttok.encode("<|startoftext|>" + transcript + " " + text
+                                    + "<|endoftext|>", allowed_special="all")
+        speech = [p + n_text for p in tts.speechtok.encode(
+            " ".join(str(t) for t in codes[0, 0].tolist()))]
+    else:
+        tokens = tts.texttok.encode("<|startoftext|>" + text + "<|endoftext|>",
+                                    allowed_special="all")
+        speech = []
+    prompt = np.asarray(tokens + speech, np.int64)
+    return prompt, np.asarray(tokens, np.int64), len(prompt) - len(speech) + 1
+
+
+def parse_l0(tts, tokens, first_codec_idx):
+    """The L0 codes of an AR sequence, as ``_synthesize_codes`` parses them."""
+    import numpy as np
+    out = np.clip(tokens - len(tts.texttok.vocab), 0, None)[first_codec_idx:]
+    return np.asarray([s for s in tts.speechtok.decode_int(out.tolist()) if isinstance(s, int)],
+                      np.int64)
+
+
+def count_tail_rows(engine):
+    """Wrap the engine's K6 entry to record, a call, whether it ran the CFG
+    rows (rows == 2 bs) or the cond rows alone; returns (the record, undo)."""
+    calls = []
+    k6 = engine.heads_diffusion_tail
+
+    def run(x8, xs, folded, u0, *a, **k):
+        calls.append(x8.shape[0] == 2 * u0.shape[0])
+        return k6(x8, xs, folded, u0, *a, **k)
+    engine.heads_diffusion_tail = run
+    return calls, lambda: setattr(engine, "heads_diffusion_tail", k6)
+
+
+def serve_deploy(tts, label, req, want, default):
+    """One deploy-configuration request (guidance interval and buckets) on
+    ``tts``: ``serve``'s checks, K6's 200 calls split 100 CFG / 100
+    cond-only, and the NAR ms a step beside ``default``'s (phase 4's request
+    on the same route without the interval and buckets, in this call)."""
+    from mars5_tts_torch.diffusion import engine
+    rows, undo = count_tail_rows(engine)
+    try:
+        rec = serve(tts, label, *req, want)
+    finally:
+        undo()
+    cfg_steps = sum(rows)
+    if (cfg_steps, len(rows) - cfg_steps) != (STEPS // 2, STEPS // 2):
+        raise RuntimeError(f"{label}: K6 ran {cfg_steps} CFG and {len(rows) - cfg_steps} "
+                           f"cond-only calls, expected {STEPS // 2} each")
+    rec["k6_cfg_calls"], rec["k6_cond_only_calls"] = cfg_steps, len(rows) - cfg_steps
+    rec["nar_ms_per_step"] = 1e3 * rec["stages_s"]["nar_diffusion"] / STEPS
+    default_ms = 1e3 * default["stages_s"]["nar_diffusion"] / STEPS
+    print(f"{label}: NAR {rec['nar_ms_per_step']:.2f} ms a step ({cfg_steps} CFG + "
+          f"{len(rows) - cfg_steps} cond-only K6 calls) against {default_ms:.2f} for "
+          f"'{default['path']}' (CFG every step, no buckets) in this call", flush=True)
+    rec["nar_ms_per_step_without"] = default_ms
+    return rec
+
+
+def check_stream(tts, req, seed):
+    """``stream_tts`` on the deploy model: at least two segments, the
+    concatenated PCM one vocode of the emitted grid within atol 2e-5, rtol
+    1e-4, and the time to the first chunk."""
+    import numpy as np
+    import torch
+    from mars5_tts_torch import InferenceConfig
+    from mars5_tts_torch.serving import stream_tts
+
+    text, transcript, _ = req
+    ref = reference_voice(tts, seed)
+    n_text = len(tts.texttok.encode("<|startoftext|>" + transcript + " " + text
+                                    + "<|endoftext|>", allowed_special="all"))
+    cfg = InferenceConfig(generate_max_len_override=n_text + int(REF_SECONDS * 75) + GEN_FRAMES,
+                          timesteps=STEPS)
+    reset_counts()
+    t0 = time.perf_counter()
+    chunks, first_s = [], None
+    for ch in stream_tts(tts, text, ref, ref_transcript=transcript, cfg=cfg, seed=seed,
+                         **STREAM):
+        torch.cuda.synchronize()
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        chunks.append(ch)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    grid = np.concatenate([c.grid for c in chunks])
+    pcm = np.concatenate([c.pcm for c in chunks])
+    full = tts.vocode(grid)[: len(grid) * tts.vocos.cfg.hop_length]
+    diff = np.abs(pcm - full) if pcm.shape == full.shape else None
+    ok = diff is not None and bool(np.all(diff <= 2e-5 + 1e-4 * np.abs(full)))
+    rec = {"segments": len(chunks), "frames": int(len(grid)), "first_chunk_s": first_s,
+           "wall_s": wall, "audio_s": len(pcm) / tts.sr,
+           "pcm_max_abs_err": None if diff is None else float(diff.max()),
+           "launches": launches}
+    print(f"stream_tts (deploy model, {STREAM}): {len(chunks)} segments, "
+          f"{len(grid)} frames, first chunk after {first_s:.3f} s of {wall:.3f} s, "
+          f"{rec['audio_s']:.3f} s of audio; streamed PCM against one vocode of the emitted "
+          f"grid max_abs_err={rec['pcm_max_abs_err']} bound=atol 2e-5 + rtol 1e-4 within={ok}; "
+          f"launches {json.dumps(launches)}", flush=True)
+    if len(chunks) < 2 or not ok or not np.isfinite(pcm).all():
+        raise RuntimeError("stream_tts: fewer than two segments, or its PCM is not one vocode "
+                           "of its grid within the bound")
+    if int(grid.min()) < 0 or int(grid.max()) > 1024:
+        raise RuntimeError("stream_tts: grid codes outside [0, 1024]")
+    return rec
+
+
+def check_longform(tts, seed):
+    """``synthesize_longform`` over a two-chunk text: finite audio whose
+    length is the crossfade's (two trimmed segments, a 60 ms gap, a 20 ms
+    overlap)."""
+    import numpy as np
+    from mars5_tts_torch import InferenceConfig
+    from mars5_tts_torch.serving import chunk_text, synthesize_longform
+
+    text = "The first sentence is read here. The second one follows it."
+    transcript = "A reference voice."
+    chunks = chunk_text(text, max_chars=40)
+    n_text = max(len(tts.texttok.encode("<|startoftext|>" + transcript + " " + c
+                                        + "<|endoftext|>", allowed_special="all"))
+                 for c in chunks)
+    cfg = InferenceConfig(generate_max_len_override=n_text + int(REF_SECONDS * 75) + GEN_FRAMES,
+                          timesteps=STEPS)
+    t0 = time.perf_counter()
+    res = synthesize_longform(tts, text, reference_voice(tts, seed), ref_transcript=transcript,
+                              cfg=cfg, max_chars=40, seed=seed)
+    wall = time.perf_counter() - t0
+    lens = [round(s * tts.sr) for s in res.chunk_audio_seconds]
+    fade, gap = int(tts.sr * 0.020), int(tts.sr * 0.060)
+    want = lens[0] + gap + lens[1] - min(fade, lens[0] + gap, lens[1])
+    rec = {"chunks": res.chunks, "segment_samples": lens, "samples": len(res.audio),
+           "wall_s": wall, "audio_s": len(res.audio) / tts.sr}
+    print(f"synthesize_longform: chunks {res.chunks}, segments {lens} samples, stitched "
+          f"{len(res.audio)} (crossfade length {want}), {wall:.3f} s for "
+          f"{rec['audio_s']:.3f} s of audio", flush=True)
+    if len(res.chunks) != 2 or len(res.audio) != want or not np.isfinite(res.audio).all():
+        raise RuntimeError("synthesize_longform: not two chunks, or not the crossfade's "
+                           "length, or non-finite audio")
+    return rec
+
+
+def check_pool(tts, seed):
+    """``FusedContinuousBatcher`` (fused4, 4 rows, chunks of 64 steps, prompt
+    buckets 64 and 576) over six requests, three shallow and three deep
+    (the 7 s reference), on injected streams: K2 launched once a pool step,
+    every row's tokens equal to its solo ``ar_generate_fused`` run on the
+    pool's pack and stream, tokens a second of the pool and of the solo runs.
+    The pool's ``max_len`` (one for all rows, as in the JAX pool) is the deep
+    prompts' plus ``GEN_FRAMES``: a deep row generates at most
+    ``GEN_FRAMES`` tokens, a shallow one up to ``max_len`` less its prompt.
+    Returns (the record, the deep requests with their prompts' parts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from mars5_tts_torch import InferenceConfig
+    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+
+    ref = reference_voice(tts, seed)
+    codes = tts.encode_reference(ref).cpu().numpy()
+    spk = codes[0].T
+    texts = [("Shallow one, a short line.", False), ("Deep clone request one.", True),
+             ("The shallow second line here.", False), ("Deep clone request two.", True),
+             ("A third shallow line is read.", False), ("Deep clone request three.", True)]
+    reqs = [request_prompt(tts, text, "A voice.", codes, deep) for text, deep in texts]
+    deep_len = max(len(p) for (p, _, _), (_, deep) in zip(reqs, texts) if deep)
+    sampling = tts._sampling(InferenceConfig(generate_max_len_override=deep_len + GEN_FRAMES),
+                             30)
+    rng = np.random.default_rng(seed)
+    streams = [rng.random(sampling.max_len).astype(np.float32) for _ in reqs]
+    t0 = time.perf_counter()
+    pool = FusedContinuousBatcher(tts.codeclm, sampling, batch_size=POOL_ROWS, wbits=4,
+                                  chunk_steps=POOL_CHUNK, prompt_buckets=POOL_BUCKETS,
+                                  spk_bucket=POOL_BUCKETS[-1])
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    submitted = [pool.submit(Request(prompt=p, spk_codes=spk, uniforms=u))
+                 for (p, _, _), u in zip(reqs, streams)]
+    reset_counts()
+    t0 = time.perf_counter()
+    pool.run()
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    launches = counts()
+    dims1 = dataclasses.replace(pool.dims, batch=1)
+    t0 = time.perf_counter()
+    solo = [ar_generate_fused(tts.codeclm, pool.fp, dims1, p, spk, sampling=sampling,
+                              uniforms=u) for (p, _, _), u in zip(reqs, streams)]
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    equal = [bool(np.array_equal(r.tokens, t)) and r.n_gen == n
+             for r, (t, n) in zip(submitted, solo)]
+    tokens = sum(r.n_gen for r in submitted)
+    rec = {"rows": POOL_ROWS, "requests": len(reqs), "prompt_lens": [len(p) for p, _, _ in reqs],
+           "n_gen": [r.n_gen for r in submitted], "steps": pool.steps_run,
+           "chunks": pool.chunks_run, "prefills_by_bucket": pool.prefills_by_bucket,
+           "k2_launches": launches["fused_decode_layers"], "rows_equal_solo": equal,
+           "pool_s": pool_s, "solo_s": solo_s, "pack_s": pack_s,
+           "pool_tokens_per_s": tokens / pool_s, "solo_tokens_per_s": tokens / solo_s}
+    print(f"FusedContinuousBatcher (fused4, {POOL_ROWS} rows, chunks of {POOL_CHUNK}, buckets "
+          f"{POOL_BUCKETS}): prompts {rec['prompt_lens']}, tokens {rec['n_gen']} in "
+          f"{pool.steps_run} pool steps ({pool.chunks_run} quanta, prefills by bucket "
+          f"{pool.prefills_by_bucket}), K2 launched {rec['k2_launches']} times; rows equal to "
+          f"their solo runs: {equal}; pool {rec['pool_tokens_per_s']:.1f} tokens/s ({pool_s:.3f} "
+          f"s) against {rec['solo_tokens_per_s']:.1f} for the six solo runs ({solo_s:.3f} s); "
+          f"the pool's pack built in {pack_s:.2f} s", flush=True)
+    if rec["k2_launches"] != pool.steps_run:
+        raise RuntimeError("FusedContinuousBatcher: K2 launches differ from the pool's steps")
+    if not all(equal):
+        raise RuntimeError("FusedContinuousBatcher: a row's tokens differ from its solo run")
+    if min(pool.prefills_by_bucket.values()) == 0:
+        raise RuntimeError("FusedContinuousBatcher: a prompt bucket took no prefill")
+    deep = [(r, nar_text, fci) for r, (_, nar_text, fci), (_, d) in zip(submitted, reqs, texts)
+            if d]
+
+    def rerun():
+        """A fresh pool with the same requests queued; returns its run."""
+        again = FusedContinuousBatcher(tts.codeclm, sampling, batch_size=POOL_ROWS, wbits=4,
+                                       chunk_steps=POOL_CHUNK, prompt_buckets=POOL_BUCKETS,
+                                       spk_bucket=POOL_BUCKETS[-1])
+        for (p, _, _), u in zip(reqs, streams):
+            again.submit(Request(prompt=p, spk_codes=spk, uniforms=u))
+        return again.run
+    rec["_rerun"] = rerun
+    return rec, deep, codes[0].T
+
+
+def check_head_rows(fp, cfg, dev):
+    """Why the quantized engine's int8 head runs at a fixed row count
+    (``ar_decode_fused.final_logits``): row 0 of 2 to 8 rows through the
+    final RMSNorm (bitwise the row alone's, so the norm runs at the real
+    rows) and through the plain int8 head (``head_logits``, a cuBLAS f32
+    GEMM at M = the rows) against the row alone, and through
+    ``final_logits``, which must be bitwise the row alone's."""
+    import torch
+    from mars5_tts_torch.models.ar_decode_fused import final_logits, head_logits
+    from mars5_tts_torch.ops.norms import rms_norm
+
+    gen = own_generator(dev, 25)
+    h = torch.randn((8, cfg.dim), generator=gen, device=dev) * 3
+    hb = h.to(torch.bfloat16)
+    sizes = range(2, 9)
+    norm_one = rms_norm(hb[:1], fp["final_norm"], cfg.norm_eps)
+    norm_equal = {b: bool(torch.equal(rms_norm(hb[:b], fp["final_norm"], cfg.norm_eps)[:1],
+                                      norm_one)) for b in sizes}
+    hn = rms_norm(hb, fp["final_norm"], cfg.norm_eps)
+    one = head_logits(fp, hn[:1], cfg.n_vocab)
+    plain = {b: (head_logits(fp, hn[:b], cfg.n_vocab)[:1] - one).abs().max().item()
+             for b in sizes}
+    fixed = final_logits(fp, h[:1], cfg)
+    equal = {b: bool(torch.equal(final_logits(fp, h[:b], cfg)[:1], fixed)) for b in sizes}
+    print(f"final RMSNorm, row 0 of 2..8 rows bitwise the row alone: {norm_equal}; int8 head, "
+          f"row 0 of 2..8 rows against the row alone: plain max diff {plain}; final_logits "
+          f"(the head at 8 rows always) bitwise equal {equal}", flush=True)
+    if not all(equal.values()):
+        raise RuntimeError("final_logits: a row's logits depend on the rows beside it")
+    return {"norm_equal": norm_equal, "plain_max_diff": plain, "fixed_equal": equal}
+
+
+def check_waves(tts, deep, c_codes):
+    """``NarWaveScheduler`` (``wave_size=3``) on the int8 NAR over the pool's
+    three deep rows (one reference, so one Lc): the generator path at
+    T = 200 (finite grids, codes in [0, 1024], L0 the AR's), then at
+    T = ``WAVE_T`` on injected streams, each wave row bit for bit the
+    request's own one-row wave on its stream. The depth is the only cut: a
+    T = 200 stream of the three rows (about 1,300 frames each, 8 lanes, 1,025
+    classes, f32) would be about 60 GB, one of T = 8 about 2 GB."""
+    import numpy as np
+    import torch
+    from mars5_tts_torch import DSH
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.serving import nar_waves
+    from mars5_tts_torch.serving.nar_waves import NarRequest, NarWaveScheduler
+
+    l0s = [parse_l0(tts, r.tokens, fci) for r, _, fci in deep]
+    bucket = -(-max(len(x) for x in l0s) // 64) * 64
+    text_bucket = -(-max(len(t) for _, t, _ in deep) // 32) * 32
+
+    def scheduler(T):
+        dsh = DSH(last_greedy=True, x_0_temp=0.7, guidance_w=3.0, deep_clone=True, jump_len=1,
+                  jump_n_sample=1, q0_override_steps=20, enable_kevin_scaled_inference=True,
+                  guidance_interval=tts.guidance_interval)
+        return NarWaveScheduler(tts.codecnar, MultinomialDiffusion(1025, T, device=tts.device),
+                                T, dsh, wave_size=3, gen_buckets=(bucket,),
+                                text_bucket=text_bucket, tail=tts.nar_tail, mega=tts._get_mega(),
+                                options=tts.nar_options)
+
+    def requests():
+        return [NarRequest(c_text=t, c_codes=c_codes, l0_codes=x, seed=i)
+                for i, ((_, t, _), x) in enumerate(zip(deep, l0s))]
+
+    wave = scheduler(STEPS)
+    reqs = [wave.submit(r) for r in requests()]
+    reset_counts()
+    t0 = time.perf_counter()
+    wave.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    ok = wave.waves_run == 1 and all(
+        r.grid.shape == (len(r.l0_codes), 8) and int(r.grid.min()) >= 0
+        and int(r.grid.max()) <= 1024 and np.array_equal(r.grid[:, 0], r.l0_codes)
+        for r in reqs)
+    rec = {"rows": len(reqs), "frames": [len(x) for x in l0s], "gen_bucket": bucket,
+           "lc": int(c_codes.shape[0]), "wall_s": wall, "nar_ms_per_step": 1e3 * wall / STEPS,
+           "launches": launches}
+
+    def rerun(T):
+        """A fresh scheduler at depth T with the three rows queued; returns
+        its flush."""
+        again = scheduler(T)
+        for r in requests():
+            again.submit(r)
+        return again.flush
+    rec["_rerun"] = rerun
+    print(f"NarWaveScheduler: one wave of {len(reqs)} deep rows (Lc {rec['lc']}, frames "
+          f"{rec['frames']} in a bucket of {bucket}) at T = {STEPS} on the int8 NAR in "
+          f"{wall:.3f} s ({rec['nar_ms_per_step']:.2f} ms a step); grids in range with L0 the "
+          f"AR's: {ok}; launches {json.dumps(launches)}", flush=True)
+    if not ok:
+        raise RuntimeError("NarWaveScheduler: a wave grid out of range or L0 not the AR's")
+
+    # T = WAVE_T on one injected stream a request (this check wraps the
+    # scheduler's engine call to pass it)
+    engine = nar_waves.perform_simple_inference
+    lc = int(c_codes.shape[0])
+
+    def stream(i, n_frames):
+        g = torch.Generator(device=tts.device).manual_seed(100 + i)
+        return (torch.rand((WAVE_T, 2, 1, lc + n_frames, 8, 1025), generator=g,
+                           device=tts.device),
+                torch.randint(0, 1025, (1, n_frames, 8), generator=g, device=tts.device))
+
+    def injected(nar, batch, diff, T, dsh, **kw):
+        kw.pop("generator")
+        rows = [stream(int(s), batch[4].shape[1]) for s in injected.seeds]
+        u = torch.cat([r[0] for r in rows], dim=2).cpu().numpy()
+        x0 = torch.cat([r[1] for r in rows]).cpu().numpy()
+        return engine(nar, batch, diff, T, dsh, uniforms=u, x_init=x0, **kw)
+
+    nar_waves.perform_simple_inference = injected
+    try:
+        wave = scheduler(WAVE_T)
+        reqs = [wave.submit(r) for r in requests()]
+        injected.seeds = [r.seed for r in reqs]
+        wave.flush()
+        equal = []
+        for r in requests():
+            alone = scheduler(WAVE_T)
+            a = alone.submit(r)
+            injected.seeds = [r.seed]
+            alone.flush()
+            equal.append(bool(np.array_equal(a.grid, reqs[r.seed].grid)))
+    finally:
+        nar_waves.perform_simple_inference = engine
+    rec["injected_rows_equal_solo"] = equal
+    rec["injected_stream_gb"] = WAVE_T * 2 * 3 * (lc + bucket) * 8 * 1025 * 4 / 1e9
+    print(f"NarWaveScheduler at T = {WAVE_T} on injected streams ({rec['injected_stream_gb']:.2f} "
+          f"GB for the wave): each wave row equal to its one-row wave: {equal}", flush=True)
+    if not all(equal):
+        raise RuntimeError("NarWaveScheduler: a wave row differs from its solo run")
+    return rec
+
+
+def check_nocache(tts, req, seed):
+    """``use_kv_cache=False`` on the bf16 AR (``ar_generate_nocache``: the
+    full prefill a step) with a 60-token cap, beside the cached run on the
+    same seed: ms a token of each and whether their tokens are equal. Not a
+    gate: the full prefill and the one-token step round differently."""
+    import numpy as np
+    from mars5_tts_torch import InferenceConfig
+
+    text, transcript, _ = req
+    ref = reference_voice(tts, seed)
+    prompt, _, _ = request_prompt(tts, text, transcript, tts.encode_reference(ref).cpu().numpy(),
+                                  True)
+    out = {}
+    for cached in (False, True):
+        cfg = InferenceConfig(generate_max_len_override=len(prompt) + 60, timesteps=WAVE_T,
+                              use_kv_cache=cached)
+        codes, audio = tts.tts(text, ref, ref_transcript=transcript, cfg=cfg, seed=seed)
+        if not np.isfinite(audio).all():
+            raise RuntimeError("use_kv_cache=False: non-finite audio")
+        n_gen = AR_RUNS[-1][0][0][1]
+        out[cached] = (codes, 1e3 * tts.last_timing["stages_s"]["ar_generate"] / max(n_gen, 1))
+    rec = {"nocache_ms_per_token": out[False][1], "cached_ms_per_token": out[True][1],
+           "tokens_equal": bool(np.array_equal(out[False][0], out[True][0]))}
+    print(f"use_kv_cache=False (bf16 AR, prompt {len(prompt)} + 60 tokens): "
+          f"{rec['nocache_ms_per_token']:.2f} ms a token against {rec['cached_ms_per_token']:.2f} "
+          f"cached; tokens equal to the cached run's: {rec['tokens_equal']} (not a gate)",
+          flush=True)
+    return rec
+
+
+def serve_serving(models, nar8, records, dev):
+    """Phase 5: the serving requests at the released widths on the int8 NAR
+    ``nar8``: the deploy configuration through ``tts()`` on the default route
+    and with ``nar_mega=True`` (each beside phase 4's request on its route,
+    from ``records``, for the NAR ms a step), ``stream_tts``,
+    ``synthesize_longform``, ``FusedContinuousBatcher``, ``NarWaveScheduler``
+    and ``use_kv_cache=False``. Each part's launch counts are reset before
+    it and read after it. Returns the records."""
+    import torch
+
+    import mars5_tts_torch.pipeline as pipeline
+    from mars5_tts_torch import Mars5TTS
+
+    ar = models["ar"]
+    common = {k: models[k] for k in ("texttok", "speechtok", "encodec", "vocos")}
+    layers = nar8.cfg.dec_layers
+    no_modes = {"mha_int8": (0, 0), "fused_linear_grouped": (0, 0), "fused_ffn_grouped": (0, 0)}
+    int8 = {"mha": (layers * STEPS, 10 ** 9),
+            "fused_linear": (2 * layers * STEPS, 2 * layers * STEPS),
+            "fused_ffn": (layers * STEPS, layers * STEPS),
+            "heads_diffusion_tail": (STEPS, STEPS), "diffusion_tail": (0, 0),
+            "mega_decoder_stack": (0, 0), **no_modes}
+    mega = {**int8, "mha": (0, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
+            "mega_decoder_stack": (STEPS, STEPS)}
+    fused_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": (0, 0),
+                "decode_attention": (0, 0)}
+    first = ("The quick brown fox jumps over the lazy dog.", "A reference voice.", 11)
+    recs = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    tts = Mars5TTS.from_params(ar, nar8, **DEPLOY, **common)
+    phase4 = {r["path"]: r for r in records}
+    recs["deploy"] = serve_deploy(tts, "deploy: fused4 + int8, guidance_interval (0, 0.5), "
+                                  "buckets 64 / 32", first, {**int8, **fused_ar},
+                                  phase4["fused4 AR + int8 NAR"])
+    tts_mega = Mars5TTS.from_params(ar, nar8, nar_mega=True, **DEPLOY, **common)
+    recs["deploy_mega"] = serve_deploy(tts_mega, "deploy with nar_mega=True", first,
+                                       {**mega, **fused_ar},
+                                       phase4["fused4 AR + int8 NAR, nar_mega=True"])
+    del tts_mega
+    recs["stream"] = check_stream(tts, first, 15)
+    recs["longform"] = check_longform(tts, 16)
+    recs["pool"], deep, c_codes = check_pool(tts, 17)
+    recs["head_rows"] = check_head_rows(tts._get_fused(AR_MAX_LEN)[0], ar.cfg, dev)
+    recs["waves"] = check_waves(tts, deep, c_codes)
+    del tts
+    pipeline.ar_generate_nocache = record_ar(pipeline.ar_generate_nocache)
+    recs["nocache"] = check_nocache(Mars5TTS.from_params(ar, nar8, nar_backend="int8", **common),
+                                    first, 18)
+    print(json.dumps({"serving": {k: {kk: vv for kk, vv in v.items()
+                                      if kk != "launches" and not kk.startswith("_")}
+                                  for k, v in recs.items()}}, default=str), flush=True)
+    return recs
+
+
+SERVING_K6 = (  # (bs, rows, t, greedy): the serving path's K6 / K5 calls at 750 frames
+    (1, 1, 150, False), (1, 1, 199, False),    # cond-only steps of the guidance interval
+    (1, 2, 0, True),                           # CFG, the greedy last step: scalars[5] = 0
+    (3, 6, 50, False), (3, 3, 150, False))     # a NAR wave of three rows, CFG and cond-only
+
+
+def check_heads_tail_serving(dev):
+    """K6 at the serving path's new shapes (``SERVING_K6``): indices equal
+    to the twin's except within its 1e-5 near-ties, K5 on the folded heads'
+    bf16 logits equal to K6 and to its twin, with each call's times."""
+    import torch
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import nar_heads_folded, nar_heads_prequant
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    gen = own_generator(dev, 23)
+    wf = torch.randn((LANES, CLASSES, DIM), generator=gen, device=dev) * 0.03
+    s = wf.abs().amax(-1) / 127.0
+    folded = {"q": torch.round(wf / s[..., None]).clamp(-127, 127).to(torch.int8), "s": s,
+              "b": 0.1 * torch.randn((LANES, CLASSES), generator=gen, device=dev)}
+    diff = MultinomialDiffusion(CLASSES, timesteps=STEPS, device=dev)
+    res = {}
+    for bs, rows, t, greedy in SERVING_K6:
+        out = torch.randn((rows, GEN_LEN, DIM), generator=gen, device=dev).to(torch.bfloat16)
+        x8, xs = nar_heads_prequant(out)
+        u0 = torch.rand((bs, GEN_LEN, LANES, CLASSES), generator=gen, device=dev)
+        x_t = torch.randint(0, CLASSES, (bs, GEN_LEN, LANES), generator=gen, device=dev)
+        args = (x8, xs, folded, u0, x_t, D.tail_scalars(diff, t, use_gumbel=not greedy))
+        got = D.heads_diffusion_tail(*args, w=3.0, temp=0.7)
+        want = D.heads_diffusion_tail_ref(*args, w=3.0, temp=0.7)
+        scores = D.tail_scores(*args, w=3.0, temp=0.7)
+        top2 = torch.topk(scores, 2, dim=-1).values
+        near_tie = (top2[..., 0] - top2[..., 1]) <= 1e-5
+        logits = nar_heads_folded(folded, out)
+        tail_args = (logits, *args[3:])
+        got5 = D.diffusion_tail(*tail_args, w=3.0, temp=0.7)
+        want5 = D.diffusion_tail_ref(*tail_args, w=3.0, temp=0.7)
+        torch.cuda.synchronize()
+        bad = int(((got != want) & ~near_tie).sum())
+        run6 = lambda: D.heads_diffusion_tail(*args, w=3.0, temp=0.7)   # noqa: E731
+        st = {"bs": bs, "rows": rows, "t": t, "use_gumbel": not greedy,
+              "mismatches": int((got != want).sum()), "near_ties": int(near_tie.sum()),
+              "max_abs_err": (top2[..., 0] - scores.gather(-1, got[..., None])[..., 0])
+              .max().item(), "k5_vs_k6": int((got5 != got).sum()),
+              "k5_vs_twin": int((got5 != want5).sum()), "ms": cuda_ms(run6),
+              "plain_ms": cuda_ms(lambda: D.heads_diffusion_tail_ref(*args, w=3.0, temp=0.7),
+                                  n=5, warmup=1),
+              "device_ms": device_ms(run6),
+              "k5_device_ms": device_ms(lambda: D.diffusion_tail(*tail_args, w=3.0, temp=0.7))}
+        st["bound_ms"], st["bound_by"] = bound(
+            nbytes(x8, xs, *folded.values(), *args[3:], got),
+            int8=2 * rows * GEN_LEN * LANES * CLASSES * DIM)
+        name = f"({bs}, {GEN_LEN}) rows {rows} t={t}" + (" greedy" if greedy else "")
+        res[name] = st
+        print(f"K6 heads+tail {name}: index mismatches {st['mismatches']} of {got.numel()} "
+              f"(twin near-ties {st['near_ties']}, outside them {bad}); K5 against K6 "
+              f"{st['k5_vs_k6']}, against its twin {st['k5_vs_twin']} (bound: 0) | K6 "
+              f"{st['ms'] * 1e3:.1f} us (device {fmt_us(st['device_ms'])}), K5 device "
+              f"{fmt_us(st['k5_device_ms'])}, plain {st['plain_ms'] * 1e3:.1f} us, roofline "
+              f"{st['bound_ms'] * 1e3:.1f} us ({st['bound_by']})", flush=True)
+        if bad or st["k5_vs_k6"] or st["k5_vs_twin"]:
+            raise RuntimeError(f"K6/K5 {name}: indices differ from the twin")
+    return res
+
+
+def check_mega_one_row(dec, dev, length):
+    """K9 at one batch row (a cond-only step: ``mega_plan`` at M = L) over the
+    smoke's 66-token memory, masks on: each of the 16 layers alone,
+    teacher-forced, within the fused bound, and the 16 in one call within
+    the stack's mean gate, as ``check_mega`` holds two rows."""
+    import dataclasses
+
+    import torch
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    gen = own_generator(dev, 30 + length)
+    mp = M.build_mega_pack(dec)
+    d = mp.dims
+    x = torch.randn((1, length, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    mem = torch.randn((1, MEGA_LK, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    tm = torch.zeros((1, length), dtype=torch.bool, device=dev)
+    tm[0, length - length // 6:] = True
+    mm = torch.zeros((1, MEGA_LK), dtype=torch.bool, device=dev)
+    mm[0, MEGA_LK - 5:] = True
+    per_layer, ok_layers, h = [], True, x
+    for i in range(d.n_layers):
+        li = M.MegaPack(dataclasses.replace(d, n_layers=1), mp.pack[i:i + 1], mp.svec[i:i + 1],
+                        mp.bvec[i:i + 1], mp.lnvec[i:i + 1])
+        got_i = M.mega_decoder_stack(li, h, mem, tm, mm)
+        ok_i, st_i = fused_bound(got_i, M.mega_decoder_stack_ref(li, h, mem, tm, mm))
+        ok_layers &= ok_i
+        per_layer.append(st_i)
+        h = got_i
+    got = M.mega_decoder_stack(mp, x, mem, tm, mm)
+    want = M.mega_decoder_stack_ref(mp, x, mem, tm, mm)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    peak = want.float().abs().max().item()
+    ok = ok_layers and bool(torch.isfinite(got).all()) and diff.mean().item() <= 8e-3 * peak
+    st = {"max_abs_err": max(p["max_abs_err"] for p in per_layer),
+          "exact_min": min(p["exact_frac"] for p in per_layer),
+          "stack_mean_abs_err": diff.mean().item(), "stack_peak": peak,
+          "plan": dict(zip(M.SITES, M.mega_plan(d, length, MEGA_LK, sm_count(dev)))),
+          **mega_times(M, lambda: M.mega_decoder_stack(mp, x, mem, tm, mm),
+                       lambda: M.mega_decoder_stack_ref(mp, x, mem, tm, mm))}
+    st["bound_ms"], st["bound_by"] = mega_bound(mp, x, mem, tm, mm, got)
+    print(f"K9 mega_decoder_stack (1, {length}, {DIM}) over memory (1, {MEGA_LK}, {DIM}), "
+          f"masks on: each layer alone bound=fused_eq within={ok_layers} (max_abs_err "
+          f"{st['max_abs_err']:.3e}, exactly equal >= {st['exact_min']:.5f}); {d.n_layers} "
+          f"layers mean_abs_err={st['stack_mean_abs_err']:.3e} (peak {peak:.3f}) bound=mean "
+          f"<= 8e-3 x peak within={ok} | " + mega_times_txt(st)
+          + f"; site plan (tile_b, grid) {st['plan']}", flush=True)
+    if not ok:
+        raise RuntimeError(f"K9 (1, {length}): error above its bound")
+    return st
+
+
+def check_nar_fused_one_row(dev, length=MEGA_BENCH_L):
+    """K3 (qkv with LN + bias; bitwise) and K4 (at least 99.9% equal) at one
+    batch row's M = ``length``, a cond-only step's."""
+    import torch
+    from mars5_tts_torch.ops.kernels import nar_fused as F
+
+    gen = own_generator(dev, 24)
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+    x = torch.randn((1, length, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    ln = (vec(DIM, 1.0), vec(DIM))
+    qkv_w, qkv_b = rand_qweight(3 * DIM, DIM, gen, dev), vec(3 * DIM)
+    w, v, l2 = (rand_qweight(FFN, DIM, gen, dev), rand_qweight(FFN, DIM, gen, dev),
+                rand_qweight(DIM, FFN, gen, dev))
+    l2_b = vec(DIM)
+    return {
+        "qkv": check_w8a8(f"K3 qkv (1, {length}, 1024) -> 3072, LN + bias",
+                          lambda: F.fused_linear(x, qkv_w, ln=ln, bias=qkv_b),
+                          lambda: F.fused_linear_ref(x, qkv_w, ln=ln, bias=qkv_b),
+                          nbytes(x, *qkv_w, qkv_b, *ln), 2 * length * 3 * DIM * DIM, 1.0),
+        "ffn": check_w8a8(f"K4 ffn (1, {length}, 1024), F 3072",
+                          lambda: F.fused_ffn(x, ln, w, v, l2, l2_b),
+                          lambda: F.fused_ffn_ref(x, ln, w, v, l2, l2_b),
+                          nbytes(x, *ln, *w, *v, *l2, l2_b), 2 * length * 3 * DIM * FFN, 0.999)}
+
+
+
+IDLE_WAVE_T = 20    # the wave's depth for its idle share (a trace of 200 steps is too long)
+
+
+def serving_idle_shares(serving):
+    """The device's idle share of the pool's run and of a wave, after every
+    other measurement (``torch.profiler`` slows a process's later launches):
+    the wall of an unprofiled run, the device's busy time (its own events,
+    ``tools/profile_ar.device_us``) of the same work under the profiler,
+    idle = 1 - busy / wall. The pool reruns phase 5's six requests; the wave
+    its three deep rows at T = ``IDLE_WAVE_T``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars5_tts_torch.tools.profile_ar import device_us
+
+    out = {}
+    for name, make in (("pool", serving["pool"]["_rerun"]),
+                       ("wave", lambda: serving["waves"]["_rerun"](IDLE_WAVE_T))):
+        make()()                            # warm
+        run = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+        run = make()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        busy = device_us(prof.key_averages())
+        out[name] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                     "idle_share": 1.0 - busy / wall_us}
+    print("serving idle shares (device busy under the profiler against an unprofiled wall): "
+          + json.dumps(out), flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -312,5 +312,9 @@ extern "C" int mars5_decode_attention(int bf16, const void* q, const void* k, co
   cfg.numAttrs = 1;
   const cudaError_t err = bf16 ? cudaLaunchKernelEx(&cfg, decode_attention_kernel<__nv_bfloat16>, a)
                                : cudaLaunchKernelEx(&cfg, decode_attention_kernel<float>, a);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  if (err != cudaSuccess) {
+    cudaGetLastError();     // a refused launch's error would be the next call's last one
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
 }

@@ -909,7 +909,12 @@ extern "C" int mars5_fused_decode(int wbits, int B, int L, int d, int hidden, in
   const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), params,
                                                     (size_t)smem,
                                                     static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) {
+    // a refused launch also leaves its error as the last one, which the next
+    // call's cudaGetLastError would report: clear it
+    cudaGetLastError();
+    return (int)e;
+  }
   ++kernel_launches;
   return (int)cudaGetLastError();
 }

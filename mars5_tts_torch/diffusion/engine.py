@@ -40,10 +40,21 @@ The injected uniform path keeps the dense tail, as the JAX package does.
 ``mega``, the stack's ``build_mega_pack``, runs the W8A8 decoder stack
 through kernel K9 (JAX ``MARS5_NAR_MEGA=1``).
 
-Not ported: the guidance interval and geometry buckets.
+``DSH.guidance_interval = (lo, hi)`` keeps CFG to the reverse steps with
+``round(lo T) <= t < round(hi T)``; the others run the conditional rows
+alone (the cond halves of the CFG-batched encoder memory and padding, the
+tails with ``rows == bs``, which take w = 1). ``gen_bucket`` /
+``text_bucket`` pad the generated-frame and text axes up to multiples of
+the bucket (masked frames and tokens, cropped after), so under injected
+uniforms the real-frame grid is that of the exact shapes. With
+``honor_last_greedy`` and ``DSH.last_greedy`` the step at t = 0 takes the
+argmax of the posterior (the reference documents it but never passes it,
+so the default keeps sampling there, as the JAX package does).
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -74,7 +85,9 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                              generator: torch.Generator | None = None,
                              uniforms=None, x_init=None, tail: str = "heads",
                              mega: MegaPack | None = None,
-                             options: NarOptions = DEFAULT_OPTIONS):
+                             options: NarOptions = DEFAULT_OPTIONS,
+                             gen_bucket: int = 0, text_bucket: int = 0,
+                             honor_last_greedy: bool = False):
     """Run the whole inpainting trajectory.
 
     batch: (c_text (bs, Lt), c_codes (bs, Lc, 8), c_texts_length (bs,),
@@ -85,6 +98,9 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     W8A8 model's tail on the generator path and ``mega`` (a ``MegaPack``)
     its decoder stack route, as in the module docstring; ``options``
     (``models.layers.NarOptions``) the encoder's and decoder's routes.
+    ``gen_bucket`` / ``text_bucket`` (0: exact shapes) and
+    ``honor_last_greedy``: as in the module docstring; ``uniforms`` span the
+    unpadded ``L_total`` (the padded frames draw 0.5).
     """
     if tail not in TAILS:
         raise ValueError(f"unknown tail {tail!r}; expected one of {TAILS}")
@@ -95,9 +111,23 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     c_text, c_codes, ctl, ccl, x = (_as(v, torch.long, dev)
                                     for v in (c_text, c_codes, ctl, ccl, x))
     xpm = _as(xpm, torch.bool, dev)
+    lx_real = x.shape[1]
+    if gen_bucket > 1 and lx_real % gen_bucket:
+        # generated frames sit at the end of L_total in every row layout, so
+        # the padding only appends positions, masked and cropped after
+        pad = gen_bucket - lx_real % gen_bucket
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        xpm = torch.nn.functional.pad(xpm, (0, pad), value=True)
+        if x_init is not None:
+            x_init = torch.nn.functional.pad(_as(x_init, torch.long, dev), (0, 0, 0, pad))
+        if uniforms is not None:
+            uniforms = np.pad(np.asarray(uniforms, np.float32),
+                              ((0, 0), (0, 0), (0, 0), (0, pad), (0, 0), (0, 0)),
+                              constant_values=0.5)
+    if text_bucket > 1 and c_text.shape[1] % text_bucket:
+        # the padded tokens are masked by c_texts_length
+        c_text = torch.nn.functional.pad(c_text, (0, text_bucket - c_text.shape[1] % text_bucket))
     bs, lx = x.shape[:2]
-    if tuple(getattr(dsh, "guidance_interval", (0.0, 1.0))) != (0.0, 1.0):
-        raise NotImplementedError("guidance_interval is not ported")
     offset = 0
     offsets = None                  # (bs,) prompt lengths of a ragged batch
     if dsh.deep_clone:
@@ -148,15 +178,37 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     t_lasts, is_reverse, cs = build_step_plan(T, dsh.jump_len, dsh.jump_n_sample)
     out = _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x_cur, x_known,
                       xpm, x_quant0, t_lasts, is_reverse, cs, uniforms, generator,
-                      offset, retain_quant0, tail, mega, offsets, options)
+                      offset, retain_quant0, tail, mega, offsets, options,
+                      honor_last_greedy and dsh.last_greedy)
     if offsets is not None:         # each row's generated frames at its own offset
-        return torch.stack([out[r, lc:lc + lx] for r, lc in enumerate(offsets)])
-    return out[:, offset:offset + lx]
+        return torch.stack([out[r, lc:lc + lx_real] for r, lc in enumerate(offsets)])
+    return out[:, offset:offset + lx_real]
+
+
+def _cfg_steps(dsh: DSH, T: int):
+    """The guidance interval as a function of t: True where a reverse step
+    keeps CFG (``round(lo T) <= t < round(hi T)`` of
+    ``dsh.guidance_interval``; every t for (0, 1)). With w = 1 no step runs
+    uncond rows whatever it says."""
+    gi = tuple(getattr(dsh, "guidance_interval", (0.0, 1.0)))
+    if gi == (0.0, 1.0):
+        return lambda t: True
+    lo_t, hi_t = int(round(gi[0] * T)), int(round(gi[1] * T))
+    return lambda t: lo_t <= t < hi_t
+
+
+def _progress(i: int, n: int) -> None:
+    """The stderr line of ``DSH.progress`` every 10 steps and at the last."""
+    i += 1
+    if i % 10 == 0 or i == n:
+        print(f"\rdiffusion step {i}/{n}", end="" if i < n else "\n", file=sys.stderr,
+              flush=True)
 
 
 def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                 x_quant0, t_lasts, is_reverse, cs, uniforms, generator, offset,
-                retain_quant0, tail, mega, offsets=None, options=DEFAULT_OPTIONS):
+                retain_quant0, tail, mega, offsets=None, options=DEFAULT_OPTIONS,
+                greedy_t0=False):
     dev = x.device
     bs, _, n_lanes = x.shape
     K = diff.num_classes
@@ -165,6 +217,7 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
     use_key = uniforms is None
     w = dsh.guidance_w
     cfg_batched = w != 1
+    use_cfg = _cfg_steps(dsh, T)
     if offsets is not None:         # the known region of a ragged batch, (bs, L, 1)
         known_mask = (torch.arange(x.shape[1], device=dev)[None]
                       < torch.as_tensor(offsets, device=dev)[:, None])[..., None]
@@ -195,19 +248,26 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
     folded = fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized else None
     kernel_tail = tail if folded is not None and use_key else "dense"
 
-    def decoder_out(x, t_last):
-        """Decoder output on the generated frames, (rows, l_gen, dim)."""
-        xr = torch.cat([x, x]) if cfg_batched else x
-        return model.decoder_apply(xr, xpm_rows, t_dec_all[t_last][None].expand(rows, dim),
-                                   memory_all[t_last], c_padding, q_tail_start=offset,
-                                   mega=mega, options=options)
+    def decoder_out(x, t_last, with_cfg):
+        """Decoder output on the generated frames: (rows, l_gen, dim), or
+        (bs, l_gen, dim) of the cond rows alone on a step without CFG."""
+        if cfg_batched and with_cfg:
+            return model.decoder_apply(torch.cat([x, x]), xpm_rows,
+                                       t_dec_all[t_last][None].expand(rows, dim),
+                                       memory_all[t_last], c_padding, q_tail_start=offset,
+                                       mega=mega, options=options)
+        # a cond-only step: the cond halves of the CFG-batched memory and padding
+        # (contiguous leading rows, as the kernels read them)
+        return model.decoder_apply(x, xpm, t_dec_all[t_last][None].expand(bs, dim),
+                                   memory_all[t_last][:bs], c_padding[:bs],
+                                   q_tail_start=offset, mega=mega, options=options)
 
-    def x0_logits(x, t_last):
+    def x0_logits(x, t_last, with_cfg):
         """CFG-combined f32 x0 logits on the generated frames, lanes 1.."""
-        out = decoder_out(x, t_last)
+        out = decoder_out(x, t_last, with_cfg)
         logits = (nar_heads_folded(folded, out) if folded is not None
                   else model.heads(out, lanes=range(1, n_lanes))).float()
-        if cfg_batched:
+        if cfg_batched and with_cfg:
             return w * logits[:bs] + (1.0 - w) * logits[bs:]
         return logits
 
@@ -215,23 +275,28 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         return torch.rand(shape, generator=generator, device=dev)
 
     def reverse(x, i, t):
+        with_cfg = use_cfg(t)
+        greedy = greedy_t0 and t == 0
         if kernel_tail == "heads":
-            x8, xs = nar_heads_prequant(decoder_out(x, t))
+            x8, xs = nar_heads_prequant(decoder_out(x, t, with_cfg))
             unknown = heads_diffusion_tail(
                 x8, xs, folded, rand(bs, l_gen, n_lanes - 1, K), x[:, offset:, 1:],
-                tail_scalars(diff, t), w=w, temp=dsh.x_0_temp)
+                tail_scalars(diff, t, use_gumbel=not greedy), w=w, temp=dsh.x_0_temp)
         elif kernel_tail == "split":
             unknown = diffusion_tail(
-                nar_heads_folded(folded, decoder_out(x, t)), rand(bs, l_gen, n_lanes - 1, K),
-                x[:, offset:, 1:], tail_scalars(diff, t), w=w, temp=dsh.x_0_temp)
+                nar_heads_folded(folded, decoder_out(x, t, with_cfg)),
+                rand(bs, l_gen, n_lanes - 1, K), x[:, offset:, 1:],
+                tail_scalars(diff, t, use_gumbel=not greedy), w=w, temp=dsh.x_0_temp)
         else:
-            log_x0 = torch.log_softmax(x0_logits(x, t) / dsh.x_0_temp, dim=-1)
+            log_x0 = torch.log_softmax(x0_logits(x, t, with_cfg) / dsh.x_0_temp, dim=-1)
             log_pred = diff.q_posterior_indexed(log_x0, x[:, offset:, 1:], t,
                                                 normalize=not use_key)
             # the reference never forwards last_greedy to its reverse step, so
-            # t = 0 samples too
+            # t = 0 samples too unless honor_last_greedy asks otherwise
             unknown = log_sample_categorical(
                 log_pred, rand(*log_pred.shape) if use_key else uniforms[i, 0][:, offset:, 1:])
+            if greedy:
+                unknown = torch.argmax(log_pred, dim=-1)
         if offsets is not None:     # known draws over the whole grid, composited
             if use_key:
                 known = diff.q_pred_indexed_sample(x_known, t, rand(*x.shape, 2))
@@ -267,9 +332,12 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
             probs = diff.q_pred_one_timestep_indexed(x, t)
         return log_sample_categorical(probs, uniforms[i, 0])
 
+    n_steps = len(t_lasts)
     for i, (t, rev, c) in enumerate(zip(t_lasts.tolist(), is_reverse.tolist(),
                                         cs.tolist())):
         x = reverse(x, i, t) if rev else forward(x, i, t, c)
         if retain_quant0 and t > dsh.q0_override_steps:
             x[..., 0] = x_quant0  # x is a fresh tensor from the step
+        if dsh.progress:
+            _progress(i, n_steps)
     return x

@@ -18,6 +18,18 @@ kernel K8 (``ops/kernels/head4.head4_logits``).
 Unlike the JAX engine, the prompts are not padded to buckets and a short
 batch is not padded with parked rows (both only fit XLA's static shapes):
 the engine runs exactly the rows it is given, at most ``dims.batch``.
+
+The rows share the decode loop and resumable state of ``models/ar_decode``
+(``DecodeState`` with a ``FusedCache``): ``prefill_fused`` is the batched
+prefill, ``decode_chunk_fused`` runs at most n steps of a pool (one K2 call
+a step for all its rows), ``make_parked_state_fused`` is a pool of free
+rows and ``extract_fused_row`` / ``insert_fused_row`` move a row between
+states, an insert overwriting the slot's int8 rings and scales whole. A
+row's tokens do not depend on the rows beside it: K2's per-row sums are
+integer or f64 sums whatever the batch, and the int8 head runs at
+``HEAD_ROWS`` rows whatever the batch (cuBLAS picks the head's f32 GEMM
+kernel by the row count, so a row's logits would otherwise round one way in
+a one-row step and another in a pool's).
 """
 
 from __future__ import annotations
@@ -25,13 +37,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.kernels.decode_layer import (FusedDims, build_fused_pack, fused_decode_layers,
-                                        make_dims, quantize_kv_rows)
+from ..ops.kernels.decode_layer import (MAX_BATCH, FusedDims, build_fused_pack,
+                                        fused_decode_layers, make_dims, quantize_kv_rows)
 from ..ops.kernels.head4 import head4_logits, pack_head4
 from ..ops.norms import rms_norm
 from ..ops.quant import linear_q8, quantize_weight
-from .ar import CodecLM
-from .ar_decode import ArSampling, prefill_rows, sample_rows, uniform_stream
+from .ar import CodecLM, CodecLMConfig
+from .ar_decode import (ArSampling, DecodeState, RowSampling, decode_loop, extract_row,
+                        insert_row, new_state, parked_fields, prefill_rows, rows_from_sampling,
+                        sample_rows, sample_update, uniform_stream)
 
 
 @torch.no_grad()
@@ -56,12 +70,29 @@ def prepare_fused(codeclm: CodecLM, max_len: int, wbits: int = 8, head4: bool = 
     return fp, dims
 
 
+HEAD_ROWS = MAX_BATCH    # rows the int8 head always runs at
+
+
 def head_logits(fp, h, n_vocab: int):
     """The output head: K8 when the pack carries the int4 head, else the
     int8 weight-only product; (B, V) f32."""
     if "head4_p" in fp:
         return head4_logits(h, fp["head4_p"], fp["head4_s"], n_vocab=n_vocab)
     return linear_q8(h, fp["head_q"], fp["head_s"]).float()
+
+
+def final_logits(fp, h, cfg):
+    """(B, d) f32 hidden rows -> (B, V) f32 logits: the final RMSNorm of the
+    bf16-rounded rows, then the head. The int8 head runs at ``HEAD_ROWS``
+    rows (the real ones, then zero rows) so that each row's logits are those
+    of its own one-row step; K8 takes the real rows alone (its sums are
+    integer sums), and the norm's row sums do not depend on the row count."""
+    b = h.shape[0]
+    hn = rms_norm(h.to(torch.bfloat16), fp["final_norm"], cfg.norm_eps)
+    if "head4_p" in fp:
+        return head_logits(fp, hn, cfg.n_vocab)
+    return head_logits(fp, torch.nn.functional.pad(hn, (0, 0, 0, HEAD_ROWS - b)),
+                       cfg.n_vocab)[:b]
 
 
 class FusedCache:
@@ -74,11 +105,12 @@ class FusedCache:
         self.v = torch.zeros_like(self.k)
         self.scales = torch.zeros((L, batch, 2, W), dtype=torch.float32, device=device)
 
-    def write(self, row: int, k, v) -> None:
-        """Quantize (L, P, d) K/V rows into slots [0, P) of ``row``."""
-        k8, ks = quantize_kv_rows(k)
-        v8, vs = quantize_kv_rows(v)
-        p = k.shape[1]
+    def write_prompt(self, row: int, kv) -> None:
+        """A prefill's per-layer (k, v), each (1, P + 1, H, D), quantized per
+        position into slots [0, P + 1) of ``row``."""
+        k8, ks = quantize_kv_rows(torch.stack([k[0].flatten(1) for k, _ in kv]))
+        v8, vs = quantize_kv_rows(torch.stack([v[0].flatten(1) for _, v in kv]))
+        p = k8.shape[1]
         self.k[:, row, :p] = k8
         self.v[:, row, :p] = v8
         self.scales[:, row, 0, :p] = ks
@@ -95,6 +127,20 @@ class FusedCache:
             self.scales[:, r, 0, slot] = ks[:, r]
             self.scales[:, r, 1, slot] = vs[:, r]
 
+    def take_row(self, j: int) -> "FusedCache":
+        """A one-row copy of row ``j``: its rings and scales."""
+        out = FusedCache.__new__(FusedCache)
+        out.k, out.v = self.k[:, j:j + 1].clone(), self.v[:, j:j + 1].clone()
+        out.scales = self.scales[:, j:j + 1].clone()
+        return out
+
+    def put_row(self, b: int, row: "FusedCache") -> None:
+        """Overwrite row ``b``'s rings and scales whole with the one-row
+        ``row``'s (a parked or finished row's stale slots never survive)."""
+        self.k[:, b] = row.k[:, 0]
+        self.v[:, b] = row.v[:, 0]
+        self.scales[:, b] = row.scales[:, 0]
+
 
 def fused_step(fp, dims: FusedDims, cfg, tokens, pos, cache: FusedCache):
     """One token of each row (``tokens`` and ``pos``: an int each, or B ints)
@@ -103,24 +149,20 @@ def fused_step(fp, dims: FusedDims, cfg, tokens, pos, cache: FusedCache):
     x = torch.stack([fp["embed"][int(t)] for t in np.atleast_1d(tokens)]).to(torch.bfloat16)
     h, k_new, v_new = fused_decode_layers(fp, x, pos, cache.k, cache.v, cache.scales,
                                           dims=dims, norm_eps=cfg.norm_eps)
-    hn = rms_norm(h.to(torch.bfloat16), fp["final_norm"], cfg.norm_eps)
-    logits = head_logits(fp, hn, cfg.n_vocab)
+    logits = final_logits(fp, h, cfg)
     cache.write_rows(pos % dims.window, k_new, v_new)
     return logits
 
 
 @torch.no_grad()
-def ar_generate_fused_batched(codeclm: CodecLM, fp, dims: FusedDims, prompts,
-                              spk_codes_list, *, sampling: ArSampling, uniforms=None,
-                              generator: torch.Generator | None = None, seed: int = 0,
-                              est_lens=None):
-    """Generation of up to ``dims.batch`` rows through the quantized engine,
-    one K2 call a step for all rows; the API, uniform stream and per-row
-    state of ``models/ar_decode.ar_generate_batched``. ``fp, dims`` come from
-    ``prepare_fused`` with ``max_len >= sampling.max_len``."""
-    s = sampling
+def prefill_fused(codeclm: CodecLM, dims: FusedDims, s: ArSampling, prompts, spk_codes_list,
+                  uniforms, est_lens=None, rows: RowSampling | None = None) -> DecodeState:
+    """The batched prefill into the quantized engine's state: each prompt
+    through the model as loaded at its own length (``prefill_rows``), its
+    K/V quantized into its row of a ``FusedCache`` of B = len(prompts) rows,
+    each row's first token sampled. ``uniforms`` (max_len, B) on the
+    device; ``rows`` default ``rows_from_sampling(s, B)``."""
     cfg = codeclm.cfg
-    dev = fp["embed"].device
     b = len(prompts)
     if not 1 <= b <= dims.batch:
         raise ValueError(f"{b} prompts for an engine of {dims.batch} rows")
@@ -129,13 +171,54 @@ def ar_generate_fused_batched(codeclm: CodecLM, fp, dims: FusedDims, prompts,
                          f"{s.max_len}")
     prompts = [np.asarray(p, np.int64) for p in prompts]
     logits, kvs = prefill_rows(codeclm, prompts, spk_codes_list, dims.window)
-    uniforms = uniform_stream(uniforms, generator, seed, s.max_len, b, dev)[:, :b]
-    cache = FusedCache(dims, dev, b)
-    for r, row in enumerate(kvs):
-        cache.write(r, torch.stack([k[0].flatten(1) for k, _ in row]),
-                    torch.stack([v[0].flatten(1) for _, v in row]))
-    return sample_rows(logits, prompts, s, uniforms,
-                       lambda t, pos: fused_step(fp, dims, cfg, t, pos, cache), est_lens)
+    cache = FusedCache(dims, logits.device, b)
+    for r, kv in enumerate(kvs):
+        cache.write_prompt(r, kv)
+    state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
+    sample_update(state, logits, s, rows or rows_from_sampling(s, b))
+    return state
+
+
+def make_parked_state_fused(cfg: CodecLMConfig, dims: FusedDims, s: ArSampling,
+                            device) -> DecodeState:
+    """A state of ``dims.batch`` free rows (all done) on the quantized
+    engine, for a serving pool."""
+    return DecodeState(**parked_fields(s, dims.batch, cfg.n_vocab, device),
+                       cache=FusedCache(dims, device, dims.batch))
+
+
+# a row moves between quantized states as between bf16 ones: the FusedCache
+# copies and overwrites its rings and scales whole
+extract_fused_row = extract_row
+insert_fused_row = insert_row
+
+
+@torch.no_grad()
+def decode_chunk_fused(fp, dims: FusedDims, cfg, s: ArSampling, state: DecodeState,
+                       n_steps: int, rows: RowSampling | None = None) -> DecodeState:
+    """At most ``n_steps`` decode steps of every row of ``state`` on the
+    quantized engine, one K2 call a step for all rows (fewer steps when
+    every row is done)."""
+    return decode_loop(state, s, rows or rows_from_sampling(s, state.batch),
+                       lambda t, pos: fused_step(fp, dims, cfg, t, pos, state.cache), n_steps)
+
+
+@torch.no_grad()
+def ar_generate_fused_batched(codeclm: CodecLM, fp, dims: FusedDims, prompts,
+                              spk_codes_list, *, sampling: ArSampling, uniforms=None,
+                              generator: torch.Generator | None = None, seed: int = 0,
+                              est_lens=None, rows: RowSampling | None = None):
+    """Generation of up to ``dims.batch`` rows through the quantized engine,
+    one K2 call a step for all rows; the API, uniform stream and per-row
+    state of ``models/ar_decode.ar_generate_batched``. ``fp, dims`` come from
+    ``prepare_fused`` with ``max_len >= sampling.max_len``."""
+    s = sampling
+    b = len(prompts)
+    rows = rows or rows_from_sampling(s, b)
+    u = uniform_stream(uniforms, generator, seed, s.max_len, b, fp["embed"].device)[:, :b]
+    state = prefill_fused(codeclm, dims, s, prompts, spk_codes_list, u, est_lens, rows)
+    return sample_rows(state, s, rows,
+                       lambda t, pos: fused_step(fp, dims, codeclm.cfg, t, pos, state.cache))
 
 
 def ar_generate_fused(codeclm: CodecLM, fp, dims: FusedDims, prompt, spk_codes, *,

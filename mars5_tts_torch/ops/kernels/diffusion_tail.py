@@ -127,15 +127,17 @@ def reset_launch_count() -> None:
     launch_count = tail_launch_count = 0
 
 
-def tail_scalars(diff, t: int) -> torch.Tensor:
-    """(8,) f32 [a, b1, hot, cold, is_t0, use_gumbel = 1, 0, 0] for reverse
-    step t, with the float ops of ``MultinomialDiffusion.q_posterior_indexed``."""
+def tail_scalars(diff, t: int, use_gumbel: bool = True) -> torch.Tensor:
+    """(8,) f32 [a, b1, hot, cold, is_t0, use_gumbel, 0, 0] for reverse step
+    t, with the float ops of ``MultinomialDiffusion.q_posterior_indexed``;
+    ``use_gumbel=False`` (0) makes the tail take the posterior's argmax (the
+    greedy last step)."""
     tm1 = max(t - 1, 0)
     a = diff.log_cumprod_alpha[tm1]
     b1 = diff.log_1_min_cumprod_alpha[tm1] - diff.log_num_classes
     hot, cold = diff._hot_cold(diff.log_alpha[t],
                                diff.log_1_min_alpha[t] - diff.log_num_classes)
-    rest = torch.tensor([float(t == 0), 1.0, 0.0, 0.0], device=a.device)
+    rest = torch.tensor([float(t == 0), float(use_gumbel), 0.0, 0.0], device=a.device)
     return torch.cat([torch.stack([a, b1, hot, cold]), rest])
 
 

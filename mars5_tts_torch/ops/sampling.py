@@ -27,21 +27,27 @@ def freq_presence_penalty(logits, counts, alpha_frequency: float,
     return logits - c * alpha_frequency - (c > 0).to(logits.dtype) * alpha_presence
 
 
-def early_eos_penalty(logits, n_generated, estimated_gen_length, decay: float,
-                      factor: float, eos_index: int):
+def early_eos_penalty(logits, n_generated, estimated_gen_length, decay, factor,
+                      eos_index: int):
     """Subtract ``factor * max(est - n, 1)**decay`` (f32) from each row's EOS
-    logit while its ``n_generated <= estimated_gen_length``; ``n_generated``
-    and ``estimated_gen_length`` are ints or (B,) host arrays."""
-    n = np.broadcast_to(np.asarray(n_generated, np.int64), logits.shape[:1])
-    est = np.broadcast_to(np.asarray(estimated_gen_length, np.int64), logits.shape[:1])
+    logit while its ``n_generated <= estimated_gen_length``; ``n_generated``,
+    ``estimated_gen_length``, ``decay`` and ``factor`` are scalars or (B,)
+    host arrays. Each row's modifier is computed on its own, with the row's
+    decay a Python scalar (PyTorch's ``pow`` by a scalar 0.5 rounds unlike
+    ``pow`` by a tensor)."""
+    shape = logits.shape[:1]
+    n = np.broadcast_to(np.asarray(n_generated, np.int64), shape)
+    est = np.broadcast_to(np.asarray(estimated_gen_length, np.int64), shape)
+    decay = np.broadcast_to(np.asarray(decay, np.float64), shape)
+    factor = np.broadcast_to(np.asarray(factor, np.float64), shape)
     apply = n <= est
     if not apply.any():
         return logits
-    pen = torch.as_tensor(np.maximum(est - n, 1), dtype=torch.float32)
-    modifier = (factor * pen ** decay).to(logits.dtype)
     logits = logits.clone()
     for i in np.flatnonzero(apply):     # a host scalar a row: no host-to-device copy
-        logits[int(i), eos_index] -= modifier[i].item()
+        pen = torch.as_tensor(np.maximum(est[i:i + 1] - n[i:i + 1], 1), dtype=torch.float32)
+        modifier = (float(factor[i]) * pen ** float(decay[i])).to(logits.dtype)
+        logits[int(i), eos_index] -= modifier[0].item()
     return logits
 
 
@@ -83,6 +89,51 @@ def filter_topk_subset(logits, top_k: int, top_p: float = 1.0,
         last_ind = (cum < typical_mass).sum(dim=-1, keepdim=True)
         threshold = torch.gather(sorted_scores, -1, last_ind)
         vals = vals.masked_fill(shifted > threshold, NEG_INF)
+
+    return torch.full_like(logits, NEG_INF).scatter(-1, idx, vals)
+
+
+def filter_topk_subset_rows(logits, max_k: int, k_row=None, top_p_row=None, typical_row=None,
+                            min_tokens: int = 1):
+    """``filter_topk_subset`` with each row's own k (at most the extraction
+    width ``max_k``), top-p and typical mass: ``k_row`` (B,) int64,
+    ``top_p_row`` and ``typical_row`` (B,) f32 on the logits' device. A row
+    with top_p >= 1 or typical mass > 0.999 leaves that filter off, so a row
+    whose values are the static ones gets the static path's result. None in
+    place of one of them skips its block: every row at ``max_k``, or no row
+    with that filter on (the caller knows from its host values)."""
+    if max_k <= 0:
+        raise ValueError("filter_topk_subset_rows needs max_k > 0")
+    k = min(max(max_k, min_tokens), logits.shape[-1])
+    vals, idx = top_k_sorted(logits, k)
+    if k_row is not None:
+        pos = torch.arange(k, device=logits.device)[None, :]
+        vals = vals.masked_fill(pos >= k_row.clamp_min(min_tokens)[:, None], NEG_INF)
+
+    if top_p_row is not None:
+        cum = torch.cumsum(torch.softmax(vals, dim=-1), dim=-1)
+        remove = cum > top_p_row[:, None]
+        if min_tokens > 1:
+            remove[..., :min_tokens] = False
+        remove = torch.cat([torch.zeros_like(remove[..., :1]), remove[..., :-1]], dim=-1)
+        vals = vals.masked_fill(remove & (top_p_row[:, None] < 1.0), NEG_INF)
+
+    if typical_row is not None:
+        normalized = torch.log_softmax(vals, dim=-1)
+        p = torch.exp(normalized)
+        prod = torch.where(torch.isneginf(normalized), 0.0, normalized * p)
+        ent = -prod.sum(dim=-1, keepdim=True)
+        shifted = (-normalized - ent).abs()
+        order = torch.argsort(shifted, dim=-1, stable=True)
+        sorted_scores = torch.gather(shifted, -1, order)
+        sorted_vals = torch.gather(vals, -1, order)
+        cum_t = torch.cumsum(torch.softmax(sorted_vals, dim=-1), dim=-1)
+        # a row whose mass is never reached keeps every value (JAX's
+        # out-of-range gather gives no threshold there either)
+        last_ind = (cum_t < typical_row[:, None]).sum(dim=-1, keepdim=True).clamp_max(k - 1)
+        threshold = torch.gather(sorted_scores, -1, last_ind)
+        vals = vals.masked_fill((shifted > threshold) & (typical_row[:, None] <= 0.999),
+                                NEG_INF)
 
     return torch.full_like(logits, NEG_INF).scatter(-1, idx, vals)
 

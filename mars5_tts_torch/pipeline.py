@@ -34,14 +34,24 @@ columns, the weights quantized to match, ``quantize_nar(w_gsize=)``),
 attention) and ``nar_cross_k1`` (``MARS5_CROSS_PALLAS``: long-query
 cross-attention through K1, the bf16 NAR's too).
 
-Not ported yet: ``use_kv_cache=False``, the guidance interval and geometry
-buckets.
+Serving options, as in the JAX package: ``guidance_interval=(lo, hi)`` keeps
+CFG to the reverse steps with t in ``[round(lo T), round(hi T))`` (the
+others run the conditional rows alone); ``nar_gen_bucket`` /
+``nar_text_bucket`` pad the NAR's generated-frame and text axes up to
+multiples of the bucket (default ``MARS5_NAR_GEN_BUCKET`` /
+``MARS5_NAR_TEXT_BUCKET``, else 0: exact shapes). ``InferenceConfig(
+use_kv_cache=False)`` decodes the AR without a cache
+(``ar_generate_nocache``, on the model as loaded, whatever ``ar_backend``);
+``tts_batch`` then takes the bf16 batched engine. ``from_pretrained`` finds
+the checkpoints through ``huggingface_hub`` or in a local cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -53,7 +63,8 @@ from .diffusion.engine import TAILS, perform_simple_inference
 from .diffusion.multinomial import MultinomialDiffusion
 from .hub import load_checkpoint, load_tokenizers
 from .models.ar import CodecLM, CodecLMConfig
-from .models.ar_decode import ArSampling, ar_generate, ar_generate_batched, ar_vocab_window
+from .models.ar_decode import (ArSampling, ar_generate, ar_generate_batched,
+                               ar_generate_nocache, ar_vocab_window)
 from .models.ar_decode_fused import ar_generate_fused, ar_generate_fused_batched, prepare_fused
 from .models.convert import (infer_codeclm_config, infer_nar_config, load_codeclm,
                              load_nar)
@@ -89,13 +100,16 @@ class Mars5TTS:
                  nar_backend: str = "bf16", head4: bool = False, nar_mega: bool = False,
                  nar_tail: str = "heads", nar_fused: bool = True,
                  nar_sites: tuple = DEFAULT_OPTIONS.sites, nar_gsize: int = 0,
-                 nar_qattn: bool = False, nar_cross_k1: bool = False):
+                 nar_qattn: bool = False, nar_cross_k1: bool = False,
+                 guidance_interval: tuple = (0.0, 1.0), nar_gen_bucket: Optional[int] = None,
+                 nar_text_bucket: Optional[int] = None):
         """From reference-layout checkpoints ({'vocab', 'model'[, 'config']}),
         with Encodec/Vocos given as the JAX package's parameter pytrees.
         ``device`` defaults to ``default_device()``. ``nar_backend="int8"``
         quantizes the NAR after loading, unless its checkpoint is already
-        quantized; ``ar_backend``, ``head4``, ``nar_mega``, ``nar_tail`` and
-        the ``nar_*`` routes as in the module docstring."""
+        quantized; ``ar_backend``, ``head4``, ``nar_mega``, ``nar_tail``, the
+        ``nar_*`` routes, ``guidance_interval`` and the buckets as in the
+        module docstring."""
         device = torch.device(device) if device is not None else default_device()
         texttok, speechtok = load_tokenizers(ar_ckpt)
         n_vocab = len(texttok.vocab) + len(speechtok.vocab)
@@ -112,7 +126,8 @@ class Mars5TTS:
         vocos = vocos_from_pytree(vocos_params, vocos_cfg) if vocos_params is not None else None
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
                     ar_backend, nar_backend, head4, nar_mega, nar_tail,
-                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1))
+                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1),
+                    guidance_interval, nar_gen_bucket, nar_text_bucket)
 
     @classmethod
     def from_local(cls, ar_path, nar_path, **kwargs) -> "Mars5TTS":
@@ -128,7 +143,10 @@ class Mars5TTS:
                     head4: bool = False, nar_mega: bool = False,
                     nar_tail: str = "heads", nar_fused: bool = True,
                     nar_sites: tuple = DEFAULT_OPTIONS.sites, nar_gsize: int = 0,
-                    nar_qattn: bool = False, nar_cross_k1: bool = False) -> "Mars5TTS":
+                    nar_qattn: bool = False, nar_cross_k1: bool = False,
+                    guidance_interval: tuple = (0.0, 1.0),
+                    nar_gen_bucket: Optional[int] = None,
+                    nar_text_bucket: Optional[int] = None) -> "Mars5TTS":
         """From already-built port modules and tokenizer objects. With
         ``nar_backend="int8"`` a bf16/f32 ``codecnar`` is quantized into a new
         module (the given one is left as it was); a quantized one is used as
@@ -139,11 +157,13 @@ class Mars5TTS:
         device = device or codeclm.embed.weight.device
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
                     ar_backend, nar_backend, head4, nar_mega, nar_tail,
-                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1))
+                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1),
+                    guidance_interval, nar_gen_bucket, nar_text_bucket)
         return self
 
     def _setup(self, codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-               ar_backend, nar_backend, head4, nar_mega, nar_tail, opts):
+               ar_backend, nar_backend, head4, nar_mega, nar_tail, opts, guidance_interval,
+               nar_gen_bucket, nar_text_bucket):
         if ar_backend not in ("bf16", "fused", "fused4"):
             raise ValueError(f"unknown ar_backend {ar_backend!r}")
         if head4 and ar_backend != "fused4":
@@ -178,6 +198,11 @@ class Mars5TTS:
                              "K9 (head dim 64, D and F multiples of 128 up to 3072)")
         self.nar_backend, self.nar_mega, self.nar_tail = nar_backend, nar_mega, nar_tail
         self.nar_options = opts
+        self.guidance_interval = tuple(guidance_interval)
+        self.nar_gen_bucket = int(os.environ.get("MARS5_NAR_GEN_BUCKET", "0")
+                                  if nar_gen_bucket is None else nar_gen_bucket)
+        self.nar_text_bucket = int(os.environ.get("MARS5_NAR_TEXT_BUCKET", "0")
+                                   if nar_text_bucket is None else nar_text_bucket)
         self.device = torch.device(device)
 
         def ready(m):
@@ -272,8 +297,6 @@ class Mars5TTS:
                 logging.warning("runaway AR decode; retrying (%d/%d)", attempt + 1,
                                 max_retries)
         cfg = cfg or InferenceConfig()
-        if not cfg.use_kv_cache:
-            raise NotImplementedError("use_kv_cache=False is not ported")
         timer = StageTimer(sync=self._sync)
         text_tokens, prompt_codec, raw_prompt_len, gen_codes = self._synthesize_codes(
             text, ref_audio, ref_transcript, cfg, seed, timer)
@@ -283,7 +306,8 @@ class Mars5TTS:
             x = np.repeat(gen_codes[None, :, None], 8, axis=2)
             grid = self._nar((np.asarray(text_tokens, np.int64)[None], c_codes,
                               np.asarray([len(text_tokens)]), np.asarray([c_codes.shape[1]]),
-                              x, np.zeros((1, x.shape[1]), bool)), cfg, seed)
+                              x, np.zeros((1, x.shape[1]), bool)), cfg,
+                             self._nar_generator(seed))
             skip_front = raw_prompt_len if cfg.deep_clone else 0
             self.last_grid = grid[0, skip_front:]
 
@@ -308,19 +332,29 @@ class Mars5TTS:
             valid_start=self._valid_window[0], valid_end=self._valid_window[1],
             max_len=max_len)
 
-    def _nar(self, batch, cfg: InferenceConfig, seed: int):
-        """The NAR diffusion over ``batch`` (the engine's tuple), generator
-        seeded with ``seed + 1``; returns the (bs, Lx, 8) grid."""
+    def _nar_generator(self, seed: int) -> torch.Generator:
+        """The diffusion's generator for a request of ``seed``, seeded
+        ``seed + 1`` (the AR draws from ``seed``)."""
+        return torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def _nar(self, batch, cfg: InferenceConfig, generator: torch.Generator,
+             deep_clone: Optional[bool] = None):
+        """The NAR diffusion over ``batch`` (the engine's tuple) on this
+        model's routes, guidance interval and buckets, drawing from
+        ``generator``; ``deep_clone`` defaults to ``cfg.deep_clone``. Returns
+        the (bs, Lx, 8) grid."""
         T = cfg.timesteps or self.default_T
         diff = MultinomialDiffusion(self.diffusion_n_classes, timesteps=T, device=self.device)
         dsh = DSH(last_greedy=True, x_0_temp=cfg.x_0_temp, guidance_w=cfg.nar_guidance_w,
-                  deep_clone=cfg.deep_clone, jump_len=1, jump_n_sample=1,
-                  q0_override_steps=cfg.q0_override_steps,
-                  enable_kevin_scaled_inference=True, progress=False)
-        gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+                  deep_clone=cfg.deep_clone if deep_clone is None else deep_clone,
+                  jump_len=1, jump_n_sample=1, q0_override_steps=cfg.q0_override_steps,
+                  enable_kevin_scaled_inference=True, progress=False,
+                  guidance_interval=self.guidance_interval)
         return perform_simple_inference(self.codecnar, batch, diff, T, dsh, retain_quant0=True,
-                                        generator=gen, tail=self.nar_tail,
-                                        mega=self._get_mega(), options=self.nar_options)
+                                        generator=generator, tail=self.nar_tail,
+                                        mega=self._get_mega(), options=self.nar_options,
+                                        gen_bucket=self.nar_gen_bucket,
+                                        text_bucket=self.nar_text_bucket)
 
     def _synthesize_codes(self, text, ref_audio, ref_transcript, cfg, seed, timer):
         """Text and reference prep, AR decode and parse. Returns
@@ -372,7 +406,10 @@ class Mars5TTS:
             sampling = self._sampling(cfg, round(cfg.eos_estimated_gen_length_factor
                                                  * len(text)))
             max_len = sampling.max_len
-            if self.ar_backend == "bf16":
+            if not cfg.use_kv_cache:        # the JAX package's routing: the bf16 model
+                ar_codes, _ = ar_generate_nocache(self.codeclm, prompt, codes_np[0].T,
+                                                  sampling=sampling, seed=seed)
+            elif self.ar_backend == "bf16":
                 ar_codes, _ = ar_generate(self.codeclm, prompt, codes_np[0].T,
                                           sampling=sampling, seed=seed)
             else:
@@ -401,14 +438,12 @@ class Mars5TTS:
         text, as ``tts`` does; ``last_timing`` is over the total audio.
 
         The AR runs the quantized batched engine (K2, one call a step for all
-        rows) for 2 to 8 rows with ``ar_backend="fused"``/``"fused4"``, and
-        the bf16 batched engine (K7) otherwise: the routing of the JAX
-        package's ``tts_batch``, kept as its semantics, not a device fallback.
-        The AR draws from ``seed``, the diffusion from ``seed + 1``.
+        rows) for 2 to 8 rows with ``ar_backend="fused"``/``"fused4"`` and the
+        cache on, and the bf16 batched engine (K7) otherwise: the routing of
+        the JAX package's ``tts_batch``, kept as its semantics, not a device
+        fallback. The AR draws from ``seed``, the diffusion from ``seed + 1``.
         """
         cfg = cfg or InferenceConfig()
-        if not cfg.use_kv_cache:
-            raise NotImplementedError("use_kv_cache=False is not ported")
         timer = StageTimer(sync=self._sync)
         n = len(texts)
         per_row_refs = isinstance(ref_audio, (list, tuple))
@@ -456,7 +491,7 @@ class Mars5TTS:
         with timer.stage("ar_generate"):
             sampling = self._sampling(cfg, max(est_lens))
             spk_list = [c[0].T for c in row_codec]
-            if self.ar_backend != "bf16" and 2 <= n <= 8:
+            if self.ar_backend != "bf16" and cfg.use_kv_cache and 2 <= n <= 8:
                 fp, dims = self._get_fused(sampling.max_len, batch=n)
                 outs = ar_generate_fused_batched(self.codeclm, fp, dims, prompts, spk_list,
                                                  sampling=sampling, seed=seed,
@@ -487,7 +522,7 @@ class Mars5TTS:
                 c_codes[i, : c.shape[-1]] = c[0].T
             grid = self._nar((c_text, c_codes, np.asarray([len(t) for t in text_rows]),
                               np.asarray([c.shape[-1] for c in row_codec]), x, xpm),
-                             cfg, seed)
+                             cfg, self._nar_generator(seed))
             # each row's own prompt crop, left-aligned for batched vocoding
             out_lens = [max(len(r) - sk, 0) for r, sk in zip(rows, skip_fronts)]
             grid_out = torch.zeros((n, max(max(out_lens), 1), 8), dtype=torch.long,
@@ -511,3 +546,37 @@ class Mars5TTS:
         self.last_timing = timer.report(
             audio_seconds=sum(len(w) for _, w in results) / self.sr)
         return results
+
+    @classmethod
+    def from_pretrained(cls, model_id: str = "CAMB-AI/MARS5-TTS", *,
+                        revision: Optional[str] = None, cache_dir: Optional[str] = None,
+                        **kwargs) -> "Mars5TTS":
+        """``mars5_ar.safetensors`` and ``mars5_nar.safetensors`` of
+        ``model_id`` through ``huggingface_hub.hf_hub_download`` when it
+        imports; otherwise the first copy found under ``cache_dir``,
+        ``MARS5_CACHE`` (default ``~/.cache/mars5_tts_torch``) or ``HF_HOME``
+        (default ``~/.cache/huggingface``). Then ``from_local`` with
+        ``kwargs``."""
+        names = ("mars5_ar.safetensors", "mars5_nar.safetensors")
+        try:
+            from huggingface_hub import hf_hub_download
+        except ImportError:
+            hf_hub_download = None
+        if hf_hub_download is not None:
+            paths = [hf_hub_download(repo_id=model_id, filename=n, revision=revision,
+                                     cache_dir=cache_dir) for n in names]
+            return cls.from_local(paths[0], paths[1], **kwargs)
+        search = [Path(cache_dir) if cache_dir else None,
+                  Path(os.environ.get("MARS5_CACHE", "~/.cache/mars5_tts_torch")).expanduser(),
+                  Path(os.environ.get("HF_HOME", "~/.cache/huggingface")).expanduser()]
+        roots = [r for r in search if r is not None and r.exists()]
+        paths = []
+        for name in names:
+            hits = [h for r in roots for h in sorted(r.rglob(name))]
+            if not hits:
+                raise FileNotFoundError(
+                    f"{name} not found (huggingface_hub is not installed and there is no "
+                    f"copy under {[str(r) for r in search if r]}); download the checkpoints "
+                    f"and use Mars5TTS.from_local")
+            paths.append(hits[0])
+        return cls.from_local(paths[0], paths[1], **kwargs)

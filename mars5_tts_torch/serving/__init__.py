@@ -1,0 +1,13 @@
+"""Serving on one device (counterpart of ``mars5_tts_tpu/serving``):
+continuous batching of the AR over a pool of rows, NAR waves, long-form
+narration and progressive intra-utterance streaming."""
+
+from .continuous import ContinuousBatcher, FusedContinuousBatcher, Request
+from .longform import (LongformResult, StreamChunk, chunk_text, crossfade_concat,
+                       stream_longform, synthesize_longform)
+from .progressive import ProgressiveChunk, progressive_tts, stream_tts
+
+__all__ = ["ContinuousBatcher", "FusedContinuousBatcher",
+           "LongformResult", "ProgressiveChunk", "Request", "StreamChunk",
+           "chunk_text", "crossfade_concat", "progressive_tts",
+           "stream_longform", "stream_tts", "synthesize_longform"]

@@ -305,8 +305,10 @@ def test_tts_batch_is_seeded_and_refuses_mismatched_lists():
         tts.tts_batch(["a"], refs[:1], ref_transcript=["a", "b"], cfg=cfg)
     with pytest.raises(AssertionError):
         tts.tts_batch(["a", "b"], refs, cfg=cfg)
-    with pytest.raises(NotImplementedError):
-        tts.tts_batch(["a"], refs[0], "a", cfg=InferenceConfig(use_kv_cache=False))
+    # use_kv_cache=False is served (the bf16 batched engine), as in the JAX package
+    (codes, wav), = tts.tts_batch(["a"], refs[0], "a", cfg=InferenceConfig(
+        use_kv_cache=False, timesteps=3, generate_max_len_override=150, trim_db=200))
+    assert len(codes) > 0 and np.isfinite(wav).all()
 
 
 def test_tts_batch_routes_rows_as_the_jax_package(monkeypatch):

@@ -1002,7 +1002,8 @@ def test_fused_decode_persistent_step_rows(dev, b):
 
 def test_fused_decode_raises_when_the_grid_cannot_be_resident(dev, monkeypatch):
     """A plan of more blocks than the card can hold at once: the cooperative
-    launch is refused, the wrapper raises, and nothing else runs."""
+    launch is refused, the wrapper raises, and nothing else runs; the next
+    call on a plan that fits runs (the refusal leaves no error behind)."""
     from mars5_tts_torch.models.ar import CodecLMConfig
     from mars5_tts_torch.models.ar_decode_fused import prepare_fused
     from mars5_tts_torch.ops.kernels import decode_layer as D
@@ -1021,6 +1022,10 @@ def test_fused_decode_raises_when_the_grid_cannot_be_resident(dev, monkeypatch):
     with pytest.raises(RuntimeError):
         D.fused_decode_layers(fp, x, 3, ck, cv, kvs, dims=dims)
     assert D.launch_count == n0 and D.kernel_launches() == k0
+    monkeypatch.undo()
+    D.fused_decode_layers(fp, x, 3, ck, cv, kvs, dims=dims)
+    torch.cuda.synchronize()
+    assert D.launch_count == n0 + 1 and D.kernel_launches() == k0 + 1
 
 
 @pytest.mark.parametrize("rows,length", [(2, 1), (2, 31), (2, 33), (1, 64), (2, 750)])
@@ -1252,3 +1257,159 @@ def test_mha_int8_kernel_refuses(dev):
         K.mha(q[..., :32].bfloat16(), q[..., :32].bfloat16(), q[..., :32].bfloat16(),
               quantized=True)
     assert K.launch_count == n0
+
+
+# ---------------------------------------------------------------- serving shapes
+
+def _heads_tail_inputs(bs, rows, length, dev, seed):
+    from mars5_tts_torch.models.nar import nar_heads_prequant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, n, kc = 1024, 7, 1025
+    out = torch.randn((rows, length, d), generator=g, device=dev).to(torch.bfloat16)
+    wf = torch.randn((n, kc, d), generator=g, device=dev) * 0.03
+    s = wf.abs().amax(-1) / 127.0
+    folded = {"q": torch.round(wf / s[..., None]).clamp(-127, 127).to(torch.int8), "s": s,
+              "b": 0.1 * torch.randn((n, kc), generator=g, device=dev)}
+    u0 = torch.rand((bs, length, n, kc), generator=g, device=dev)
+    x_t = torch.randint(0, kc, (bs, length, n), generator=g, device=dev)
+    return out, nar_heads_prequant(out), folded, u0, x_t
+
+
+@pytest.mark.parametrize("bs,rows,t,greedy", [
+    (1, 1, 150, False), (1, 1, 199, False),    # cond-only steps of the guidance interval
+    (1, 2, 0, True),                           # CFG, the greedy last step (scalars[5] = 0)
+    (1, 1, 0, True),
+    (3, 3, 150, False), (3, 6, 50, False),     # a NAR wave of three rows
+])
+def test_heads_tail_kernels_at_serving_shapes(dev, bs, rows, t, greedy):
+    """K6 at 750 frames with rows == bs (w taken as 1) and rows == 2 bs, the
+    greedy scalars, one to three batch rows: indices equal to the twin's but
+    within 1e-5 near-ties; K5 on the folded heads' logits equal to K6 and to
+    its twin."""
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.nar import nar_heads_folded
+    from mars5_tts_torch.ops.kernels import diffusion_tail as D
+
+    out, (x8, xs), folded, u0, x_t = _heads_tail_inputs(bs, rows, 750, dev, rows * 10 + t)
+    scal = D.tail_scalars(MultinomialDiffusion(1025, 200, device=dev), t, use_gumbel=not greedy)
+    args = (x8, xs, folded, u0, x_t, scal)
+    got = D.heads_diffusion_tail(*args, w=3.0, temp=0.7)
+    want = D.heads_diffusion_tail_ref(*args, w=3.0, temp=0.7)
+    top2 = torch.topk(D.tail_scores(*args, w=3.0, temp=0.7), 2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 1e-5
+    assert got.shape == (bs, 750, 7)
+    assert not bool(((got != want) & ~near_tie).any())
+    logits = nar_heads_folded(folded, out)
+    got5 = D.diffusion_tail(logits, u0, x_t, scal, w=3.0, temp=0.7)
+    assert torch.equal(got5, got)
+    assert torch.equal(got5, D.diffusion_tail_ref(logits, u0, x_t, scal, w=3.0, temp=0.7))
+
+
+@pytest.mark.parametrize("l", [725, 1200])
+def test_mega_kernel_one_row(dev, l):
+    """K9 at B = 1 (a cond-only step, ``mega_plan(dims, L, Lk)`` at M = L):
+    each layer of the released widths within the fused bound of its twin,
+    and the 16-layer stack within 0.03 x max|twin|."""
+    from mars5_tts_torch.ops.kernels import nar_mega as M
+
+    dec = _mega_decoder(1024, 16, 3072, 16, dev, 16)
+    mp = M.build_mega_pack(dec)
+    x, mem, tm, mm = (a[1:] for a in _mega_inputs(1024, l, 66, dev, l))
+    got = M.mega_decoder_stack(mp, x, mem, tm, mm)
+    want = M.mega_decoder_stack_ref(mp, x, mem, tm, mm)
+    assert got.shape == (1, l, 1024) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 0.03 * want.float().abs().max().item()
+    one = M.build_mega_pack(_mega_decoder(1024, 16, 3072, 1, dev, 1))
+    _fused_eq(M.mega_decoder_stack(one, x, mem, tm, mm), M.mega_decoder_stack_ref(one, x, mem, tm, mm))
+
+
+def test_fused_final_logits_do_not_depend_on_the_batch(dev):
+    """The quantized engine's final RMSNorm and int8 head at the released AR
+    widths (1536 -> 24,000): each row of a call of 2 to 8 rows bitwise the
+    row's own one-row call."""
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.ar_decode_fused import final_logits, prepare_fused
+
+    cfg = CodecLMConfig.mars5(24_000)
+    g = torch.Generator(device=dev).manual_seed(3)
+    with torch.device(dev):
+        model = CodecLM(cfg).init_(g).to(torch.bfloat16)
+    fp, _ = prepare_fused(model, 64, 8)
+    h = torch.randn((8, cfg.dim), generator=g, device=dev) * 3
+    one = [final_logits(fp, h[i:i + 1], cfg) for i in range(8)]
+    for b in range(2, 9):
+        rows = final_logits(fp, h[:b], cfg)
+        for i in range(b):
+            assert torch.equal(one[i], rows[i:i + 1]), (b, i)
+
+
+def test_fused_pool_rows_equal_solo_runs_on_gpu(dev):
+    """A three-row ``FusedContinuousBatcher`` (W4, K2 one call a step) over
+    five requests in two buckets: each request's tokens equal its solo
+    ``ar_generate_fused`` run on the pool's pack and stream."""
+    import dataclasses
+
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+
+    cfg = CodecLMConfig(n_vocab=1283, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                        n_layers=2, hidden_dim=1024, sliding_window=3000, n_spk_layers=1,
+                        spk_hidden_dim=256)
+    with torch.device(dev):
+        model = CodecLM(cfg).init_(torch.Generator(device=dev).manual_seed(5)).to(torch.bfloat16)
+    r = np.random.default_rng(7)
+    s = ArSampling(n_phones_gen=30, eos_idx=1282, valid_start=258, valid_end=1283, max_len=90)
+    reqs = [Request(prompt=r.integers(0, 1283, n), spk_codes=r.integers(0, 1024, (20, 8)),
+                    uniforms=r.random(90).astype(np.float32)) for n in (10, 50, 20, 45, 30)]
+    pool = FusedContinuousBatcher(model, s, batch_size=3, wbits=4, chunk_steps=8,
+                                  prompt_buckets=(32, 64), spk_bucket=32)
+    for q in reqs:
+        pool.submit(q)
+    n0 = D.launch_count
+    pool.run()
+    assert D.launch_count - n0 == pool.steps_run
+    dims1 = dataclasses.replace(pool.dims, batch=1)
+    for q in reqs:
+        ref, n = ar_generate_fused(model, pool.fp, dims1, q.prompt, q.spk_codes, sampling=s,
+                                   uniforms=q.uniforms)
+        np.testing.assert_array_equal(q.tokens, ref)
+        assert q.n_gen == n
+
+
+@pytest.mark.parametrize("width", ["narrow", "released"])
+def test_pool_rows_equal_solo_runs_on_gpu(dev, width):
+    """A three-row bf16 ``ContinuousBatcher`` (K7 once a layer a step, every
+    GEMM and norm at the pool's three rows) over five requests in two
+    buckets: each request's tokens equal its solo ``ar_generate`` run on the
+    same stream. ``released``: the released AR widths (1536, 24 heads,
+    24,000 ids) at two layers."""
+    import dataclasses
+
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
+
+    cfg = (CodecLMConfig(n_vocab=1283, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                         n_layers=2, hidden_dim=1024, sliding_window=3000, n_spk_layers=1,
+                         spk_hidden_dim=256) if width == "narrow"
+           else dataclasses.replace(CodecLMConfig.mars5(24_000), n_layers=2))
+    with torch.device(dev):
+        model = CodecLM(cfg).init_(torch.Generator(device=dev).manual_seed(5)).to(torch.bfloat16)
+    r = np.random.default_rng(7)
+    s = ArSampling(n_phones_gen=30, eos_idx=1282, valid_start=258, valid_end=1283, max_len=90)
+    reqs = [Request(prompt=r.integers(0, 1283, n), spk_codes=r.integers(0, 1024, (20, 8)),
+                    uniforms=r.random(90).astype(np.float32)) for n in (10, 50, 20, 45, 30)]
+    pool = ContinuousBatcher(model, s, batch_size=3, chunk_steps=8, prompt_buckets=(32, 64),
+                             spk_bucket=32)
+    for q in reqs:
+        pool.submit(q)
+    pool.run()
+    assert pool.chunks_run > 1
+    for i, q in enumerate(reqs):
+        ref, n = ar_generate(model, q.prompt, q.spk_codes, sampling=s, uniforms=q.uniforms)
+        np.testing.assert_array_equal(q.tokens, ref, err_msg=f"request {i}")
+        assert q.n_gen == n
