@@ -88,6 +88,24 @@
    (the profiler slows what follows it), the device's idle share of the
    pool's run and of a three-row wave at T = 20.
 
+6. Training and data-parallel decoding, after every earlier measurement: (a)
+   the port's ``train.make_train_step`` at the released widths
+   (``CodecLMConfig.mars5(24_000)``, ``ResidualTransformerConfig.mars5(4_096)``,
+   f32, TF32 off), two ``data.synthetic_corpus`` utterances of 60 text tokens
+   and 450 frames, ``MultinomialDiffusion(1025, timesteps=200)``, AdamW at lr
+   1e-4, weight decay 0.01, clip 1.0: one warm step, then five timed steps on
+   the one batch and one set of NAR draws (AR and NAR ms a step with the
+   device synchronised, AR tokens a second, peak ``max_memory_allocated``,
+   both losses at each step; gate: all finite, each loss at step 5 below its
+   loss at step 1), then once more with ``remat=True`` (peak memory beside);
+   (b) at full width and two layers each, one step's losses and the
+   gradient norms of eight named parameters on the card against the CPU
+   (losses within rtol 1e-5, norms within 1e-4 relative); (c) a NAR forward
+   at 600 frames with grad enabled must raise (kernel K1 has no backward);
+   (d) ``serving.multichip.ShardedARDecoder`` in a one-process NCCL group
+   (dp = 1) on the served bf16 AR: its tokens bitwise those of
+   ``ar_generate_batched`` (K7's launches read around it).
+
 After the requests (``torch.profiler`` slows a process's later launches),
 the device time of each launch of K3 and K4 (prologue and GEMM; K4's four)
 at one group and grouped, and the grouped calls' device time with their
@@ -108,6 +126,7 @@ Prints one JSON line with the kernels' results, then as the last line
 without a CUDA device it exits non-zero before printing a result.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -1599,6 +1618,16 @@ def main():
     tile_ab = {m: grouped_tile_ab(res, m) for m, res in ((M_ROWS, w8a8_g),
                                                          (SHORT_M, w8a8_g_short))}
     idle = serving_idle_shares(serving)
+    # -- 6. training and data-parallel decoding (the served AR for the decoder;
+    # the other models leave the card first)
+    dp_decode = check_dp_decoder(models, dev)
+    for rec in serving.values():            # the reruns hold the served models
+        if isinstance(rec, dict):
+            rec.pop("_rerun", None)
+    del nar8
+    for name in ("nar", "encodec", "vocos"):
+        models.pop(name, None)
+    train_phase(models, dev)
     if any(m.split(".")[0] in ("jax", "mars5_tts_tpu") for m in sys.modules):
         raise RuntimeError("the port pulled in jax or the JAX package")
 
@@ -1709,6 +1738,7 @@ def main():
         {**row("decode_attention", "decode_attention.cu",
                "mars5_tts_tpu/ops/pallas/decode_attention.py:32", k7[K7_CASES[0]],
                launches=path_launches["decode_attention"]),
+         "dp_decoder_launches": dp_decode["decode_attention_launches"],
          "max_abs_err": max(st["max_abs_err"] for st in k7.values()),
          "device_ms": k7[K7_CASES[0]]["device_ms"], "host_ms": k7[K7_CASES[0]]["host_ms"],
          "cases": {",".join(map(str, p)): batched(st) for p, st in k7.items()}},
@@ -2491,6 +2521,157 @@ def check_nar_fused_one_row(dev, length=MEGA_BENCH_L):
 
 
 IDLE_WAVE_T = 20    # the wave's depth for its idle share (a trace of 200 steps is too long)
+
+
+def check_dp_decoder(models, dev):
+    """Phase 6 (d): ``ShardedARDecoder`` in a one-process NCCL group (dp = 1)
+    on the served bf16 AR, three requests on injected streams: tokens
+    bitwise those of ``ar_generate_batched``; K7's launches counted around
+    the sharded run alone."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate_batched
+    from mars5_tts_torch.parallel import make_mesh
+    from mars5_tts_torch.serving.multichip import ShardedARDecoder
+
+    ar = models["ar"]
+    rng = np.random.default_rng(61)
+    s = ArSampling(temperature=0.7, top_k=200, top_p=0.9, n_phones_gen=40, eos_idx=258 + 1024,
+                   valid_start=258, valid_end=258 + 1025, max_len=200)
+    prompts = [rng.integers(0, 258 + 1025, n) for n in (120, 90, 150)]
+    spks = [rng.integers(0, 1024, (n, 8)) for n in (150, 100, 200)]
+    uniforms = [rng.random(s.max_len).astype(np.float32) for _ in prompts]
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=dev if dev.type == "cuda" else None)
+    try:
+        dec = ShardedARDecoder(ar, s, mesh=make_mesh(tp=1))
+        dec.generate(prompts[:1], spks[:1], uniforms=uniforms[:1])      # warm
+        reset_counts()
+        t0 = time.perf_counter()
+        got = dec.generate(prompts, spks, uniforms=uniforms)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k7 = counts()["decode_attention"]
+    finally:
+        dist.destroy_process_group()
+    want = ar_generate_batched(ar, prompts, spks, sampling=s, uniforms=np.stack(uniforms, 1))
+    same = all(n == wn and t.tolist() == wt.tolist() for (t, n), (wt, wn) in zip(got, want))
+    rec = {"rows": len(prompts), "tokens": [n for _, n in got], "bitwise": same,
+           "wall_s": wall, "decode_attention_launches": k7}
+    print("phase 6 (d) ShardedARDecoder, one-process NCCL (dp=1), bf16 AR: "
+          + json.dumps(rec), flush=True)
+    if not same:
+        raise RuntimeError("ShardedARDecoder(dp=1) parted from ar_generate_batched")
+    if k7 <= 0:
+        raise RuntimeError("ShardedARDecoder did not launch K7 on the card")
+    return rec
+
+
+TRAIN_STEPS = 5
+
+
+GRAD_NAMES = {"ar": ("embed.weight", "ar.layers.0.attention.wq.weight",
+                     "ar.layers.1.feed_forward.w2.weight", "ar.output.weight"),
+              "nar": ("text_embed.weight", "tfm.encoder.layers.0.self_attn.in_proj_weight",
+                      "tfm.decoder.layers.1.activation.W.weight", "residual_decoder.3.1.weight")}
+
+
+def card_vs_cpu(dev):
+    """Phase 6 (b): one step's losses and gradient norms, the card against
+    the CPU, at full width and two layers each on the same weights, batch
+    and draws."""
+    import torch
+
+    from mars5_tts_torch import train as T
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.tools.profile_train import train_batches, train_models
+
+    ab, nb = train_batches()
+    cpu = torch.device("cpu")
+    ar, nar = train_models(cpu, n_layers=2)
+    draws = T.nar_draws(MultinomialDiffusion(1025, timesteps=200), nb[4].shape,
+                        torch.Generator().manual_seed(13))
+    out = {}
+    for where in (cpu, dev):
+        a, n = (m.to(where) for m in (ar, nar))
+        diff = MultinomialDiffusion(1025, timesteps=200, device=where)
+        d = T.NarDraws(*(x.to(where) for x in (draws.t, draws.u, draws.drop)))
+        rec = {}
+        for kind, model, loss_fn in (
+                ("ar", a, lambda: T.ar_loss_fn(a, *T.to_batch(ab, T.AR_DTYPES, where))),
+                ("nar", n, lambda: T.nar_loss_fn(n, diff, T.to_batch(nb, T.NAR_DTYPES, where),
+                                                 d))):
+            params = dict(model.named_parameters())
+            loss = loss_fn()
+            grads = torch.autograd.grad(loss, [params[k] for k in GRAD_NAMES[kind]])
+            rec[f"{kind}_loss"] = float(loss)
+            rec.update({f"{kind}:{k}": float(g.double().norm())
+                        for k, g in zip(GRAD_NAMES[kind], grads)})
+        out[where.type] = rec
+    worst = {k: abs(out["cuda"][k] - v) / abs(v) for k, v in out["cpu"].items()}
+    loss_worst = max(worst[k] for k in ("ar_loss", "nar_loss"))
+    grad_worst = max(v for k, v in worst.items() if ":" in k)
+    print(f"phase 6 (b) card against CPU, full width x 2 layers: losses {out['cuda']['ar_loss']:.6f} "
+          f"/ {out['cuda']['nar_loss']:.6f} (CPU {out['cpu']['ar_loss']:.6f} / "
+          f"{out['cpu']['nar_loss']:.6f}); worst relative: losses {loss_worst:.3e} (gate 1e-5), "
+          f"gradient norms {grad_worst:.3e} (gate 1e-4) over {sorted(GRAD_NAMES['ar'])} + "
+          f"{sorted(GRAD_NAMES['nar'])}", flush=True)
+    if loss_worst > 1e-5 or grad_worst > 1e-4:
+        raise RuntimeError(f"training on the card parted from the CPU: {json.dumps(worst)}")
+    return {"loss_rel": loss_worst, "grad_norm_rel": grad_worst, "cpu": out["cpu"],
+            "cuda": out["cuda"]}
+
+
+def k1_refuses_training(dev):
+    """Phase 6 (c): a NAR forward at 600 frames (self-attention past K1's
+    512-query threshold) with autograd recording must raise."""
+    import torch
+
+    from mars5_tts_torch.tools.profile_train import train_models
+
+    _, nar = train_models(dev, n_layers=1)
+    bs, lx = 1, 600
+    args = (torch.zeros((bs, 8), dtype=torch.long, device=dev),
+            torch.zeros((bs, 10, 8), dtype=torch.long, device=dev),
+            torch.full((bs,), 8, device=dev), torch.full((bs,), 10, device=dev),
+            torch.zeros((bs, lx, 8), dtype=torch.long, device=dev),
+            torch.zeros((bs, lx), dtype=torch.bool, device=dev),
+            torch.zeros((bs,), dtype=torch.long, device=dev))
+    try:
+        nar(*args)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"phase 6 (c) K1 refused a training forward at {lx} frames: {e}", flush=True)
+        return str(e)
+    raise RuntimeError("a NAR forward at 600 frames with grad enabled ran through K1")
+
+
+def train_phase(models, dev):
+    """Phase 6 (a)-(c) (see the module docstring)."""
+    import torch
+
+    from mars5_tts_torch.tools.profile_train import train_run
+
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = [train_run(dev, False, TRAIN_STEPS), train_run(dev, True, 2)]
+    for r in runs:
+        print(f"phase 6 (a) training, released widths f32, {r['params_m']:.0f}M params, "
+              f"remat={r['remat']}: AR {r['ar_ms_median']:.1f} ms a step "
+              f"({r['ar_tokens_per_s']:.0f} tokens a second), NAR {r['nar_ms_median']:.1f} ms "
+              f"a step, peak {r['peak_gb']:.2f} GB above the {r['base_gb']:.2f} GB the "
+              "process held before; " + json.dumps(r), flush=True)
+    return {"runs": runs, "card_vs_cpu": card_vs_cpu(dev), "k1": k1_refuses_training(dev)}
 
 
 def serving_idle_shares(serving):

@@ -87,7 +87,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                              mega: MegaPack | None = None,
                              options: NarOptions = DEFAULT_OPTIONS,
                              gen_bucket: int = 0, text_bucket: int = 0,
-                             honor_last_greedy: bool = False):
+                             honor_last_greedy: bool = False, batch_rows: tuple | None = None):
     """Run the whole inpainting trajectory.
 
     batch: (c_text (bs, Lt), c_codes (bs, Lc, 8), c_texts_length (bs,),
@@ -100,7 +100,12 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     (``models.layers.NarOptions``) the encoder's and decoder's routes.
     ``gen_bucket`` / ``text_bucket`` (0: exact shapes) and
     ``honor_last_greedy``: as in the module docstring; ``uniforms`` span the
-    unpadded ``L_total`` (the padded frames draw 0.5).
+    unpadded ``L_total`` (the padded frames draw 0.5). ``batch_rows`` (lo,
+    hi): run rows [lo, hi) of ``batch`` alone, as they run in the whole
+    batch's trajectory (a data-parallel shard, ``serving/multichip.py``):
+    the layout (a ragged batch's width), ``uniforms`` and ``x_init`` are the
+    whole batch's, and the generator draws at the whole batch's shape, each
+    cut to these rows; returns their (hi - lo, Lx, 8) grid.
     """
     if tail not in TAILS:
         raise ValueError(f"unknown tail {tail!r}; expected one of {TAILS}")
@@ -133,7 +138,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     if dsh.deep_clone:
         lengths = ccl.tolist()
         if len(set(lengths)) > 1:
-            offsets = lengths
+            offsets, width = lengths, max(lengths)
         else:
             offset = lengths[0]
             if c_codes.shape[1] != offset:
@@ -147,6 +152,16 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                                device=dev)
     else:
         x_init = _as(x_init, torch.long, dev)
+    draw_rows = None
+    if batch_rows is not None:      # a shard: these rows of the whole batch
+        rows = slice(*batch_rows)
+        draw_rows = (*batch_rows, bs)
+        c_text, c_codes, ctl, ccl, x, xpm, x_init = (
+            v[rows] for v in (c_text, c_codes, ctl, ccl, x, xpm, x_init))
+        if uniforms is not None:
+            uniforms = np.asarray(uniforms)[:, :, rows]
+        offsets = None if offsets is None else offsets[rows]
+        bs = x.shape[0]
     x_quant0 = x[..., 0]
     x_cur = x_init.clone()
     x_cur[..., 0] = x_quant0
@@ -159,7 +174,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
                         dim=-1)
         x_quant0 = torch.cat([c_codes[..., 0], x_quant0], dim=-1)
     elif offsets is not None:       # [prompt_r; gen; pad] per row
-        length = max(offsets) + lx
+        length = width + lx
         grids = [torch.zeros((bs, length, x.shape[2]), dtype=torch.long, device=dev)
                  for _ in range(2)]
         pad = torch.ones((bs, length), dtype=torch.bool, device=dev)
@@ -179,7 +194,7 @@ def perform_simple_inference(model: ResidualTransformer, batch,
     out = _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x_cur, x_known,
                       xpm, x_quant0, t_lasts, is_reverse, cs, uniforms, generator,
                       offset, retain_quant0, tail, mega, offsets, options,
-                      honor_last_greedy and dsh.last_greedy)
+                      honor_last_greedy and dsh.last_greedy, draw_rows)
     if offsets is not None:         # each row's generated frames at its own offset
         return torch.stack([out[r, lc:lc + lx_real] for r, lc in enumerate(offsets)])
     return out[:, offset:offset + lx_real]
@@ -208,7 +223,7 @@ def _progress(i: int, n: int) -> None:
 def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                 x_quant0, t_lasts, is_reverse, cs, uniforms, generator, offset,
                 retain_quant0, tail, mega, offsets=None, options=DEFAULT_OPTIONS,
-                greedy_t0=False):
+                greedy_t0=False, draw_rows=None):
     dev = x.device
     bs, _, n_lanes = x.shape
     K = diff.num_classes
@@ -272,7 +287,10 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         return logits
 
     def rand(*shape):
-        return torch.rand(shape, generator=generator, device=dev)
+        if draw_rows is None:
+            return torch.rand(shape, generator=generator, device=dev)
+        lo, hi, n = draw_rows       # the whole batch's draw, cut to a shard's rows
+        return torch.rand((n, *shape[1:]), generator=generator, device=dev)[lo:hi]
 
     def reverse(x, i, t):
         with_cfg = use_cfg(t)

@@ -1,9 +1,13 @@
 """Multinomial diffusion in log space
-(counterpart of ``mars5_tts_tpu/diffusion/multinomial.py``, inference part).
+(counterpart of ``mars5_tts_tpu/diffusion/multinomial.py``).
 
 The cosine schedule is built in float64 on the host, exactly as the JAX
-package builds it, and kept as f32 tables on the device. Timesteps are Python
-ints: every row of a trajectory shares one t.
+package builds it, and kept as f32 tables on the device. In inference t is a
+Python int (every row of a trajectory shares one t); the training half
+(``q_posterior``, ``p_pred``, ``q_sample``, the variational bound
+``compute_Lt`` and ``kl_prior``) takes t as a (bs,) integer tensor, one
+timestep a row, and its random draws as ``uniform`` tensors, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -23,6 +27,23 @@ def cosine_alpha_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
     alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
     alphas = torch.clamp(alphas_cumprod[1:] / alphas_cumprod[:-1], 0.001, 1.0)
     return torch.sqrt(alphas).numpy()
+
+
+def index_to_log_onehot(x, num_classes: int, dtype=torch.float32):
+    """Indices (bs, ...) -> clamped log one-hot (bs, ..., K)."""
+    onehot = F.one_hot(x.long(), num_classes).to(dtype)
+    return torch.log(torch.clamp(onehot, min=MIN_LOG_ARG))
+
+
+def sum_except_batch(x, num_dims: int = 1):
+    return x.reshape(*x.shape[:num_dims], -1).sum(-1)
+
+
+def _at(table, t, ndim: int):
+    """``table[t]``: a scalar for an int t, (bs, 1, ..., 1) of ``ndim`` dims
+    for a (bs,) tensor t (one timestep a row)."""
+    out = table[t]
+    return out if isinstance(t, int) else out.reshape(out.shape[0], *([1] * (ndim - 1)))
 
 
 def log_add_exp(a, b):
@@ -80,10 +101,17 @@ class MultinomialDiffusion:
         b = torch.log(sig).reshape(shape) + self.log_1_min_alpha[t] - self.log_num_classes
         return a, b
 
-    def q_pred(self, log_x_start, t: int):
-        """log q(x_t | x_0) for a dense (…, K) log x_0."""
-        return log_add_exp(log_x_start + self.log_cumprod_alpha[t],
-                           self.log_1_min_cumprod_alpha[t] - self.log_num_classes)
+    def q_pred(self, log_x_start, t):
+        """log q(x_t | x_0) for a dense (…, K) log x_0; t an int or (bs,)."""
+        nd = log_x_start.ndim
+        return log_add_exp(log_x_start + _at(self.log_cumprod_alpha, t, nd),
+                           _at(self.log_1_min_cumprod_alpha, t, nd) - self.log_num_classes)
+
+    def q_pred_one_timestep(self, log_x_t, t):
+        """log q(x_t | x_{t-1}) for a dense (…, K) log x_{t-1}."""
+        nd = log_x_t.ndim
+        return log_add_exp(log_x_t + _at(self.log_alpha, t, nd),
+                           _at(self.log_1_min_alpha, t, nd) - self.log_num_classes)
 
     def q_pred_indexed(self, x_idx, t: int):
         return self._two_scalar_select(
@@ -131,3 +159,49 @@ class MultinomialDiffusion:
                                                   jump_len: int, u):
         a, b = self._scaled_ab(x_idx.shape[1], t, c, jump_len, x_idx.ndim)
         return self._sample_two_value(x_idx, a, b, u)
+
+    # -- training (reference diffuser.py:238-289); t is (bs,), one a row ------
+    def q_posterior(self, log_x_start, log_x_t, t):
+        """log q(x_{t-1} | x_t, x_0) via Bayes, with the t = 0 one-hot
+        override, normalised."""
+        log_ev = self.q_pred(log_x_start, torch.clamp(t - 1, min=0))
+        t_b = t.reshape(-1, *([1] * (log_x_start.ndim - 1)))
+        log_ev = torch.where(t_b == 0, log_x_start, log_ev)
+        unnormed = log_ev + self.q_pred_one_timestep(log_x_t, t)
+        return unnormed - torch.logsumexp(unnormed, dim=-1, keepdim=True)
+
+    def p_pred(self, log_x_t, t, log_x0_pred):
+        """log p(x_{t-1} | x_t) = q_posterior with the model's x0."""
+        return self.q_posterior(log_x0_pred, log_x_t, t)
+
+    def q_sample(self, log_x_start, t, uniform):
+        """x_t ~ q(x_t | x_0): a Gumbel-max draw on ``uniform`` (shaped like
+        ``log_x_start``)."""
+        return log_sample_categorical(self.q_pred(log_x_start, t), uniform)
+
+    @staticmethod
+    def multinomial_kl(log_prob1, log_prob2, dim: int = -1):
+        return (torch.exp(log_prob1) * (log_prob1 - log_prob2)).sum(dim=dim)
+
+    def compute_Lt(self, log_x_start, log_x_t, log_x0_pred, t, include_kl_prior: bool = True):
+        """The variational bound term a row: KL (or the t = 0 decoder NLL),
+        and with ``include_kl_prior`` the reference's ``kl + kl_prior``,
+        which overwrites the t = 0 blend (diffuser.py:267-270), as the JAX
+        package keeps it."""
+        log_true_prob = self.q_posterior(log_x_start, log_x_t, t)
+        log_model_prob = self.p_pred(log_x_t, t, log_x0_pred)
+        kl = sum_except_batch(self.multinomial_kl(log_true_prob, log_model_prob))
+        decoder_nll = sum_except_batch(-(torch.exp(log_x_start) * log_model_prob).sum(-1))
+        mask = (t == 0).to(kl.dtype)
+        loss = mask * decoder_nll + (1.0 - mask) * kl
+        if include_kl_prior:
+            loss = kl + self.kl_prior(log_x_start)
+        return loss
+
+    def kl_prior(self, log_x_start):
+        """KL(q(x_T | x_0) || uniform) a row."""
+        t = torch.full((log_x_start.shape[0],), self.num_timesteps - 1, dtype=torch.long,
+                       device=log_x_start.device)
+        log_qxT = self.q_pred(log_x_start, t)
+        log_uniform = torch.full_like(log_qxT, -self.log_num_classes)
+        return sum_except_batch(self.multinomial_kl(log_qxT, log_uniform))

@@ -17,11 +17,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.attention import banded_causal_mask, linear, sdpa
-from ..ops.embeddings import add_sine_pe, chunked_embed
+from ..ops.embeddings import add_sine_pe, chunked_embed, lookup
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_halfsplit, rope_angles
 from ..utils.masks import construct_padding_mask
-from .layers import TransformerEncoder, init_params_
+from .layers import TransformerEncoder, init_params_, remat_default, run_layer
 
 
 @dataclass(frozen=True)
@@ -117,12 +117,16 @@ class TransformerBlock(nn.Module):
 
 
 class MistralTransformer(nn.Module):
-    def __init__(self, cfg: CodecLMConfig):
+    """The decoder blocks, final norm and output head; ``remat`` (default
+    ``layers.remat_default()``): per-layer rematerialization in training."""
+
+    def __init__(self, cfg: CodecLMConfig, remat: bool | None = None):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(TransformerBlock(cfg) for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps)
         self.output = nn.Linear(cfg.dim, cfg.n_vocab, bias=False)
+        self.remat = remat_default(remat)
 
     def forward(self, x, positions, mask=None):
         """x (bs, L, dim) embedded inputs -> (logits (bs, L, V), [(k, v)] per
@@ -134,7 +138,7 @@ class MistralTransformer(nn.Module):
             mask = banded_causal_mask(l, cfg.sliding_window, device=x.device)
         kvs = []
         for layer in self.layers:
-            x, kv = layer(x, cos, sin, mask)
+            x, kv = run_layer(self.remat, layer, x, cos, sin, mask)
             kvs.append(kv)
         return linear(self.norm(x), self.output.weight), kvs
 
@@ -161,17 +165,20 @@ class ChunkedEmbedding(nn.Module):
 
 
 class CodecLM(nn.Module):
-    def __init__(self, cfg: CodecLMConfig):
+    """``remat``: per-layer rematerialization of every stack in training
+    (default ``MARS5_TRAIN_REMAT``)."""
+
+    def __init__(self, cfg: CodecLMConfig, remat: bool | None = None):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.n_vocab, cfg.dim)
-        self.ar = MistralTransformer(cfg)
+        self.ar = MistralTransformer(cfg, remat)
         self.pos_embedding = SinePositionalEmbedding()
         self.ref_chunked_emb = ChunkedEmbedding(cfg.n_codebooks, cfg.codebook_size,
                                                 cfg.dim)
         self.spk_identity_emb = nn.Embedding(1, cfg.dim)
         self.spk_encoder = TransformerEncoder(cfg.dim, cfg.n_heads,
-                                              cfg.spk_hidden_dim, cfg.n_spk_layers)
+                                              cfg.spk_hidden_dim, cfg.n_spk_layers, remat)
 
     def spk_embedding(self, spk_codes):
         """(bs, S, 8) reference codes -> (bs, dim) implicit speaker vector:
@@ -189,7 +196,7 @@ class CodecLM(nn.Module):
     def forward(self, tokens, spk_codes=None, spk_vector=None):
         """(bs, L) tokens -> (bs, L, vocab) logits; a speaker vector (given, or
         from ``spk_codes``) sits at position 0 and its output row is dropped."""
-        x = self.embed.weight[tokens]
+        x = lookup(self.embed.weight, tokens)
         has_spk = spk_codes is not None or spk_vector is not None
         if has_spk:
             if spk_vector is None:
@@ -200,7 +207,7 @@ class CodecLM(nn.Module):
 
     def prefill(self, tokens, spk_vector):
         """(all logits incl. the speaker row, per-layer (k, v)) for decode."""
-        x = self.embed.weight[tokens]
+        x = lookup(self.embed.weight, tokens)
         x = torch.cat([spk_vector[:, None].to(x.dtype), x], dim=1)
         return self.ar(x, torch.arange(x.shape[1], device=x.device))
 

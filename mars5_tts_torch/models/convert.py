@@ -102,29 +102,39 @@ def codeclm_port_state_dict(sd, cfg: CodecLMConfig) -> dict:
     return out
 
 
-def _load(model, sd, dtype, device):
+def _load(model, sd, dtype, device, trainable: bool = False):
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
                           strict=True)
-    return model.to(device=device, dtype=dtype).requires_grad_(False).eval()
+    model = model.to(device=device, dtype=dtype)
+    return model.requires_grad_(True).train() if trainable else model.requires_grad_(False).eval()
 
 
-def load_codeclm(sd, cfg: CodecLMConfig, dtype=torch.float32, device="cpu") -> CodecLM:
-    """A CodecLM holding a reference-layout state dict."""
-    return _load(CodecLM(cfg), codeclm_port_state_dict(sd, cfg), dtype, device)
+def load_codeclm(sd, cfg: CodecLMConfig, dtype=torch.float32, device="cpu",
+                 trainable: bool = False, remat: bool | None = None) -> CodecLM:
+    """A CodecLM holding a reference-layout state dict, frozen for inference
+    (``trainable``: with gradients, for ``train.py``; ``remat``: the
+    model's per-layer rematerialization)."""
+    return _load(CodecLM(cfg, remat), codeclm_port_state_dict(sd, cfg), dtype, device,
+                 trainable)
 
 
 def load_nar(sd, cfg: ResidualTransformerConfig, dtype=torch.float32,
-             device="cpu") -> ResidualTransformer:
+             device="cpu", trainable: bool = False,
+             remat: bool | None = None) -> ResidualTransformer:
     """A ResidualTransformer holding a reference-layout state dict; weights
-    given as ``<name>.q`` / ``<name>.s`` load as W8A8 ``QuantWeight``s."""
-    model = ResidualTransformer(cfg)
+    given as ``<name>.q`` / ``<name>.s`` load as W8A8 ``QuantWeight``s
+    (``trainable``: with gradients, for ``train.py``; not for W8A8 weights;
+    ``remat``: the model's per-layer rematerialization)."""
+    model = ResidualTransformer(cfg, remat)
     for key in sd:
         if key.endswith(".q"):
             owner, name = key[:-2].rsplit(".", 1)
             sg = sd.get(key[:-2] + ".sg")
             set_weight(model.get_submodule(owner), name,
                        QuantWeight.empty(*sd[key].shape, groups=0 if sg is None else sg.shape[0]))
-    return _load(model, {k: _np(v) for k, v in sd.items()}, dtype, device)
+    if trainable and any(k.endswith(".q") for k in sd):
+        raise ValueError("a W8A8 NAR does not train: load the f32 weights")
+    return _load(model, {k: _np(v) for k, v in sd.items()}, dtype, device, trainable)
 
 
 # --- the JAX package's parameter pytrees, in reference naming ----------------

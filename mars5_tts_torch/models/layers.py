@@ -23,11 +23,13 @@ runs whole through kernel K9 (``ops/kernels/nar_mega.py``), the JAX
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import sdpa, torch_mha
 from ..ops.kernels import mha as mha_kernel
@@ -74,6 +76,23 @@ class NarOptions:
 
 
 DEFAULT_OPTIONS = NarOptions()
+
+
+def remat_default(remat: bool | None = None) -> bool:
+    """A stack's ``remat``: as given, else ``MARS5_TRAIN_REMAT=1`` (the JAX
+    package's switch of per-layer rematerialization)."""
+    return os.environ.get("MARS5_TRAIN_REMAT", "0") == "1" if remat is None else bool(remat)
+
+
+def run_layer(remat: bool, layer, *args):
+    """``layer(*args)``; with ``remat`` while autograd records, under
+    ``torch.utils.checkpoint`` (the JAX ``_maybe_remat``): the layer's
+    activations are dropped after the forward and recomputed in the
+    backward, so training holds one layer's activations instead of every
+    layer's. Inference (no grad) runs the layer as it is."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
 
 
 class LayerNorm(nn.Module):
@@ -228,24 +247,33 @@ class DecoderLayer(EncoderLayer):
 
 
 class TransformerEncoder(nn.Module):
-    def __init__(self, dim: int, nhead: int, hidden: int, n_layers: int):
+    """Encoder layers + final LayerNorm; ``remat`` (default
+    ``remat_default()``): per-layer rematerialization in training."""
+
+    def __init__(self, dim: int, nhead: int, hidden: int, n_layers: int,
+                 remat: bool | None = None):
         super().__init__()
         self.layers = nn.ModuleList(EncoderLayer(dim, nhead, hidden)
                                     for _ in range(n_layers))
         self.norm = LayerNorm(dim)
+        self.remat = remat_default(remat)
 
     def forward(self, x, key_padding_mask=None, options: NarOptions = DEFAULT_OPTIONS):
         for layer in self.layers:
-            x = layer(x, key_padding_mask, options)
+            x = run_layer(self.remat, layer, x, key_padding_mask, options)
         return self.norm(x)
 
 
 class TransformerDecoder(nn.Module):
-    def __init__(self, dim: int, nhead: int, hidden: int, n_layers: int):
+    """Decoder layers + final LayerNorm; ``remat`` as ``TransformerEncoder``'s."""
+
+    def __init__(self, dim: int, nhead: int, hidden: int, n_layers: int,
+                 remat: bool | None = None):
         super().__init__()
         self.layers = nn.ModuleList(DecoderLayer(dim, nhead, hidden)
                                     for _ in range(n_layers))
         self.norm = LayerNorm(dim)
+        self.remat = remat_default(remat)
 
     def forward(self, x, memory, tgt_key_padding_mask=None,
                 memory_key_padding_mask=None, q_tail_start: int = 0, mega=None,
@@ -267,7 +295,8 @@ class TransformerDecoder(nn.Module):
         last = self.layers[-1]
         sliced = bool(q_tail_start) and last.is_quantized and options.fused
         for layer in self.layers[:-1] if sliced else self.layers:
-            x = layer(x, memory, tgt_key_padding_mask, memory_key_padding_mask, options)
+            x = run_layer(self.remat, layer, x, memory, tgt_key_padding_mask,
+                          memory_key_padding_mask, options)
         if sliced:
             return self.norm(last.forward_w8a8(x, memory, tgt_key_padding_mask,
                                                memory_key_padding_mask, q_tail_start,

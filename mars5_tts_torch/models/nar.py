@@ -22,7 +22,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.attention import linear
-from ..ops.embeddings import timestep_embedding
+from ..ops.embeddings import lookup, timestep_embedding
 from ..ops.quant import int8_matmul, is_quantized, linear_any, quantize_act
 from ..utils.masks import length_to_mask
 from .ar import ChunkedEmbedding, SinePositionalEmbedding
@@ -58,12 +58,12 @@ class ResidualTransformerConfig:
 class Transformer(nn.Module):
     """The ``tfm`` encoder/decoder pair."""
 
-    def __init__(self, cfg: ResidualTransformerConfig):
+    def __init__(self, cfg: ResidualTransformerConfig, remat: bool | None = None):
         super().__init__()
         self.encoder = TransformerEncoder(cfg.dim, cfg.nhead, cfg.hidden_dim,
-                                          cfg.enc_layers)
+                                          cfg.enc_layers, remat)
         self.decoder = TransformerDecoder(cfg.dim, cfg.nhead, cfg.hidden_dim,
-                                          cfg.dec_layers)
+                                          cfg.dec_layers, remat)
 
 
 def _timestep_mlp(cfg: ResidualTransformerConfig):
@@ -80,20 +80,23 @@ def _mlp(seq: nn.Sequential, x):
 
 
 class ResidualTransformer(nn.Module):
-    def __init__(self, cfg: ResidualTransformerConfig):
+    """``remat``: per-layer rematerialization of every stack in training
+    (default ``MARS5_TRAIN_REMAT``)."""
+
+    def __init__(self, cfg: ResidualTransformerConfig, remat: bool | None = None):
         super().__init__()
         self.cfg = cfg
         self.text_embed = nn.Embedding(cfg.n_text_vocab, cfg.dim)
         self.cond_pos_embedding = SinePositionalEmbedding()
         self.pos_embedding = SinePositionalEmbedding()
         self.ref_pos_embedding = SinePositionalEmbedding()
-        self.tfm = Transformer(cfg)
+        self.tfm = Transformer(cfg, remat)
         self.timestep_encoder_emb = _timestep_mlp(cfg)
         self.timestep_decoder_emb = _timestep_mlp(cfg)
         self.ref_embedder = ChunkedEmbedding(cfg.c_quant_levels, cfg.n_quant, cfg.dim)
         self.spk_identity_emb = nn.Embedding(1, cfg.dim)
         self.spk_encoder = TransformerEncoder(cfg.dim, cfg.nhead, cfg.hidden_dim,
-                                              cfg.n_spk_layers)
+                                              cfg.n_spk_layers, remat)
         self.residual_encoder = ChunkedEmbedding(cfg.c_quant_levels, cfg.n_quant,
                                                  cfg.dim)
         self.residual_decoder = nn.ModuleList(_head(cfg)
@@ -121,7 +124,7 @@ class ResidualTransformer(nn.Module):
     def enc_inputs(self, c_text, c_texts_length, spk):
         """Timestep-free encoder stream [spk] ++ text with sine positions, and
         its padding mask; the encoder input at step t is ``c + t_enc[:, None]``."""
-        text_emb = self.text_embed.weight[c_text]
+        text_emb = lookup(self.text_embed.weight, c_text)
         c = torch.cat([spk[:, None].to(text_emb.dtype), text_emb], dim=1)
         c_lengths = c_texts_length + 1
         c_padding = length_to_mask(c_lengths, torch.zeros_like(c_lengths), c.shape[1])

@@ -6,6 +6,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.nn import functional as F
+
+from ..utils.device import is_dtensor
 
 
 def sine_pe_table(length: int, dim: int, device=None):
@@ -38,6 +41,48 @@ def timestep_embedding(timesteps, dim: int, max_period: float = 10000.0,
     return emb.to(dtype)
 
 
+def lookup(table, idx):
+    """``table[idx]`` as ``F.embedding``, also for a DTensor table held whole
+    on its mesh; a table sharded along its rows (vocabulary-parallel) takes
+    ``_vocab_parallel_lookup``."""
+    if is_dtensor(table) and any(p.is_shard(0) for p in table.placements):
+        return _vocab_parallel_lookup(table, idx)
+    return F.embedding(idx, table)
+
+
+def _vocab_parallel_lookup(table, idx):
+    """``table[idx]`` for a DTensor table sharded along its rows on one mesh
+    dim (Megatron's vocabulary-parallel embedding): each device looks its
+    ids up in its own rows, zeros for ids outside them, and the rows sum
+    over that dim. Plain tensor work between ``to_local`` and
+    ``from_local``, so no DTensor rule of the gather or of its backward is
+    needed. ``idx`` is a DTensor on the same mesh or a plain tensor held
+    whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = table.device_mesh
+    (dim,) = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    ids_placements = idx.placements if is_dtensor(idx) else (Replicate(),) * mesh.ndim
+    if not ids_placements[dim].is_replicate():
+        raise ValueError("the ids must be whole on the dim that splits the table")
+    # where the ids are split (dp), each device's rows gather the gradient
+    # of its own ids only: partial sums
+    local = table.to_local(grad_placements=[
+        Partial() if i != dim and p.is_shard() else table.placements[i]
+        for i, p in enumerate(ids_placements)])
+    rows = local.shape[0]
+    if rows * mesh.size(dim) != table.shape[0]:
+        raise ValueError(f"{table.shape[0]} rows do not split evenly over {mesh.size(dim)}")
+    start = mesh.get_local_rank(dim) * rows
+    ids = idx.to_local() if is_dtensor(idx) else idx
+    inside = (ids >= start) & (ids < start + rows)
+    out = F.embedding(torch.where(inside, ids - start, 0), local) * inside[..., None]
+    placements = [Partial() if i == dim else p for i, p in enumerate(ids_placements)]
+    out = DTensor.from_local(out, mesh, placements, run_check=False)
+    return out.redistribute(mesh, [Replicate() if i == dim else p
+                                   for i, p in enumerate(placements)])
+
+
 def chunked_embed(tables, x):
     """Per-codebook lookups of x (..., n_q) in ``tables[i]``, concatenated."""
-    return torch.cat([t[x[..., i]] for i, t in enumerate(tables)], dim=-1)
+    return torch.cat([lookup(t, x[..., i]) for i, t in enumerate(tables)], dim=-1)

@@ -276,6 +276,24 @@ def kernel_launches() -> int:
     return lib.mars5_mha_kernel_launches()
 
 
+def takes_twin(q) -> bool:
+    """Whether ``mha`` computes on ``q`` with its plain twin: CPU tensors."""
+    return q.device.type == "cpu"
+
+
+def refuse_autograd(q, k, v) -> None:
+    """Raise when autograd records and q, k or v needs a gradient: K1 has no
+    backward, as the TPU kernel it ports has none (``jax.grad`` through
+    ``sdpa_pallas`` fails to linearize), so the kernel route never cuts a
+    gradient in silence."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "mha: kernel K1 has no backward (nor has the TPU kernel it ports); "
+            "a CUDA attention with autograd recording must stay under "
+            "ops.attention.KERNEL_SELF_ATTN_MIN_LEN queries, where it takes the "
+            "plain attention, or run under torch.no_grad()")
+
+
 def mha(q, k, v, key_padding_mask=None, quantized: bool = False):
     """Attention of q (B, Lq, H, D) over k/v (B, Lk, H, D) -> (B, Lq, H, D);
     ``quantized``: the int8 QK / PV mode (``mha_ref``).
@@ -283,10 +301,12 @@ def mha(q, k, v, key_padding_mask=None, quantized: bool = False):
     CPU tensors take ``mha_ref``; CUDA tensors launch the kernel (bf16 or
     f32, the int8 mode bf16 only; D = 64, views as ``tensor_map_strides``
     takes them) and raise on anything it does not take (``launch_args``,
-    ``int8_launch_args``).
+    ``int8_launch_args``), and on inputs that need a gradient while
+    autograd records: the kernel has no backward.
     """
-    if q.device.type == "cpu":
+    if takes_twin(q):
         return mha_ref(q, k, v, key_padding_mask, quantized)
+    refuse_autograd(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"mha: unsupported device {q.device}")
     args = (int8_launch_args if quantized else launch_args)(q, k, v, key_padding_mask)

@@ -1,6 +1,8 @@
-"""Serving on one device (counterpart of ``mars5_tts_tpu/serving``):
+"""Serving (counterpart of ``mars5_tts_tpu/serving``): on one device,
 continuous batching of the AR over a pool of rows, NAR waves, long-form
-narration and progressive intra-utterance streaming."""
+narration and progressive intra-utterance streaming; across devices, the
+data-parallel decoders of ``serving.multichip`` (imported on its own: it
+needs ``torch.distributed``)."""
 
 from .continuous import ContinuousBatcher, FusedContinuousBatcher, Request
 from .longform import (LongformResult, StreamChunk, chunk_text, crossfade_concat,

@@ -1413,3 +1413,152 @@ def test_pool_rows_equal_solo_runs_on_gpu(dev, width):
         ref, n = ar_generate(model, q.prompt, q.spk_codes, sampling=s, uniforms=q.uniforms)
         np.testing.assert_array_equal(q.tokens, ref, err_msg=f"request {i}")
         assert q.n_gen == n
+
+
+def test_mha_kernel_refuses_autograd(dev):
+    """K1 has no backward: a CUDA attention past the 512-query threshold with
+    autograd recording raises, in ``mha`` and through a NAR forward at 600
+    frames; under ``no_grad`` (inference) the kernel launches as before."""
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    q, k, v = _qkv((1, 600, 4, 64), 600, torch.float32, dev, seed=3)
+    q.requires_grad_(True)
+    n0 = K.launch_count
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.mha(q, k, v)
+    assert K.launch_count == n0
+    with torch.no_grad():
+        K.mha(q, k, v)
+    assert K.launch_count == n0 + 1
+    with torch.device(dev):
+        nar = ResidualTransformer(ResidualTransformerConfig.tiny()).init_(
+            torch.Generator(device=dev).manual_seed(0))
+    args = [torch.zeros(s, dtype=torch.long, device=dev) for s in ((1, 5), (1, 6, 8))]
+    args += [torch.full((1,), 5, device=dev), torch.full((1,), 6, device=dev),
+             torch.zeros((1, 600, 8), dtype=torch.long, device=dev),
+             torch.zeros((1, 600), dtype=torch.bool, device=dev),
+             torch.zeros((1,), dtype=torch.long, device=dev)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        nar(*args)
+
+
+def _tiny_grads(ar, nar, diff, ab, nb, draws, dev, mesh=None):
+    """{"ar"|"nar": {name: gradient}} of the AR and NAR losses at the
+    modules' present parameters (the step's own gradients, before its
+    optimizer runs), as global host tensors."""
+    from mars5_tts_torch import train as T
+
+    out = {}
+    with T._spmd(mesh):
+        for tag, model, loss in (
+                ("ar", ar, lambda: T.ar_loss_fn(ar, *T.to_batch(ab, T.AR_DTYPES, dev, mesh))),
+                ("nar", nar, lambda: T.nar_loss_fn(nar, diff, T.to_batch(nb, T.NAR_DTYPES, dev,
+                                                                         mesh), draws))):
+            params = T.trainable_params(model)
+            grads = torch.autograd.grad(loss(), list(params.values()))
+            out[tag] = {n: T._full(g).detach().cpu() for n, g in zip(params, grads)}
+    return out
+
+
+def _tiny_params(ar, nar):
+    from mars5_tts_torch import train as T
+
+    return {tag: {n: T._full(p.detach()).cpu() for n, p in m.named_parameters()}
+            for tag, m in (("ar", ar), ("nar", nar))}
+
+
+def test_train_step_on_gpu_matches_cpu(dev):
+    """One ``train.make_train_step`` step of a tiny AR and NAR on the card and
+    on the CPU, same weights, batch and draws: the step's gradients within
+    atol 1e-5 + rtol 1e-4, the losses within rtol 1e-4, and the parameters
+    after the step within 1e-5 beyond the difference of the two Adam
+    updates that each side's gradients give (``assert_adam_step_close``)."""
+    from torch_port_fixtures import assert_adam_step_close
+
+    from mars5_tts_torch import data, train as T
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+
+    corpus = data.synthetic_corpus(4, text_vocab=16)
+    ab, nb = next(data.batches(corpus, 2, n_text_vocab_offset=16, eos_idx=63))
+    out = {}
+    lr, wd = 1e-3, 0.01
+    for where in (torch.device("cpu"), dev):
+        g = torch.Generator().manual_seed(0)
+        ar = CodecLM(CodecLMConfig.tiny(64)).init_(g).to(where)
+        nar = ResidualTransformer(ResidualTransformerConfig.tiny(16)).init_(g).to(where)
+        diff = MultinomialDiffusion(1025, timesteps=8, device=where)
+        draws = T.nar_draws(MultinomialDiffusion(1025, timesteps=8), nb[4].shape,
+                            torch.Generator().manual_seed(1))
+        draws = T.NarDraws(*(x.to(where) for x in (draws.t, draws.u, draws.drop)))
+        grads = _tiny_grads(ar, nar, diff, ab, nb, draws, where)
+        opt = T.make_optimizer(lr, weight_decay=wd, clip_norm=1.0)
+        state, m = T.make_train_step(diff, opt)(T.init_train_state(ar, nar, opt), ab, nb, draws)
+        out[where.type] = (m, grads, _tiny_params(ar, nar))
+    (m_cpu, g_cpu, p_cpu), (m_gpu, g_gpu, p_gpu) = out["cpu"], out["cuda"]
+    for tag in ("ar", "nar"):
+        for n, gr in g_cpu[tag].items():
+            np.testing.assert_allclose(g_gpu[tag][n].numpy(), gr.numpy(), atol=1e-5, rtol=1e-4,
+                                       err_msg=f"{tag}.{n}")
+        np.testing.assert_allclose(float(m_gpu[f"{tag}_loss"]), float(m_cpu[f"{tag}_loss"]),
+                                   rtol=1e-4)
+        assert_adam_step_close(p_gpu[tag], p_cpu[tag], g_gpu[tag], g_cpu[tag], lr, 1e-5, 1.0)
+
+
+def test_sharded_train_step_on_one_gpu(dev):
+    """``shard_train_state`` on a one-process NCCL mesh (dp 1 x tp 1): the
+    DTensor step on the card gives the plain step's gradients (atol 1e-6 +
+    rtol 1e-5), losses (within 1e-6) and parameters (within 1e-6 beyond the
+    difference of the two Adam updates, ``assert_adam_step_close``)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch_port_fixtures import assert_adam_step_close
+
+    from mars5_tts_torch import data, train as T
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.parallel import codeclm_specs, make_mesh, nar_specs
+
+    corpus = data.synthetic_corpus(4, text_vocab=16)
+    ab, nb = next(data.batches(corpus, 2, n_text_vocab_offset=16, eos_idx=63))
+    diff = MultinomialDiffusion(1025, timesteps=8, device=dev)
+    lr, wd = 1e-3, 0.01
+    opt = T.make_optimizer(lr, weight_decay=wd, clip_norm=1.0)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=dev if dev.index is not None else torch.device("cuda", 0))
+    try:
+        out = []
+        for sharded in (False, True):
+            g = torch.Generator().manual_seed(0)
+            ar = CodecLM(CodecLMConfig.tiny(64)).init_(g).to(dev)
+            nar = ResidualTransformer(ResidualTransformerConfig.tiny(16)).init_(g).to(dev)
+            state = T.init_train_state(ar, nar, opt, seed=3)
+            mesh = None
+            if sharded:
+                mesh = make_mesh(dp=1, tp=1)
+                state = T.shard_train_state(mesh, state, codeclm_specs(ar, 1), nar_specs(nar, 1))
+            draws = T.nar_draws(diff, nb[4].shape, torch.Generator(device=dev).manual_seed(1))
+            step_draws = draws
+            if mesh is not None:
+                step_draws = T.NarDraws(*(T._on_dp(mesh, x)
+                                          for x in (draws.t, draws.u, draws.drop)))
+            grads = _tiny_grads(state.ar, state.nar, diff, ab, nb, step_draws, dev, mesh)
+            state, m = T.make_train_step(diff, opt)(state, ab, nb, draws)
+            out.append(({k: float(v) for k, v in m.items()}, grads,
+                        _tiny_params(state.ar, state.nar)))
+    finally:
+        dist.destroy_process_group()
+    (m0, g0, p0), (m1, g1, p1) = out
+    for tag in ("ar", "nar"):
+        for n, gr in g0[tag].items():
+            np.testing.assert_allclose(g1[tag][n].numpy(), gr.numpy(), atol=1e-6, rtol=1e-5,
+                                       err_msg=f"{tag}.{n}")
+        assert abs(m0[f"{tag}_loss"] - m1[f"{tag}_loss"]) <= 1e-6 * abs(m0[f"{tag}_loss"])
+        assert_adam_step_close(p1[tag], p0[tag], g1[tag], g0[tag], lr, 1e-6, 1.0)

@@ -331,14 +331,11 @@ def _nar_draws(fn, grids, name, drop, steps):
     return run
 
 
-@pytest.mark.parametrize("nar_backend", ["bf16", "int8"])
-def test_deploy_configuration_matches_jax_pipeline(monkeypatch, nar_backend):
-    """``deploy/predict.py``'s defaults through both pipelines (fused4 AR,
-    ``guidance_interval=(0, 0.5)``, buckets 64 / 32) on shared AR uniforms
-    and NAR draws: identical AR codes; with the bf16 NAR an identical grid,
-    with the int8 NAR (each package quantizing its own) the W8A8 NAR's bound
-    of ``tests/test_torch_diffusion_tail.py`` (identity on converted weights
-    is the next test)."""
+def _deploy_pipelines(monkeypatch, nar_backend):
+    """``deploy/predict.py``'s defaults (fused4 AR, ``guidance_interval=(0,
+    0.5)``, buckets 64 / 32) through both pipelines on shared AR uniforms
+    and NAR draws, each package quantizing its own int8 NAR. Returns (the
+    port's and the JAX pipeline's (codes, audio), {"port", "jax"} grids)."""
     import mars5_tts_tpu.models.ar_decode_fused as JF
     import mars5_tts_tpu.pipeline as JP
     import mars5_tts_torch.pipeline as PP
@@ -372,6 +369,18 @@ def test_deploy_configuration_matches_jax_pipeline(monkeypatch, nar_backend):
     icfg = InferenceConfig(timesteps=steps, generate_max_len_override=100, trim_db=200)
     outs = {name: tts.tts("hi there", ref, ref_transcript="ok", cfg=icfg, seed=3)
             for name, tts in (("jax", jtts), ("port", ptts))}
+    return outs, grids
+
+
+@pytest.mark.parametrize("nar_backend", ["bf16", "int8"])
+def test_deploy_configuration_matches_jax_pipeline(monkeypatch, nar_backend):
+    """``deploy/predict.py``'s defaults through both pipelines (fused4 AR,
+    ``guidance_interval=(0, 0.5)``, buckets 64 / 32) on shared AR uniforms
+    and NAR draws: identical AR codes; with the bf16 NAR an identical grid,
+    with the int8 NAR (each package quantizing its own) the W8A8 NAR's bound
+    of ``tests/test_torch_diffusion_tail.py`` (identity with the JAX GEMM
+    kernels and attention swapped in is the test after next)."""
+    outs, grids = _deploy_pipelines(monkeypatch, nar_backend)
     np.testing.assert_array_equal(outs["port"][0], outs["jax"][0])
     assert len(outs["port"][0]) > 0 and np.isfinite(outs["port"][1]).all()
     assert grids["port"].shape == grids["jax"].shape
@@ -380,6 +389,49 @@ def test_deploy_configuration_matches_jax_pipeline(monkeypatch, nar_backend):
     else:
         np.testing.assert_array_equal(grids["port"][..., 0], grids["jax"][..., 0])
         assert (grids["port"] != grids["jax"]).mean() <= 0.04
+
+
+def test_w8a8_deploy_pipeline_identical_to_jax_with_its_gemms_and_attention(monkeypatch):
+    """The int8 deploy pipeline's few differing grid cells (the test above)
+    are the f32 attention's sums taken in PyTorch's order: with the JAX GEMM
+    kernels (K3/K4, interpret mode) swapped into the port, the pipelines
+    still part in a few cells (the quantized weights, the reference codes,
+    the bucketed batch and masks each bitwise JAX's), because the
+    attention's f32 sums (``mha_ref`` against ``sdpa_pallas``, ``sdpa``'s
+    einsums against XLA's dots) round in the last ulp, and the W8A8
+    activation quant of the next site turns that into another int8 value
+    now and then. Given JAX's attention as well (``sdpa_pallas`` in
+    interpret mode for K1's twin, the JAX ``sdpa`` for the plain one), the
+    grid is JAX's, cell for cell."""
+    import mars5_tts_tpu.ops.attention as JA
+    from mars5_tts_tpu.ops.pallas.mha import sdpa_pallas
+    import mars5_tts_torch.ops.attention as PA
+    from mars5_tts_torch.models import layers
+    from mars5_tts_torch.ops.kernels import mha as PM
+    from tests.test_torch_diffusion_tail import _pallas_gemms
+
+    def j(t):
+        return None if t is None else jnp.asarray(t.detach().numpy())
+
+    def back(y, like):
+        return torch.from_numpy(np.array(y)).to(like.dtype)
+
+    def jax_mha(q, k, v, key_padding_mask=None, quantized=False):
+        assert not quantized
+        return back(sdpa_pallas(j(q), j(k), j(v), j(key_padding_mask), interpret=True), q)
+
+    def jax_sdpa(q, k, v, mask=None):
+        return back(JA.sdpa(j(q), j(k), j(v), j(mask)), q)
+
+    fused_linear, fused_ffn = _pallas_gemms()
+    monkeypatch.setattr(layers, "fused_linear", fused_linear)
+    monkeypatch.setattr(layers, "fused_ffn", fused_ffn)
+    monkeypatch.setattr(PM, "mha", jax_mha)
+    monkeypatch.setattr(PA, "sdpa", jax_sdpa)
+    monkeypatch.setattr(layers, "sdpa", jax_sdpa)
+    outs, grids = _deploy_pipelines(monkeypatch, "int8")
+    np.testing.assert_array_equal(outs["port"][0], outs["jax"][0])
+    np.testing.assert_array_equal(grids["port"], grids["jax"])
 
 
 def test_w8a8_deploy_options_identical_to_jax_on_its_gemm_kernels(monkeypatch):

@@ -510,3 +510,39 @@ def test_unfused_int8_attention_trajectory_matches_jax(monkeypatch):
     want, got = _trajectory(monkeypatch, {"MARS5_NAR_FUSED": "0"},
                             NarOptions(fused=False, qattn=True, cross_k1=True), 0, ())
     _within_w8a8_limit(got, want)
+
+
+def test_k1_refuses_autograd_on_its_cuda_route(monkeypatch):
+    """K1 has no backward (nor has ``sdpa_pallas``, whose ``jax.grad`` fails
+    to linearize): on its CUDA route ``mha`` raises when autograd records
+    and q, k or v needs a gradient, never falling back to the twin. Driven
+    on the CPU by taking the kernel route (``kernel_route``, the 512-query
+    threshold) and the CUDA branch of the wrapper (``takes_twin``); under
+    ``no_grad`` the call goes past the refusal to the device check."""
+    import mars5_tts_torch.ops.attention as PA
+    from mars5_tts_torch.models.convert import load_nar, nar_reference_state_dict
+    from mars5_tts_torch.models.nar import ResidualTransformerConfig
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    monkeypatch.setattr(PA, "KERNEL_SELF_ATTN_MIN_LEN", 8)
+    monkeypatch.setattr(PA, "kernel_route", lambda _t: True)
+    monkeypatch.setattr(K, "takes_twin", lambda _q: False)
+    cfgs, params = tiny_models()
+    pcfg = port_config(cfgs["nar"], ResidualTransformerConfig)
+    nar = load_nar(nar_reference_state_dict(params["nar"], pcfg), pcfg, trainable=True)
+    rng = np.random.default_rng(0)
+    args = (torch.from_numpy(rng.integers(0, 32, (1, 5))),
+            torch.from_numpy(rng.integers(0, 1024, (1, 4, 8))), torch.tensor([5]),
+            torch.tensor([4]), torch.from_numpy(rng.integers(0, 1024, (1, 12, 8))),
+            torch.zeros((1, 12), dtype=torch.bool), torch.tensor([3]))
+    n0 = K.launch_count
+    with pytest.raises(RuntimeError, match="no backward"):
+        nar(*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="unsupported device"):
+        nar(*args)
+    q = torch.zeros((1, 12, 4, 16), requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.mha(q, q.detach(), q.detach())
+    with torch.inference_mode(), pytest.raises(ValueError, match="unsupported device"):
+        K.mha(q, q, q)
+    assert K.launch_count == n0

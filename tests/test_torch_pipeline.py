@@ -332,6 +332,19 @@ _BLOCKED = textwrap.dedent("""
     assert logits.shape == (1, 64) and torch.isfinite(logits).all()
     assert decode_layer.launch_count == head4.launch_count == 0 and not build._loaded
     print("kernel module ok")
+    from mars5_tts_torch import data, parallel, train
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.serving import multichip
+    corpus = data.synthetic_corpus(4, text_vocab=16)
+    ab, nb = next(data.batches(corpus, 2, n_text_vocab_offset=16, eos_idx=63))
+    opt = train.make_optimizer(1e-3, clip_norm=1.0)
+    state = train.init_train_state(CodecLM(CodecLMConfig.tiny(64)).init_(g),
+                                   ResidualTransformer(ResidualTransformerConfig.tiny(16)).init_(g),
+                                   opt)
+    state, m = train.make_train_step(MultinomialDiffusion(1025, 8), opt)(state, ab, nb)
+    assert np.isfinite(float(m["ar_loss"])) and np.isfinite(float(m["nar_loss"]))
+    assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+    print("train ok")
 """)
 
 
@@ -372,6 +385,12 @@ def test_port_sources_import_nothing_of_the_jax_package():
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("mars5_tts_tpu", "jax", "jaxlib")]
     assert not bad, bad
+
+
+def test_training_modules_run_with_jax_blocked(blocked_run):
+    """``data``, ``train``, ``parallel`` and ``serving.multichip`` import, and
+    a train step runs, with jax and the JAX package blocked."""
+    assert "train ok" in blocked_run.stdout, blocked_run.stderr
 
 
 def test_kernel_module_imports_without_nvcc(blocked_run):

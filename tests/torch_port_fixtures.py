@@ -133,3 +133,30 @@ def write_checkpoints(tmpdir, seed: int = 0):
     save_checkpoint(nar_path, nar_reference_state_dict(params["nar"], nar_cfg), vocab,
                     config=dataclasses.asdict(nar_cfg))
     return ar_path, nar_path
+
+
+
+def adam_first_update(grads: dict, clip_norm: float = 0.0, eps: float = 1e-8) -> dict:
+    """AdamW's first update direction from one model's gradients {name: g}:
+    g / (|g| + eps) after optax's global-norm clip, in f64."""
+    g = {n: np.asarray(v, np.float64) for n, v in grads.items()}
+    norm = np.sqrt(sum(float((v * v).sum()) for v in g.values()))
+    s = clip_norm / norm if clip_norm and norm >= clip_norm else 1.0
+    return {n: v * s / (np.abs(v * s) + eps) for n, v in g.items()}
+
+
+def assert_adam_step_close(after: dict, ref_after: dict, grads: dict, ref_grads: dict,
+                           lr: float, atol: float, clip_norm: float = 0.0):
+    """One model's parameters after its first AdamW step against a
+    reference run's, each run's gradients given: every entry within
+    ``atol + 2 lr |u - u_ref|``, u and u_ref the update each run's own
+    gradients give (``adam_first_update``). Where |g| >> eps both are
+    sign(g) and the bound is ``atol``; where |g| is within ~100 eps of zero
+    the update follows the gradient's last bits, and the bound with it."""
+    u, ur = adam_first_update(grads, clip_norm), adam_first_update(ref_grads, clip_norm)
+    for n, ref in ref_after.items():
+        err = np.abs(np.asarray(after[n], np.float64) - np.asarray(ref, np.float64))
+        bound = atol + 2 * lr * np.abs(u[n] - ur[n])
+        bad = err > bound
+        assert not bad.any(), (f"{n}: {int(bad.sum())} of {err.size} entries past their bound, "
+                               f"worst {err[bad].max()} (bound there {bound[bad].max()})")
