@@ -106,6 +106,26 @@
    (dp = 1) on the served bf16 AR: its tokens bitwise those of
    ``ar_generate_batched`` (K7's launches read around it).
 
+7. The entry points from files on disk, after phase 5 and before anything
+   runs the profiler, on phase 4's seeded models: (a) the AR and NAR written
+   by ``hub.save_checkpoint`` (f32 leaves, the tokenizers and the config;
+   safetensors where it imports, else the reference's .pt layout), Encodec
+   and Vocos as official-key state dicts (weight-norm ``weight_g`` /
+   ``weight_v`` convs) and the request's 7 s reference as a PCM16 WAV, in a
+   temporary directory under ``build/`` that the phase removes, pass or
+   fail; (b) one deep-clone request through ``cli.main`` (the card by
+   default; the load and stage seconds), whose WAV must equal
+   ``Mars5TTS.from_local(...).tts`` on the same files and seed sample for
+   sample, K7 26 launches a decode step and K1 at least 16 a reverse step;
+   (c) ``deploy.predict.Predictor().setup()`` from the environment and
+   ``predict``: phase 5's deploy launch checks (K2 once a decode step, K6
+   100 CFG + 100 cond-only calls, K3 6,400, K4 3,200), its NAR ms a step
+   beside phase 5's; again with ``MARS5_NAR_MEGA=1`` (K9 200); (d)
+   ``quantize_codeclm`` (weight-only) under the bf16 engine, one request:
+   every generated token in the vocabulary window, its AR ms a token beside
+   phase 4's bf16 AR. A phase that fails prints
+   ``chip_smoke: phase <name> failed: ...`` before the traceback.
+
 After the requests (``torch.profiler`` slows a process's later launches),
 the device time of each launch of K3 and K4 (prologue and GEMM; K4's four)
 at one group and grouped, and the grouped calls' device time with their
@@ -1540,6 +1560,22 @@ def serve_batch(tts, label, texts, transcripts, ref_seconds, seed, want):
     return rec
 
 
+class phase:
+    """Names the phase a failure came from: the exception goes on, after a
+    line ``chip_smoke: phase <name> failed: <type>: <message>``."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, exc, tb):
+        if exc is not None:
+            print(f"chip_smoke: phase {self.name} failed: {kind.__name__}: {exc}", flush=True)
+        return False
+
+
 def main():
     import torch
 
@@ -1560,74 +1596,86 @@ def main():
     torch.cuda.set_device(dev)
 
     # -- 2. build: one nvcc per library, all started together
-    from mars5_tts_torch.ops.kernels import build, mha as K
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    build_s = time.perf_counter() - t0
-    for name, lib in libs.items():
-        regs = [ln.strip() for ln in build.build_log.get(name, "").splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"build: {lib.name} ({'compiled in %.1f s' % build.build_seconds[name] if name in build.build_seconds else 'already built'}); "
-              + " | ".join(regs), flush=True)
-    print(f"build: all libraries in {build_s:.1f} s", flush=True)
-    # every GEMM of K3/K4 (kG, the last template argument, 1 or 2: grouped)
-    # and K1's int8 kernels: registers and spills, none allowed
-    check_ptxas("nar_fused", ("w8a8_wgmma_gemm", "w8a8_wgmma_swiglu"))
-    if len(check_ptxas("mha", ("mha_int8_",))) != 3:
-        raise RuntimeError("mha: the ptxas log lacks one of the int8 mode's three kernels")
+    with phase("2 (build)"):
+        from mars5_tts_torch.ops.kernels import build, mha as K
+        t0 = time.perf_counter()
+        libs = build.build_all()
+        build_s = time.perf_counter() - t0
+        for name, lib in libs.items():
+            regs = [ln.strip() for ln in build.build_log.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln]
+            print(f"build: {lib.name} ({'compiled in %.1f s' % build.build_seconds[name] if name in build.build_seconds else 'already built'}); "
+                  + " | ".join(regs), flush=True)
+        print(f"build: all libraries in {build_s:.1f} s", flush=True)
+        # every GEMM of K3/K4 (kG, the last template argument, 1 or 2: grouped)
+        # and K1's int8 kernels: registers and spills, none allowed
+        check_ptxas("nar_fused", ("w8a8_wgmma_gemm", "w8a8_wgmma_swiglu"))
+        if len(check_ptxas("mha", ("mha_int8_",))) != 3:
+            raise RuntimeError("mha: the ptxas log lacks one of the int8 mode's three kernels")
 
     # -- 3. kernels against plain, on the card
-    gen = torch.Generator(device=dev).manual_seed(1)
-    main_res = check_kernel(K, MAIN_SHAPE, True, torch.bfloat16, gen, dev)
-    second = check_kernel(K, SECOND_SHAPE, False, torch.bfloat16, gen, dev)
-    check_kernel(K, (1, 600, 4, 64), True, torch.float32, gen, dev)
-    # the calls the int8 decoder makes: its last layer at the bench geometry,
-    # and every layer of the smoke request (strided views of the qkv projection)
-    k1_views = [check_kernel(K, (2, 750, 16, 64), True, torch.bfloat16, own_generator(dev, 11),
-                             dev, lk=MAIN_SHAPE[1], q_start=MAIN_SHAPE[1] - 750),
-                check_kernel(K, (2, MEGA_L, 16, 64), True, torch.bfloat16,
-                             own_generator(dev, 12), dev, lk=MEGA_L)]
-    w8a8 = check_nar_fused(gen, dev)
-    k6, k5 = check_heads_tail(gen, dev)
-    models = build_models(dev, torch)
-    k2 = check_decode_layer(models["ar"], gen, dev)
-    k8 = check_head4(models["ar"], gen, dev)
-    k7 = check_decode_attention(models["ar"].cfg, dev)
-    k1_modes = check_k1_modes(dev)
-    w8a8_g = check_nar_fused_grouped(dev)
-    # a short request (2 x 400 frames), where the plan takes 64-wide tiles for
-    # caq, the residual sites and lin2
-    w8a8_g_short = check_nar_fused_grouped(dev, SHORT_M)
-    # the serving path's new shapes: one batch row (a cond-only step), the
-    # greedy last step, a wave of three rows
-    k1_one = check_kernel(K, (1, MAIN_SHAPE[1], 16, 64), True, torch.bfloat16,
-                          own_generator(dev, 22), dev)
-    w8a8_one = check_nar_fused_one_row(dev)
-    k6_serving = check_heads_tail_serving(dev)
+    with phase("3 (kernels against their twins)"):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        main_res = check_kernel(K, MAIN_SHAPE, True, torch.bfloat16, gen, dev)
+        second = check_kernel(K, SECOND_SHAPE, False, torch.bfloat16, gen, dev)
+        check_kernel(K, (1, 600, 4, 64), True, torch.float32, gen, dev)
+        # the calls the int8 decoder makes: its last layer at the bench geometry,
+        # and every layer of the smoke request (strided views of the qkv projection)
+        k1_views = [check_kernel(K, (2, 750, 16, 64), True, torch.bfloat16, own_generator(dev, 11),
+                                 dev, lk=MAIN_SHAPE[1], q_start=MAIN_SHAPE[1] - 750),
+                    check_kernel(K, (2, MEGA_L, 16, 64), True, torch.bfloat16,
+                                 own_generator(dev, 12), dev, lk=MEGA_L)]
+        w8a8 = check_nar_fused(gen, dev)
+        k6, k5 = check_heads_tail(gen, dev)
+        models = build_models(dev, torch)
+        snap = snapshot_weights(models)       # phase 7's checkpoints, before phase 4 quantizes
+        k2 = check_decode_layer(models["ar"], gen, dev)
+        k8 = check_head4(models["ar"], gen, dev)
+        k7 = check_decode_attention(models["ar"].cfg, dev)
+        k1_modes = check_k1_modes(dev)
+        w8a8_g = check_nar_fused_grouped(dev)
+        # a short request (2 x 400 frames), where the plan takes 64-wide tiles for
+        # caq, the residual sites and lin2
+        w8a8_g_short = check_nar_fused_grouped(dev, SHORT_M)
+        # the serving path's new shapes: one batch row (a cond-only step), the
+        # greedy last step, a wave of three rows
+        k1_one = check_kernel(K, (1, MAIN_SHAPE[1], 16, 64), True, torch.bfloat16,
+                              own_generator(dev, 22), dev)
+        w8a8_one = check_nar_fused_one_row(dev)
+        k6_serving = check_heads_tail_serving(dev)
 
     # -- 4. main paths, each request with its launch counts from 0
-    records, main_launches, path_launches, nar8 = serve_paths(models, dev)
+    with phase("4 (main paths)"):
+        records, main_launches, path_launches, nar8 = serve_paths(models, dev)
     # -- 5. serving, before anything runs the profiler
-    serving = serve_serving(models, nar8, records, dev)
-    k9_one = {f"(1, {n})": check_mega_one_row(nar8.tfm.decoder, dev, n)
-              for n in (MEGA_L, MEGA_BENCH_L)}
-    # K9 on the served NAR's own int8 decoder weights
-    k9 = check_mega(nar8.tfm.decoder, dev)
-    w8a8_split = w8a8_launch_split(w8a8, w8a8_g)
-    k1_split = k1_int8_launch_split(k1_modes)
-    tile_ab = {m: grouped_tile_ab(res, m) for m, res in ((M_ROWS, w8a8_g),
-                                                         (SHORT_M, w8a8_g_short))}
-    idle = serving_idle_shares(serving)
+    with phase("5 (serving)"):
+        serving = serve_serving(models, nar8, records, dev)
+    # -- 7. the entry points from files on disk, before the profiler too
+    with phase("7 (entry points from files)"):
+        entry = entry_points(models, nar8, snap, records, serving)
+    del snap
+    with phase("3/5 (K9 and the launch splits after the requests)"):
+        k9_one = {f"(1, {n})": check_mega_one_row(nar8.tfm.decoder, dev, n)
+                  for n in (MEGA_L, MEGA_BENCH_L)}
+        # K9 on the served NAR's own int8 decoder weights
+        k9 = check_mega(nar8.tfm.decoder, dev)
+        w8a8_split = w8a8_launch_split(w8a8, w8a8_g)
+        k1_split = k1_int8_launch_split(k1_modes)
+        tile_ab = {m: grouped_tile_ab(res, m) for m, res in ((M_ROWS, w8a8_g),
+                                                             (SHORT_M, w8a8_g_short))}
+        idle = serving_idle_shares(serving)
     # -- 6. training and data-parallel decoding (the served AR for the decoder;
     # the other models leave the card first)
-    dp_decode = check_dp_decoder(models, dev)
+    with phase("6 (d) (data-parallel decoder)"):
+        dp_decode = check_dp_decoder(models, dev)
     for rec in serving.values():            # the reruns hold the served models
         if isinstance(rec, dict):
             rec.pop("_rerun", None)
     del nar8
     for name in ("nar", "encodec", "vocos"):
         models.pop(name, None)
-    train_phase(models, dev)
+    with phase("6 (training)"):
+        train_phase(models, dev)
     if any(m.split(".")[0] in ("jax", "mars5_tts_tpu") for m in sys.modules):
         raise RuntimeError("the port pulled in jax or the JAX package")
 
@@ -1637,7 +1685,9 @@ def main():
                 "launches": main_launches[name] if launches is None else launches,
                 "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-                "library_ms": st.get("library_ms")}
+                "library_ms": st.get("library_ms"),
+                "entry_launches": {label: rec["launches"][name] for label, rec in entry.items()
+                                   if isinstance(rec, dict) and "launches" in rec}}
 
     k6_worst = max(k6, key=lambda st: st["max_abs_err"])
     k2_main = k2[(4, AR_POSITIONS[0])]
@@ -2706,6 +2756,379 @@ def serving_idle_shares(serving):
     print("serving idle shares (device busy under the profiler against an unprofiled wall): "
           + json.dumps(out), flush=True)
     return out
+
+
+# ------------------------------------------- 7. entry points from files on disk
+
+ENTRY_REQUEST = ("The quick brown fox jumps over the lazy dog.", "A reference voice.", 11)
+
+
+def snapshot_weights(models):
+    """Host copies of the AR's and NAR's weights and configs, taken before
+    phase 4 quantizes the NAR and lets the bf16 one go: phase 7 writes its
+    checkpoints from them."""
+    return {name: ({k: v.detach().to("cpu", copy=True)
+                    for k, v in models[name].state_dict().items()}, models[name].cfg)
+            for name in ("ar", "nar")}
+
+
+def encodec_official(enc):
+    """Phase 4's Encodec as an official ``encodec_24khz`` state dict (the
+    inverse of ``convert_encodec``), every conv in the weight-norm form
+    ``weight_g`` / ``weight_v`` that ``_fold_weight_norm`` folds back."""
+    sd = {}
+
+    def conv(prefix, m):
+        w = m.weight.detach().float().cpu()
+        sd[f"{prefix}.weight_g"] = w.square().sum(dim=(1, 2), keepdim=True).sqrt()
+        sd[f"{prefix}.weight_v"] = w.clone()
+        sd[f"{prefix}.bias"] = m.bias.detach().float().cpu()
+
+    conv("encoder.model.0.conv.conv", enc.init)
+    idx = 1
+    for st in enc.stages:
+        conv(f"encoder.model.{idx}.block.1.conv.conv", st.res.conv1)
+        conv(f"encoder.model.{idx}.block.3.conv.conv", st.res.conv2)
+        conv(f"encoder.model.{idx}.shortcut.conv.conv", st.res.shortcut)
+        conv(f"encoder.model.{idx + 2}.conv.conv", st.down)
+        idx += 3
+    for name, p in enc.lstm.named_parameters():
+        sd[f"encoder.model.{idx}.lstm.{name}"] = p.detach().float().cpu()
+    conv(f"encoder.model.{idx + 2}.conv.conv", enc.final)
+    for q, e in enumerate(enc.codebooks):
+        sd[f"quantizer.vq.layers.{q}._codebook.embed"] = e.detach().float().cpu()
+    return sd
+
+
+def vocos_official(voc):
+    """Phase 4's Vocos as an official ``vocos-encodec-24khz`` state dict (the
+    inverse of ``convert_vocos``)."""
+    t = lambda p: p.detach().float().cpu()            # noqa: E731
+    sd = {"backbone.embed.weight": t(voc.embed.weight), "backbone.embed.bias": t(voc.embed.bias),
+          "backbone.norm.scale.weight": t(voc.norm.scale),
+          "backbone.norm.shift.weight": t(voc.norm.shift),
+          "backbone.final_layer_norm.weight": t(voc.final_layer_norm.weight),
+          "backbone.final_layer_norm.bias": t(voc.final_layer_norm.bias),
+          "head.out.weight": t(voc.out.weight), "head.out.bias": t(voc.out.bias)}
+    for i, blk in enumerate(voc.convnext):
+        pre = f"backbone.convnext.{i}"
+        sd.update({f"{pre}.dwconv.weight": t(blk.dwconv.weight),
+                   f"{pre}.dwconv.bias": t(blk.dwconv.bias),
+                   f"{pre}.norm.scale.weight": t(blk.norm.scale),
+                   f"{pre}.norm.shift.weight": t(blk.norm.shift),
+                   f"{pre}.pwconv1.weight": t(blk.pwconv1.weight),
+                   f"{pre}.pwconv1.bias": t(blk.pwconv1.bias),
+                   f"{pre}.pwconv2.weight": t(blk.pwconv2.weight),
+                   f"{pre}.pwconv2.bias": t(blk.pwconv2.bias), f"{pre}.gamma": t(blk.gamma)})
+    cb = t(voc.codebook_weights).reshape(voc.cfg.n_codebooks, voc.cfg.codebook_size, -1)
+    for k in range(voc.cfg.n_codebooks):
+        sd[f"feature_extractor.encodec.quantizer.vq.layers.{k}._codebook.embed"] = cb[k]
+    return sd
+
+
+def tokenizer_vocab(models):
+    """The checkpoints' vocab entry: both tokenizers' model files as text."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        out = {}
+        for key, tok in (("texttok.model", models["texttok"]),
+                         ("speechtok.model", models["speechtok"])):
+            tok.save(str(Path(d) / key[:-6]))
+            out[key] = (Path(d) / key).read_text()
+    return out
+
+
+def write_entry_files(d, snap, models):
+    """Phase 7 (a): the AR and NAR through the port's ``save_checkpoint`` (f32
+    leaves, the tokenizers in the vocab, the config beside them: safetensors
+    where the package imports, else the reference's .pt layout), Encodec
+    and Vocos as official-key state dicts through ``torch.save``, and the
+    request's 7 s reference as a PCM16 WAV. Returns the paths."""
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from mars5_tts_torch.audio.io import write_wav
+    from mars5_tts_torch.hub import save_checkpoint
+    from mars5_tts_torch.models.convert import unpermute_rope_rows
+
+    fmt = "safetensors" if importlib.util.find_spec("safetensors") else "pt"
+    vocab = tokenizer_vocab(models)
+    paths = {"ar": d / f"mars5_ar.{fmt}", "nar": d / f"mars5_nar.{fmt}",
+             "encodec": d / "encodec_24khz.pt", "vocos": d / "vocos_encodec_24khz.pt",
+             "ref": d / "reference.wav", "format": fmt}
+    t0 = time.perf_counter()
+    for name in ("ar", "nar"):
+        sd, cfg = snap[name]
+        tensors = {k: v.float().numpy() for k, v in sd.items()}
+        if name == "ar":
+            for k in [k for k in tensors if k.endswith(("attention.wq.weight",
+                                                        "attention.wk.weight"))]:
+                tensors[k] = unpermute_rope_rows(tensors[k], cfg.head_dim)
+        save_checkpoint(paths[name], tensors, vocab, config=dataclasses.asdict(cfg))
+    torch.save(encodec_official(models["encodec"]), paths["encodec"])
+    torch.save(vocos_official(models["vocos"]), paths["vocos"])
+    rng = np.random.default_rng(ENTRY_REQUEST[2])
+    write_wav(paths["ref"], (rng.standard_normal(int(REF_SECONDS * 24000)) * 0.1).astype(
+        np.float32))
+    write_s = time.perf_counter() - t0
+    sizes = {k: paths[k].stat().st_size for k in ("ar", "nar", "encodec", "vocos")}
+    print(f"phase 7 (a): wrote the checkpoints as {fmt} ("
+          + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in sizes.items())
+          + f") and the reference WAV in {write_s:.1f} s", flush=True)
+    return paths, {"format": fmt, "write_s": write_s, "bytes": sizes}
+
+
+def wav_pcm(path):
+    import wave
+
+    import numpy as np
+    with wave.open(str(path), "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def entry_cli(paths, models, steps_want):
+    """Phase 7 (b): one deep-clone request through ``cli.main`` (the card by
+    default) and the same request through ``Mars5TTS.from_local(...).tts`` on
+    the same files and seed: the WAV's PCM equal sample for sample; K7 26
+    launches a decode step and K1 at least one a decoder layer a reverse
+    step; no quantized kernel. The load seconds (the codecs' conversion and
+    ``from_local``) are the in-process load's, the same work as the CLI's."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from mars5_tts_torch import InferenceConfig, Mars5TTS, cli
+    from mars5_tts_torch.audio.io import float_to_pcm16, read_wav
+    from mars5_tts_torch.hub import load_codec_params
+
+    text, transcript, seed = ENTRY_REQUEST
+    n_text = len(models["texttok"].encode("<|startoftext|>" + transcript + " " + text
+                                          + "<|endoftext|>", allowed_special="all"))
+    max_len = n_text + int(REF_SECONDS * 75) + GEN_FRAMES
+    out = paths["ref"].parent / "cli.wav"
+    argv = ["--text", text, "--ref", str(paths["ref"]), "--transcript", transcript,
+            "--ar", str(paths["ar"]), "--nar", str(paths["nar"]), "--encodec",
+            str(paths["encodec"]), "--vocos", str(paths["vocos"]), "--out", str(out),
+            "--max-len", str(max_len), "--timesteps", str(STEPS), "--seed", str(seed),
+            "--timings"]
+    reset_counts()
+    AR_RUNS.clear()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        print(f"phase 7 (b) cli: {ln}", flush=True)
+    if rc != 0:
+        raise RuntimeError(f"phase 7 (b): cli.main returned {rc}")
+    timing = json.loads(lines[-1])
+    (rows, run_max_len), = AR_RUNS
+    steps = decode_steps(rows, run_max_len)
+    check_launches("phase 7 (b) CLI", launches, steps_want, steps)
+    t0 = time.perf_counter()
+    codecs = {"encodec_params": load_codec_params(paths["encodec"], "encodec"),
+              "vocos_params": load_codec_params(paths["vocos"], "vocos")}
+    codecs_s = time.perf_counter() - t0
+    tts = Mars5TTS.from_local(paths["ar"], paths["nar"], **codecs)
+    load_s = time.perf_counter() - t0
+    _, audio = tts.tts(text, read_wav(paths["ref"], 24000)[0], ref_transcript=transcript,
+                       cfg=InferenceConfig(generate_max_len_override=max_len, timesteps=STEPS),
+                       seed=seed)
+    del tts
+    want, got = float_to_pcm16(audio), wav_pcm(out)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        n = min(len(got), len(want))
+        diff = int((got[:n] != want[:n]).sum()) + abs(len(got) - len(want))
+        raise RuntimeError(f"phase 7 (b): the CLI's WAV differs from the in-process tts in "
+                           f"{diff} of {max(len(got), len(want))} samples")
+    (_, n_gen), = rows
+    rec = {"path": "CLI: bf16 AR + bf16 NAR from files (f32 weights)", "wall_s": wall,
+           "load_s": load_s, "codecs_s": codecs_s,
+           "ar_tokens": n_gen, "ar_steps": steps, "samples": int(len(got)),
+           "pcm_equal_in_process": True, "launches": launches,
+           "ar_ms_per_token": 1e3 * timing["stages_s"]["ar_generate"] / max(n_gen, 1),
+           "nar_ms_per_step": 1e3 * timing["stages_s"]["nar_diffusion"] / STEPS,
+           "stages_s": {k: round(v, 4) for k, v in timing["stages_s"].items()}}
+    print(f"phase 7 (b) CLI: {n_gen} AR tokens ({steps} decode steps), {len(got)} samples equal "
+          f"to the in-process tts; the in-process load from the files {load_s:.2f} s (the codec "
+          f"conversion {codecs_s:.2f} s of it); AR {rec['ar_ms_per_token']:.2f} ms a token, NAR "
+          f"{rec['nar_ms_per_step']:.2f} ms a step; wall {wall:.2f} s; K7 "
+          f"{launches['decode_attention']}, K1 {launches['mha']}; stages "
+          + json.dumps(rec["stages_s"]), flush=True)
+    return rec
+
+
+def entry_predictor(paths, want, want_mega, serving):
+    """Phase 7 (c): ``Predictor().setup()`` from the environment (the
+    checkpoints in ``MARS5_*_CKPT``, every route switch at its default) and
+    ``predict``: phase 5's deploy checks (K2 once a decode step, K6 100 CFG
+    + 100 cond-only calls, K3 and K4 once a decoder layer a reverse step),
+    its NAR ms a step beside phase 5's; then ``setup()`` again with
+    ``MARS5_NAR_MEGA=1``: K9 once a reverse step."""
+    import os
+
+    import numpy as np
+    import torch
+    from mars5_tts_torch.audio.io import read_wav
+    from mars5_tts_torch.deploy.predict import Predictor
+    from mars5_tts_torch.diffusion import engine
+
+    text, transcript, _ = ENTRY_REQUEST
+    saved = {k: os.environ.pop(k) for k in [k for k in os.environ if k.startswith("MARS5_")]}
+    os.environ.update({f"MARS5_{k.upper()}_CKPT": str(paths[k])
+                       for k in ("ar", "nar", "encodec", "vocos")})
+    recs = {}
+    try:
+        for label, extra, want_k in (("Predictor (deploy)", {}, want),
+                                     ("Predictor, MARS5_NAR_MEGA=1", {"MARS5_NAR_MEGA": "1"},
+                                      want_mega)):
+            os.environ.update(extra)
+            t0 = time.perf_counter()
+            pred = Predictor()
+            pred.setup()
+            setup_s = time.perf_counter() - t0
+            if pred.model.nar_mega != bool(extra):
+                raise RuntimeError(f"phase 7 (c) {label}: nar_mega is {pred.model.nar_mega}")
+            rows_cfg, undo = count_tail_rows(engine)
+            reset_counts()
+            AR_RUNS.clear()
+            t0 = time.perf_counter()
+            try:
+                out = pred.predict(text, str(paths["ref"]), transcript,
+                                   out_path=str(paths["ref"].parent / "predict.wav"))
+            finally:
+                undo()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts()
+            (rows, run_max_len), = AR_RUNS
+            steps = decode_steps(rows, run_max_len)
+            check_launches(f"phase 7 (c) {label}", launches, want_k, steps)
+            n_cfg = sum(rows_cfg)
+            if (n_cfg, len(rows_cfg) - n_cfg) != (STEPS // 2, STEPS // 2):
+                raise RuntimeError(f"phase 7 (c) {label}: K6 ran {n_cfg} CFG and "
+                                   f"{len(rows_cfg) - n_cfg} cond-only calls, expected "
+                                   f"{STEPS // 2} each")
+            audio, _ = read_wav(out)
+            if not (len(audio) > 0 and np.isfinite(audio).all()):
+                raise RuntimeError(f"phase 7 (c) {label}: empty or non-finite WAV")
+            timing = pred.model.last_timing
+            grid = tuple(pred.model.last_grid.shape)
+            del pred
+            (_, n_gen), = rows
+            phase5 = serving["deploy_mega" if extra else "deploy"]
+            rec = {"path": label, "setup_s": setup_s, "wall_s": wall, "ar_tokens": n_gen,
+                   "ar_steps": steps, "grid": list(grid), "launches": launches,
+                   "ar_ms_per_token": 1e3 * timing["stages_s"]["ar_generate"] / max(n_gen, 1),
+                   "nar_ms_per_step": 1e3 * timing["stages_s"]["nar_diffusion"] / STEPS,
+                   "phase5_nar_ms_per_step": phase5["nar_ms_per_step"],
+                   "phase5_grid": phase5["grid"],
+                   "stages_s": {k: round(v, 4) for k, v in timing["stages_s"].items()}}
+            print(f"phase 7 (c) {label}: setup {setup_s:.2f} s; {n_gen} AR tokens, grid {grid}, "
+                  f"AR {rec['ar_ms_per_token']:.2f} ms a token, NAR {rec['nar_ms_per_step']:.2f} "
+                  f"ms a step against phase 5's {phase5['nar_ms_per_step']:.2f} (grid "
+                  f"{tuple(phase5['grid'])}); launches {json.dumps(launches)}", flush=True)
+            recs[label] = rec
+    finally:
+        for k in [k for k in os.environ if k.startswith("MARS5_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+    return recs
+
+
+def entry_int8_ar(models, nar8, records, want):
+    """Phase 7 (d): ``quantize_codeclm`` (weight-only int8) of the served AR
+    on the bf16 engine with the int8 NAR, one request: finite audio, every
+    generated token inside the vocabulary window, K7 26 launches a decode
+    step; its AR ms a token beside phase 4's bf16 AR on the same request."""
+    import mars5_tts_torch.pipeline as pipeline
+    from mars5_tts_torch import Mars5TTS
+    from mars5_tts_torch.ops.quant import quantize_codeclm
+
+    t0 = time.perf_counter()
+    q_ar = quantize_codeclm(models["ar"])
+    quant_s = time.perf_counter() - t0
+    common = {k: models[k] for k in ("texttok", "speechtok", "encodec", "vocos")}
+    tts = Mars5TTS.from_params(q_ar, nar8, nar_backend="int8", **common)
+    seqs = []
+    engine = pipeline.ar_generate
+
+    def capture(*a, **k):
+        seqs.append(engine(*a, **k))
+        return seqs[-1]
+    pipeline.ar_generate = capture
+    try:
+        rec = serve(tts, "int8 AR (quantize_codeclm, weight-only) + int8 NAR", *ENTRY_REQUEST,
+                    want)
+    finally:
+        pipeline.ar_generate = engine
+    vs, ve = tts._valid_window
+    del tts, q_ar
+    (seq, n_gen), = seqs
+    gen = seq[len(seq) - n_gen:]
+    if n_gen < 1 or not ((gen >= vs) & (gen < ve)).all():
+        raise RuntimeError(f"phase 7 (d): {int(((gen < vs) | (gen >= ve)).sum())} of {n_gen} "
+                           f"generated tokens outside the vocabulary window [{vs}, {ve})")
+    bf16 = next(r for r in records if r["path"] == "bf16 AR + int8 NAR")
+    rec.update(quantize_s=quant_s, bf16_ar_ms_per_token=bf16["ar_ms_per_token"])
+    print(f"phase 7 (d) int8 AR: quantize_codeclm {quant_s:.2f} s; {n_gen} tokens in "
+          f"[{vs}, {ve}); AR {rec['ar_ms_per_token']:.2f} ms a token against "
+          f"{bf16['ar_ms_per_token']:.2f} for phase 4's bf16 AR on the same request", flush=True)
+    return rec
+
+
+def entry_points(models, nar8, snap, records, serving):
+    """Phase 7: the entry points from files on disk at the released widths.
+    The files live in a temporary directory under ``build/`` that the
+    phase removes, pass or fail."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    layers, ar_layers = snap["nar"][1].dec_layers, snap["ar"][1].n_layers
+    no_modes = {"mha_int8": (0, 0), "fused_linear_grouped": (0, 0), "fused_ffn_grouped": (0, 0)}
+    bf16_nar = {"mha": (layers * STEPS, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
+                "heads_diffusion_tail": (0, 0), "diffusion_tail": (0, 0),
+                "mega_decoder_stack": (0, 0), **no_modes}
+    int8 = {**bf16_nar, "fused_linear": (2 * layers * STEPS, 2 * layers * STEPS),
+            "fused_ffn": (layers * STEPS, layers * STEPS), "heads_diffusion_tail": (STEPS, STEPS)}
+    mega = {**int8, "mha": (0, 10 ** 9), "fused_linear": (0, 0), "fused_ffn": (0, 0),
+            "mega_decoder_stack": (STEPS, STEPS)}
+    bf16_ar = {"fused_decode_layers": (0, 0), "head4_logits": (0, 0),
+               "decode_attention": lambda n: (ar_layers * n, ar_layers * n)}
+    fused_ar = {"fused_decode_layers": lambda n: (n, n), "head4_logits": (0, 0),
+                "decode_attention": (0, 0)}
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="phase7-", dir=ROOT / "build"))
+    try:
+        paths, files = write_entry_files(d, snap, models)
+        recs = {"files": files}
+        recs["cli"] = entry_cli(paths, models, {**bf16_nar, **bf16_ar})
+        gc.collect()
+        torch.cuda.empty_cache()
+        recs.update(entry_predictor(paths, {**int8, **fused_ar}, {**mega, **fused_ar}, serving))
+        gc.collect()
+        torch.cuda.empty_cache()
+        recs["int8_ar"] = entry_int8_ar(models, nar8, records, {**int8, **bf16_ar})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs["phase_s"] = time.perf_counter() - t0
+    print(f"phase 7: entry points from files in {recs['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"entry_points": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                                       if isinstance(v, dict) else v
+                                       for k, v in recs.items()}}, default=str), flush=True)
+    return recs
 
 
 if __name__ == "__main__":

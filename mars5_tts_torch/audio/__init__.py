@@ -1,1 +1,2 @@
-"""Host-side audio DSP (the port's own copy of ``mars5_tts_tpu/audio/trim.py``)."""
+"""Host-side audio: silence trim and WAV I/O (the port's own copies of
+``mars5_tts_tpu/audio/trim.py`` and ``mars5_tts_tpu/audio/io.py``)."""

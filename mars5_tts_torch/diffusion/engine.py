@@ -245,11 +245,11 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                           torch.ones(bs, dtype=torch.bool, device=dev)])
         ccl_d = torch.where(drop, 0, ccl.repeat(2))
         codes_d = torch.where(drop[:, None, None], K - 1, c_codes.repeat(2, 1, 1))
-        spk = model.spk_embedding(codes_d, ccl_d)
+        spk = model.spk_embedding(codes_d, ccl_d, options)
         c_base, c_padding = model.enc_inputs(c_text.repeat(2, 1), ctl.repeat(2), spk)
         xpm_rows = xpm.repeat(2, 1)
     else:
-        spk = model.spk_embedding(c_codes, ccl)
+        spk = model.spk_embedding(c_codes, ccl, options)
         c_base, c_padding = model.enc_inputs(c_text, ctl, spk)
         xpm_rows = xpm
     rows, lc, dim = c_base.shape

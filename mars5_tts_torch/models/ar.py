@@ -16,9 +16,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.attention import banded_causal_mask, linear, sdpa
+from ..ops.attention import banded_causal_mask, sdpa
 from ..ops.embeddings import add_sine_pe, chunked_embed, lookup
 from ..ops.norms import rms_norm
+from ..ops.quant import is_quantized, linear_any
 from ..ops.rope import apply_rope_halfsplit, rope_angles
 from ..utils.masks import construct_padding_mask
 from .layers import TransformerEncoder, init_params_, remat_default, run_layer
@@ -80,8 +81,8 @@ class FeedForward(nn.Module):
         self.w3 = nn.Linear(cfg.dim, cfg.hidden_dim, bias=False)
 
     def forward(self, h):
-        return linear(F.silu(linear(h, self.w1.weight)) * linear(h, self.w3.weight),
-                      self.w2.weight)
+        return linear_any(F.silu(linear_any(h, self.w1.weight))
+                          * linear_any(h, self.w3.weight), self.w2.weight)
 
 
 class TransformerBlock(nn.Module):
@@ -100,15 +101,15 @@ class TransformerBlock(nn.Module):
         cfg, a = self.cfg, self.attention
         b, l, _ = x.shape
         h = self.attention_norm(x)
-        q = linear(h, a.wq.weight).reshape(b, l, cfg.n_heads, cfg.head_dim)
-        k = linear(h, a.wk.weight).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
-        v = linear(h, a.wv.weight).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+        q = linear_any(h, a.wq.weight).reshape(b, l, cfg.n_heads, cfg.head_dim)
+        k = linear_any(h, a.wk.weight).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+        v = linear_any(h, a.wv.weight).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
         return apply_rope_halfsplit(q, cos, sin), apply_rope_halfsplit(k, cos, sin), v
 
     def finish(self, x, attn):
         """Out-projection residual, then the FFN residual."""
         b, l = attn.shape[:2]
-        x = x + linear(attn.reshape(b, l, -1), self.attention.wo.weight)
+        x = x + linear_any(attn.reshape(b, l, -1), self.attention.wo.weight)
         return x + self.feed_forward(self.ffn_norm(x))
 
     def forward(self, x, cos, sin, mask):
@@ -140,7 +141,7 @@ class MistralTransformer(nn.Module):
         for layer in self.layers:
             x, kv = run_layer(self.remat, layer, x, cos, sin, mask)
             kvs.append(kv)
-        return linear(self.norm(x), self.output.weight), kvs
+        return linear_any(self.norm(x), self.output.weight), kvs
 
 
 class SinePositionalEmbedding(nn.Module):
@@ -179,6 +180,11 @@ class CodecLM(nn.Module):
         self.spk_identity_emb = nn.Embedding(1, cfg.dim)
         self.spk_encoder = TransformerEncoder(cfg.dim, cfg.n_heads,
                                               cfg.spk_hidden_dim, cfg.n_spk_layers, remat)
+
+    @property
+    def is_quantized(self) -> bool:
+        """Its block weights and head are int8 (``ops/quant.quantize_codeclm``)."""
+        return is_quantized(self.ar.output.weight)
 
     def spk_embedding(self, spk_codes):
         """(bs, S, 8) reference codes -> (bs, dim) implicit speaker vector:

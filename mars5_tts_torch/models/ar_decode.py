@@ -41,8 +41,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops.attention import linear
 from ..ops.kernels.decode_attention import decode_attention
+from ..ops.quant import linear_any
 from ..ops.rope import rope_angles
 from ..ops.sampling import (apply_typical_p, early_eos_penalty, filter_topk_subset_rows,
                             freq_presence_penalty, mask_vocab_window, sample_from_logprobs,
@@ -310,7 +310,7 @@ def decode_step(model: CodecLM, tokens, pos, cache: RingCache):
         cache.k[li, rows, slots] = k[:, 0]
         cache.v[li, rows, slots] = v[:, 0]
         x = layer.finish(x, attn[:, None])
-    logits = linear(model.ar.norm(x), model.ar.output.weight)[:, 0]
+    logits = linear_any(model.ar.norm(x), model.ar.output.weight)[:, 0]
     return logits.float()
 
 

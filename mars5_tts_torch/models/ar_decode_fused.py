@@ -50,16 +50,17 @@ from .ar_decode import (ArSampling, DecodeState, RowSampling, decode_loop, extra
 
 @torch.no_grad()
 def prepare_fused(codeclm: CodecLM, max_len: int, wbits: int = 8, head4: bool = False,
-                  batch: int = 1):
+                  batch: int = 1, int4_mse: bool = True):
     """The decode-time bundle of ``codeclm``: (pack, dims). The pack holds the
-    quantized backbone (``build_fused_pack``), the output head (int8 per-row,
-    or nibble-packed int4 with ``head4``, which needs ``wbits=4``), and the
-    model's final norm weight and embedding table. The pack does not depend
-    on ``batch`` (the rows a batched step takes, ``dims.batch``)."""
+    quantized backbone (``build_fused_pack``; ``int4_mse`` as there), the
+    output head (int8 per-row, or nibble-packed int4 with ``head4``, which
+    needs ``wbits=4``), and the model's final norm weight and embedding
+    table. The pack does not depend on ``batch`` (the rows a batched step
+    takes, ``dims.batch``)."""
     if head4 and wbits != 4:
         raise ValueError("the int4 head (head4) goes with the int4 backbone (wbits=4)")
     dims = make_dims(codeclm.cfg, max_len, wbits, batch)
-    fp = build_fused_pack(codeclm, dims)
+    fp = build_fused_pack(codeclm, dims, int4_mse)
     out_w = codeclm.ar.output.weight.detach()
     if head4:
         fp["head4_p"], fp["head4_s"] = pack_head4(out_w)

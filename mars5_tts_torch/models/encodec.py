@@ -4,8 +4,10 @@
 SEANet encoder with encodec's exact causal padding (reflect on both sides,
 the right side covering the last partial frame), a 2-layer LSTM with a
 residual skip, and nearest-neighbour RVQ as ``argmax(2 x.e - |e|^2)`` in f32.
-Weights come from the JAX package's parameter pytree (numpy leaves) through
-``encodec_from_pytree``, or from a seeded ``init_``.
+Weights come from a parameter pytree of numpy leaves (the JAX package's
+layout) through ``encodec_from_pytree``, or from a seeded ``init_``;
+``convert_encodec`` makes that pytree from an official ``encodec_24khz``
+state dict.
 """
 
 from __future__ import annotations
@@ -195,3 +197,58 @@ def encodec_from_pytree(params, cfg: EncodecConfig | None = None) -> EncodecEnco
             sd[f"lstm.{name}_l{i}"] = a(lp[k])
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _f32(v) -> np.ndarray:
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().float().numpy()
+    return np.asarray(v, np.float32)
+
+
+def _fold_weight_norm(sd, prefix):
+    """A conv of the official state dict -> {"w", "b"}: its ``weight_g`` /
+    ``weight_v`` (weight norm) folded into one kernel ``g v / |v|``, the norm
+    over each output channel, or its plain ``weight``."""
+    if f"{prefix}.weight_g" in sd:
+        g = _f32(sd[f"{prefix}.weight_g"])
+        v = _f32(sd[f"{prefix}.weight_v"])
+        norm = np.sqrt((v ** 2).sum(axis=(1, 2), keepdims=True))
+        w = g * v / norm
+    else:
+        w = _f32(sd[f"{prefix}.weight"])
+    out = {"w": w}
+    if f"{prefix}.bias" in sd:
+        out["b"] = _f32(sd[f"{prefix}.bias"])
+    return out
+
+
+def convert_encodec(sd, cfg: EncodecConfig = EncodecConfig()):
+    """Official ``encodec_24khz`` state dict -> the encoder and quantizer
+    pytree ``encodec_from_pytree`` takes.
+
+    Indices follow ``SEANetEncoder.model``'s sequence: 0 the first conv, then
+    for each stage i a residual block at 3i + 1 and the downsampling conv at
+    3i + 3 (the ELUs take indices and hold nothing), then the LSTM and, two
+    further on, the last conv."""
+    stages = []
+    idx = 1
+    for _ in cfg.ratios:
+        stages.append({
+            "res": {
+                "conv1": _fold_weight_norm(sd, f"encoder.model.{idx}.block.1.conv.conv"),
+                "conv2": _fold_weight_norm(sd, f"encoder.model.{idx}.block.3.conv.conv"),
+                "shortcut": _fold_weight_norm(sd, f"encoder.model.{idx}.shortcut.conv.conv"),
+            },
+            "down": _fold_weight_norm(sd, f"encoder.model.{idx + 2}.conv.conv"),
+        })
+        idx += 3
+    lstm_layers = [{k: _f32(sd[f"encoder.model.{idx}.lstm.{name}_l{i}"])
+                    for k, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                    ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))}
+                   for i in range(cfg.lstm_layers)]
+    codebooks = np.stack([_f32(sd[f"quantizer.vq.layers.{q}._codebook.embed"])
+                          for q in range(cfg.n_q)])
+    return {"init": _fold_weight_norm(sd, "encoder.model.0.conv.conv"), "stages": stages,
+            "lstm": {"layers": lstm_layers},
+            "final": _fold_weight_norm(sd, f"encoder.model.{idx + 2}.conv.conv"),
+            "codebooks": codebooks}

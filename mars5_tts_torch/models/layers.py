@@ -54,12 +54,17 @@ class NarOptions:
     last two act where the JAX package's ``torch_mha`` does: the encoder
     layers and the unfused decoder layer (the fused one calls K1 in bf16
     for its self-attention and plain attention across, as
-    ``decoder_layer_fused`` does)."""
+    ``decoder_layer_fused`` does). ``sdpa_bf16`` (``MARS5_SDPA_BF16``):
+    plain ``sdpa`` rounds a bf16 attention's scores to bf16 (False keeps
+    them f32), in every NAR attention that does not take K1: the speaker
+    encoder, the encoder, the decoder's cross-attention and its short
+    self-attention."""
     fused: bool = True
     sites: tuple = ("qkv", "caq", "ffn")
     gsize: int = 0
     qattn: bool = False
     cross_k1: bool = False
+    sdpa_bf16: bool = True
 
     def __post_init__(self):
         object.__setattr__(self, "sites", tuple(self.sites))
@@ -122,7 +127,8 @@ class MultiheadAttention(nn.Module):
         return torch_mha(self.in_proj_weight, self.in_proj_bias,
                          self.out_proj.weight, self.out_proj.bias,
                          q_in, kv_in, self.nhead, key_padding_mask,
-                         qattn=options.qattn, cross_k1=options.cross_k1)
+                         qattn=options.qattn, cross_k1=options.cross_k1,
+                         scores_bf16=options.sdpa_bf16)
 
 
 class SwiGLU(nn.Module):
@@ -230,7 +236,8 @@ class DecoderLayer(EncoderLayer):
         mask = (None if memory_key_padding_mask is None
                 else ~memory_key_padding_mask[:, None, None, :])
         c = sdpa(hq.reshape(b, l, nh, hd), kv[..., :d].reshape(b, lk, nh, hd),
-                 kv[..., d:].reshape(b, lk, nh, hd), mask).reshape(b, l, d)
+                 kv[..., d:].reshape(b, lk, nh, hd), mask,
+                 scores_bf16=options.sdpa_bf16).reshape(b, l, d)
         w = ca.out_proj.weight
         if "caout" in sites:
             x = fused_linear(c.contiguous(), (w.q, w.scales), bias=ca.out_proj.bias,

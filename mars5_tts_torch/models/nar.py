@@ -106,14 +106,15 @@ class ResidualTransformer(nn.Module):
     def is_quantized(self) -> bool:
         return is_quantized(self.residual_decoder[0][1].weight)
 
-    def spk_embedding(self, c_codes, c_codes_length):
-        """(bs, S, 8) reference codes and (bs,) lengths -> (bs, dim)."""
+    def spk_embedding(self, c_codes, c_codes_length, options: NarOptions = DEFAULT_OPTIONS):
+        """(bs, S, 8) reference codes and (bs,) lengths -> (bs, dim);
+        ``options`` the speaker encoder's routes."""
         bs, sl = c_codes.shape[:2]
         seq = self.ref_embedder(c_codes)
         ident = self.spk_identity_emb.weight[None].expand(bs, 1, -1).to(seq.dtype)
         seq = self.ref_pos_embedding(torch.cat([ident, seq], dim=1))
         pad = length_to_mask(c_codes_length + 1, torch.zeros_like(c_codes_length), sl + 1)
-        return self.spk_encoder(seq, key_padding_mask=pad)[:, 0]
+        return self.spk_encoder(seq, key_padding_mask=pad, options=options)[:, 0]
 
     def timestep_mlps(self, t, dtype):
         """t (bs,) -> the encoder and decoder timestep embeddings, (bs, dim) each."""
@@ -152,7 +153,7 @@ class ResidualTransformer(nn.Module):
                 c_codes_length = torch.where(drop_cond, 0, c_codes_length)
                 c_codes = torch.where(drop_cond[:, None, None], self.cfg.n_quant - 1,
                                       c_codes)
-            spk = self.spk_embedding(c_codes, c_codes_length)
+            spk = self.spk_embedding(c_codes, c_codes_length, options)
         t_enc, t_dec = self.timestep_mlps(t, self.text_embed.weight.dtype)
         c, c_padding = self.enc_inputs(c_text, c_texts_length, spk)
         memory = self.tfm.encoder(c + t_enc[:, None], key_padding_mask=c_padding,

@@ -6,6 +6,9 @@ AdaLayerNorm -> ConvNeXt blocks -> LayerNorm -> Linear to log-magnitude and
 phase -> inverse STFT with "same" padding: framed irfft, Hann-windowed
 overlap-add divided by the squared-window envelope, (n_fft - hop) / 2
 samples cropped on each side (not ``torch.istft``, whose padding differs).
+Weights come from a parameter pytree of numpy leaves (the JAX package's
+layout) through ``vocos_from_pytree``; ``convert_vocos`` makes that pytree
+from an official ``vocos-encodec-24khz`` state dict.
 """
 
 from __future__ import annotations
@@ -218,3 +221,42 @@ def vocos_from_pytree(params, cfg: VocosConfig | None = None) -> Vocos:
                    f"{pre}.gamma": a(blk["gamma"])})
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def convert_vocos(sd, cfg: VocosConfig = VocosConfig()):
+    """Official ``vocos-encodec-24khz`` state dict -> the pytree
+    ``vocos_from_pytree`` takes. Keys: ``backbone.embed``, ``backbone.norm``
+    (``scale.weight``, ``shift.weight``), ``backbone.convnext.{i}.*``,
+    ``backbone.final_layer_norm``, ``head.out`` and the Encodec codebooks
+    ``feature_extractor.encodec.quantizer.vq.layers.{k}._codebook.embed``,
+    stacked into one table."""
+    def a(k):
+        v = sd[k]
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().float().numpy()
+        return np.asarray(v, np.float32)
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        pre = f"backbone.convnext.{i}"
+        blocks.append({
+            "dwconv_w": a(f"{pre}.dwconv.weight"), "dwconv_b": a(f"{pre}.dwconv.bias"),
+            "norm": {"scale": a(f"{pre}.norm.scale.weight"),
+                     "shift": a(f"{pre}.norm.shift.weight")},
+            "pwconv1_w": a(f"{pre}.pwconv1.weight"), "pwconv1_b": a(f"{pre}.pwconv1.bias"),
+            "pwconv2_w": a(f"{pre}.pwconv2.weight"), "pwconv2_b": a(f"{pre}.pwconv2.bias"),
+            "gamma": a(f"{pre}.gamma"),
+        })
+    codebooks = np.concatenate([
+        a(f"feature_extractor.encodec.quantizer.vq.layers.{k}._codebook.embed")
+        for k in range(cfg.n_codebooks)], axis=0)
+    return {
+        "embed_w": a("backbone.embed.weight"), "embed_b": a("backbone.embed.bias"),
+        "norm": {"scale": a("backbone.norm.scale.weight"),
+                 "shift": a("backbone.norm.shift.weight")},
+        "convnext": blocks,
+        "final_ln_w": a("backbone.final_layer_norm.weight"),
+        "final_ln_b": a("backbone.final_layer_norm.bias"),
+        "head": {"out_w": a("head.out.weight"), "out_b": a("head.out.bias")},
+        "codebook_weights": codebooks,
+    }

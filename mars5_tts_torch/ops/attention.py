@@ -37,19 +37,20 @@ def linear(x, w, b=None):
     return y
 
 
-def sdpa(q, k, v, mask=None):
+def sdpa(q, k, v, mask=None, scores_bf16: bool = True):
     """Scaled dot-product attention, q (B, Lq, H, D), k/v (B, Lk, H, D).
 
     ``mask`` broadcasts to (B, H, Lq, Lk): bool (True = keep) or additive
     (0 / -inf). bf16 inputs round the scaled scores to bf16 before the mask and
-    the f32 softmax, as the JAX serving path does. DTensor inputs (a sharded
+    the f32 softmax, as the JAX serving path does, unless ``scores_bf16`` is
+    False (the JAX ``MARS5_SDPA_BF16=0``). DTensor inputs (a sharded
     training step) attend a shard at a time (``_sdpa_shards``).
     """
     if is_dtensor(q):
         return _sdpa_shards(q, k, v, mask)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and scores_bf16:
         logits = logits.to(torch.bfloat16)
     if mask is not None:
         if mask.dtype == torch.bool:
@@ -101,7 +102,8 @@ def _thirds(t):
 
 
 def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
-              key_padding_mask=None, *, qattn: bool = False, cross_k1: bool = False):
+              key_padding_mask=None, *, qattn: bool = False, cross_k1: bool = False,
+              scores_bf16: bool = True):
     """torch ``nn.MultiheadAttention`` forward (batch_first).
 
     in_w (3D, D) / in_b (3D,) are torch's fused in-projection; out_w/out_b the
@@ -111,7 +113,7 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
     ``cross_k1`` (JAX ``MARS5_CROSS_PALLAS``), takes kernel K1's route
     (``kernel_route``: CUDA tensors), in its int8 mode with ``qattn`` (JAX
     ``MARS5_QATTN``) when the in-projection is quantized; plain ``sdpa``
-    otherwise. A DTensor in-projection (tensor-parallel training) is
+    otherwise, its scores rounded as ``scores_bf16`` says. A DTensor in-projection (tensor-parallel training) is
     projected a third at a time.
     """
     d = q_in.shape[-1]
@@ -138,7 +140,7 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
                              quantized=qattn and is_quantized(in_w))
     else:
         mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
-        out = sdpa(q, k, v, mask)
+        out = sdpa(q, k, v, mask, scores_bf16=scores_bf16)
     return linear_any(out.reshape(b, lq, d), out_w, out_b)
 
 

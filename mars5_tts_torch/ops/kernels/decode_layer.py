@@ -149,19 +149,27 @@ def _q8(w):
     return q, s[None]
 
 
-def _q4(w):
+def _int4(w, mse: bool):
+    """Per-row int4 (``levels=7``): scales from the clip search, or amax."""
+    return quantize_weight_mse(w, levels=7) if mse else quantize_weight(w, levels=7)
+
+
+def _q4(w, mse: bool = True):
     """(out, in) -> packed (out, in/2), scales (2, out): each half of the
-    input axis quantized on its own with the int4 clip search."""
+    input axis quantized on its own (``_int4``)."""
     h = w.shape[-1] // 2
-    qa, sa = quantize_weight_mse(w[:, :h], levels=7)
-    qb, sb = quantize_weight_mse(w[:, h:], levels=7)
+    qa, sa = _int4(w[:, :h], mse)
+    qb, sb = _int4(w[:, h:], mse)
     return pack4(qa, qb), torch.stack([sa, sb])
 
 
-def build_fused_pack(codeclm, dims: FusedDims) -> dict:
+def build_fused_pack(codeclm, dims: FusedDims, int4_mse: bool = True) -> dict:
     """Quantize the backbone of a port ``CodecLM`` into the K2 pack (see the
-    module docstring); int8 tensors and f32 scales on the model's device."""
-    quant = _q4 if dims.wbits == 4 else _q8
+    module docstring); int8 tensors and f32 scales on the model's device.
+    ``int4_mse`` (int4 only): per-row scales from the clip search
+    (``quantize_weight_mse``), else amax scales (the JAX
+    ``MARS5_INT4_MSE=0``)."""
+    quant = (lambda w: _q4(w, int4_mse)) if dims.wbits == 4 else _q8
     cols = {k: [] for k in ("wqkv", "sqkv", "wo", "so", "w13", "s13", "w2", "s2")}
     for layer in codeclm.ar.layers:
         a, f = layer.attention, layer.feed_forward
@@ -173,7 +181,7 @@ def build_fused_pack(codeclm, dims: FusedDims) -> dict:
             cols["s" + name].append(s.float())
         w2 = f.w2.weight.detach()
         if dims.wbits == 4:
-            q, s = quantize_weight_mse(w2, levels=7)
+            q, s = _int4(w2, int4_mse)
             h = q.shape[1] // 2
             q = pack4(q[:, :h], q[:, h:])
         else:
@@ -216,7 +224,8 @@ def as_batched(cache_k, cache_v, kv_scales):
     """The (L, B, W_pad, d) / (L, B, 2, W_pad) forms of a cache, from the
     one-row (L, W_pad, d) / (L, 2, W_pad) forms (views)."""
     if cache_k.ndim == 3:
-        return cache_k[:, None], cache_v[:, None], kv_scales[:, None]
+        return (cache_k[:, None], cache_v[:, None],
+                None if kv_scales is None else kv_scales[:, None])
     return cache_k, cache_v, kv_scales
 
 
@@ -228,9 +237,12 @@ def _sum(x):
     return x.double().sum(dim=-1, keepdim=True).float()
 
 
+def _rms_norm(h, w, eps):
+    return h * (1.0 / torch.sqrt(div(_sum(h * h), h.shape[-1]) + eps)) * w
+
+
 def _rms_quant(h, w, eps):
-    r = 1.0 / torch.sqrt(div(_sum(h * h), h.shape[-1]) + eps)
-    return quantize_act(h * r * w)
+    return quantize_act(_rms_norm(h, w, eps))
 
 
 def _dot(xq, xs, w, s, w4: bool):
@@ -264,6 +276,30 @@ def _self_scores(qh, kh, scale):
     return _sum(qh * kh) * scale
 
 
+def _attention_plain(q, k_new, v, ck, cv, valid, dims: FusedDims):
+    """``_attention`` over a float ring (W_pad, d): q rounded to bf16 against
+    the cached keys and p rounded to bf16 against the cached values, f32 sums
+    (the JAX structure oracle's attention)."""
+    H, Dh = dims.n_heads, dims.head_dim
+    scale = 1.0 / math.sqrt(Dh)
+    qh, kh, vh = q.view(H, Dh), k_new.view(H, Dh), v.view(H, Dh)
+    kc = ck.view(-1, H, Dh).float()
+    scores = torch.einsum("hd,whd->hw", qh.bfloat16().float(), kc) * scale
+    scores = scores.masked_fill(~valid[None, :], float("-inf"))
+    self_s = _self_scores(qh, kh, scale)
+    m = torch.maximum(scores.amax(dim=-1, keepdim=True), self_s)
+    p = torch.exp(scores - m)
+    p_self = torch.exp(self_s - m)
+    denom = _sum(p) + p_self
+    out = torch.einsum("hw,whd->hd", p.bfloat16().float(), cv.view(-1, H, Dh).float())
+    return (out / denom + (p_self / denom) * vh).reshape(1, -1)
+
+
+def _dot_plain(x, w, s):
+    """x (B, K) f32 times a W8 pack matrix dequantized, ``q * s`` per row, in f32."""
+    return x @ (w.float() * s.reshape(-1, 1)).t()
+
+
 def _attention(q, k_new, v, ck, cv, ks, vs, valid, dims: FusedDims):
     """One token's ring attention over int8 K/V, per head; q, k_new, v (1, d)
     f32 (q, k roped); ck/cv (W_pad, d) int8; ks/vs (W_pad,) f32 -> (1, d)."""
@@ -287,7 +323,7 @@ def _attention(q, k_new, v, ck, cv, ks, vs, valid, dims: FusedDims):
 
 @torch.no_grad()
 def fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, *, dims: FusedDims,
-                   norm_eps: float = 1e-5):
+                   norm_eps: float = 1e-5, quantized: bool = True):
     """Plain version of K2 (the JAX package's ``fused_step_emulation_batched``,
     one ``fused_step_emulation`` with ``quantized=True`` a row).
 
@@ -295,8 +331,18 @@ def fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, *, dims: FusedDims,
     (L, B, W_pad, d) int8 with W_pad >= window (slots past the window are
     ignored); kv_scales (L, B, 2, W_pad) f32 (row 0 K, row 1 V); one row may
     pass (L, W_pad, d) / (L, 2, W_pad). Returns (h (B, d) f32 before the
-    final norm, k_new (L, B, d) f32 roped, v_new (L, B, d) f32)."""
+    final norm, k_new (L, B, d) f32 roped, v_new (L, B, d) f32).
+
+    ``quantized=False`` is the structure oracle (``fused_step_emulation(
+    quantized=False)``, W8 packs only): every product an f32 product with the
+    dequantized weights, the caches float (bf16 or f32) and ``kv_scales``
+    unused, so the pack's layout, the RoPE, the ring mask and the attention
+    can be held to the unquantized decode step apart from int8 rounding."""
     w4 = dims.wbits == 4
+    if not quantized:
+        if w4:
+            raise NotImplementedError("the structure (unquantized) oracle is wbits=8 only")
+        return _step_plain(fp, x, pos, cache_k, cache_v, dims, norm_eps)
     B, d = x.shape[0], dims.dim
     cache_k, cache_v, kv_scales = as_batched(cache_k, cache_v, kv_scales)
     positions = positions_of(pos, B)
@@ -324,6 +370,35 @@ def fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, *, dims: FusedDims,
         a, b_ = ab[:, :dims.hidden], ab[:, dims.hidden:]
         uq, us = quantize_act(a * (1.0 / (1.0 + torch.exp(-a))) * b_)
         h = h + _int_sum_w2(uq, fp["w2"][l], w4).float() * us * fp["s2"][l]
+    return h, torch.stack(k_news), torch.stack(v_news)
+
+
+def _step_plain(fp, x, pos, cache_k, cache_v, dims: FusedDims, norm_eps: float):
+    """``fused_step_ref(quantized=False)``."""
+    B, d = x.shape[0], dims.dim
+    cache_k, cache_v, _ = as_batched(cache_k, cache_v, None)
+    positions = positions_of(pos, B)
+    cos, sin = rope_rows(positions, dims, x.device)
+    cos, sin = cos[:, None], sin[:, None]
+    valid = [_ring_valid(p, dims.window, cache_k.shape[2], x.device) for p in positions]
+    h = x.float().reshape(B, d)
+    k_news, v_news = [], []
+    heads = (B, dims.n_heads, dims.head_dim)
+    for l in range(dims.n_layers):
+        qkv = _dot_plain(_rms_norm(h, fp["attn_norms"][l], norm_eps), fp["wqkv"][l],
+                         fp["sqkv"][l])
+        q = apply_rope_halfsplit(qkv[:, :d].reshape(heads), cos, sin).reshape(B, d)
+        k = apply_rope_halfsplit(qkv[:, d:2 * d].reshape(heads), cos, sin).reshape(B, d)
+        v = qkv[:, 2 * d:]
+        k_news.append(k)
+        v_news.append(v)
+        attn = torch.cat([_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], cache_k[l, b],
+                                           cache_v[l, b], valid[b], dims) for b in range(B)])
+        h = h + _dot_plain(attn, fp["wo"][l], fp["so"][l])
+        ab = _dot_plain(_rms_norm(h, fp["ffn_norms"][l], norm_eps), fp["w13"][l],
+                        fp["s13"][l])
+        a, b_ = ab[:, :dims.hidden], ab[:, dims.hidden:]
+        h = h + _dot_plain(a * (1.0 / (1.0 + torch.exp(-a))) * b_, fp["w2"][l], fp["s2"][l])
     return h, torch.stack(k_news), torch.stack(v_news)
 
 

@@ -14,7 +14,9 @@ the quantized tensors are bit-identical to its ``quantize_nar`` output.
 the same name, so a quantized state dict reads ``<weight name>.q`` /
 ``<weight name>.s``, or ``<weight name>.sg`` for the per-K-group scales of
 a grouped decoder weight (``quantize_nar(w_gsize=)``, the fidelity mode of
-kernels K3/K4).
+kernels K3/K4). ``quantize_codeclm`` does the same to the AR's block
+weights and output head, weight-only (``linear_q8``) unless asked for W8A8;
+the bf16 AR engine then runs over them.
 """
 
 from __future__ import annotations
@@ -30,13 +32,16 @@ class QuantWeight(nn.Module):
     """int8 weight ``q`` (out, in) with f32 scales: per output row ``s``
     (out,), or, for a grouped weight (``quantize_weight_grouped``), per (K
     group, output row) ``sg`` (G, out) and no ``s``, so that a consumer that
-    cannot take group scales fails on the missing attribute."""
+    cannot take group scales fails on the missing attribute. ``act_int8``
+    (per-row scales only): its products quantize the activations too (W8A8,
+    the NAR's) or take them as they are (weight-only, ``linear_q8``)."""
 
     def __init__(self, q: torch.Tensor, s: torch.Tensor | None = None,
-                 sg: torch.Tensor | None = None):
+                 sg: torch.Tensor | None = None, act_int8: bool = True):
         super().__init__()
         if (s is None) == (sg is None):
             raise ValueError("QuantWeight takes per-row scales s or group scales sg")
+        self.act_int8 = act_int8
         self.register_buffer("q", q)
         self.register_buffer("s" if sg is None else "sg", s if sg is None else sg)
 
@@ -60,7 +65,7 @@ class QuantWeight(nn.Module):
         """Output rows [start, stop), over the same storage."""
         if self.grouped:
             return QuantWeight(self.q[start:stop], sg=self.sg[:, start:stop])
-        return QuantWeight(self.q[start:stop], self.s[start:stop])
+        return QuantWeight(self.q[start:stop], self.s[start:stop], act_int8=self.act_int8)
 
     def _apply(self, fn, recurse=True):
         # devices follow the module; the scales stay f32 whatever dtype the
@@ -127,11 +132,15 @@ def quantize_weight_grouped(w, gsize: int, levels: int = 127):
     return q.to(torch.int8).reshape(w.shape), sg[..., 0].transpose(-1, -2).contiguous()
 
 
-def linear_q8(x, q, s):
+def linear_q8(x, q, s, b=None):
     """Weight-only int8 product ``x @ (q * s).T``: f32 sums, the f32 rescale,
-    one rounding to x's dtype. The AR output head of the quantized decode
-    engines."""
-    return ((x.float() @ q.float().t()) * s).to(x.dtype)
+    the f32 bias, one rounding to x's dtype. The AR output head of the
+    quantized decode engines, and every product of ``quantize_codeclm``'s
+    weight-only AR."""
+    y = (x.float() @ q.float().t()) * s
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
 
 
 def quantize_act(x):
@@ -172,6 +181,11 @@ def linear_w8a8(x, q, s, b=None):
     return y.to(x.dtype)
 
 
+def linear_w8a8_t(x, qt, s, b=None):
+    """``linear_w8a8`` against a pre-transposed (in, out) int8 kernel ``qt``."""
+    return linear_w8a8(x, qt.t().contiguous(), s, b)
+
+
 def linear_w8a8_grouped(x, q, sg, b=None):
     """W8A8 with per-K-group scales, the plain product the fused kernels'
     grouped mode replaces off their route: for each of the G groups of K,
@@ -195,10 +209,12 @@ def linear_w8a8_grouped(x, q, sg, b=None):
 
 def linear_any(x, w, b=None):
     """``linear`` for a plain weight tensor or a :class:`QuantWeight` (per-row
-    or grouped scales)."""
+    or grouped scales, weight-only or W8A8)."""
     if isinstance(w, QuantWeight):
         if w.grouped:
             return linear_w8a8_grouped(x, w.q, w.sg, b)
+        if not w.act_int8:
+            return linear_q8(x, w.q, w.s, b)
         return linear_w8a8(x, w.q, w.s, b)
     from .attention import linear
     return linear(x, w, b)
@@ -297,4 +313,22 @@ def quantize_nar(model, w_gsize: int = 0, w_group_keys=()):
             set_weight(owner, name, QuantWeight(q, sg=sg))
         else:
             set_weight(owner, name, QuantWeight(*quantize_weight(w.detach())))
+    return out
+
+
+def quantize_codeclm(model, act_int8: bool = False):
+    """A new ``CodecLM`` whose AR blocks' ``wq wk wv wo w1 w2 w3`` and output
+    head are int8 with per-output-row scales (``quantize_weight``), weight-only
+    products (``linear_q8``) or, with ``act_int8``, W8A8 (``linear_w8a8``);
+    the embeddings, norms and speaker encoder stay as they are, and so does
+    the given model. The bf16 AR engines run over it (``linear_any``); the
+    fused backends pack their own weights and do not take it."""
+    out = copy.deepcopy(model)
+    owners = [out.ar.output]
+    for layer in out.ar.layers:
+        a, f = layer.attention, layer.feed_forward
+        owners += [a.wq, a.wk, a.wv, a.wo, f.w1, f.w2, f.w3]
+    for owner in owners:
+        q, s = quantize_weight(owner.weight.detach())
+        set_weight(owner, "weight", QuantWeight(q, s, act_int8=act_int8))
     return out

@@ -31,8 +31,13 @@ W8A8 decoder layer; False runs its unfused products), ``nar_sites``
 ``nar_gsize`` (``MARS5_NARF_GSIZE``: per-K-group scales of that many
 columns, the weights quantized to match, ``quantize_nar(w_gsize=)``),
 ``nar_qattn`` (``MARS5_QATTN``: K1's int8 mode for the unfused layers'
-attention) and ``nar_cross_k1`` (``MARS5_CROSS_PALLAS``: long-query
-cross-attention through K1, the bf16 NAR's too).
+attention), ``nar_cross_k1`` (``MARS5_CROSS_PALLAS``: long-query
+cross-attention through K1, the bf16 NAR's too) and ``nar_sdpa_bf16``
+(``MARS5_SDPA_BF16``: a bf16 NAR's plain attention rounds its scores to
+bf16; False keeps them f32). ``int4_mse`` (``MARS5_INT4_MSE``): the fused4
+pack's int4 scales from the clip search (False: amax scales). The AR may
+come quantized by ``ops/quant.quantize_codeclm`` (int8 weights under the bf16
+engine, the JAX ``BENCH_AR=int8``); the fused backends then refuse it.
 
 Serving options, as in the JAX package: ``guidance_interval=(lo, hi)`` keeps
 CFG to the reverse steps with t in ``[round(lo T), round(hi T))`` (the
@@ -87,6 +92,17 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None is ``default_device()``, and a
+    CUDA device raises as it does when PyTorch sees no card."""
+    if device is None:
+        return default_device()
+    device = torch.device(device)
+    if device.type == "cuda":
+        default_device()
+    return device
+
+
 class Mars5TTS:
     """AR codec LM + NAR diffusion refiner + Encodec encoder + Vocos vocoder,
     all on one ``device`` (the card unless the caller asks for the CPU)."""
@@ -101,6 +117,7 @@ class Mars5TTS:
                  nar_tail: str = "heads", nar_fused: bool = True,
                  nar_sites: tuple = DEFAULT_OPTIONS.sites, nar_gsize: int = 0,
                  nar_qattn: bool = False, nar_cross_k1: bool = False,
+                 nar_sdpa_bf16: bool = True, int4_mse: bool = True,
                  guidance_interval: tuple = (0.0, 1.0), nar_gen_bucket: Optional[int] = None,
                  nar_text_bucket: Optional[int] = None):
         """From reference-layout checkpoints ({'vocab', 'model'[, 'config']}),
@@ -109,8 +126,9 @@ class Mars5TTS:
         quantizes the NAR after loading, unless its checkpoint is already
         quantized; ``ar_backend``, ``head4``, ``nar_mega``, ``nar_tail``, the
         ``nar_*`` routes, ``guidance_interval`` and the buckets as in the
-        module docstring."""
-        device = torch.device(device) if device is not None else default_device()
+        module docstring. Encodec and Vocos stay f32 whatever ``dtype``
+        the AR and NAR take."""
+        device = resolve_device(device)
         texttok, speechtok = load_tokenizers(ar_ckpt)
         n_vocab = len(texttok.vocab) + len(speechtok.vocab)
         if ar_cfg is None:
@@ -126,8 +144,9 @@ class Mars5TTS:
         vocos = vocos_from_pytree(vocos_params, vocos_cfg) if vocos_params is not None else None
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
                     ar_backend, nar_backend, head4, nar_mega, nar_tail,
-                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1),
-                    guidance_interval, nar_gen_bucket, nar_text_bucket)
+                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1,
+                               nar_sdpa_bf16),
+                    int4_mse, guidance_interval, nar_gen_bucket, nar_text_bucket)
 
     @classmethod
     def from_local(cls, ar_path, nar_path, **kwargs) -> "Mars5TTS":
@@ -144,6 +163,7 @@ class Mars5TTS:
                     nar_tail: str = "heads", nar_fused: bool = True,
                     nar_sites: tuple = DEFAULT_OPTIONS.sites, nar_gsize: int = 0,
                     nar_qattn: bool = False, nar_cross_k1: bool = False,
+                    nar_sdpa_bf16: bool = True, int4_mse: bool = True,
                     guidance_interval: tuple = (0.0, 1.0),
                     nar_gen_bucket: Optional[int] = None,
                     nar_text_bucket: Optional[int] = None) -> "Mars5TTS":
@@ -157,18 +177,22 @@ class Mars5TTS:
         device = device or codeclm.embed.weight.device
         self._setup(codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
                     ar_backend, nar_backend, head4, nar_mega, nar_tail,
-                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1),
-                    guidance_interval, nar_gen_bucket, nar_text_bucket)
+                    NarOptions(nar_fused, nar_sites, nar_gsize, nar_qattn, nar_cross_k1,
+                               nar_sdpa_bf16),
+                    int4_mse, guidance_interval, nar_gen_bucket, nar_text_bucket)
         return self
 
     def _setup(self, codeclm, codecnar, texttok, speechtok, encodec, vocos, device,
-               ar_backend, nar_backend, head4, nar_mega, nar_tail, opts, guidance_interval,
-               nar_gen_bucket, nar_text_bucket):
+               ar_backend, nar_backend, head4, nar_mega, nar_tail, opts, int4_mse,
+               guidance_interval, nar_gen_bucket, nar_text_bucket):
         if ar_backend not in ("bf16", "fused", "fused4"):
             raise ValueError(f"unknown ar_backend {ar_backend!r}")
         if head4 and ar_backend != "fused4":
             raise ValueError("head4=True needs ar_backend='fused4'")
-        self.ar_backend, self.head4 = ar_backend, head4
+        if codeclm.is_quantized and ar_backend != "bf16":
+            raise ValueError("a quantize_codeclm AR runs on ar_backend='bf16'; the fused "
+                             "backends pack the unquantized weights")
+        self.ar_backend, self.head4, self.int4_mse = ar_backend, head4, int4_mse
         self._fused_cache: dict = {}
         self._mega_pack = None
         if nar_backend not in ("bf16", "int8"):
@@ -234,7 +258,8 @@ class Mars5TTS:
                 fp, _ = next(iter(self._fused_cache.values()))
                 dims = make_dims(self.ar_cfg, max_len, wbits)
             else:
-                fp, dims = prepare_fused(self.codeclm, max_len, wbits, self.head4)
+                fp, dims = prepare_fused(self.codeclm, max_len, wbits, self.head4,
+                                         int4_mse=self.int4_mse)
             self._fused_cache[max_len] = (fp, dims)
         fp, dims = self._fused_cache[max_len]
         return fp, dataclasses.replace(dims, batch=batch)

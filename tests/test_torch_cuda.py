@@ -1562,3 +1562,126 @@ def test_sharded_train_step_on_one_gpu(dev):
                                        err_msg=f"{tag}.{n}")
         assert abs(m0[f"{tag}_loss"] - m1[f"{tag}_loss"]) <= 1e-6 * abs(m0[f"{tag}_loss"])
         assert_adam_step_close(p1[tag], p0[tag], g1[tag], g0[tag], lr, 1e-6, 1.0)
+
+
+def _entry_files(d):
+    """Checkpoints of a full-width AR and NAR at two layers each (the port's
+    ``save_checkpoint``: safetensors where it imports, else .pt), official
+    Encodec and Vocos state dicts at the released configs
+    (``tests/torch_replicas``) and a 7 s reference WAV."""
+    import dataclasses
+    import importlib.util
+
+    from torch_replicas import make_encodec_state_dict, make_vocos_state_dict
+
+    from mars5_tts_torch.audio.io import write_wav
+    from mars5_tts_torch.hub import save_checkpoint
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.convert import unpermute_rope_rows
+    from mars5_tts_torch.models.encodec import EncodecConfig
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.models.vocos import VocosConfig
+    from mars5_tts_torch.text import CodebookTokenizer, GPT4_SPLIT_PATTERN, RegexTokenizer
+
+    texttok = RegexTokenizer(GPT4_SPLIT_PATTERN)
+    texttok.train("dummy corpus", 256)
+    texttok.register_special_tokens({"<|startoftext|>": 256, "<|endoftext|>": 257})
+    speechtok = CodebookTokenizer(GPT4_SPLIT_PATTERN, codebook_size=1024)
+    speechtok.train(" ".join(str(i % 7) for i in range(50)), 1024)
+    speechtok.register_special_tokens({"<|endofspeech|>": 1024})
+    vocab = {}
+    for key, tok in (("texttok.model", texttok), ("speechtok.model", speechtok)):
+        tok.save(str(d / key[:-6]))
+        vocab[key] = (d / key).read_text()
+    fmt = "safetensors" if importlib.util.find_spec("safetensors") else "pt"
+    g = torch.Generator().manual_seed(0)
+    ar_cfg = dataclasses.replace(CodecLMConfig.mars5(1283), n_layers=2, n_spk_layers=2)
+    nar_cfg = dataclasses.replace(ResidualTransformerConfig.mars5(259), enc_layers=2,
+                                  dec_layers=2, n_spk_layers=2)
+    paths = {"ar": d / f"ar.{fmt}", "nar": d / f"nar.{fmt}", "encodec": d / "encodec.pt",
+             "vocos": d / "vocos.pt", "ref": d / "ref.wav"}
+    for name, model, cfg in (("ar", CodecLM(ar_cfg), ar_cfg),
+                             ("nar", ResidualTransformer(nar_cfg), nar_cfg)):
+        sd = {k: v.numpy() for k, v in model.init_(g).state_dict().items()}
+        for k in [k for k in sd if k.endswith(("attention.wq.weight", "attention.wk.weight"))]:
+            sd[k] = unpermute_rope_rows(sd[k], cfg.head_dim)
+        save_checkpoint(paths[name], sd, vocab, config=dataclasses.asdict(cfg))
+    torch.save(make_encodec_state_dict(EncodecConfig(), seed=1)[2], paths["encodec"])
+    torch.save(make_vocos_state_dict(VocosConfig(), seed=2)[2], paths["vocos"])
+    ref = np.random.default_rng(3).standard_normal(7 * 24000) * 0.1
+    write_wav(paths["ref"], ref.astype(np.float32))
+    return paths
+
+
+def test_cli_on_gpu_matches_cpu(dev, tmp_path, monkeypatch):
+    """``cli.main`` at the released widths with two layers a stack, once on
+    the card (default device) and once with ``--device cpu``, the same files
+    and seed, a 7 s reference (525 frames: K1 on the card) and 8 reverse
+    steps. A CUDA generator and a CPU generator of one seed draw different
+    numbers, so the test (only) hands both runs the same draws: the AR's
+    uniforms and the NAR's uniforms and initial noise, made with numpy from
+    the seed and the request's shapes. Then the Encodec codes, the AR tokens
+    and the NAR grid are identical, and the WAVs' PCM16 within 8 LSB of each
+    other (the vocoder's f32 sums on the two devices); on the card K7 runs
+    twice a decode step and K1 once a decoder layer a reverse step."""
+    import wave
+
+    import mars5_tts_torch.pipeline as pipeline
+    from mars5_tts_torch import cli
+    from mars5_tts_torch.diffusion.schedule import build_step_plan
+    from mars5_tts_torch.ops.kernels import decode_attention as A, mha as K
+
+    steps = 8
+    paths = _entry_files(tmp_path)
+    seqs, grids, codes = [], [], []
+    ar_generate, nar, encode = (pipeline.ar_generate, pipeline.perform_simple_inference,
+                                pipeline.Mars5TTS.encode_reference)
+
+    def shared_ar(*a, sampling, seed, **k):
+        u = np.random.default_rng(seed).random(sampling.max_len).astype(np.float32)
+        seqs.append(ar_generate(*a, sampling=sampling, uniforms=u, **k))
+        return seqs[-1]
+
+    def shared_nar(model, batch, *a, generator=None, **k):
+        x = batch[4]
+        n = (len(build_step_plan(steps)[0]), 2, x.shape[0], batch[1].shape[1] + x.shape[1], 8,
+             1025)
+        r = np.random.default_rng(11)
+        grids.append(nar(model, batch, *a, uniforms=r.random(n, dtype=np.float32),
+                         x_init=r.integers(0, 1025, x.shape), **k).cpu())
+        return grids[-1]
+
+    def shared_encode(self, ref):
+        codes.append(encode(self, ref).cpu())
+        return codes[-1].to(self.device)
+
+    monkeypatch.setattr(pipeline, "ar_generate", shared_ar)
+    monkeypatch.setattr(pipeline, "perform_simple_inference", shared_nar)
+    monkeypatch.setattr(pipeline.Mars5TTS, "encode_reference", shared_encode)
+    pcm = {}
+    for where in ("cuda", "cpu"):
+        out = tmp_path / f"{where}.wav"
+        argv = ["--text", "The quick brown fox jumps over the lazy dog.", "--ref",
+                str(paths["ref"]), "--transcript", "A reference voice.", "--ar",
+                str(paths["ar"]), "--nar", str(paths["nar"]), "--encodec", str(paths["encodec"]),
+                "--vocos", str(paths["vocos"]), "--out", str(out), "--timesteps", str(steps),
+                "--max-len", "700", "--trim-db", "200", "--seed", "5"]
+        if where == "cpu":
+            argv += ["--device", "cpu"]
+        k1, k7 = K.launch_count, A.launch_count
+        assert cli.main(argv) == 0
+        if where == "cuda":
+            n_gen = seqs[-1][1]
+            # a decode step follows every token but the last (an EOS, or the cap)
+            assert A.launch_count - k7 in (2 * (n_gen - 1), 2 * n_gen)
+            assert K.launch_count - k1 >= 2 * steps
+        with wave.open(str(out), "rb") as w:
+            pcm[where] = np.frombuffer(w.readframes(w.getnframes()), np.int16).astype(np.int32)
+    assert torch.equal(codes[0], codes[1])
+    (gpu_seq, gpu_n), (cpu_seq, cpu_n) = seqs
+    diff = np.flatnonzero(gpu_seq != cpu_seq) if gpu_seq.shape == cpu_seq.shape else [-1]
+    assert len(diff) == 0, f"tokens part at {diff[0]} of {len(cpu_seq)} (prompt and generated)"
+    assert gpu_n == cpu_n > 0
+    assert torch.equal(grids[0], grids[1]), int((grids[0] != grids[1]).sum())
+    assert pcm["cuda"].shape == pcm["cpu"].shape and len(pcm["cpu"]) > 0
+    assert np.abs(pcm["cuda"] - pcm["cpu"]).max() <= 8

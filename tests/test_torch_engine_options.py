@@ -420,7 +420,8 @@ def test_w8a8_deploy_pipeline_identical_to_jax_with_its_gemms_and_attention(monk
         assert not quantized
         return back(sdpa_pallas(j(q), j(k), j(v), j(key_padding_mask), interpret=True), q)
 
-    def jax_sdpa(q, k, v, mask=None):
+    def jax_sdpa(q, k, v, mask=None, scores_bf16=True):
+        assert scores_bf16      # the deploy default: JAX reads MARS5_SDPA_BF16 unset, "1"
         return back(JA.sdpa(j(q), j(k), j(v), j(mask)), q)
 
     fused_linear, fused_ffn = _pallas_gemms()

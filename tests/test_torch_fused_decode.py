@@ -276,6 +276,61 @@ def test_step_twin_matches_pallas_kernel(monkeypatch):
     np.testing.assert_allclose(v.numpy(), np.asarray(v_k), rtol=0, atol=KV_ATOL)
 
 
+@pytest.mark.parametrize("pos", [5, 30])   # before and after the ring wraps (window 24)
+def test_structure_oracle_matches_jax_emulation(pos, monkeypatch):
+    """``fused_step_ref(quantized=False)`` (W8, float caches, no int8
+    rounding) within 1e-5 of ``fused_step_emulation(quantized=False)`` with
+    the JAX RoPE angles and self-score sum; W4 refused as JAX refuses it."""
+    from mars5_tts_tpu.ops.pallas.decode_layer import fused_step_emulation
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    fp, jdims = jax_fused(8)
+    x = _step_inputs(jdims, pos)[0]
+    caches = []
+    for seed in (4, 5):
+        c = np.random.default_rng(seed).standard_normal((jdims.n_layers, jdims.w_pad, jdims.dim))
+        c[:, jdims.window:] = 0
+        caches.append(np.asarray(jnp.asarray(c * 0.3, jnp.bfloat16).astype(jnp.float32)))
+    ck, cv = caches
+    h_e, k_e, v_e = (np.asarray(a) for a in fused_step_emulation(
+        fp, x, jnp.int32(pos), jnp.asarray(ck), jnp.asarray(cv), dims=jdims,
+        norm_eps=CFG.norm_eps, quantized=False))
+    monkeypatch.setattr(D, "_self_scores", _jax_self_scores)
+    monkeypatch.setattr(D, "rope_flat", _jax_rope_flat)
+    h, k, v = D.fused_step_ref(converted(8), t(x.astype(jnp.float32))[0:1].bfloat16(), pos,
+                               t(ck), t(cv), None, dims=port_fused(8)[1],
+                               norm_eps=CFG.norm_eps, quantized=False)
+    np.testing.assert_allclose(h.numpy(), h_e[0:1], rtol=0, atol=H_ATOL)
+    np.testing.assert_allclose(k.numpy(), k_e, rtol=0, atol=H_ATOL)
+    np.testing.assert_allclose(v.numpy(), v_e, rtol=0, atol=H_ATOL)
+    quantized = D.fused_step_ref(converted(8), t(x.astype(jnp.float32))[0:1].bfloat16(), pos,
+                                 *(t(a) for a in _step_inputs(jdims, pos)[1:]),
+                                 dims=port_fused(8)[1], norm_eps=CFG.norm_eps)[0]
+    assert not torch.equal(quantized, h)
+    with pytest.raises(NotImplementedError):
+        D.fused_step_ref(converted(4), t(x.astype(jnp.float32))[0:1].bfloat16(), pos,
+                         t(ck), t(cv), None, dims=port_fused(4)[1], quantized=False)
+
+
+def test_int4_amax_pack_bit_identical_to_jax(monkeypatch):
+    """``Mars5TTS(int4_mse=False)``'s pack (``prepare_fused(int4_mse=False)``)
+    bitwise the JAX ``prepare_fused`` pack under ``MARS5_INT4_MSE=0`` (amax
+    scales have no clip-search ties); the default differs from it."""
+    from mars5_tts_tpu.models.ar_decode_fused import prepare_fused as j_prepare
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.models.convert import fused_pack_from_jax
+
+    monkeypatch.setenv("MARS5_INT4_MSE", "0")
+    jax.clear_caches()
+    jfp, _ = j_prepare(jax.tree.map(jnp.asarray, models()[0]), CFG, max_len=MAX_LEN, wbits=4)
+    theirs = fused_pack_from_jax(jax.tree.map(np.asarray, jfp))
+    mine, _ = prepare_fused(models()[1], MAX_LEN, 4, int4_mse=False)
+    for k in BACKBONE + ("head_q", "head_s"):
+        assert mine[k].dtype == theirs[k].dtype, k
+        assert torch.equal(mine[k], theirs[k]), k
+    assert not torch.equal(port_fused(4)[0]["s2"], mine["s2"])
+
+
 # -------------------------------------------------------------------- head4
 
 def test_head4_twin_matches_jax():

@@ -546,3 +546,97 @@ def test_k1_refuses_autograd_on_its_cuda_route(monkeypatch):
     with torch.inference_mode(), pytest.raises(ValueError, match="unsupported device"):
         K.mha(q, q, q)
     assert K.launch_count == n0
+
+
+# ------------------------------------------- f32 attention scores (MARS5_SDPA_BF16=0)
+
+SDPA_GRID_BOUND = 0.02
+
+
+def _sdpa_both(monkeypatch, flag, q, k, v, mask):
+    import mars5_tts_tpu.ops.attention as JA
+    import mars5_tts_torch.ops.attention as PA
+
+    monkeypatch.setenv("MARS5_SDPA_BF16", flag)
+    jax.clear_caches()
+    j = JA.sdpa(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jnp.asarray(mask))
+    p = PA.sdpa(*(t(a).bfloat16() for a in (q, k, v)), t(mask), scores_bf16=flag == "1")
+    return np.asarray(j.astype(jnp.float32)), p.float().numpy()
+
+
+def test_sdpa_scores_option_follows_the_jax_switch(monkeypatch):
+    """``sdpa(scores_bf16=False)`` against JAX ``sdpa`` under
+    ``MARS5_SDPA_BF16=0`` and the default against ``=1``, bf16 inputs: within
+    a bf16 rounding (the f32 score and PV sums are ordered
+    differently by XLA and PyTorch, and now and then round to the other bf16
+    neighbour: 1 to 4 of 3,840 outputs here, in either mode). The switch
+    moves both packages' outputs; f32 inputs ignore it. Bound: 2^-8 of the
+    output's peak (a near-zero output is a sum that cancels, so its bf16
+    neighbour is many of its own ulps away), at under 1% of the outputs."""
+    import mars5_tts_torch.ops.attention as PA
+
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((2, n, 4, 16)).astype(np.float32) for n in (30, 30, 30))
+    mask = np.ones((2, 1, 1, 30), bool)
+    mask[1, ..., -3:] = False
+    outs = {flag: _sdpa_both(monkeypatch, flag, q, k, v, mask) for flag in ("1", "0")}
+    jax.clear_caches()
+    for j, p in outs.values():
+        assert np.abs(p - j).max() <= 2.0 ** -8 * np.abs(j).max()
+        assert (p != j).mean() < 0.01
+    assert not np.array_equal(outs["1"][0], outs["0"][0])
+    assert not np.array_equal(outs["1"][1], outs["0"][1])
+    f32 = [PA.sdpa(t(q), t(k), t(v), t(mask), scores_bf16=s) for s in (True, False)]
+    assert torch.equal(*f32)
+
+
+def test_nar_sdpa_bf16_option_reaches_every_plain_attention(monkeypatch):
+    """A bf16 NAR (the bf16 backend) through the port's engine with
+    ``NarOptions(sdpa_bf16=False)`` and through JAX's under
+    ``MARS5_SDPA_BF16=0``, on the same uniforms and initial noise: L0 (the
+    AR's codes) identical and at most 2% of the grid cells apart, as with
+    the default scores against ``=1`` (the bf16 NAR is not bitwise between
+    the packages: see the test above). The option changes the port's
+    logits: the speaker encoder, the encoder and the decoder all read it."""
+    from mars5_tts_tpu.config import DSH as JDSH
+    from mars5_tts_tpu.diffusion import MultinomialDiffusion as JDiff
+    from mars5_tts_tpu.diffusion import perform_simple_inference as j_infer
+    from mars5_tts_tpu.diffusion.schedule import build_step_plan
+    from mars5_tts_torch.config import DSH
+    from mars5_tts_torch.diffusion.engine import perform_simple_inference as p_infer
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion as PDiff
+    from mars5_tts_torch.models.layers import NarOptions
+    from tests.torch_port_fixtures import port_nar
+
+    cfgs, params = tiny_models()
+    jp = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+                      if a.dtype == np.float32 else jnp.asarray(a), params["nar"])
+    nar = port_nar(cfgs["nar"], params["nar"]).to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    steps, n_prompt, gen, text_len = 6, 30, 20, 10
+    codes = rng.integers(0, 1024, (1, n_prompt, 8))
+    x = np.repeat(rng.integers(0, 1024, (1, gen, 1)), 8, axis=2)
+    batch = (rng.integers(0, 258, (1, text_len)), codes, np.asarray([text_len]),
+             np.asarray([n_prompt]), x, np.zeros((1, gen), bool))
+    kw = dict(last_greedy=True, x_0_temp=0.7, guidance_w=3.0, deep_clone=True, jump_len=1,
+              jump_n_sample=1, q0_override_steps=2, enable_kevin_scaled_inference=True)
+    n_steps = len(build_step_plan(steps)[0])
+    uni = rng.random((n_steps, 2, 1, n_prompt + gen, 8, 1025)).astype(np.float32)
+    x_init = rng.integers(0, 1025, x.shape)
+    for flag in ("1", "0"):
+        monkeypatch.setenv("MARS5_SDPA_BF16", flag)
+        jax.clear_caches()
+        gj = np.asarray(j_infer(jp, cfgs["nar"], batch, JDiff(1025, steps), steps, JDSH(**kw),
+                                uniforms=uni, x_init=x_init))
+        gp = p_infer(nar, batch, PDiff(1025, steps), steps, DSH(**kw), uniforms=uni,
+                     x_init=x_init, options=NarOptions(sdpa_bf16=flag == "1")).numpy()
+        np.testing.assert_array_equal(gp[..., 0], gj[..., 0])
+        assert (gp != gj).mean() <= SDPA_GRID_BOUND, (flag, (gp != gj).sum())
+    jax.clear_caches()
+    args = [t(a) for a in batch] + [torch.tensor([3])]
+    with torch.no_grad():
+        logits = [nar.heads(nar.backbone(*args, options=NarOptions(sdpa_bf16=s)))
+                  for s in (True, False)]
+        spk = [nar.spk_embedding(t(codes), torch.tensor([n_prompt]), NarOptions(sdpa_bf16=s))
+               for s in (True, False)]
+    assert not torch.equal(*logits) and not torch.equal(*spk)

@@ -345,6 +345,37 @@ _BLOCKED = textwrap.dedent("""
     assert np.isfinite(float(m["ar_loss"])) and np.isfinite(float(m["nar_loss"]))
     assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
     print("train ok")
+    import os
+    import tempfile
+    from mars5_tts_torch import cli, hubconf
+    from mars5_tts_torch.audio.io import read_wav, write_wav
+    from mars5_tts_torch.deploy.predict import Predictor, deploy_kwargs
+    from mars5_tts_torch.hub import (load_checkpoint, load_codec_params, load_pytree_npz,
+                                     save_checkpoint, save_pytree_npz)
+    from mars5_tts_torch.models.encodec import convert_encodec
+    from mars5_tts_torch.models.vocos import convert_vocos
+    from mars5_tts_torch.ops.quant import quantize_codeclm
+    d = tempfile.mkdtemp()
+    tree = {"a": [np.ones(2, np.float32), {"b": np.arange(3)}]}
+    save_pytree_npz(os.path.join(d, "t.npz"), tree)
+    back = load_pytree_npz(os.path.join(d, "t.npz"))
+    assert np.array_equal(back["a"][1]["b"], np.arange(3))
+    for name in ("m.safetensors", "m.pt"):
+        save_checkpoint(os.path.join(d, name), {"w": np.ones(3, np.float32)},
+                        {"texttok.model": "v"})
+        assert load_checkpoint(os.path.join(d, name))["vocab"] == {"texttok.model": "v"}
+    write_wav(os.path.join(d, "r.wav"), np.zeros(80, np.float32))
+    assert read_wav(os.path.join(d, "r.wav"))[1] == 24000
+    q = quantize_codeclm(CodecLM(CodecLMConfig.tiny(64)).init_(g).eval())
+    with torch.no_grad():
+        y = q(torch.zeros((1, 5), dtype=torch.long),
+              spk_codes=torch.zeros((1, 4, 8), dtype=torch.long))
+    assert q.is_quantized and torch.isfinite(y).all()
+    assert deploy_kwargs({})["ar_backend"] == "fused4" and cli.build_parser()
+    assert callable(hubconf.mars5_english) and callable(Predictor().setup)
+    assert callable(convert_encodec) and callable(convert_vocos) and callable(load_codec_params)
+    assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+    print("entry points ok")
 """)
 
 
@@ -391,6 +422,14 @@ def test_training_modules_run_with_jax_blocked(blocked_run):
     """``data``, ``train``, ``parallel`` and ``serving.multichip`` import, and
     a train step runs, with jax and the JAX package blocked."""
     assert "train ok" in blocked_run.stdout, blocked_run.stderr
+
+
+def test_entry_points_and_loaders_run_with_jax_blocked(blocked_run):
+    """``cli``, ``hubconf``, ``deploy.predict``, ``audio.io``, the hub's
+    writers and ``.npz`` trees, the codec converters and
+    ``quantize_codeclm`` import and run with jax and the JAX package
+    blocked."""
+    assert "entry points ok" in blocked_run.stdout, blocked_run.stderr
 
 
 def test_kernel_module_imports_without_nvcc(blocked_run):

@@ -174,3 +174,101 @@ def test_heads_prequant_and_folded_match_jax(dtype):
     else:
         np.testing.assert_allclose(xs_p.numpy(), np.asarray(xs_j), rtol=1e-6, atol=0)
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+# ------------------------------------------------- the int8 AR (BENCH_AR=int8)
+
+_AR_KEYS = (("wq", "attention.wq"), ("wk", "attention.wk"), ("wv", "attention.wv"),
+            ("wo", "attention.wo"), ("w1", "feed_forward.w1"), ("w2", "feed_forward.w2"),
+            ("w3", "feed_forward.w3"))
+
+
+@pytest.mark.parametrize("act_int8", [False, True])
+def test_quantize_codeclm_bit_identical(act_int8):
+    """Every block weight and the head: q and s bitwise JAX's; weight-only or
+    W8A8 as asked (JAX's ``a8`` marker); the rest and the input model as
+    they were."""
+    from mars5_tts_tpu.ops.quant import quantize_codeclm as j_quant
+    from mars5_tts_torch.ops.quant import QuantWeight, quantize_codeclm
+    from tests.torch_port_fixtures import port_codeclm
+
+    cfgs, params = tiny_models()
+    model = port_codeclm(cfgs["ar"], params["ar"])
+    jq = j_quant(jax.tree.map(jnp.asarray, params["ar"]), act_int8=act_int8)["ar"]
+    pq = quantize_codeclm(model, act_int8=act_int8)
+    assert pq.is_quantized and not model.is_quantized
+    for i, layer in enumerate(pq.ar.layers):
+        for jkey, path in _AR_KEYS:
+            w = layer.get_submodule(path).weight
+            assert isinstance(w, QuantWeight) and w.act_int8 == act_int8
+            assert ("a8" in jq["layers"][jkey]) == act_int8
+            np.testing.assert_array_equal(w.q.numpy(), np.asarray(jq["layers"][jkey]["q"][i]))
+            np.testing.assert_array_equal(w.s.numpy(), np.asarray(jq["layers"][jkey]["s"][i]))
+    head = pq.ar.output.weight
+    np.testing.assert_array_equal(head.q.numpy(), np.asarray(jq["output"]["q"]))
+    np.testing.assert_array_equal(head.s.numpy(), np.asarray(jq["output"]["s"]))
+    assert torch.equal(pq.ar.norm.weight, model.ar.norm.weight)
+    assert torch.equal(pq.embed.weight, model.embed.weight)
+    assert not any(isinstance(m, QuantWeight) for m in pq.spk_encoder.modules())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_only_and_transposed_products_match_jax(dtype):
+    """``linear_w8a8_t`` bitwise JAX's; ``linear_q8`` with a bias within
+    2e-6 of JAX's, plus one bf16 rounding (2^-8 relative) for bf16 (an f32
+    product of the activations with the int8 weights, whose 64-term sums
+    XLA and PyTorch order differently; outputs of order 1)."""
+    from mars5_tts_tpu.ops import quant as J
+    from mars5_tts_torch.ops import quant as P
+
+    r = np.random.default_rng(8)
+    x = r.standard_normal((3, 5, 64)).astype(np.float32)
+    w = (r.standard_normal((40, 64)) * 0.1).astype(np.float32)
+    b = (r.standard_normal(40) * 0.1).astype(np.float32)
+    q, s = J.quantize_weight(jnp.asarray(w), axis=-1)
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    xj, bj = jnp.asarray(x).astype(jd), jnp.asarray(b).astype(jd)
+    got = P.linear_w8a8_t(t(x).to(dtype), t(q).t().contiguous(), t(s), t(b).to(dtype))
+    ref = J.linear_w8a8_t(xj, q.T, s, bj)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+    got = P.linear_q8(t(x).to(dtype), t(q), t(s), t(b).to(dtype)).float().numpy()
+    ref = np.asarray(J.linear_q8(xj, q, s, bj).astype(jnp.float32))
+    bound = 2e-6 + (np.abs(ref) * 2.0 ** -8 if dtype == torch.bfloat16 else 0.0)
+    assert (np.abs(got - ref) <= bound).all(), np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("act_int8", [False, True])
+def test_int8_ar_tokens_identical_to_jax(act_int8):
+    """The bf16 AR engine over ``quantize_codeclm``'s model: tokens identical
+    to JAX ``ar_generate`` on ``quantize_codeclm(params)`` under the same
+    uniforms; the fused backends refuse such a model."""
+    from mars5_tts_tpu.models import ar_decode as JA
+    from mars5_tts_tpu.ops.quant import quantize_codeclm as j_quant
+    from mars5_tts_torch import Mars5TTS
+    from mars5_tts_torch.models import ar_decode as PA
+    from mars5_tts_torch.ops.quant import quantize_codeclm
+    from tests.torch_port_fixtures import make_tokenizers, port_codeclm, port_nar
+
+    cfgs, params = tiny_models()
+    model = quantize_codeclm(port_codeclm(cfgs["ar"], params["ar"]), act_int8=act_int8)
+    jparams = j_quant(jax.tree.map(jnp.asarray, params["ar"]), act_int8=act_int8)
+    r = np.random.default_rng(11)
+    spk = r.integers(0, 1024, (30, 8))
+    prompt = np.concatenate([r.integers(0, 258, 10), spk[:, 0] + 258])
+    vs, ve = JA.ar_vocab_window(258, 1025, cfgs["ar"].n_vocab)
+    common = dict(temperature=0.7, top_k=200, top_p=0.2, alpha_frequency=3.0,
+                  penalty_window=16, n_phones_gen=20, eos_idx=258 + 1024, valid_start=vs,
+                  valid_end=ve, max_len=len(prompt) + 60)
+    u = np.random.default_rng(12).random(common["max_len"]).astype(np.float32)
+    ref, n_ref = JA.ar_generate(jparams, cfgs["ar"], prompt, spk,
+                                sampling=JA.ArSampling(**common), uniforms=u)
+    got, n_got = PA.ar_generate(model, prompt, spk, sampling=PA.ArSampling(**common),
+                                uniforms=u)
+    assert n_ref > 16
+    np.testing.assert_array_equal(got, ref)
+    assert n_got == n_ref
+    texttok, speechtok, _, _ = make_tokenizers()
+    with pytest.raises(ValueError, match="quantize_codeclm"):
+        Mars5TTS.from_params(model, port_nar(cfgs["nar"], params["nar"]), texttok=texttok,
+                             speechtok=speechtok, ar_backend="fused4")

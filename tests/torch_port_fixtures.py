@@ -136,6 +136,42 @@ def write_checkpoints(tmpdir, seed: int = 0):
 
 
 
+
+def write_port_files(tmpdir, fused: bool = False, seed: int = 0) -> dict:
+    """Files written by the port alone (``mars5_tts_torch.hub`` and
+    ``audio.io``): safetensors AR and NAR checkpoints of ``tiny_models`` (the
+    AR of ``fused_ar`` with ``fused``, which the quantized AR backends take),
+    the Encodec and Vocos pytrees as ``.npz``, and an 800-sample reference WAV.
+    Returns their paths by name ("ar", "nar", "encodec", "vocos", "ref")."""
+    import dataclasses
+
+    from mars5_tts_torch.audio.io import write_wav
+    from mars5_tts_torch.hub import save_checkpoint, save_pytree_npz
+    from mars5_tts_torch.models.ar import CodecLMConfig
+    from mars5_tts_torch.models.convert import (codeclm_reference_state_dict,
+                                                nar_reference_state_dict)
+    from mars5_tts_torch.models.nar import ResidualTransformerConfig
+
+    cfgs, params = tiny_models(seed)
+    ar_jcfg, ar_params = fused_ar(seed) if fused else (cfgs["ar"], params["ar"])
+    _, _, text_str, speech_str = make_tokenizers()
+    vocab = {"texttok.model": text_str, "speechtok.model": speech_str}
+    ar_cfg = port_config(ar_jcfg, CodecLMConfig)
+    nar_cfg = port_config(cfgs["nar"], ResidualTransformerConfig)
+    d = str(tmpdir)
+    paths = {name: os.path.join(d, f) for name, f in (
+        ("ar", "mars5_ar.safetensors"), ("nar", "mars5_nar.safetensors"),
+        ("encodec", "encodec.npz"), ("vocos", "vocos.npz"), ("ref", "ref.wav"))}
+    save_checkpoint(paths["ar"], codeclm_reference_state_dict(ar_params, ar_cfg), vocab,
+                    config=dataclasses.asdict(ar_cfg))
+    save_checkpoint(paths["nar"], nar_reference_state_dict(params["nar"], nar_cfg), vocab,
+                    config=dataclasses.asdict(nar_cfg))
+    save_pytree_npz(paths["encodec"], params["encodec"])
+    save_pytree_npz(paths["vocos"], params["vocos"])
+    ref = np.random.default_rng(seed + 4).standard_normal(800) * 0.1
+    write_wav(paths["ref"], ref.astype(np.float32))
+    return paths
+
 def adam_first_update(grads: dict, clip_norm: float = 0.0, eps: float = 1e-8) -> dict:
     """AdamW's first update direction from one model's gradients {name: g}:
     g / (|g| + eps) after optax's global-norm clip, in f64."""
