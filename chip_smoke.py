@@ -21,7 +21,11 @@
    bf16 AR's 24 heads of 64 over a 2001-slot ring with the self column: one
    row at 600 and 1900, four rows at 600 / 1200 / 1900 / 2400, the last
    wrapped; clusters sized from the positions' host bound as the AR passes
-   it) and K9 mega_decoder_stack (the int8 NAR decoder's 16 layers at the
+   it; again at a tensor-parallel rank's 12 heads, one row at 600 and four
+   rows; and K1 at such a rank's 8 heads, (2, 1200, 8, 64) masked, as
+   strided views of its (2, 1200, 1536) qkv; and at phase 6 (e)'s own
+   shapes: K7 at 12 heads over a 221-slot ring at positions 121 and 219, K1
+   at (2, 725, 8, 64) and (2, 526, 8, 64) masked on qkv views) and K9 mega_decoder_stack (the int8 NAR decoder's 16 layers at the
    smoke request's shape: each layer alone on the kernel's output of the
    layer before, then all sixteen in one call, with the device time of each
    phase; then at the bench's 1,200 frames), then the modes of the int8
@@ -88,7 +92,7 @@
    (the profiler slows what follows it), the device's idle share of the
    pool's run and of a three-row wave at T = 20.
 
-6. Training and data-parallel decoding, after every earlier measurement: (a)
+6. Training, data- and tensor-parallel decoding, after every earlier measurement: (a)
    the port's ``train.make_train_step`` at the released widths
    (``CodecLMConfig.mars5(24_000)``, ``ResidualTransformerConfig.mars5(4_096)``,
    f32, TF32 off), two ``data.synthetic_corpus`` utterances of 60 text tokens
@@ -104,7 +108,29 @@
    at 600 frames with grad enabled must raise (kernel K1 has no backward);
    (d) ``serving.multichip.ShardedARDecoder`` in a one-process NCCL group
    (dp = 1) on the served bf16 AR: its tokens bitwise those of
-   ``ar_generate_batched`` (K7's launches read around it).
+   ``ar_generate_batched`` (K7's launches read around it); (e) tensor
+   parallelism at dp 1 x tp 2 (``tools/tp_card.py``): two processes of one
+   gloo group share the card (NCCL takes one rank a device), each building
+   phase 4's bf16 AR and NAR from its seed and keeping its half
+   (``ShardedARDecoder`` / ``ShardedNARDiffusion``). Rank 0 first runs one
+   process's references on the whole models: a 120-token prompt's AR
+   request capped at 100 new tokens, its teacher-forced logits in bf16 and
+   with the weights in f32, and a deep-clone NAR grid (525 prompt and 200
+   new frames, T = 20, w = 3) in bf16 and in f32. Then both ranks run the
+   request and the grid (timed, the launches counted), then the
+   teacher-forced logits of rank 0's tokens and the grid again with every
+   K7 and K1 call held against its twin on the same inputs. Gates: the
+   ranks' tokens, grid and logits equal; the logits within 3x the bf16
+   model's own distance from f32 of one process's, and the share of grid
+   cells that differ from one process's within 3x the share by which its
+   bf16 grid differs from its f32 grid (``tp_card.check``); every held K7
+   and K1 call within its twin's bound; K7 26 launches a decode step and
+   K1 16 a reverse step plus 3 (the speaker encoder) on each rank.
+   Reported: the tokens that agree with one process's before the first
+   difference (beside how far one process's bf16 and f32 runs agree), the
+   shapes each kernel was held at, each rank's ms a token and a step
+   beside one process's (ranks sharing a card over gloo: not
+   tensor-parallel speed).
 
 7. The entry points from files on disk, after phase 5 and before anything
    runs the profiler, on phase 4's seeded models: (a) the AR and NAR written
@@ -171,6 +197,15 @@ AR_MAX_LEN = 2000                   # K2 check: window min(3000, 2001)
 AR_POSITIONS = (600, 1900)
 BATCH_POSITIONS = (600, 1200, 1900, 2400)     # four rows, the last past the window
 K7_CASES = ((600,), (1900,), BATCH_POSITIONS)
+TP = 2                              # phase 6 (e): two ranks share the card
+K7_TP_CASES = ((600,), BATCH_POSITIONS)     # a tp rank's 24 / TP heads, one row and four
+K1_TP_SHAPE = (2, 1200, 16 // TP, 64)      # a tp rank's NAR self-attention heads
+# phase 6 (e)'s own shapes: K7 over its AR's 221-slot ring (120 prompt ids +
+# a 100-token cap + 1) at the first and last decode positions; K1 on a
+# rank's qkv views in the NAR decoder (525 prompt + 200 frames) and the
+# speaker encoder (the identity + 525 frames), two CFG rows each
+K7_TP_RING, K7_TP_RING_CASES = 221, ((121,), (219,))
+K1_TP_RUN_SHAPES = ((2, 725, 16 // TP, 64), (2, 526, 16 // TP, 64))
 HBM_BYTES_S = 3.35e12               # H100 SXM data sheet
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12}
 # K9 at the smoke request's shape: 7 s reference = 525 prompt frames + up to
@@ -1088,9 +1123,11 @@ def check_head4(ar, gen, dev):
     return st
 
 
-def check_decode_attention(ar_cfg, dev):
-    """K7 at the bf16 AR's decode shapes (its heads over a window-2001 bf16
-    ring, the self column): each case of ``K7_CASES`` against the twin
+def check_decode_attention(ar_cfg, dev, heads=None, cases=K7_CASES, seed=7, window=None):
+    """K7 at the bf16 AR's decode shapes (its heads, or ``heads``: a
+    tensor-parallel rank's, over a window-2001 bf16 ring, or ``window``
+    slots, the self column):
+    each case of ``cases`` against the twin
     within one bf16 ulp (``one_ulp``), with the exactly-equal share. The
     library yardstick is ``scaled_dot_product_attention`` over the ring with
     the self column concatenated and a boolean mask, the concatenation made
@@ -1104,11 +1141,11 @@ def check_decode_attention(ar_cfg, dev):
     import torch.nn.functional as Fn
     from mars5_tts_torch.ops.kernels import decode_attention as A
 
-    gen = own_generator(dev, 7)
-    h, d = ar_cfg.n_kv_heads, ar_cfg.head_dim
-    w = min(ar_cfg.sliding_window, AR_MAX_LEN + 1)
+    gen = own_generator(dev, seed)
+    h, d = heads or ar_cfg.n_kv_heads, ar_cfg.head_dim
+    w = window or min(ar_cfg.sliding_window, AR_MAX_LEN + 1)
     res = {}
-    for positions in K7_CASES:
+    for positions in cases:
         b = len(positions)
 
         def rnd(*shape):
@@ -1632,6 +1669,18 @@ def main():
         k2 = check_decode_layer(models["ar"], gen, dev)
         k8 = check_head4(models["ar"], gen, dev)
         k7 = check_decode_attention(models["ar"].cfg, dev)
+        # a tensor-parallel rank's heads (phase 6 (e)): K7 over its 12 of the
+        # AR's 24, K1 on its 8 of the NAR's 16 as strided views of its qkv
+        k7_tp = check_decode_attention(models["ar"].cfg, dev, heads=24 // TP,
+                                       cases=K7_TP_CASES, seed=32)
+        k1_tp = check_kernel(K, K1_TP_SHAPE, True, torch.bfloat16, own_generator(dev, 31), dev,
+                             lk=K1_TP_SHAPE[1])
+        # and at the shapes phase 6 (e) itself gives them
+        k7_tp_run = check_decode_attention(models["ar"].cfg, dev, heads=24 // TP,
+                                           cases=K7_TP_RING_CASES, seed=33, window=K7_TP_RING)
+        k1_tp_run = {shape: check_kernel(K, shape, True, torch.bfloat16,
+                                         own_generator(dev, 34 + i), dev, lk=shape[1])
+                     for i, shape in enumerate(K1_TP_RUN_SHAPES)}
         k1_modes = check_k1_modes(dev)
         w8a8_g = check_nar_fused_grouped(dev)
         # a short request (2 x 400 frames), where the plan takes 64-wide tiles for
@@ -1668,6 +1717,10 @@ def main():
     # the other models leave the card first)
     with phase("6 (d) (data-parallel decoder)"):
         dp_decode = check_dp_decoder(models, dev)
+    with phase("6 (e) (tensor-parallel decoders, two ranks on the card)"):
+        tp_decode = check_tp_decoders(smi)
+    tp_held = {name: [h[name] for h in tp_decode["held_against_twins_per_rank"]]
+               for name in ("mha", "decode_attention")}
     for rec in serving.values():            # the reruns hold the served models
         if isinstance(rec, dict):
             rec.pop("_rerun", None)
@@ -1711,7 +1764,9 @@ def main():
     k1_int8 = {name: st for name, st in k1_modes.items() if name.startswith("int8")}
     print(json.dumps({"kernels": [
         {**row("mha", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46", main_res),
-         "max_abs_err": max(st["max_abs_err"] for st in (main_res, second, *k1_views, k1_cross)),
+         "max_abs_err": max(st["max_abs_err"] for st in (main_res, second, *k1_views, k1_cross,
+                                                         k1_one, k1_tp, *k1_tp_run.values(),
+                                                         *tp_held["mha"])),
          "device_ms": main_res["device_ms"], "host_ms": main_res["host_ms"],
          "encode_us": main_res["encode_us"],
          "library_unmasked_ms": main_res["library_unmasked_ms"],
@@ -1721,8 +1776,15 @@ def main():
                                     ("(2, 750) over 1200 strided", k1_views[0]),
                                     ("(2, 725) strided", k1_views[1]),
                                     ("(2, 725) over 66 cross", k1_cross),
-                                    ("(1, 1200) masked", k1_one))},
-         "serving_launches": serving["deploy"]["launches"]["mha"]},
+                                    ("(1, 1200) masked", k1_one),
+                                    (f"(2, 1200, {K1_TP_SHAPE[2]} heads) masked, a tp={TP} "
+                                     "rank's qkv views", k1_tp),
+                                    *((f"({b}, {n}, {h} heads) masked, a tp={TP} rank's qkv "
+                                       "views (phase 6 (e))", st)
+                                      for (b, n, h, _), st in k1_tp_run.items()))},
+         "serving_launches": serving["deploy"]["launches"]["mha"],
+         "tp_rank_launches": tp_decode["k1_per_rank"],
+         "tp_rank_held_against_twin": tp_held["mha"]},
         {**row("mha_int8", "mha.cu", "mars5_tts_tpu/ops/pallas/mha.py:46",
                k1_int8["int8 (2, 1200) masked"], launches=path_launches["mha_int8"]),
          "max_abs_err": max(st["max_abs_err"] for st in k1_int8.values()),
@@ -1789,9 +1851,17 @@ def main():
                "mars5_tts_tpu/ops/pallas/decode_attention.py:32", k7[K7_CASES[0]],
                launches=path_launches["decode_attention"]),
          "dp_decoder_launches": dp_decode["decode_attention_launches"],
-         "max_abs_err": max(st["max_abs_err"] for st in k7.values()),
+         "tp_rank_launches": tp_decode["k7_per_rank"],
+         "tp_rank_held_against_twin": tp_held["decode_attention"],
+         "max_abs_err": max(st["max_abs_err"] for st in (*k7.values(), *k7_tp.values(),
+                                                         *k7_tp_run.values(),
+                                                         *tp_held["decode_attention"])),
          "device_ms": k7[K7_CASES[0]]["device_ms"], "host_ms": k7[K7_CASES[0]]["host_ms"],
-         "cases": {",".join(map(str, p)): batched(st) for p, st in k7.items()}},
+         "cases": {**{",".join(map(str, p)): batched(st) for p, st in k7.items()},
+                   **{f"{24 // TP} heads " + ",".join(map(str, p)): batched(st)
+                      for p, st in k7_tp.items()},
+                   **{f"{24 // TP} heads over {K7_TP_RING} slots " + ",".join(map(str, p)):
+                      batched(st) for p, st in k7_tp_run.items()}}},
         {**row("diffusion_tail", "diffusion_tail.cu",
                "mars5_tts_tpu/ops/pallas/diffusion_tail.py:41", k5[-1],
                launches=path_launches["diffusion_tail"]),
@@ -2623,6 +2693,30 @@ def check_dp_decoder(models, dev):
     if k7 <= 0:
         raise RuntimeError("ShardedARDecoder did not launch K7 on the card")
     return rec
+
+
+def check_tp_decoders(smi):
+    """Phase 6 (e): ``ShardedARDecoder`` and ``ShardedNARDiffusion`` at dp 1 x
+    tp ``TP``, the ranks two processes of one gloo group on the card, each
+    holding its half of the released-width bf16 AR and NAR (drawn from
+    phase 4's seed): ``tools/tp_card.run`` and its gates (``check``): the
+    ranks' tokens, grid and teacher-forced logits equal, the logits and
+    the grid's differing cells within their budgets of one process's, each
+    rank's K7 and K1 calls within their twins' bounds on the same inputs,
+    K7 26 a decode step and K1 16 a reverse step plus the speaker
+    encoder's 3, on each rank. Reported: the tokens agreeing with the
+    one-process run before the first difference (and one process's bf16
+    against f32) and each rank's ms a token and a step (two ranks sharing
+    one card over gloo: not tensor-parallel speed)."""
+    from mars5_tts_torch.tools import tp_card
+
+    t0 = time.perf_counter()
+    spec, outs = tp_card.run(TP, timeout=400)
+    rep = tp_card.check(spec, outs, n_layers=26, dec_layers=16, spk_layers=3)
+    rep["wall_s"] = time.perf_counter() - t0
+    print(f"phase 6 (e) tensor-parallel decoders, dp=1 x tp={TP} over gloo on one card "
+          f"({smi}): " + json.dumps(rep), flush=True)
+    return rep
 
 
 TRAIN_STEPS = 5

@@ -65,6 +65,11 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
+    """``tp`` (``parallel.tp.TensorParallel``): this rank's heads only, wo
+    row-parallel (its product reduced in ``TransformerBlock.finish``)."""
+
+    tp = None
+
     def __init__(self, cfg: CodecLMConfig):
         super().__init__()
         self.wq = nn.Linear(cfg.dim, cfg.n_heads * cfg.head_dim, bias=False)
@@ -74,6 +79,10 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
+    """``tp``: w1 / w3 column- and w2 row-parallel, the product reduced."""
+
+    tp = None
+
     def __init__(self, cfg: CodecLMConfig):
         super().__init__()
         self.w1 = nn.Linear(cfg.dim, cfg.hidden_dim, bias=False)
@@ -81,8 +90,9 @@ class FeedForward(nn.Module):
         self.w3 = nn.Linear(cfg.dim, cfg.hidden_dim, bias=False)
 
     def forward(self, h):
-        return linear_any(F.silu(linear_any(h, self.w1.weight))
-                          * linear_any(h, self.w3.weight), self.w2.weight)
+        y = linear_any(F.silu(linear_any(h, self.w1.weight))
+                       * linear_any(h, self.w3.weight), self.w2.weight)
+        return y if self.tp is None else self.tp.reduce(y)
 
 
 class TransformerBlock(nn.Module):
@@ -97,19 +107,21 @@ class TransformerBlock(nn.Module):
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps)
 
     def qkv(self, x, cos, sin):
-        """Roped q and k and v, each (B, L, H, D)."""
+        """Roped q and k and v, each (B, L, H, D); H is this rank's heads
+        under tensor parallelism (the weights' rows, whole heads each)."""
         cfg, a = self.cfg, self.attention
         b, l, _ = x.shape
         h = self.attention_norm(x)
-        q = linear_any(h, a.wq.weight).reshape(b, l, cfg.n_heads, cfg.head_dim)
-        k = linear_any(h, a.wk.weight).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
-        v = linear_any(h, a.wv.weight).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = (linear_any(h, w.weight) for w in (a.wq, a.wk, a.wv))
+        q, k, v = (t.reshape(b, l, t.shape[-1] // cfg.head_dim, cfg.head_dim) for t in (q, k, v))
         return apply_rope_halfsplit(q, cos, sin), apply_rope_halfsplit(k, cos, sin), v
 
     def finish(self, x, attn):
-        """Out-projection residual, then the FFN residual."""
+        """Out-projection residual (a row-parallel one reduced), then the FFN
+        residual."""
         b, l = attn.shape[:2]
-        x = x + linear_any(attn.reshape(b, l, -1), self.attention.wo.weight)
+        o = linear_any(attn.reshape(b, l, -1), self.attention.wo.weight)
+        x = x + (o if self.attention.tp is None else self.attention.tp.reduce(o))
         return x + self.feed_forward(self.ffn_norm(x))
 
     def forward(self, x, cos, sin, mask):
@@ -119,7 +131,10 @@ class TransformerBlock(nn.Module):
 
 class MistralTransformer(nn.Module):
     """The decoder blocks, final norm and output head; ``remat`` (default
-    ``layers.remat_default()``): per-layer rematerialization in training."""
+    ``layers.remat_default()``): per-layer rematerialization in training.
+    ``tp``: the output head's vocabulary is sharded, its logits gathered."""
+
+    tp = None
 
     def __init__(self, cfg: CodecLMConfig, remat: bool | None = None):
         super().__init__()
@@ -141,7 +156,12 @@ class MistralTransformer(nn.Module):
         for layer in self.layers:
             x, kv = run_layer(self.remat, layer, x, cos, sin, mask)
             kvs.append(kv)
-        return linear_any(self.norm(x), self.output.weight), kvs
+        return self.head(x), kvs
+
+    def head(self, x):
+        """Final norm and output head: the (..., V) logits, on every rank."""
+        y = linear_any(self.norm(x), self.output.weight)
+        return y if self.tp is None else self.tp.gather(y)
 
 
 class SinePositionalEmbedding(nn.Module):
@@ -167,7 +187,11 @@ class ChunkedEmbedding(nn.Module):
 
 class CodecLM(nn.Module):
     """``remat``: per-layer rematerialization of every stack in training
-    (default ``MARS5_TRAIN_REMAT``)."""
+    (default ``MARS5_TRAIN_REMAT``). ``tp``: a tensor-parallel decoder's
+    copy (``parallel.tp.shard_module``) whose ``embed`` vocabulary is
+    sharded."""
+
+    tp = None
 
     def __init__(self, cfg: CodecLMConfig, remat: bool | None = None):
         super().__init__()
@@ -202,7 +226,7 @@ class CodecLM(nn.Module):
     def forward(self, tokens, spk_codes=None, spk_vector=None):
         """(bs, L) tokens -> (bs, L, vocab) logits; a speaker vector (given, or
         from ``spk_codes``) sits at position 0 and its output row is dropped."""
-        x = lookup(self.embed.weight, tokens)
+        x = self.embed_ids(tokens)
         has_spk = spk_codes is not None or spk_vector is not None
         if has_spk:
             if spk_vector is None:
@@ -213,9 +237,16 @@ class CodecLM(nn.Module):
 
     def prefill(self, tokens, spk_vector):
         """(all logits incl. the speaker row, per-layer (k, v)) for decode."""
-        x = lookup(self.embed.weight, tokens)
+        x = self.embed_ids(tokens)
         x = torch.cat([spk_vector[:, None].to(x.dtype), x], dim=1)
         return self.ar(x, torch.arange(x.shape[1], device=x.device))
+
+    def embed_ids(self, tokens):
+        """``embed`` rows of ``tokens``, a vocabulary-parallel lookup under
+        ``tp``."""
+        if self.tp is None:
+            return lookup(self.embed.weight, tokens)
+        return self.tp.lookup(self.embed.weight, tokens)
 
     def init_(self, generator: torch.Generator) -> "CodecLM":
         """Seeded random init at any config (tests, benchmarks)."""

@@ -42,7 +42,6 @@ import numpy as np
 import torch
 
 from ..ops.kernels.decode_attention import decode_attention
-from ..ops.quant import linear_any
 from ..ops.rope import rope_angles
 from ..ops.sampling import (apply_typical_p, early_eos_penalty, filter_topk_subset_rows,
                             freq_presence_penalty, mask_vocab_window, sample_from_logprobs,
@@ -177,7 +176,8 @@ def filter_logits(logits, s: ArSampling, counts, n_gen, est_len, rows: RowSampli
 
 
 class RingCache:
-    """Per-layer (B, W, H, D) key/value rings of B rows: (L, B, W, H, D)."""
+    """Per-layer (B, W, H, D) key/value rings of B rows: (L, B, W, H, D);
+    H is a tensor-parallel rank's own heads."""
 
     def __init__(self, n_layers: int, batch: int, window: int, n_heads: int,
                  head_dim: int, dtype, device):
@@ -293,12 +293,17 @@ def sample_rows(state: DecodeState, s: ArSampling, rows: RowSampling, step) -> l
 def decode_step(model: CodecLM, tokens, pos, cache: RingCache):
     """Feed ``tokens`` (B,) at positions ``pos`` (B,) through every layer;
     returns f32 logits (B, V) and writes each row's k/v into its slot
-    ``pos % window``."""
+    ``pos % window``. A tensor-parallel copy (``parallel.tp.shard_module``)
+    runs its own heads (K7 over its own rings) and reduces, looks up and
+    gathers where its modules' ``tp`` says."""
     cfg = model.cfg
     dev = cache.k.device
     rows = torch.arange(len(tokens), device=dev)
     pos_t = ints_on_device(pos, dev, torch.int32)
-    x = torch.stack([model.embed.weight[int(t)] for t in tokens])[:, None]
+    if model.tp is None:
+        x = torch.stack([model.embed.weight[int(t)] for t in tokens])[:, None]
+    else:
+        x = model.embed_ids(ints_on_device(tokens, dev))[:, None]
     cos, sin = rope_angles(pos_t, cfg.head_dim)
     cos, sin = cos[:, None, None], sin[:, None, None]        # (B, 1, 1, D/2)
     slots = torch.remainder(pos_t.long(), cache.window)
@@ -310,8 +315,7 @@ def decode_step(model: CodecLM, tokens, pos, cache: RingCache):
         cache.k[li, rows, slots] = k[:, 0]
         cache.v[li, rows, slots] = v[:, 0]
         x = layer.finish(x, attn[:, None])
-    logits = linear_any(model.ar.norm(x), model.ar.output.weight)[:, 0]
-    return logits.float()
+    return model.ar.head(x)[:, 0].float()
 
 
 def uniform_stream(uniforms, generator, seed: int, n: int, rows: int, device):
@@ -379,8 +383,9 @@ def prefill_state(model: CodecLM, s: ArSampling, prompts, spk_codes_list, unifor
     prompts = [np.asarray(p, np.int64) for p in prompts]
     window = min(cfg.sliding_window, s.max_len + 1)
     logits, kvs = prefill_rows(model, prompts, spk_codes_list, window)
-    cache = RingCache(cfg.n_layers, len(prompts), window, cfg.n_kv_heads, cfg.head_dim,
-                      kvs[0][0][0].dtype, logits.device)
+    k0 = kvs[0][0][0]                               # (1, P + 1, H, D): H this rank's heads
+    cache = RingCache(cfg.n_layers, len(prompts), window, k0.shape[2], cfg.head_dim,
+                      k0.dtype, logits.device)
     for r, kv in enumerate(kvs):
         cache.write_prompt(r, kv)
     state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)

@@ -114,7 +114,11 @@ class LayerNorm(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """Parameters of torch's ``nn.MultiheadAttention`` (fused in-projection)."""
+    """Parameters of torch's ``nn.MultiheadAttention`` (fused in-projection).
+    ``tp`` (``parallel.tp.TensorParallel``): this rank's heads of each third
+    of the in-projection, ``out_proj`` row-parallel (``ops.attention.torch_mha``)."""
+
+    tp = None
 
     def __init__(self, dim: int, nhead: int):
         super().__init__()
@@ -128,7 +132,7 @@ class MultiheadAttention(nn.Module):
                          self.out_proj.weight, self.out_proj.bias,
                          q_in, kv_in, self.nhead, key_padding_mask,
                          qattn=options.qattn, cross_k1=options.cross_k1,
-                         scores_bf16=options.sdpa_bf16)
+                         scores_bf16=options.sdpa_bf16, tp=self.tp)
 
 
 class SwiGLU(nn.Module):
@@ -142,6 +146,11 @@ class SwiGLU(nn.Module):
 
 
 class EncoderLayer(nn.Module):
+    """``tp``: the SwiGLU's W / V column- and ``linear2`` row-parallel, its
+    product reduced and its bias added once after."""
+
+    tp = None
+
     def __init__(self, dim: int, nhead: int, hidden: int):
         super().__init__()
         self.self_attn = MultiheadAttention(dim, nhead)
@@ -151,7 +160,10 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(dim)
 
     def ff(self, h):
-        return linear_any(self.activation(h), self.linear2.weight, self.linear2.bias)
+        if self.tp is None:
+            return linear_any(self.activation(h), self.linear2.weight, self.linear2.bias)
+        return self.tp.reduce(linear_any(self.activation(h), self.linear2.weight),
+                              self.linear2.bias)
 
     def forward(self, x, key_padding_mask=None, options: NarOptions = DEFAULT_OPTIONS):
         h = self.norm1(x)

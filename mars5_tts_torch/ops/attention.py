@@ -30,11 +30,27 @@ def kernel_route(t) -> bool:
 def linear(x, w, b=None):
     """y = x @ w.T (+ b): f32 accumulation, one rounding to x's dtype, then the
     bias added in that dtype (as ``jax.lax.dot_general`` with
-    ``preferred_element_type=f32`` followed by ``.astype``)."""
+    ``preferred_element_type=f32`` followed by ``.astype``). A DTensor
+    product (tensor-parallel training) that is not a partial sum passes
+    through ``_whole_grad``."""
     y = torch.matmul(x, w.t())
+    if is_dtensor(y) and not any(p.is_partial() for p in y.placements):
+        y = _whole_grad(y)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def _whole_grad(x):
+    """``x`` unchanged, its gradient brought to ``x``'s own placements
+    before it goes on into the product that made ``x``. DTensor's backward
+    may otherwise hand a product a gradient sharded over tp along the
+    sequence, which the product's reshape of (B, L, N) to (B L, N) refuses
+    once L does not split evenly (7 frames over tp = 4)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local(grad_placements=x.placements), x.device_mesh,
+                              x.placements, run_check=False)
 
 
 def sdpa(q, k, v, mask=None, scores_bf16: bool = True):
@@ -103,7 +119,7 @@ def _thirds(t):
 
 def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
               key_padding_mask=None, *, qattn: bool = False, cross_k1: bool = False,
-              scores_bf16: bool = True):
+              scores_bf16: bool = True, tp=None):
     """torch ``nn.MultiheadAttention`` forward (batch_first).
 
     in_w (3D, D) / in_b (3D,) are torch's fused in-projection; out_w/out_b the
@@ -114,9 +130,14 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
     (``kernel_route``: CUDA tensors), in its int8 mode with ``qattn`` (JAX
     ``MARS5_QATTN``) when the in-projection is quantized; plain ``sdpa``
     otherwise, its scores rounded as ``scores_bf16`` says. A DTensor in-projection (tensor-parallel training) is
-    projected a third at a time.
+    projected a third at a time. ``tp`` (``parallel.tp.TensorParallel``,
+    tensor-parallel decoding): in_w / in_b hold this rank's heads of each
+    third (3E rows, E = D / tp), out_w its E columns; K1 or ``sdpa`` runs
+    on those heads and the out-projection's partial sums are reduced, its
+    bias added once after.
     """
     d = q_in.shape[-1]
+    e = in_b.shape[0] // 3              # D, or this rank's E under tp
     b, lq = q_in.shape[:2]
     lk = kv_in.shape[1]
     if is_dtensor(in_w):
@@ -127,21 +148,24 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
         k, v = (linear(kv_in, w3[i], b3[i]) for i in (1, 2))
     elif q_in is kv_in:
         qkv = linear_any(q_in, in_w, in_b)
-        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
     else:
-        q = linear_any(q_in, slice_rows(in_w, 0, d), in_b[:d])
-        kv = linear_any(kv_in, slice_rows(in_w, d, 3 * d), in_b[d:])
-        k, v = kv[..., :d], kv[..., d:]
-    q = q.reshape(b, lq, nhead, d // nhead)
-    k = k.reshape(b, lk, nhead, d // nhead)
-    v = v.reshape(b, lk, nhead, d // nhead)
+        q = linear_any(q_in, slice_rows(in_w, 0, e), in_b[:e])
+        kv = linear_any(kv_in, slice_rows(in_w, e, 3 * e), in_b[e:])
+        k, v = kv[..., :e], kv[..., e:]
+    hd = d // nhead
+    q = q.reshape(b, lq, e // hd, hd)
+    k = k.reshape(b, lk, e // hd, hd)
+    v = v.reshape(b, lk, e // hd, hd)
     if lq >= KERNEL_SELF_ATTN_MIN_LEN and (lq == lk or cross_k1) and kernel_route(q):
         out = mha_kernel.mha(q, k, v, key_padding_mask,
                              quantized=qattn and is_quantized(in_w))
     else:
         mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
         out = sdpa(q, k, v, mask, scores_bf16=scores_bf16)
-    return linear_any(out.reshape(b, lq, d), out_w, out_b)
+    if tp is None:
+        return linear_any(out.reshape(b, lq, e), out_w, out_b)
+    return tp.reduce(linear_any(out.reshape(b, lq, e), out_w), out_b)
 
 
 def banded_causal_mask(length: int, window: int, device=None, dtype=torch.float32):

@@ -74,13 +74,19 @@ def _vocab_parallel_lookup(table, idx):
     if rows * mesh.size(dim) != table.shape[0]:
         raise ValueError(f"{table.shape[0]} rows do not split evenly over {mesh.size(dim)}")
     start = mesh.get_local_rank(dim) * rows
-    ids = idx.to_local() if is_dtensor(idx) else idx
-    inside = (ids >= start) & (ids < start + rows)
-    out = F.embedding(torch.where(inside, ids - start, 0), local) * inside[..., None]
+    out = local_vocab_lookup(local, idx.to_local() if is_dtensor(idx) else idx, start)
     placements = [Partial() if i == dim else p for i, p in enumerate(ids_placements)]
     out = DTensor.from_local(out, mesh, placements, run_check=False)
     return out.redistribute(mesh, [Replicate() if i == dim else p
                                    for i, p in enumerate(placements)])
+
+
+def local_vocab_lookup(local, ids, start: int):
+    """The rows of ``ids`` that fall in one shard of a vocabulary-sharded
+    table, ``local`` holding rows [start, start + len(local)); zeros for the
+    ids outside it. Summed over the shards, this is ``table[ids]``."""
+    inside = (ids >= start) & (ids < start + local.shape[0])
+    return F.embedding(torch.where(inside, ids - start, 0), local) * inside[..., None]
 
 
 def chunked_embed(tables, x):

@@ -34,6 +34,7 @@ from torch.distributed.tensor.placement_types import _StridedShard
 
 COLUMN, ROW = Shard(0), Shard(1)
 THIRDS = _StridedShard(0, split_factor=3)     # each of q, k, v on its own rows
+VOCAB_PARAMS = ("embed.weight", "ar.output.weight")     # the AR's vocabulary-parallel tables
 
 
 def _maybe(placement, shape, tp_size: int):
@@ -57,7 +58,7 @@ def _specs(module: nn.Module, rule, tp_size: int) -> dict:
 
 
 def _ar_rule(name: str):
-    if name in ("embed.weight", "ar.output.weight"):
+    if name in VOCAB_PARAMS:
         return COLUMN
     if not name.startswith("ar.layers."):
         return None

@@ -31,6 +31,7 @@ def _qkv(shape_q, lk, dtype, dev, seed):
 
 @pytest.mark.parametrize("b,lq,lk,h,dtype,masked", [
     (2, 1200, 1200, 16, torch.bfloat16, True),    # NAR self-attention
+    (2, 1200, 1200, 8, torch.bfloat16, True),     # a tp = 2 rank's NAR heads
     (2, 525, 525, 16, torch.bfloat16, False),
     (1, 526, 526, 24, torch.bfloat16, True),      # AR speaker encoder
     (1, 130, 70, 2, torch.bfloat16, True),        # cross shape, ragged tiles
@@ -70,6 +71,25 @@ def test_mha_kernel_reads_strided_views(dev):
     out = K.mha(q, k, v)
     ref = K.mha_ref(q.contiguous(), k.contiguous(), v.contiguous())
     torch.cuda.synchronize()
+    assert bool(((out.float() - ref.float()).abs() <= K.bf16_row_bound(ref)).all())
+
+
+def test_mha_kernel_reads_a_tp_ranks_qkv_views(dev):
+    """A tp = 2 rank's self-attention: q, k and v are views of its own
+    (B, L, 3 x 8 x 64) in-projection output, read in place."""
+    from mars5_tts_torch.ops.kernels import mha as K
+
+    b, l, h, d = 2, 1200, 8, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn((b, l, 3 * h * d), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, l, h, d) for i in range(3))
+    mask = torch.zeros((b, l), dtype=torch.bool, device=dev)
+    mask[1, 1000:] = True
+    n0 = K.launch_count
+    out = K.mha(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert K.launch_count == n0 + 1
+    ref = K.mha_ref(q.contiguous(), k.contiguous(), v.contiguous(), mask)
     assert bool(((out.float() - ref.float()).abs() <= K.bf16_row_bound(ref)).all())
 
 
@@ -763,6 +783,8 @@ def _ring_inputs(b, w, h, dtype, dev, seed, scale=1.0):
 @pytest.mark.parametrize("b,w,h,positions", [
     (1, 2001, 24, (600,)),                      # bf16 AR decode, released widths
     (4, 2001, 24, (600, 1200, 1900, 2400)),     # batched rows, the last wrapped
+    (1, 2001, 12, (600,)),                      # a tp = 2 rank's heads
+    (4, 2001, 12, (600, 1200, 1900, 2400)),
     (2, 64, 4, (5, 100)),
     (3, 7, 2, (0, 6, 7)),                       # first step, last unwrapped, wrapped
 ])
@@ -1685,3 +1707,37 @@ def test_cli_on_gpu_matches_cpu(dev, tmp_path, monkeypatch):
     assert torch.equal(grids[0], grids[1]), int((grids[0] != grids[1]).sum())
     assert pcm["cuda"].shape == pcm["cpu"].shape and len(pcm["cpu"]) > 0
     assert np.abs(pcm["cuda"] - pcm["cpu"]).max() <= 8
+
+
+def test_tp_ranks_agree_on_the_card(dev):
+    """Two tensor-parallel ranks of one gloo group sharing the card
+    (``tools/tp_card.py``, chip_smoke's phase 6 (e) at two layers of the
+    released widths): the same tokens, grid and teacher-forced logits on
+    both, the logits and the grid within the stated budgets of one
+    process's, K7 and K1 launched on each rank's heads and held against
+    their twins there: K7 over the (1, 145)-slot ring of the 144-token
+    request, K1 on strided qkv views in the NAR decoder (525 + 200 frames)
+    and the speaker encoder (the identity + 525), two CFG rows each."""
+    from mars5_tts_torch.tools import tp_card
+
+    spec, outs = tp_card.run(2, ar={"n_layers": 2}, nar={"enc_layers": 2, "dec_layers": 2},
+                             timeout=400, new_tokens=24, steps=4)
+    rep = tp_card.check(spec, outs, n_layers=2, dec_layers=2, spk_layers=3)
+    assert rep["heads_per_rank"] == {"ar": 12, "nar": 8}
+    for held in rep["held_against_twins_per_rank"]:
+        assert {s[:2] for s in held["decode_attention"]["shapes"]} == {
+            ((1, 12, 64), (1, 145, 12, 64))}
+        assert {s[0] for s in held["mha"]["shapes"]} == {(2, 725, 8, 64), (2, 526, 8, 64)}
+        assert all(s[2] for s in held["mha"]["shapes"])
+        assert held["mha"]["calls"] == rep["k1_want"]
+
+
+def test_graft_entry_runs_the_mars5_ar_on_the_card(dev):
+    """``graft_entry.entry()``: the 26-layer MARS5-width bf16 AR on the card
+    gives finite (1, 64, 24,000) logits."""
+    from mars5_tts_torch.graft_entry import entry
+
+    fn, args = entry()
+    assert args[0].embed.weight.is_cuda
+    out = fn(*args)
+    assert out.shape == (1, 64, 24_000) and bool(torch.isfinite(out).all())

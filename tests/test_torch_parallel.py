@@ -1,53 +1,28 @@
 """``mars5_tts_torch.parallel``, the sharded train step and
 ``serving/multichip.py`` in several processes: ``torch.distributed`` on gloo
-over the CPU, spawned with ``torch.multiprocessing`` and a ``file://``
-rendezvous under the test's own ``tmp_path`` (so parallel test workers
-never share a port), at world sizes 2 (dp 2) and 4 (dp 2 x tp 2). Each test
-bounds its processes by its own timeout.
+over the CPU, spawned by ``parallel.launch.spawn_ranks`` (a ``file://``
+rendezvous in a temporary directory of its own, so parallel test workers
+never share a port), at world sizes 2 (dp 2, or tp 2) and 4 (dp 2 x tp 2,
+or tp 4). Each test bounds its processes by its own timeout.
 
 Tolerances: the tp-sharded loss rtol 1e-5 of the single-process loss and of
 JAX's, gradients and logits atol 1e-5 + rtol 1e-4 (row-parallel products sum
-in another split); data-parallel decoding and diffusion bitwise."""
+in another split); data-parallel decoding and diffusion bitwise;
+tensor-parallel decoding in f32 token for token and cell for cell (the
+row-parallel sums part from one process's in the last bits only, and no
+sampled logit at these sizes is that close to a tie)."""
 
 import dataclasses
-import os
-import time
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+from mars5_tts_torch.parallel.launch import spawn_ranks
+
 K = 1025
 T_STEPS = 6
-
-
-# --- the process harness ---------------------------------------------------------
-
-def _entry(rank, fn, world, tmp, args):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
-                            world_size=world)
-    try:
-        torch.save(fn(rank, world, *args), os.path.join(tmp, f"out{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
-
-
-def _spawn(fn, world, tmp_path, timeout, *args):
-    """Run ``fn(rank, world, *args)`` in ``world`` processes; their returns,
-    by rank. Fails the test past ``timeout`` seconds."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.start_processes(_entry, args=(fn, world, str(tmp_path), args), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=0.5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            pytest.fail(f"{fn.__name__} ran past its {timeout} s")
-    return [torch.load(tmp_path / f"out{r}.pt", weights_only=False) for r in range(world)]
 
 
 # --- tiny models (built by the JAX package, carried across) -------------------
@@ -139,7 +114,7 @@ def _mesh_worker(rank, world, nar_sd):
     return out
 
 
-def test_mesh_and_specs(tmp_path):
+def test_mesh_and_specs():
     """``make_mesh`` (shape, names, the divisibility errors), the placement
     trees (column, row, vocabulary, the tp = 7 fallback to replication,
     JAX's ``test_mesh_and_specs``), and the NAR's in-projection placed
@@ -171,7 +146,7 @@ def test_mesh_and_specs(tmp_path):
     assert ns["residual_decoder.0.1.weight"] == Replicate()
     assert all(p == Replicate() for p in nar_specs(_port(nar_sd, "nar"), tp_size=7).values())
 
-    outs = _spawn(_mesh_worker, 4, tmp_path, 120, nar_sd)
+    outs = spawn_ranks(_mesh_worker, 4, nar_sd, timeout=120)
     w = nar_sd[0]["tfm.decoder.layers.0.self_attn.in_proj_weight"]
     b = nar_sd[0]["tfm.decoder.layers.0.self_attn.in_proj_bias"]
     for out in outs:
@@ -262,7 +237,7 @@ def _train_worker(rank, world, ar_sd, nar_sd, batches, t):
     return out
 
 
-def test_dp_tp_sharded_training_matches_single_process_and_jax(tmp_path):
+def test_dp_tp_sharded_training_matches_single_process_and_jax():
     """dp 2 x tp 2: the AR loss over a batch whose masks differ across the
     dp halves is the global ``sum(nll mask) / sum(mask)``, equal to the
     single-process loss and JAX's, with the same gradients; the NAR's TP
@@ -282,7 +257,7 @@ def test_dp_tp_sharded_training_matches_single_process_and_jax(tmp_path):
     ar_cfg, ar_p, ar_sd, nar_cfg, nar_p, nar_sd = _models()
     ab, nb = _batches()
     t = np.array([0, 3, 5, 1])
-    outs = _spawn(_train_worker, 4, tmp_path, 300, ar_sd, nar_sd, (ab, nb), t)
+    outs = spawn_ranks(_train_worker, 4, ar_sd, nar_sd, (ab, nb), t, timeout=300)
 
     ar = _port(ar_sd, "ar")
     loss = PT.ar_loss_fn(ar, *PT.to_batch(ab, PT.AR_DTYPES, "cpu"))
@@ -366,22 +341,13 @@ def _dsh(deep):
                q0_override_steps=1, deep_clone=deep)
 
 
-def _serve_worker(rank, world, ar_sd, nar_sd, tp):
+def _serve_worker(rank, world, ar_sd, nar_sd):
     from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
     from mars5_tts_torch.parallel import make_mesh
     from mars5_tts_torch.serving.multichip import ShardedARDecoder, ShardedNARDiffusion
 
     ar, nar = _port(ar_sd, "ar", False), _port(nar_sd, "nar", False)
-    mesh = make_mesh(tp=tp)
-    if tp > 1:
-        out = []
-        for make in (lambda: ShardedARDecoder(ar, _ar_sampling(), mesh=mesh),
-                     lambda: ShardedNARDiffusion(nar, mesh=mesh)):
-            try:
-                make()
-            except NotImplementedError as e:
-                out.append(str(e))
-        return out
+    mesh = make_mesh(tp=1)
     prompts, spks, uniforms, nb, nu, x_init = _serve_inputs()
     dec = ShardedARDecoder(ar, _ar_sampling(), mesh=mesh)
     out = {"dp": dec.dp,
@@ -397,7 +363,7 @@ def _serve_worker(rank, world, ar_sd, nar_sd, tp):
     return out
 
 
-def test_dp_decoders_bitwise_equal_single_process(tmp_path):
+def test_dp_decoders_bitwise_equal_single_process():
     """dp 2: ``ShardedARDecoder`` over three requests (one pad row) equals
     ``ar_generate_batched`` over all three and each request's solo run,
     token for token, on injected uniforms and on seeded streams;
@@ -411,7 +377,7 @@ def test_dp_decoders_bitwise_equal_single_process(tmp_path):
     from mars5_tts_torch.models.ar_decode import ar_generate, ar_generate_batched
 
     _, _, ar_sd, _, _, nar_sd = _models()
-    outs = _spawn(_serve_worker, 2, tmp_path, 300, ar_sd, nar_sd, 1)
+    outs = spawn_ranks(_serve_worker, 2, ar_sd, nar_sd, timeout=300)
     ar, nar = _port(ar_sd, "ar", False), _port(nar_sd, "nar", False)
     prompts, spks, uniforms, nb, nu, x_init = _serve_inputs()
     s = _ar_sampling()
@@ -437,9 +403,335 @@ def test_dp_decoders_bitwise_equal_single_process(tmp_path):
             assert torch.equal(out[name], grid), name
 
 
-def test_tp_decoders_refuse(tmp_path):
-    """tp > 1 for the decoders raises NotImplementedError naming ROADMAP A5b
-    (tensor parallelism runs in training)."""
+# --- tensor-parallel decoding --------------------------------------------------------
+
+def _tp_ar(n_vocab):
+    """The JAX TP decode test's AR (``tests/test_multichip.py::
+    test_sharded_ar_decode_with_tp``: 4 heads of 16, window 40) at
+    ``n_vocab``: (jax cfg, params, the port's state dict and config)."""
+    import jax
+
+    from mars5_tts_tpu.models.ar import CodecLMConfig, init_codeclm
+    from mars5_tts_torch.models.ar import CodecLMConfig as PA
+    from mars5_tts_torch.models.convert import codeclm_reference_state_dict
+
+    cfg = CodecLMConfig(n_vocab=n_vocab, dim=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                        n_layers=2, hidden_dim=96, sliding_window=40, n_spk_layers=2,
+                        spk_hidden_dim=192)
+    params = jax.tree.map(np.asarray, init_codeclm(jax.random.PRNGKey(1), cfg))
+    pa = PA(**dataclasses.asdict(cfg))
+    return cfg, params, (codeclm_reference_state_dict(params, pa), pa)
+
+
+def _recording(module, name, calls):
+    """Wrap ``module.name`` so that each call's arguments go to ``calls``."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kw):
+        calls.append(args)
+        return fn(*args, **kw)
+    setattr(module, name, rec)
+
+
+def _tp_ar_worker(rank, world, ar_sd, dp, tp):
+    from mars5_tts_torch.models import ar_decode
+    from mars5_tts_torch.parallel import make_mesh
+    from mars5_tts_torch.serving.multichip import ShardedARDecoder
+
+    calls = []
+    _recording(ar_decode, "decode_attention", calls)
+    prompts, spks, uniforms = _serve_inputs()[:3]
+    dec = ShardedARDecoder(_port(ar_sd, "ar", False), _ar_sampling(),
+                           mesh=make_mesh(dp=dp, tp=tp))
+    m = dec.model
+    return {"tokens": dec.generate(prompts, spks, uniforms=uniforms),
+            "k7": {(tuple(q.shape), tuple(ck.shape)) for q, ck, *_ in calls},
+            "k7_calls": len(calls), "embed": tuple(m.embed.weight.shape),
+            "output": tuple(m.ar.output.weight.shape),
+            "vocab_collectives": (m.tp is not None, m.ar.tp is not None),
+            "row_collectives": (m.ar.layers[0].attention.tp is not None,
+                                m.ar.layers[0].feed_forward.tp is not None,
+                                m.spk_encoder.layers[0].tp, m.spk_encoder.layers[0].self_attn.tp)}
+
+
+@pytest.mark.parametrize("dp,tp,n_vocab", [(2, 2, 64), (1, 4, 64), (1, 2, 65)],
+                         ids=["dp2_tp2_vocab64", "dp1_tp4_vocab64", "dp1_tp2_vocab65"])
+def test_tp_ar_decoder_equals_single_process_and_jax(dp, tp, n_vocab):
+    """``ShardedARDecoder`` at tp > 1 (heads, FFN and, where it divides,
+    the vocabulary sharded; ``parallel/tp.py``): three requests on injected
+    uniforms give, on every rank, the tokens of ``ar_generate_batched`` in
+    one process and of JAX's ``ar_generate`` (whose own dp 2 x tp 4 run
+    equals its single-device one, ``tests/test_multichip.py``). Each rank's
+    decode attention takes its own heads of q and of the rings (K7's route
+    on the card), 2 layers a step; a vocabulary of 65 stays whole at tp 2
+    (``_maybe``) and takes no vocabulary collective; the AR's speaker
+    encoder stays replicated."""
+    from mars5_tts_tpu.models.ar_decode import ArSampling as JSampling, ar_generate as j_generate
+    from mars5_tts_torch.models.ar_decode import ar_generate_batched
+
+    cfg, params, ar_sd = _tp_ar(n_vocab)
+    outs = spawn_ranks(_tp_ar_worker, dp * tp, ar_sd, dp, tp, timeout=300)
+    prompts, spks, uniforms = _serve_inputs()[:3]
+    s = _ar_sampling()
+    want = ar_generate_batched(_port(ar_sd, "ar", False), prompts, spks, sampling=s,
+                               uniforms=np.stack(uniforms, 1))
+    js = JSampling(**dataclasses.asdict(s))
+    jax_want = [j_generate(params, cfg, p, k, sampling=js, uniforms=u)
+                for p, k, u in zip(prompts, spks, uniforms)]
+    rows, heads, window = -(-len(prompts) // dp), 4 // tp, min(40, s.max_len + 1)
+    sharded = n_vocab % tp == 0
+    v = n_vocab // tp if sharded else n_vocab
+    for out in outs:
+        for (toks, n), (wt, wn), (jt, jn) in zip(out["tokens"], want, jax_want, strict=True):
+            assert n == wn == int(jn)
+            assert toks.tolist() == wt.tolist() == np.asarray(jt).tolist()
+        assert out["k7"] == {((rows, heads, 16), (rows, window, heads, 16))}
+        assert out["k7_calls"] > 0 and out["k7_calls"] % 2 == 0
+        assert out["embed"] == (v, 64) and out["output"] == (v, 64)
+        assert out["vocab_collectives"] == (sharded, sharded)
+        assert out["row_collectives"] == (True, True, None, None)
+
+
+def _tp_nar_worker(rank, world, nar_sd, dp, tp):
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.parallel import make_mesh
+    from mars5_tts_torch.serving.multichip import ShardedNARDiffusion
+
+    _, _, _, nb, nu, x_init = _serve_inputs()
+    svc = ShardedNARDiffusion(_port(nar_sd, "nar", False), mesh=make_mesh(dp=dp, tp=tp))
+    diff = MultinomialDiffusion(K, timesteps=T_STEPS)
+    layer = svc.model.tfm.decoder.layers[0]
+    out = {"local": (tuple(layer.self_attn.in_proj_weight.shape),
+                     tuple(layer.multihead_attn.out_proj.weight.shape),
+                     tuple(layer.activation.W.weight.shape), tuple(layer.linear2.weight.shape),
+                     tuple(svc.model.residual_decoder[0][1].weight.shape))}
+    for layout, batch in zip(("", "ragged_"), nb):
+        out[layout + "grid"] = svc.infer(batch, diff, T_STEPS, _dsh(True), uniforms=nu,
+                                         x_init=x_init)
+    return out
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)], ids=["dp1_tp2", "dp2_tp2"])
+def test_tp_nar_diffusion_equals_single_process_and_jax(dp, tp):
+    """``ShardedNARDiffusion`` at tp 2 (each attention's heads a third at a
+    time, out_proj and linear2 row-parallel with their biases added once,
+    the SwiGLU column-parallel; heads and embeddings replicated): the deep
+    clone grid at one prompt length and ragged, on injected uniforms and
+    ``x_init``, equals one process's and JAX's ``perform_simple_inference``
+    cell for cell, on every rank."""
+    from mars5_tts_tpu.config import DSH as JDSH
+    from mars5_tts_tpu.diffusion import MultinomialDiffusion as JDiff
+    from mars5_tts_tpu.diffusion import perform_simple_inference as j_infer
+    from mars5_tts_torch.diffusion.engine import perform_simple_inference
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+
+    _, _, _, nar_cfg, nar_p, nar_sd = _models()
+    outs = spawn_ranks(_tp_nar_worker, dp * tp, nar_sd, dp, tp, timeout=300)
+    _, _, _, nb, nu, x_init = _serve_inputs()
+    nar = _port(nar_sd, "nar", False)
+    diff = MultinomialDiffusion(K, timesteps=T_STEPS)
+    jdsh = JDSH(**dataclasses.asdict(_dsh(True)))
+    for layout, batch in zip(("", "ragged_"), nb):
+        want = perform_simple_inference(nar, batch, diff, T_STEPS, _dsh(True), uniforms=nu,
+                                        x_init=x_init)
+        jax_want = np.asarray(j_infer(nar_p, nar_cfg, batch, JDiff(K, T_STEPS), T_STEPS, jdsh,
+                                      uniforms=nu, x_init=x_init))
+        np.testing.assert_array_equal(want.numpy(), jax_want)
+        for out in outs:
+            assert torch.equal(out[layout + "grid"], want), layout
+    for out in outs:
+        assert out["local"] == ((3 * 64 // tp, 64), (64, 64 // tp), (192 // tp, 64),
+                                (64, 192 // tp), (K, 64))
+
+
+def _hd64_models():
+    """A port AR and NAR with head dim 64 (the kernels' only one), two heads
+    each, seeded."""
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+
+    ar = CodecLM(CodecLMConfig(n_vocab=64, dim=128, n_heads=2, n_kv_heads=2, head_dim=64,
+                               n_layers=2, hidden_dim=96, sliding_window=40, n_spk_layers=1,
+                               spk_hidden_dim=96)).init_(torch.Generator().manual_seed(0))
+    nar = ResidualTransformer(ResidualTransformerConfig(
+        n_text_vocab=32, dim=128, nhead=2, enc_layers=1, dec_layers=2, n_spk_layers=1,
+        t_emb_dim=64, hidden_dim=96)).init_(torch.Generator().manual_seed(1))
+    return ar.requires_grad_(False), nar.requires_grad_(False)
+
+
+def _long_nar_batch():
+    """One deep-clone row whose decoder runs over 520 frames (K1's route
+    from 512)."""
+    rng = np.random.default_rng(5)
+    lc, lx = 8, 512
+    return (rng.integers(0, 32, (1, 5)), rng.integers(0, 1024, (1, lc, 8)), np.array([5]),
+            np.array([lc]), rng.integers(0, 1024, (1, lx, 8)), np.zeros((1, lx), bool))
+
+
+def _tp_route_worker(rank, world):
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models import ar_decode
+    from mars5_tts_torch.ops import attention
+    from mars5_tts_torch.ops.kernels import decode_attention as A, mha as M
+    from mars5_tts_torch.parallel import make_mesh
+    from mars5_tts_torch.serving.multichip import ShardedARDecoder, ShardedNARDiffusion
+
+    attention.kernel_route = lambda t: True    # K1's route; its CPU wrapper runs the twin
+    ar, nar = _hd64_models()
+    mesh = make_mesh(dp=1, tp=2)
+    dec, svc = ShardedARDecoder(ar, _ar_sampling(), mesh=mesh), ShardedNARDiffusion(nar, mesh=mesh)
+    k1, k7 = [], []
+    _recording(attention.mha_kernel, "mha", k1)
+    _recording(ar_decode, "decode_attention", k7)
+    prompts, spks, uniforms = _serve_inputs()[:3]
+    tokens = dec.generate(prompts[:1], spks[:1], uniforms=uniforms[:1])
+    grid = svc.infer(_long_nar_batch(), MultinomialDiffusion(K, timesteps=3), 3, _dsh(True),
+                     generator=torch.Generator().manual_seed(3))
+    for q, ck, cv, pos, kn, vn in k7:
+        A.launch_args(q, ck, cv, pos, kn, vn)       # raises on what K7 does not take
+    for q, k, v, mask in k1:
+        M.launch_args(q, k, v, mask)                # views K1 could not read in place raise
+    return {"tokens": tokens, "grid": grid, "k7": {tuple(a[0].shape) for a in k7},
+            "k7_calls": len(k7), "k1": {tuple(a[0].shape) for a in k1}, "k1_calls": len(k1),
+            "k1_strided": all(not a[0].is_contiguous() for a in k1)}
+
+
+def test_tp_ranks_attend_on_their_own_heads_through_k7_and_k1(monkeypatch):
+    """At tp 2 with attention on the kernels' route (forced here; the CPU
+    wrappers run their twins): each rank's AR decode attention gets its one
+    head of 64 and its rings (K7: 2 layers a decode step), and the NAR's
+    self-attention over 520 frames its head as strided views of its own
+    (1, 520, 3 x 64) in-projection (K1: 2 decoder layers a reverse step),
+    every call one ``launch_args`` accepts, that is, one the kernel reads
+    in place on the card. Tokens and grid equal one process's on the same
+    route."""
+    from mars5_tts_torch.diffusion.engine import perform_simple_inference
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models.ar_decode import ar_generate
+    from mars5_tts_torch.ops import attention
+
+    outs = spawn_ranks(_tp_route_worker, 2, timeout=300)
+    monkeypatch.setattr(attention, "kernel_route", lambda t: True)
+    ar, nar = _hd64_models()
+    prompts, spks, uniforms = _serve_inputs()[:3]
+    toks, n = ar_generate(ar, prompts[0], spks[0], sampling=_ar_sampling(), uniforms=uniforms[0])
+    grid = perform_simple_inference(nar, _long_nar_batch(), MultinomialDiffusion(K, timesteps=3),
+                                    3, _dsh(True), generator=torch.Generator().manual_seed(3))
+    steps = n - (len(toks) >= _ar_sampling().max_len)
+    for out in outs:
+        assert out["tokens"][0][0].tolist() == toks.tolist() and out["tokens"][0][1] == n
+        assert torch.equal(out["grid"], grid)
+        assert out["k7"] == {(1, 1, 64)} and out["k7_calls"] == 2 * steps
+        assert out["k1"] == {(2, 520, 1, 64)} and out["k1_calls"] == 2 * 3
+        assert out["k1_strided"]
+
+
+def _tp_refusal_worker(rank, world):
+    import dataclasses as dc
+
+    from mars5_tts_torch.models.ar import CodecLM
+    from mars5_tts_torch.models.nar import ResidualTransformer
+    from mars5_tts_torch.ops.quant import quantize_codeclm, quantize_nar
+    from mars5_tts_torch.parallel import make_mesh
+    from mars5_tts_torch.serving.multichip import ShardedARDecoder, ShardedNARDiffusion
+
+    ar, nar = _hd64_models()
+    mesh = make_mesh(dp=1, tp=2)
+    odd_ar = CodecLM(dc.replace(ar.cfg, n_heads=3, n_kv_heads=3, dim=192))
+    odd_nar = ResidualTransformer(dc.replace(nar.cfg, nhead=3, dim=192))
+    out = {}
+    for name, make in (("quantized AR", lambda: ShardedARDecoder(quantize_codeclm(ar),
+                                                                 _ar_sampling(), mesh=mesh)),
+                       ("quantized NAR", lambda: ShardedNARDiffusion(quantize_nar(nar), mesh=mesh)),
+                       ("3-head AR", lambda: ShardedARDecoder(odd_ar, _ar_sampling(), mesh=mesh)),
+                       ("3-head NAR", lambda: ShardedNARDiffusion(odd_nar, mesh=mesh))):
+        try:
+            make()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def test_tp_decoders_refuse_quantized_models_and_heads_tp_does_not_divide():
+    """At tp 2 the decoders take float models only (the JAX package shards
+    the float tree; the quantized AR engines are not sharded either) and
+    refuse head counts tp does not divide (a column shard would split a
+    head, and RoPE is per head)."""
+    for out in spawn_ranks(_tp_refusal_worker, 2, timeout=120):
+        assert "float model" in out["quantized AR"] and "float model" in out["quantized NAR"]
+        assert "do not divide by tp=2" in out["3-head AR"]
+        assert "do not divide by tp=2" in out["3-head NAR"]
+
+
+def _one_rank_group(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_shard_module_holds_a_ranks_part(tmp_path, rank):
+    """``parallel.tp.shard_module`` at tp 2, rank 0 and 1 (one process):
+    the NAR's in-projection keeps the rank's rows of each third (the same
+    heads of q, k and v, as DTensor's ``_StridedShard`` places them in
+    training), row-parallel weights their columns, the AR's vocabulary its
+    rows; replicated parameters share the model's storage; the modules
+    that own a collective carry ``tp``, and the model given is left whole."""
+    from mars5_tts_torch.parallel import codeclm_specs, nar_specs
+    from mars5_tts_torch.parallel.tp import TensorParallel, shard_module
+
     _, _, ar_sd, _, _, nar_sd = _models()
-    for msgs in _spawn(_serve_worker, 2, tmp_path, 120, ar_sd, nar_sd, 2):
-        assert len(msgs) == 2 and all("A5b" in m for m in msgs)
+    _one_rank_group(tmp_path)
+    try:
+        tp = TensorParallel(dist.group.WORLD, rank, 2)
+        nar = _port(nar_sd, "nar", False)
+        local = shard_module(nar, nar_specs(nar, 2), tp)
+        ar = _port(ar_sd, "ar", False)
+        local_ar = shard_module(ar, codeclm_specs(ar, 2), tp)
+    finally:
+        dist.destroy_process_group()
+    w = nar.tfm.decoder.layers[0].self_attn.in_proj_weight
+    rows = np.concatenate([np.arange(i * 64 + rank * 32, i * 64 + (rank + 1) * 32)
+                           for i in range(3)])
+    lay = local.tfm.decoder.layers[0]
+    assert torch.equal(lay.self_attn.in_proj_weight, w[rows])
+    assert torch.equal(lay.self_attn.out_proj.weight,
+                       nar.tfm.decoder.layers[0].self_attn.out_proj.weight[:, rank * 32:][:, :32])
+    assert torch.equal(lay.linear2.weight, nar.tfm.decoder.layers[0].linear2.weight[:, rank * 96:][:, :96])
+    assert lay.linear2.bias.data_ptr() == nar.tfm.decoder.layers[0].linear2.bias.data_ptr()
+    assert lay.tp is tp and lay.self_attn.tp is tp and lay.multihead_attn.tp is tp
+    assert local.residual_decoder[0][1].weight.data_ptr() == nar.residual_decoder[0][1].weight.data_ptr()
+    assert nar.tfm.decoder.layers[0].tp is None and w.shape == (192, 64)
+    assert torch.equal(local_ar.embed.weight, ar.embed.weight[rank * 32:(rank + 1) * 32])
+    assert local_ar.tp is tp and local_ar.ar.tp is tp
+    assert local_ar.ar.layers[1].attention.tp is tp and local_ar.ar.layers[1].feed_forward.tp is tp
+    assert local_ar.spk_encoder.layers[0].tp is None
+    assert all(not p.requires_grad for p in local_ar.parameters())
+
+
+def test_tp_card_check_on_the_cpu():
+    """``tools/tp_card.py`` (smoke phase 6 (e)) on the CPU at tiny bf16
+    widths (head dim 64, 2 heads): rank 0's one-process references, the two
+    ranks' AR run, teacher-forced logits and NAR grid, and ``check``'s
+    gates: the ranks equal, the logits and the grid's differing cells
+    within ``TF_BUDGET`` of one process's distance from f32, every K7 call
+    of the held run within its twin's bound (the CPU's wrappers run their
+    twins; the launch gates are the card's)."""
+    from mars5_tts_torch.tools import tp_card
+
+    ar = dict(dim=128, n_heads=2, n_kv_heads=2, head_dim=64, n_layers=2, hidden_dim=192,
+              n_spk_layers=1, spk_hidden_dim=192)
+    nar = dict(dim=128, nhead=2, enc_layers=1, dec_layers=2, n_spk_layers=1, t_emb_dim=64,
+               hidden_dim=192)
+    spec, outs = tp_card.run(2, ar, nar, device="cpu", timeout=300, new_tokens=30, steps=6)
+    rep = tp_card.check(spec, outs, n_layers=2, dec_layers=2, spk_layers=1)
+    assert rep["heads_per_rank"] == {"ar": 1, "nar": 1}
+    assert rep["tokens"] == rep["ref_tokens"] == 30 and rep["k7_want"] == 2 * 29
+    assert rep["k1_want"] == 2 * 6 + 1
+    assert 0 < rep["tf_max_abs_diff_tp_vs_one_process"] <= rep["tf_bound"]
+    assert rep["grid_cells_differing_share"] <= rep["grid_share_bound"]
+    for held in rep["held_against_twins_per_rank"]:
+        assert held["decode_attention"]["calls"] == 2 * 29
+        assert held["decode_attention"]["max_excess"] <= 0
+    assert rep["held_grid_equal_per_rank"] == [True, True]
+    assert outs[0]["tf"].shape == (30, 24_000)
