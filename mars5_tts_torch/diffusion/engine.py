@@ -65,6 +65,7 @@ from ..models.nar import (ResidualTransformer, fold_quant_heads, nar_heads_folde
                           nar_heads_prequant)
 from ..ops.kernels.diffusion_tail import diffusion_tail, heads_diffusion_tail, tail_scalars
 from ..ops.kernels.nar_mega import MegaPack
+from ..utils.profiling import span
 from .multinomial import MultinomialDiffusion, log_sample_categorical
 from .schedule import build_step_plan
 
@@ -237,30 +238,33 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         known_mask = (torch.arange(x.shape[1], device=dev)[None]
                       < torch.as_tensor(offsets, device=dev)[:, None])[..., None]
 
-    # loop invariants: the speaker vector once per CFG row, and the encoder
-    # memory of every timestep in one batched forward (the encoder depends on
-    # t only through the additive t_enc embedding)
-    if cfg_batched:
-        drop = torch.cat([torch.zeros(bs, dtype=torch.bool, device=dev),
-                          torch.ones(bs, dtype=torch.bool, device=dev)])
-        ccl_d = torch.where(drop, 0, ccl.repeat(2))
-        codes_d = torch.where(drop[:, None, None], K - 1, c_codes.repeat(2, 1, 1))
-        spk = model.spk_embedding(codes_d, ccl_d, options)
-        c_base, c_padding = model.enc_inputs(c_text.repeat(2, 1), ctl.repeat(2), spk)
-        xpm_rows = xpm.repeat(2, 1)
-    else:
-        spk = model.spk_embedding(c_codes, ccl, options)
-        c_base, c_padding = model.enc_inputs(c_text, ctl, spk)
-        xpm_rows = xpm
-    rows, lc, dim = c_base.shape
-    t_enc_all, t_dec_all = model.timestep_mlps(torch.arange(T, device=dev), c_base.dtype)
-    c_all = (c_base[None] + t_enc_all[:, None, None]).reshape(T * rows, lc, dim)
-    cp_all = c_padding[None].expand(T, rows, lc).reshape(T * rows, lc)
-    memory_all = model.tfm.encoder(c_all, key_padding_mask=cp_all,
-                                   options=options).reshape(T, rows, lc, dim)
+    # loop invariants (the span ``nar.memory``): the speaker vector once per
+    # CFG row, and the encoder memory of every timestep in one batched
+    # forward (the encoder depends on t only through the additive t_enc
+    # embedding)
+    with span("nar.memory"):
+        if cfg_batched:
+            drop = torch.cat([torch.zeros(bs, dtype=torch.bool, device=dev),
+                              torch.ones(bs, dtype=torch.bool, device=dev)])
+            ccl_d = torch.where(drop, 0, ccl.repeat(2))
+            codes_d = torch.where(drop[:, None, None], K - 1, c_codes.repeat(2, 1, 1))
+            spk = model.spk_embedding(codes_d, ccl_d, options)
+            c_base, c_padding = model.enc_inputs(c_text.repeat(2, 1), ctl.repeat(2), spk)
+            xpm_rows = xpm.repeat(2, 1)
+        else:
+            spk = model.spk_embedding(c_codes, ccl, options)
+            c_base, c_padding = model.enc_inputs(c_text, ctl, spk)
+            xpm_rows = xpm
+        rows, lc, dim = c_base.shape
+        t_enc_all, t_dec_all = model.timestep_mlps(torch.arange(T, device=dev), c_base.dtype)
+        c_all = (c_base[None] + t_enc_all[:, None, None]).reshape(T * rows, lc, dim)
+        cp_all = c_padding[None].expand(T, rows, lc).reshape(T * rows, lc)
+        memory_all = model.tfm.encoder(c_all, key_padding_mask=cp_all,
+                                       options=options).reshape(T, rows, lc, dim)
 
-    # W8A8: the heads' LN affines folded into requantized head weights
-    folded = fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized else None
+        # W8A8: the heads' LN affines folded into requantized head weights
+        folded = (fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized
+                  else None)
     kernel_tail = tail if folded is not None and use_key else "dense"
 
     def decoder_out(x, t_last, with_cfg):
@@ -277,9 +281,9 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
                                    memory_all[t_last][:bs], c_padding[:bs],
                                    q_tail_start=offset, mega=mega, options=options)
 
-    def x0_logits(x, t_last, with_cfg):
-        """CFG-combined f32 x0 logits on the generated frames, lanes 1.."""
-        out = decoder_out(x, t_last, with_cfg)
+    def x0_logits(out, with_cfg):
+        """CFG-combined f32 x0 logits on the generated frames, lanes 1.., of
+        the decoder's output ``out``."""
         logits = (nar_heads_folded(folded, out) if folded is not None
                   else model.heads(out, lanes=range(1, n_lanes))).float()
         if cfg_batched and with_cfg:
@@ -293,20 +297,28 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         return torch.rand((n, *shape[1:]), generator=generator, device=dev)[lo:hi]
 
     def reverse(x, i, t):
+        """A reverse step: the decoder (the span ``nar.decoder``), then the
+        heads and the tail (``nar.tail``)."""
         with_cfg = use_cfg(t)
+        with span("nar.decoder"):
+            out = decoder_out(x, t, with_cfg)
+        with span("nar.tail"):
+            return heads_and_tail(x, i, t, with_cfg, out)
+
+    def heads_and_tail(x, i, t, with_cfg, out):
         greedy = greedy_t0 and t == 0
         if kernel_tail == "heads":
-            x8, xs = nar_heads_prequant(decoder_out(x, t, with_cfg))
+            x8, xs = nar_heads_prequant(out)
             unknown = heads_diffusion_tail(
                 x8, xs, folded, rand(bs, l_gen, n_lanes - 1, K), x[:, offset:, 1:],
                 tail_scalars(diff, t, use_gumbel=not greedy), w=w, temp=dsh.x_0_temp)
         elif kernel_tail == "split":
             unknown = diffusion_tail(
-                nar_heads_folded(folded, decoder_out(x, t, with_cfg)),
+                nar_heads_folded(folded, out),
                 rand(bs, l_gen, n_lanes - 1, K), x[:, offset:, 1:],
                 tail_scalars(diff, t, use_gumbel=not greedy), w=w, temp=dsh.x_0_temp)
         else:
-            log_x0 = torch.log_softmax(x0_logits(x, t, with_cfg) / dsh.x_0_temp, dim=-1)
+            log_x0 = torch.log_softmax(x0_logits(out, with_cfg) / dsh.x_0_temp, dim=-1)
             log_pred = diff.q_posterior_indexed(log_x0, x[:, offset:, 1:], t,
                                                 normalize=not use_key)
             # the reference never forwards last_greedy to its reverse step, so
@@ -353,9 +365,10 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
     n_steps = len(t_lasts)
     for i, (t, rev, c) in enumerate(zip(t_lasts.tolist(), is_reverse.tolist(),
                                         cs.tolist())):
-        x = reverse(x, i, t) if rev else forward(x, i, t, c)
-        if retain_quant0 and t > dsh.q0_override_steps:
-            x[..., 0] = x_quant0  # x is a fresh tensor from the step
+        with span("nar.step"):
+            x = reverse(x, i, t) if rev else forward(x, i, t, c)
+            if retain_quant0 and t > dsh.q0_override_steps:
+                x[..., 0] = x_quant0  # x is a fresh tensor from the step
         if dsh.progress:
             _progress(i, n_steps)
     return x

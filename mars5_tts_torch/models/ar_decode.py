@@ -47,6 +47,7 @@ from ..ops.sampling import (apply_typical_p, early_eos_penalty, filter_topk_subs
                             freq_presence_penalty, mask_vocab_window, sample_from_logprobs,
                             top_k_top_p_filter)
 from ..utils.device import ints_on_device
+from ..utils.profiling import span
 from .ar import CodecLM, CodecLMConfig
 
 
@@ -239,14 +240,19 @@ class DecodeState:
 def sample_update(state: DecodeState, logits, s: ArSampling, rows: RowSampling) -> None:
     """Sample one token a row from ``logits`` (B, V), row i's k-th generated
     token consuming ``uniforms[min(k, max_len - 1), i]``, and advance each
-    live row's state in place (the JAX ``_sample_and_update``)."""
+    live row's state in place (the JAX ``_sample_and_update``). Spans: the
+    draw (``ar.sample``), then its readback, where the host waits for the
+    device (``ar.readback``)."""
     st = state
     b = st.batch
     idx = np.arange(b)
-    logprobs = filter_logits(logits, s, st.counts, st.n_gen, st.est_len, rows)
-    k = np.minimum(st.n_gen, s.max_len - 1)
-    u = torch.stack([st.uniforms[int(k[i]), i] for i in range(b)])
-    tok = sample_from_logprobs(logprobs, u).cpu().numpy()
+    with span("ar.sample"):
+        logprobs = filter_logits(logits, s, st.counts, st.n_gen, st.est_len, rows)
+        k = np.minimum(st.n_gen, s.max_len - 1)
+        u = torch.stack([st.uniforms[int(k[i]), i] for i in range(b)])
+        drawn = sample_from_logprobs(logprobs, u)
+    with span("ar.readback"):
+        tok = drawn.cpu().numpy()
     active = ~st.done
     appends = active & (tok != s.eos_idx) & (st.cur < s.max_len)
     at = np.minimum(st.cur, s.max_len - 1)
@@ -272,12 +278,15 @@ def decode_loop(state: DecodeState, s: ArSampling, rows: RowSampling, step,
     step ``step(tokens (B,), positions (B,))`` feeds every row's last token
     at its cursor through the model (writing its K/V into ``state.cache``)
     and returns the next (B, V) f32 logits, which ``sample_update`` samples.
-    Returns ``state``, advanced in place."""
+    Returns ``state``, advanced in place. Each step is the span ``ar.step``,
+    its ``step`` call ``ar.forward``."""
     idx = np.arange(state.batch)
     i = 0
     while not state.done.all() and (n_steps is None or i < n_steps):
-        logits = step(state.tokens[idx, np.maximum(state.cur - 1, 0)], state.cur)
-        sample_update(state, logits, s, rows)
+        with span("ar.step"):
+            with span("ar.forward"):
+                logits = step(state.tokens[idx, np.maximum(state.cur - 1, 0)], state.cur)
+            sample_update(state, logits, s, rows)
         i += 1
     state.steps += i
     return state
@@ -378,18 +387,19 @@ def prefill_state(model: CodecLM, s: ArSampling, prompts, spk_codes_list, unifor
     """Prefill ``prompts`` (each row at its own length, ``prefill_rows``)
     into a bf16 ring of B rows and sample each row's first token: a
     ready-to-decode state. ``uniforms`` (max_len, B) on the model's device;
-    ``rows`` default ``rows_from_sampling(s, B)``."""
+    ``rows`` default ``rows_from_sampling(s, B)``. The span ``ar.prefill``."""
     cfg = model.cfg
     prompts = [np.asarray(p, np.int64) for p in prompts]
     window = min(cfg.sliding_window, s.max_len + 1)
-    logits, kvs = prefill_rows(model, prompts, spk_codes_list, window)
-    k0 = kvs[0][0][0]                               # (1, P + 1, H, D): H this rank's heads
-    cache = RingCache(cfg.n_layers, len(prompts), window, k0.shape[2], cfg.head_dim,
-                      k0.dtype, logits.device)
-    for r, kv in enumerate(kvs):
-        cache.write_prompt(r, kv)
-    state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
-    sample_update(state, logits, s, rows or rows_from_sampling(s, len(prompts)))
+    with span("ar.prefill"):
+        logits, kvs = prefill_rows(model, prompts, spk_codes_list, window)
+        k0 = kvs[0][0][0]                           # (1, P + 1, H, D): H this rank's heads
+        cache = RingCache(cfg.n_layers, len(prompts), window, k0.shape[2], cfg.head_dim,
+                          k0.dtype, logits.device)
+        for r, kv in enumerate(kvs):
+            cache.write_prompt(r, kv)
+        state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
+        sample_update(state, logits, s, rows or rows_from_sampling(s, len(prompts)))
     return state
 
 

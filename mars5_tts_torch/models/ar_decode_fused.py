@@ -42,6 +42,7 @@ from ..ops.kernels.decode_layer import (MAX_BATCH, FusedDims, build_fused_pack,
 from ..ops.kernels.head4 import head4_logits, pack_head4
 from ..ops.norms import rms_norm
 from ..ops.quant import linear_q8, quantize_weight
+from ..utils.profiling import span
 from .ar import CodecLM, CodecLMConfig
 from .ar_decode import (ArSampling, DecodeState, RowSampling, decode_loop, extract_row,
                         insert_row, new_state, parked_fields, prefill_rows, rows_from_sampling,
@@ -162,7 +163,8 @@ def prefill_fused(codeclm: CodecLM, dims: FusedDims, s: ArSampling, prompts, spk
     through the model as loaded at its own length (``prefill_rows``), its
     K/V quantized into its row of a ``FusedCache`` of B = len(prompts) rows,
     each row's first token sampled. ``uniforms`` (max_len, B) on the
-    device; ``rows`` default ``rows_from_sampling(s, B)``."""
+    device; ``rows`` default ``rows_from_sampling(s, B)``. The span
+    ``ar.prefill``."""
     cfg = codeclm.cfg
     b = len(prompts)
     if not 1 <= b <= dims.batch:
@@ -171,12 +173,13 @@ def prefill_fused(codeclm: CodecLM, dims: FusedDims, s: ArSampling, prompts, spk
         raise ValueError(f"the pack's window {dims.window} is too short for max_len "
                          f"{s.max_len}")
     prompts = [np.asarray(p, np.int64) for p in prompts]
-    logits, kvs = prefill_rows(codeclm, prompts, spk_codes_list, dims.window)
-    cache = FusedCache(dims, logits.device, b)
-    for r, kv in enumerate(kvs):
-        cache.write_prompt(r, kv)
-    state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
-    sample_update(state, logits, s, rows or rows_from_sampling(s, b))
+    with span("ar.prefill"):
+        logits, kvs = prefill_rows(codeclm, prompts, spk_codes_list, dims.window)
+        cache = FusedCache(dims, logits.device, b)
+        for r, kv in enumerate(kvs):
+            cache.write_prompt(r, kv)
+        state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
+        sample_update(state, logits, s, rows or rows_from_sampling(s, b))
     return state
 
 

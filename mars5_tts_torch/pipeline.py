@@ -80,7 +80,7 @@ from .models.vocos import Vocos, VocosConfig, codes_to_features, vocos_from_pytr
 from .ops.kernels.decode_layer import make_dims
 from .ops.kernels.nar_mega import build_mega_pack, mega_supported
 from .ops.quant import nar_w_group_keys, quantize_nar
-from .utils.profiling import StageTimer
+from .utils.profiling import StageTimer, span
 
 
 def default_device() -> torch.device:
@@ -312,6 +312,12 @@ class Mars5TTS:
         with a reseeded sampler up to this many times before accepting the
         truncated output. The AR draws from ``seed``, the diffusion from
         ``seed + 1``.
+
+        ``last_timing`` then holds each stage's wall seconds (``stages_s``),
+        their sum (``total_s``), ``audio_s``, the trimmed audio's seconds,
+        ``rtf``, the total over ``audio_s``, and ``grid_audio_s``, the seconds
+        of the served grid before the trim: its frames x the vocoder's hop /
+        24,000.
         """
         if max_retries:
             for attempt in range(max_retries + 1):
@@ -321,29 +327,32 @@ class Mars5TTS:
                     return result
                 logging.warning("runaway AR decode; retrying (%d/%d)", attempt + 1,
                                 max_retries)
-        cfg = cfg or InferenceConfig()
-        timer = StageTimer(sync=self._sync)
-        text_tokens, prompt_codec, raw_prompt_len, gen_codes = self._synthesize_codes(
-            text, ref_audio, ref_transcript, cfg, seed, timer)
+        with span("request"):
+            cfg = cfg or InferenceConfig()
+            timer = StageTimer(sync=self._sync)
+            text_tokens, prompt_codec, raw_prompt_len, gen_codes = self._synthesize_codes(
+                text, ref_audio, ref_transcript, cfg, seed, timer)
 
-        with timer.stage("nar_diffusion"):
-            c_codes = prompt_codec.transpose(1, 2)
-            x = np.repeat(gen_codes[None, :, None], 8, axis=2)
-            grid = self._nar((np.asarray(text_tokens, np.int64)[None], c_codes,
-                              np.asarray([len(text_tokens)]), np.asarray([c_codes.shape[1]]),
-                              x, np.zeros((1, x.shape[1]), bool)), cfg,
-                             self._nar_generator(seed))
-            skip_front = raw_prompt_len if cfg.deep_clone else 0
-            self.last_grid = grid[0, skip_front:]
+            with timer.stage("nar_diffusion"):
+                c_codes = prompt_codec.transpose(1, 2)
+                x = np.repeat(gen_codes[None, :, None], 8, axis=2)
+                grid = self._nar((np.asarray(text_tokens, np.int64)[None], c_codes,
+                                  np.asarray([len(text_tokens)]), np.asarray([c_codes.shape[1]]),
+                                  x, np.zeros((1, x.shape[1]), bool)), cfg,
+                                 self._nar_generator(seed))
+                skip_front = raw_prompt_len if cfg.deep_clone else 0
+                self.last_grid = grid[0, skip_front:]
 
-        with timer.stage("vocode"):
-            audio = self.vocode(self.last_grid)
+            with timer.stage("vocode"):
+                audio = self.vocode(self.last_grid)
 
-        with timer.stage("trim"):
-            audio, _ = trim(audio, top_db=cfg.trim_db)
+            with timer.stage("trim"):
+                audio, _ = trim(audio, top_db=cfg.trim_db)
 
-        self.last_timing = timer.report(audio_seconds=len(audio) / self.sr)
-        return gen_codes, audio
+            self.last_timing = timer.report(audio_seconds=len(audio) / self.sr)
+            self.last_timing["grid_audio_s"] = (len(self.last_grid) * self.vocos.cfg.hop_length
+                                                / self.sr)
+            return gen_codes, audio
 
     def _sampling(self, cfg: InferenceConfig, n_phones_gen: int) -> ArSampling:
         max_len = cfg.generate_max_len_override if cfg.generate_max_len_override > 1 else 2000
@@ -460,7 +469,8 @@ class Mars5TTS:
         one waveform) or one voice a text (a list of ``len(texts)``
         waveforms, ``ref_transcript`` then a matching list). Returns one
         ``(ar_codes (Lgen,) int64 L0 ids, waveform (T,) float32 24 kHz)`` per
-        text, as ``tts`` does; ``last_timing`` is over the total audio.
+        text, as ``tts`` does; ``last_timing`` is over the total audio (its
+        ``grid_audio_s``: the rows' served frames summed, x the hop / 24,000).
 
         The AR runs the quantized batched engine (K2, one call a step for all
         rows) for 2 to 8 rows with ``ar_backend="fused"``/``"fused4"`` and the
@@ -468,109 +478,112 @@ class Mars5TTS:
         the JAX package's ``tts_batch``, kept as its semantics, not a device
         fallback. The AR draws from ``seed``, the diffusion from ``seed + 1``.
         """
-        cfg = cfg or InferenceConfig()
-        timer = StageTimer(sync=self._sync)
-        n = len(texts)
-        per_row_refs = isinstance(ref_audio, (list, tuple))
-        refs = list(ref_audio) if per_row_refs else [ref_audio]
-        if per_row_refs and len(refs) != n:
-            raise ValueError(f"{len(refs)} reference audios != {n} texts")
-        if isinstance(ref_transcript, (list, tuple)):
-            transcripts = list(ref_transcript)
-            if len(transcripts) != len(refs):
-                raise ValueError("per-row transcripts must match ref_audio")
-        else:
-            transcripts = [ref_transcript] * len(refs)
-        if cfg.deep_clone and any(t is None for t in transcripts):
-            raise AssertionError(
-                "Inference config deep clone is set to true, but reference "
-                "transcript not specified! Please specify the transcript of the "
-                "prompt, or set deep_clone=False in the inference `cfg` argument.")
-
-        with timer.stage("encode_reference"):
-            codec_per_ref = [self.encode_reference(r).cpu().numpy() for r in refs]
-        row = (lambda per_ref: per_ref) if per_row_refs else (lambda per_ref: per_ref[:1] * n)
-        row_codec = row(codec_per_ref)                  # (1, n_q, S_i) a row
-        row_transcript = row(transcripts)
-        skip_fronts = [c.shape[-1] if cfg.deep_clone else 0 for c in row_codec]
-
-        with timer.stage("tokenize"):
-            row_speech = row([[p + len(self.texttok.vocab) for p in self.speechtok.encode(
-                " ".join(str(t) for t in c[0, 0].tolist()).strip())] for c in codec_per_ref])
-            prompts, first_codec_idxs, text_rows, est_lens = [], [], [], []
-            for text, tr, speech in zip(texts, row_transcript, row_speech):
-                if cfg.deep_clone:
-                    tokens = self.texttok.encode("<|startoftext|>" + tr + " " + str(text).strip()
-                                                 + "<|endoftext|>", allowed_special="all")
-                    prompt = tokens + speech
-                    n_speech_inp = len(speech)
-                else:
-                    tokens = self.texttok.encode("<|startoftext|>" + text.strip()
-                                                 + "<|endoftext|>", allowed_special="all")
-                    prompt, n_speech_inp = tokens, 0
-                prompts.append(np.asarray(prompt, np.int64))
-                first_codec_idxs.append(len(prompt) - n_speech_inp + 1)
-                text_rows.append(tokens)
-                est_lens.append(round(cfg.eos_estimated_gen_length_factor * len(text)))
-
-        with timer.stage("ar_generate"):
-            sampling = self._sampling(cfg, max(est_lens))
-            spk_list = [c[0].T for c in row_codec]
-            if self.ar_backend != "bf16" and cfg.use_kv_cache and 2 <= n <= 8:
-                fp, dims = self._get_fused(sampling.max_len, batch=n)
-                outs = ar_generate_fused_batched(self.codeclm, fp, dims, prompts, spk_list,
-                                                 sampling=sampling, seed=seed,
-                                                 est_lens=est_lens)
+        with span("request"):
+            cfg = cfg or InferenceConfig()
+            timer = StageTimer(sync=self._sync)
+            n = len(texts)
+            per_row_refs = isinstance(ref_audio, (list, tuple))
+            refs = list(ref_audio) if per_row_refs else [ref_audio]
+            if per_row_refs and len(refs) != n:
+                raise ValueError(f"{len(refs)} reference audios != {n} texts")
+            if isinstance(ref_transcript, (list, tuple)):
+                transcripts = list(ref_transcript)
+                if len(transcripts) != len(refs):
+                    raise ValueError("per-row transcripts must match ref_audio")
             else:
-                outs = ar_generate_batched(self.codeclm, prompts, spk_list, sampling=sampling,
-                                           seed=seed, est_lens=est_lens)
+                transcripts = [ref_transcript] * len(refs)
+            if cfg.deep_clone and any(t is None for t in transcripts):
+                raise AssertionError(
+                    "Inference config deep clone is set to true, but reference "
+                    "transcript not specified! Please specify the transcript of the "
+                    "prompt, or set deep_clone=False in the inference `cfg` argument.")
 
-        with timer.stage("parse_ar"):
-            rows = []
-            for (seq, _), fci in zip(outs, first_codec_idxs):
-                toks = np.clip(seq - len(self.texttok.vocab), 0, None)[fci:].tolist()
-                rows.append(np.asarray([s for s in self.speechtok.decode_int(toks)
-                                        if isinstance(s, int)], np.int64))
+            with timer.stage("encode_reference"):
+                codec_per_ref = [self.encode_reference(r).cpu().numpy() for r in refs]
+            row = (lambda per_ref: per_ref) if per_row_refs else (lambda per_ref: per_ref[:1] * n)
+            row_codec = row(codec_per_ref)                  # (1, n_q, S_i) a row
+            row_transcript = row(transcripts)
+            skip_fronts = [c.shape[-1] if cfg.deep_clone else 0 for c in row_codec]
 
-        with timer.stage("nar_diffusion"):
-            lt = max(len(r) for r in text_rows)
-            lx = max(max(len(r) for r in rows), 1)
-            lc = max(c.shape[-1] for c in row_codec)
-            c_text = np.zeros((n, lt), np.int64)
-            x = np.zeros((n, lx, 8), np.int64)
-            xpm = np.ones((n, lx), bool)
-            c_codes = np.zeros((n, lc, 8), np.int64)
-            for i, (tr, r, c) in enumerate(zip(text_rows, rows, row_codec)):
-                c_text[i, : len(tr)] = tr
-                x[i, : len(r)] = r[:, None]
-                xpm[i, : len(r)] = False
-                c_codes[i, : c.shape[-1]] = c[0].T
-            grid = self._nar((c_text, c_codes, np.asarray([len(t) for t in text_rows]),
-                              np.asarray([c.shape[-1] for c in row_codec]), x, xpm),
-                             cfg, self._nar_generator(seed))
-            # each row's own prompt crop, left-aligned for batched vocoding
-            out_lens = [max(len(r) - sk, 0) for r, sk in zip(rows, skip_fronts)]
-            grid_out = torch.zeros((n, max(max(out_lens), 1), 8), dtype=torch.long,
-                                   device=grid.device)
-            for i, (r, sk) in enumerate(zip(rows, skip_fronts)):
-                grid_out[i, : out_lens[i]] = grid[i, sk: len(r)]
-            self.last_grid = grid_out
+            with timer.stage("tokenize"):
+                row_speech = row([[p + len(self.texttok.vocab) for p in self.speechtok.encode(
+                    " ".join(str(t) for t in c[0, 0].tolist()).strip())] for c in codec_per_ref])
+                prompts, first_codec_idxs, text_rows, est_lens = [], [], [], []
+                for text, tr, speech in zip(texts, row_transcript, row_speech):
+                    if cfg.deep_clone:
+                        tokens = self.texttok.encode("<|startoftext|>" + tr + " "
+                                                     + str(text).strip() + "<|endoftext|>",
+                                                     allowed_special="all")
+                        prompt = tokens + speech
+                        n_speech_inp = len(speech)
+                    else:
+                        tokens = self.texttok.encode("<|startoftext|>" + text.strip()
+                                                     + "<|endoftext|>", allowed_special="all")
+                        prompt, n_speech_inp = tokens, 0
+                    prompts.append(np.asarray(prompt, np.int64))
+                    first_codec_idxs.append(len(prompt) - n_speech_inp + 1)
+                    text_rows.append(tokens)
+                    est_lens.append(round(cfg.eos_estimated_gen_length_factor * len(text)))
 
-        with timer.stage("vocode"):
-            if self.vocos is None:
-                raise RuntimeError("Vocos vocoder parameters were not provided")
-            feats = codes_to_features(self.vocos.codebook_weights, grid_out.permute(2, 0, 1),
-                                      bins=self.vocos.cfg.codebook_size)
-            audio = self.vocos.decode(feats, 1).cpu().numpy()
+            with timer.stage("ar_generate"):
+                sampling = self._sampling(cfg, max(est_lens))
+                spk_list = [c[0].T for c in row_codec]
+                if self.ar_backend != "bf16" and cfg.use_kv_cache and 2 <= n <= 8:
+                    fp, dims = self._get_fused(sampling.max_len, batch=n)
+                    outs = ar_generate_fused_batched(self.codeclm, fp, dims, prompts, spk_list,
+                                                     sampling=sampling, seed=seed,
+                                                     est_lens=est_lens)
+                else:
+                    outs = ar_generate_batched(self.codeclm, prompts, spk_list, sampling=sampling,
+                                               seed=seed, est_lens=est_lens)
 
-        with timer.stage("trim"):
-            hop = self.vocos.cfg.hop_length
-            results = [(r, trim(audio[i, : out_lens[i] * hop], top_db=cfg.trim_db)[0])
-                       for i, r in enumerate(rows)]
+            with timer.stage("parse_ar"):
+                rows = []
+                for (seq, _), fci in zip(outs, first_codec_idxs):
+                    toks = np.clip(seq - len(self.texttok.vocab), 0, None)[fci:].tolist()
+                    rows.append(np.asarray([s for s in self.speechtok.decode_int(toks)
+                                            if isinstance(s, int)], np.int64))
 
-        self.last_timing = timer.report(
-            audio_seconds=sum(len(w) for _, w in results) / self.sr)
-        return results
+            with timer.stage("nar_diffusion"):
+                lt = max(len(r) for r in text_rows)
+                lx = max(max(len(r) for r in rows), 1)
+                lc = max(c.shape[-1] for c in row_codec)
+                c_text = np.zeros((n, lt), np.int64)
+                x = np.zeros((n, lx, 8), np.int64)
+                xpm = np.ones((n, lx), bool)
+                c_codes = np.zeros((n, lc, 8), np.int64)
+                for i, (tr, r, c) in enumerate(zip(text_rows, rows, row_codec)):
+                    c_text[i, : len(tr)] = tr
+                    x[i, : len(r)] = r[:, None]
+                    xpm[i, : len(r)] = False
+                    c_codes[i, : c.shape[-1]] = c[0].T
+                grid = self._nar((c_text, c_codes, np.asarray([len(t) for t in text_rows]),
+                                  np.asarray([c.shape[-1] for c in row_codec]), x, xpm),
+                                 cfg, self._nar_generator(seed))
+                # each row's own prompt crop, left-aligned for batched vocoding
+                out_lens = [max(len(r) - sk, 0) for r, sk in zip(rows, skip_fronts)]
+                grid_out = torch.zeros((n, max(max(out_lens), 1), 8), dtype=torch.long,
+                                       device=grid.device)
+                for i, (r, sk) in enumerate(zip(rows, skip_fronts)):
+                    grid_out[i, : out_lens[i]] = grid[i, sk: len(r)]
+                self.last_grid = grid_out
+
+            with timer.stage("vocode"):
+                if self.vocos is None:
+                    raise RuntimeError("Vocos vocoder parameters were not provided")
+                feats = codes_to_features(self.vocos.codebook_weights, grid_out.permute(2, 0, 1),
+                                          bins=self.vocos.cfg.codebook_size)
+                audio = self.vocos.decode(feats, 1).cpu().numpy()
+
+            with timer.stage("trim"):
+                hop = self.vocos.cfg.hop_length
+                results = [(r, trim(audio[i, : out_lens[i] * hop], top_db=cfg.trim_db)[0])
+                           for i, r in enumerate(rows)]
+
+            self.last_timing = timer.report(
+                audio_seconds=sum(len(w) for _, w in results) / self.sr)
+            self.last_timing["grid_audio_s"] = sum(out_lens) * hop / self.sr
+            return results
 
     @classmethod
     def from_pretrained(cls, model_id: str = "CAMB-AI/MARS5-TTS", *,
