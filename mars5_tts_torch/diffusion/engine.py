@@ -38,7 +38,9 @@ three tails that draw on the same uniforms:
 
 The injected uniform path keeps the dense tail, as the JAX package does.
 ``mega``, the stack's ``build_mega_pack``, runs the W8A8 decoder stack
-through kernel K9 (JAX ``MARS5_NAR_MEGA=1``).
+through kernel K9 (JAX ``MARS5_NAR_MEGA=1``). Otherwise, on the card, the
+fused W8A8 stack is captured as CUDA graphs at the first reverse step of
+each row count and replayed at the others (``models/nar_graphs.py``).
 
 ``DSH.guidance_interval = (lo, hi)`` keeps CFG to the reverse steps with
 ``round(lo T) <= t < round(hi T)``; the others run the conditional rows
@@ -63,6 +65,7 @@ from ..config import DSH
 from ..models.layers import DEFAULT_OPTIONS, NarOptions
 from ..models.nar import (ResidualTransformer, fold_quant_heads, nar_heads_folded,
                           nar_heads_prequant)
+from ..models.nar_graphs import DecoderGraphs
 from ..ops.kernels.diffusion_tail import diffusion_tail, heads_diffusion_tail, tail_scalars
 from ..ops.kernels.nar_mega import MegaPack
 from ..utils.profiling import span
@@ -266,6 +269,8 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
         folded = (fold_quant_heads(model, tuple(range(1, n_lanes))) if model.is_quantized
                   else None)
     kernel_tail = tail if folded is not None and use_key else "dense"
+    # the decoder's CUDA graphs, one set a geometry, dropped with the trajectory
+    graphs = DecoderGraphs()
 
     def decoder_out(x, t_last, with_cfg):
         """Decoder output on the generated frames: (rows, l_gen, dim), or
@@ -274,12 +279,13 @@ def _trajectory(model, dsh, diff, c_text, c_codes, ctl, ccl, x, x_known, xpm,
             return model.decoder_apply(torch.cat([x, x]), xpm_rows,
                                        t_dec_all[t_last][None].expand(rows, dim),
                                        memory_all[t_last], c_padding, q_tail_start=offset,
-                                       mega=mega, options=options)
+                                       mega=mega, options=options, graphs=graphs)
         # a cond-only step: the cond halves of the CFG-batched memory and padding
         # (contiguous leading rows, as the kernels read them)
         return model.decoder_apply(x, xpm, t_dec_all[t_last][None].expand(bs, dim),
                                    memory_all[t_last][:bs], c_padding[:bs],
-                                   q_tail_start=offset, mega=mega, options=options)
+                                   q_tail_start=offset, mega=mega, options=options,
+                                   graphs=graphs)
 
     def x0_logits(out, with_cfg):
         """CFG-combined f32 x0 logits on the generated frames, lanes 1.., of

@@ -23,6 +23,7 @@ runs whole through kernel K9 (``ops/kernels/nar_mega.py``), the JAX
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -196,16 +197,38 @@ class DecoderLayer(EncoderLayer):
     def forward_w8a8(self, x, memory, tgt_key_padding_mask=None,
                      memory_key_padding_mask=None, q_start: int = 0,
                      options: NarOptions = DEFAULT_OPTIONS):
-        """The W8A8 layer of the JAX package's ``decoder_layer_fused``: each
-        GEMM site in ``options.sites`` through K3/K4, with
+        """The W8A8 layer: its ``w8a8_steps`` applied in order."""
+        for fn, _ in self.w8a8_steps(memory, tgt_key_padding_mask, memory_key_padding_mask,
+                                     q_start, options):
+            x = fn(x)
+        return x
+
+    def w8a8_steps(self, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                   q_start: int = 0, options: NarOptions = DEFAULT_OPTIONS):
+        """The W8A8 layer as two functions of its residual stream, each with
+        whether it is a K4 call: ``attend_w8a8``, then the FFN (``ffn_w8a8``,
+        K4, where ``options.sites`` has ``"ffn"``, else LN + unfused
+        products)."""
+        attend = functools.partial(
+            self.attend_w8a8, memory=memory, tgt_key_padding_mask=tgt_key_padding_mask,
+            memory_key_padding_mask=memory_key_padding_mask, q_start=q_start, options=options)
+        if "ffn" in options.sites:
+            return [(attend, False), (functools.partial(self.ffn_w8a8, options=options), True)]
+        return [(attend, False), (lambda x: x + self.ff(self.norm3(x)), False)]
+
+    def attend_w8a8(self, x, memory, tgt_key_padding_mask=None,
+                    memory_key_padding_mask=None, q_start: int = 0,
+                    options: NarOptions = DEFAULT_OPTIONS):
+        """The W8A8 layer of the JAX package's ``decoder_layer_fused`` up to
+        its FFN: each GEMM site in ``options.sites`` through K3, with
         ``options.groups(K)`` activation groups, the others LN +
         ``linear_any``. The default sites: qkv through K3 with the LN1
         prologue, K1 self-attention, the self-attention out-projection
         unfused, the cross-attention q through K3 with the LN2 prologue,
         plain cross-attention over the unfused K/V projection of the memory,
-        its out-projection unfused, and the FFN through K4; ``saout`` and
-        ``caout`` run the out-projections through K3 with the residual
-        added in its epilogue. The JAX package takes the fused sites on a
+        its out-projection unfused (and the FFN through K4, ``ffn_w8a8``);
+        ``saout`` and ``caout`` run the out-projections through K3 with the
+        residual added in its epilogue. The JAX package takes the fused sites on a
         TPU only from 1024 rows up, for launch overhead there; the port
         always takes them (the same math).
 
@@ -252,17 +275,19 @@ class DecoderLayer(EncoderLayer):
                  scores_bf16=options.sdpa_bf16).reshape(b, l, d)
         w = ca.out_proj.weight
         if "caout" in sites:
-            x = fused_linear(c.contiguous(), (w.q, w.scales), bias=ca.out_proj.bias,
-                             residual=x.contiguous(), groups=g)
-        else:
-            x = x + linear_any(c, w, ca.out_proj.bias)
+            return fused_linear(c.contiguous(), (w.q, w.scales), bias=ca.out_proj.bias,
+                                residual=x.contiguous(), groups=g)
+        return x + linear_any(c, w, ca.out_proj.bias)
 
-        if "ffn" not in sites:
-            return x + self.ff(self.norm3(x))
+    def ffn_w8a8(self, x, options: NarOptions = DEFAULT_OPTIONS, out=None):
+        """x + FFN(LN3(x)) through K4 (``fused_ffn``), into ``out`` if given
+        (passed on only then: an eager call is the plain one)."""
         W, V, l2 = self.activation.W.weight, self.activation.V.weight, self.linear2.weight
         return fused_ffn(x, (self.norm3.weight, self.norm3.bias), (W.q, W.scales),
                          (V.q, V.scales), (l2.q, l2.scales), self.linear2.bias,
-                         eps=self.norm3.eps, groups=g, groups2=options.groups(l2.q.shape[1]))
+                         eps=self.norm3.eps, groups=options.groups(x.shape[-1]),
+                         groups2=options.groups(l2.q.shape[1]),
+                         **({} if out is None else {"out": out}))
 
 
 class TransformerEncoder(nn.Module):
@@ -311,17 +336,31 @@ class TransformerDecoder(nn.Module):
                                              memory_key_padding_mask,
                                              eps=self.layers[0].norm1.eps))
             return x[:, q_tail_start:] if q_tail_start else x
-        last = self.layers[-1]
-        sliced = bool(q_tail_start) and last.is_quantized and options.fused
-        for layer in self.layers[:-1] if sliced else self.layers:
+        if self.layers[-1].is_quantized and options.fused:
+            for fn, _ in self.w8a8_chain(memory, tgt_key_padding_mask,
+                                         memory_key_padding_mask, q_tail_start, options):
+                x = fn(x)
+            return x
+        for layer in self.layers:
             x = run_layer(self.remat, layer, x, memory, tgt_key_padding_mask,
                           memory_key_padding_mask, options)
-        if sliced:
-            return self.norm(last.forward_w8a8(x, memory, tgt_key_padding_mask,
-                                               memory_key_padding_mask, q_tail_start,
-                                               options))
         x = self.norm(x)
         return x[:, q_tail_start:] if q_tail_start else x
+
+    def w8a8_chain(self, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                   q_tail_start: int = 0, options: NarOptions = DEFAULT_OPTIONS):
+        """The fused W8A8 stack as a chain of functions of its residual
+        stream, applied in order, each with whether it is a K4 call: every
+        layer's ``w8a8_steps`` (the last one's past its K/V projection on rows
+        ``[q_tail_start:]``), then the final LayerNorm. The eager stack runs
+        it as it is; ``models/nar_graphs.py`` replays the runs between two K4
+        calls as CUDA graphs."""
+        last = len(self.layers) - 1
+        return [step for i, layer in enumerate(self.layers)
+                for step in layer.w8a8_steps(memory, tgt_key_padding_mask,
+                                             memory_key_padding_mask,
+                                             q_tail_start if i == last else 0, options)
+                ] + [(self.norm, False)]
 
 
 @torch.no_grad()

@@ -131,18 +131,28 @@ class ResidualTransformer(nn.Module):
         c_padding = length_to_mask(c_lengths, torch.zeros_like(c_lengths), c.shape[1])
         return self.cond_pos_embedding(c), c_padding
 
+    def decoder_stream(self, x, t_dec):
+        """The decoder's input: x (bs, Lx, 8) codes embedded, with sine
+        positions, plus the timestep embedding t_dec (bs, dim)."""
+        return self.pos_embedding(self.residual_encoder(x)) + t_dec[:, None]
+
     def decoder_apply(self, x, x_padding_mask, t_dec, memory, c_padding,
                       q_tail_start: int = 0, mega=None,
-                      options: NarOptions = DEFAULT_OPTIONS):
+                      options: NarOptions = DEFAULT_OPTIONS, graphs=None):
         """Decoder stream and stack over a precomputed encoder memory;
         returns (bs, Lx - q_tail_start, dim). ``mega``: the decoder's
         ``build_mega_pack``, to run the stack through kernel K9; ``options``
-        the layers' routes."""
-        h = self.pos_embedding(self.residual_encoder(x))
-        h = h + t_dec[:, None]
-        return self.tfm.decoder(h, memory, tgt_key_padding_mask=x_padding_mask,
-                                memory_key_padding_mask=c_padding,
-                                q_tail_start=q_tail_start, mega=mega, options=options)
+        the layers' routes; ``graphs``: a trajectory's
+        ``nar_graphs.DecoderGraphs``, which replays the stack as CUDA graphs
+        where it takes the call (its output is then valid until its next
+        call), else the stack runs eagerly."""
+        dec = self.tfm.decoder
+        if graphs is not None and graphs.takes(dec, x, mega, options):
+            return graphs.run(self, x, t_dec, memory, x_padding_mask, c_padding,
+                              q_tail_start, options)
+        return dec(self.decoder_stream(x, t_dec), memory, tgt_key_padding_mask=x_padding_mask,
+                   memory_key_padding_mask=c_padding, q_tail_start=q_tail_start, mega=mega,
+                   options=options)
 
     def backbone(self, c_text, c_codes, c_texts_length, c_codes_length, x,
                  x_padding_mask, t, drop_cond=None, spk=None,

@@ -425,19 +425,23 @@ def fused_linear(x, w, *, ln=None, bias=None, residual=None, eps: float = 4e-5,
 
 
 def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5, groups: int = 1,
-              groups2: int | None = None):
+              groups2: int | None = None, out=None):
     """K4: x + lin2(silu(w) * v) over LN(x), W8A8 -> (..., K); ``groups`` K
     groups for the W and V GEMM and ``groups2`` (default ``groups``) F groups
-    for lin2, as ``fused_linear`` takes them.
+    for lin2, as ``fused_linear`` takes them. ``out``: a tensor shaped like
+    x to write the result into (bf16 contiguous rows on CUDA), returned.
 
     CPU tensors take ``fused_ffn_ref``; CUDA tensors launch the kernels (four
     launches from one C call, counted as one) and raise on what they do not
     take (bf16 x as contiguous rows, K and F multiples of 128 up to 3072,
     groups of a multiple of 32 columns)."""
     groups2 = groups if groups2 is None else groups2
+    if out is not None and out.shape != x.shape:
+        raise ValueError(f"fused_ffn: out must be shaped like x {tuple(x.shape)}, "
+                         f"got {tuple(out.shape)}")
     if x.device.type == "cpu":
-        return fused_ffn_ref(x, ln, w, v, lin2, lin2_b, eps=eps, groups=groups,
-                             groups2=groups2)
+        y = fused_ffn_ref(x, ln, w, v, lin2, lin2_b, eps=eps, groups=groups, groups2=groups2)
+        return y if out is None else out.copy_(y)
     m = _check_x(x, "fused_ffn")
     k = x.shape[-1]
     gsize1 = _gsize(k, groups, "fused_ffn W and V")
@@ -459,7 +463,11 @@ def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5, groups: int = 1,
                                      (ln[1], k, "fused_ffn: LN bias"),
                                      (lin2_b, k, "fused_ffn: lin2 bias"))
     u = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty((m, k), dtype=torch.bfloat16, device=x.device)
+    if out is None:
+        out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    elif out.dtype != torch.bfloat16 or out.device != x.device:
+        raise ValueError("fused_ffn: out must be bf16 on x's device")
+    _rows(out, "fused_ffn out")
     scratch = torch.empty(m * max(k, f) + 4 * xs_pitch(m) * max(groups, groups2),
                           dtype=torch.int8, device=x.device)
     build.call(x.device, _lib().mars5_w8a8_ffn, x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(),
@@ -470,4 +478,4 @@ def fused_ffn(x, ln, w, v, lin2, lin2_b, *, eps: float = 4e-5, groups: int = 1,
     global fused_ffn_launches, fused_ffn_grouped_launches
     fused_ffn_launches += 1
     fused_ffn_grouped_launches += groups > 1 or groups2 > 1
-    return out.reshape(x.shape)
+    return out

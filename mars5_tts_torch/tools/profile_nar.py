@@ -19,8 +19,12 @@ share, the device ms a step of the self-attention kernel K1 (``mha_fwd``)
 and of the W8A8 sites K3 ``fused_linear`` and K4 ``fused_ffn`` (the device
 spans of the profiler ranges ``mark_w8a8_sites`` puts around the decoder's
 calls for the profiled run only), the ``w8a8_*`` kernels' device ms a step
-and each one's device us a launch, the kernel launches and stream waits a
-step, and the host ops with the most self CPU time a step.
+and each one's device us a launch, the kernel launches, CUDA graph launches
+and stream waits a step, and the host ops with the most self CPU time a
+step. On the card the per-layer int8 decoder replays CUDA graphs
+(``models/nar_graphs.py``): its K3 calls then run inside the graphs, and
+the ``w8a8_k3`` ranges hold only the first step's (read K3 from the
+``w8a8_*`` kernels' sums); K4 stays a direct call.
 
 ``--mega`` (int8 only) runs the decoder stack through kernel K9 (the
 ``nar_mega=True`` route: the stack's ``build_mega_pack``, built before the
@@ -231,6 +235,7 @@ def main() -> int:
            "w8a8_kernel_us_per_launch": {
                w8a8_label(e.key): round(e.self_device_time_total / e.count, 1) for e in w8a8},
            "launches_per_step": calls("cudaLaunchKernel") + calls("cudaLaunchKernelExC"),
+           "graph_launches_per_step": calls("cudaGraphLaunch"),
            "stream_syncs_per_step": calls("cudaStreamSynchronize"),
            "top_host_ops_us_per_step": {e.key: round(e.self_cpu_time_total / p_steps, 1)
                                         for e in host}}

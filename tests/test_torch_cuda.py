@@ -1741,3 +1741,120 @@ def test_graft_entry_runs_the_mars5_ar_on_the_card(dev):
     assert args[0].embed.weight.is_cuda
     out = fn(*args)
     assert out.shape == (1, 64, 24_000) and bool(torch.isfinite(out).all())
+
+
+def _graph_nar(dev, dec_layers, seed=0):
+    """A W8A8 NAR at the released widths (D 1024, 16 heads, FFN 3072) on the
+    card, bf16, with ``dec_layers`` decoder layers."""
+    from mars5_tts_torch.models.nar import ResidualTransformer, ResidualTransformerConfig
+    from mars5_tts_torch.ops.quant import quantize_nar
+
+    cfg = ResidualTransformerConfig(n_text_vocab=64, enc_layers=2, dec_layers=dec_layers,
+                                    n_spk_layers=1)
+    with torch.device(dev):
+        nar = ResidualTransformer(cfg).init_(torch.Generator(device=dev).manual_seed(seed))
+        return quantize_nar(nar.to(torch.bfloat16).eval())
+
+
+def _launches():
+    from mars5_tts_torch.ops.kernels import mha as K, nar_fused as F
+
+    return (K.launch_count, F.fused_linear_launches, F.fused_ffn_launches)
+
+
+@pytest.mark.parametrize("rows,offset,gen,ragged,sites", [
+    (2, 533, 192, False, None),                 # CFG rows, 725 frames
+    (1, 533, 192, False, None),                 # cond-only
+    (2, 432, 768, False, None),                 # 1,200 frames
+    (1, 432, 768, False, None),
+    (2, 0, 725, False, None),                   # q_tail_start 0
+    (2, 533, 192, True, None),                  # a ragged batch: padded rows, no slice
+    (2, 533, 192, False, ("qkv", "caq")),       # no K4: the stack is one graph
+    (2, 533, 192, False, ("qkv", "saout", "caq", "caout", "ffn")),
+])
+def test_graphed_decoder_bitwise_eager(dev, rows, offset, gen, ragged, sites):
+    """``decoder_apply`` through ``DecoderGraphs`` at the served geometries
+    equals the eager stack bit for bit at its first call (eager, then
+    captured) and at two replays on other inputs; the kernels' launch
+    counters read as the eager calls'."""
+    from mars5_tts_torch.models import nar_graphs as G
+    from mars5_tts_torch.models.layers import DEFAULT_OPTIONS, NarOptions
+
+    nar = _graph_nar(dev, 2)
+    options = DEFAULT_OPTIONS if sites is None else NarOptions(sites=sites)
+    length, lc = offset + gen, 66
+    g = torch.Generator(device=dev).manual_seed(length + rows)
+    xpm = torch.zeros((rows, length), dtype=torch.bool, device=dev)
+    cpad = torch.zeros((rows, lc), dtype=torch.bool, device=dev)
+    cpad[-1, lc - 7:] = True
+    q_tail = offset
+    if ragged:
+        xpm[-1, length - 101:] = True
+        q_tail = 0
+    steps = [(torch.randint(0, 1025, (rows, length, 8), generator=g, device=dev),
+              torch.randn((1, 1024), generator=g, device=dev).to(torch.bfloat16).expand(rows, -1),
+              torch.randn((rows, lc, 1024), generator=g, device=dev).to(torch.bfloat16))
+             for _ in range(3)]
+    G.reset_counts()
+    graphs = G.DecoderGraphs()
+    with torch.inference_mode():
+        for i, (x, t_dec, mem) in enumerate(steps):
+            n0 = _launches()
+            want = nar.decoder_apply(x, xpm, t_dec, mem, cpad, q_tail_start=q_tail,
+                                     options=options).clone()
+            n1 = _launches()
+            got = nar.decoder_apply(x, xpm, t_dec, mem, cpad, q_tail_start=q_tail,
+                                    options=options, graphs=graphs)
+            torch.cuda.synchronize()
+            n2 = _launches()
+            assert got.shape == (rows, length - q_tail, 1024)
+            assert torch.equal(got, want), i
+            assert [b - a for a, b in zip(n0, n1)] == [b - a for a, b in zip(n1, n2)], i
+    assert (G.graph_captures, G.graph_replays) == (1, 2)
+    assert len(graphs._geometries) == 1
+
+
+def test_graphed_trajectory_bitwise_eager(dev, monkeypatch):
+    """A deep-clone trajectory at T = 20 with CFG over t < 10 on the
+    16-layer released-width W8A8 decoder, one generator seed: the grid with
+    the graphs is the eager one; two captures (2 rows, 1 row), the other 18
+    decoder calls replays; ``layers.fused_ffn`` called 16 times a step either
+    way (what ``roofline.K4`` reads a call at a time); a second graphed
+    trajectory reserves no more device memory than the first left."""
+    from mars5_tts_torch.config import DSH
+    from mars5_tts_torch.diffusion.engine import perform_simple_inference
+    from mars5_tts_torch.diffusion.multinomial import MultinomialDiffusion
+    from mars5_tts_torch.models import layers, nar_graphs as G
+
+    nar = _graph_nar(dev, 16)
+    T, lc, lx = 20, 533, 192
+    r = np.random.default_rng(20)
+    x = np.repeat(r.integers(0, 1024, lx)[None, :, None], 8, axis=2)
+    batch = (r.integers(0, 64, (1, 66)), r.integers(0, 1024, (1, lc, 8)), np.asarray([66]),
+             np.asarray([lc]), x, np.zeros((1, lx), bool))
+    dsh = DSH(x_0_temp=0.7, guidance_w=3.0, deep_clone=True, q0_override_steps=2,
+              guidance_interval=(0.0, 0.5))
+    k4_calls = []
+    k4 = layers.fused_ffn
+    monkeypatch.setattr(layers, "fused_ffn", lambda *a, **kw: k4_calls.append(1) or k4(*a, **kw))
+
+    def run():
+        k4_calls.clear()
+        G.reset_counts()
+        grid = perform_simple_inference(nar, batch, MultinomialDiffusion(1025, T, device=dev),
+                                        T, dsh, generator=torch.Generator(device=dev).manual_seed(7))
+        torch.cuda.synchronize()
+        return grid, len(k4_calls), (G.graph_captures, G.graph_replays)
+
+    graphed = run()
+    with monkeypatch.context() as m:
+        m.setattr(G.DecoderGraphs, "takes", lambda *a: False)
+        eager = run()
+    assert torch.equal(graphed[0], eager[0])
+    assert graphed[1] == eager[1] == 16 * T
+    assert graphed[2] == (2, T - 2) and eager[2] == (0, 0)
+    # each trajectory's graph pool goes back to the card when it is dropped
+    reserved = torch.cuda.memory_reserved(dev)
+    again = run()
+    assert torch.equal(again[0], eager[0]) and again[2] == (2, T - 2)
+    assert torch.cuda.memory_reserved(dev) == reserved
