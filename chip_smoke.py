@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: compiles the seven CUDA libraries from ``mars5_tts_torch/csrc`` for
+2. Build: compiles every CUDA library in ``mars5_tts_torch/csrc`` for
    sm_90a into ``build/kernels/``, one nvcc each, all at once
    (``ops/kernels/build.build_all``).
 3. Kernels against their plain PyTorch twins on the card, at the main paths'
@@ -149,8 +149,25 @@
    beside phase 5's; again with ``MARS5_NAR_MEGA=1`` (K9 200); (d)
    ``quantize_codeclm`` (weight-only) under the bf16 engine, one request:
    every generated token in the vocabulary window, its AR ms a token beside
-   phase 4's bf16 AR. A phase that fails prints
-   ``chip_smoke: phase <name> failed: ...`` before the traceback.
+   phase 4's bf16 AR.
+
+8. Kernel K10 and the DeepSeek-V2-Lite AR, after phase 7 and before the
+   profiler, at the widths and depth of ``portbench/configs/
+   mars5-dsv2lite.json``'s ``ar`` block (``dsv2lite_config``): (a) K10
+   ``moe_decode`` at 1 and 8 rows of 2,048 (64 experts of 1,408, top 6, the
+   shared pair as one SwiGLU of 2,816), 16 routings each from a softmax over
+   random gate weights, every output within one ulp of its twin
+   (``one_ulp``), timed over the 16 routings (each call's experts cold in
+   L2), its bound the distinct experts' bytes over 3.35 TB/s (138.4 MB at
+   one row); (b) that AR (14 layers, bf16, seeded random weights) with the
+   configuration's options beside phase 4's int8 NAR, serving one
+   deep-clone request of phase 4 with the counts at 0 before it: K10 13
+   launches a decode step (the step graphed), K7 and K2 none; then the same
+   request with the step eager and every K10 call held against its twin
+   within one ulp, its grid equal to the graphed request's.
+
+A phase that fails prints ``chip_smoke: phase <name> failed: ...`` before
+the traceback.
 
 After the requests (``torch.profiler`` slows a process's later launches),
 the device time of each launch of K3 and K4 (prologue and GEMM; K4's four)
@@ -1442,7 +1459,7 @@ def build_models(dev, torch):
 def counts():
     from mars5_tts_torch.ops.kernels import (decode_attention as A, decode_layer as L,
                                              diffusion_tail as D, head4 as H, mha as K,
-                                             nar_fused as F, nar_mega as M)
+                                             moe_decode as E, nar_fused as F, nar_mega as M)
     return {"mha": K.launch_count, "mha_int8": K.int8_launch_count,
             "fused_linear": F.fused_linear_launches, "fused_ffn": F.fused_ffn_launches,
             "fused_linear_grouped": F.fused_linear_grouped_launches,
@@ -1450,13 +1467,13 @@ def counts():
             "heads_diffusion_tail": D.launch_count,
             "diffusion_tail": D.tail_launch_count, "mega_decoder_stack": M.launch_count,
             "fused_decode_layers": L.launch_count, "head4_logits": H.launch_count,
-            "decode_attention": A.launch_count}
+            "decode_attention": A.launch_count, "moe_decode": E.launch_count}
 
 
 def reset_counts():
     from mars5_tts_torch.ops.kernels import (decode_attention as A, decode_layer as L,
                                              diffusion_tail as D, head4 as H, mha as K,
-                                             nar_fused as F, nar_mega as M)
+                                             moe_decode as E, nar_fused as F, nar_mega as M)
     K.reset_launch_count()
     F.reset_launch_counts()
     D.reset_launch_count()
@@ -1464,6 +1481,7 @@ def reset_counts():
     H.reset_launch_count()
     M.reset_launch_count()
     A.reset_launch_count()
+    E.reset_launch_count()
 
 
 AR_RUNS = []
@@ -1703,6 +1721,11 @@ def main():
     with phase("7 (entry points from files)"):
         entry = entry_points(models, nar8, snap, records, serving)
     del snap
+    # -- 8. K10 and the DeepSeek-V2-Lite AR, before the profiler too
+    with phase("8 (K10 and the DeepSeek-V2-Lite AR)"):
+        dsv_cfg, _ = dsv2lite_config()
+        k10 = check_moe_decode(dsv_cfg, dev)
+        dsv = serve_dsv2lite(models, nar8, dev)
     with phase("3/5 (K9 and the launch splits after the requests)"):
         k9_one = {f"(1, {n})": check_mega_one_row(nar8.tfm.decoder, dev, n)
                   for n in (MEGA_L, MEGA_BENCH_L)}
@@ -1877,6 +1900,18 @@ def main():
                                              "max_abs_err", "stack_mean_abs_err")}
                    for name, st in {**k9["cases"], **k9_one}.items()},
          "serving_launches": serving["deploy_mega"]["launches"]["mega_decoder_stack"]},
+        {**row("moe_decode", "moe_decode.cu", "none (no TPU counterpart)", k10[1],
+               launches=dsv["graphed"]["launches"]["moe_decode"]),
+         **{k: k10[1][k] for k in ("device_ms", "host_ms", "share_of_bound", "max_ulps",
+                                   "exact_frac", "bound_mb")},
+         "launches_per_decode_step": dsv["k10_launches_per_decode_step"],
+         "ar_ms_per_token": dsv["graphed"]["ar_ms_per_token"],
+         "held_in_request": dsv["eager_held"],
+         "cases": {f"{rows} rows": pick(st, ("ms", "plain_ms", "device_ms", "host_ms",
+                                             "bound_ms", "bound_by", "max_abs_err", "max_ulps",
+                                             "exact_frac", "distinct_experts",
+                                             "share_of_bound"))
+                   for rows, st in k10.items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3223,6 +3258,171 @@ def entry_points(models, nar8, snap, records, serving):
                                        if isinstance(v, dict) else v
                                        for k, v in recs.items()}}, default=str), flush=True)
     return recs
+
+
+# -- 8. kernel K10 and the DeepSeek-V2-Lite AR (``portbench/configs``' widths)
+DSV2LITE_CONFIG = ROOT / "portbench" / "configs" / "mars5-dsv2lite.json"
+K10_ROWS = (1, 8)
+K10_ROUTES = 16                     # routings cycled through by the timed calls
+
+
+def dsv2lite_config():
+    """(the ``CodecLMConfig`` of the ``mars5-dsv2lite`` benchmark
+    configuration, its ``Mars5TTS`` options)."""
+    from mars5_tts_torch.models.ar import CodecLMConfig
+
+    cfg = json.loads(DSV2LITE_CONFIG.read_text())
+    opts = dict(cfg["options"])
+    opts["guidance_interval"] = tuple(opts["guidance_interval"])
+    opts["nar_sites"] = tuple(opts["nar_sites"])
+    return CodecLMConfig(**cfg["ar"]), opts
+
+
+def k10_ulps(got, want):
+    """The largest difference of K10's output from its twin's, in ulps of
+    the output dtype at the larger magnitude (``moe_decode.one_ulp``)."""
+    from mars5_tts_torch.ops.kernels.moe_decode import one_ulp
+
+    return float(((got.float() - want.float()).abs() / one_ulp(got, want)).max())
+
+
+def check_moe_decode(cfg, dev):
+    """K10 at ``cfg``'s expert widths (E experts of F over D, top k, the
+    shared experts as one SwiGLU of n_shared x F) and 1 and 8 rows, routed
+    by a softmax over random gate weights: against its twin within one ulp
+    (``one_ulp``), then timed over ``K10_ROUTES`` routings drawn anew, so
+    that each call finds its experts cold in L2. The bound is the bytes of
+    the distinct experts the routings pick, the shared pair, x, the routing
+    and the output over 3.35 TB/s, against the operations at the bf16 peak."""
+    import torch
+    from mars5_tts_torch.ops.kernels import moe_decode as K
+
+    e, f, d, k = cfg.n_routed_experts, cfg.moe_hidden_dim, cfg.dim, cfg.n_experts_per_tok
+    fs = cfg.n_shared_experts * f
+    g = own_generator(dev, 40)
+
+    def u(*shape, fan):
+        return ((torch.rand(shape, generator=g, device=dev) * 2 - 1) * fan ** -0.5).to(
+            torch.bfloat16)
+
+    w13, w2 = u(e, 2 * f, d, fan=d), u(e, d, f, fan=f)
+    shared = (u(fs, d, fan=d), u(fs, d, fan=d), u(d, fs, fan=fs))
+    gate = u(e, d, fan=d).float()
+    out = {}
+    for rows in K10_ROWS:
+        xs, routes = [], []
+        for _ in range(K10_ROUTES):
+            x = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
+            w, ids = torch.topk(torch.softmax(x.float() @ gate.t(), dim=-1), k, dim=-1)
+            xs.append(x)
+            routes.append((ids.to(torch.int32).contiguous(), w.contiguous()))
+        worst, err, equal = 0.0, 0.0, 0
+        for x, (ids, w) in zip(xs, routes):
+            got = K.moe_decode(x, ids, w, w13, w2, *shared)
+            want = K.moe_decode_ref(x, ids, w, w13, w2, *shared)
+            worst = max(worst, k10_ulps(got, want))
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            equal += int((got == want).sum())
+        if worst > 1.0:
+            raise RuntimeError(f"moe_decode ({rows} rows): {worst:.2f} ulps from its twin, "
+                               "more than one")
+        it = iter(range(10 ** 9))
+
+        def call():
+            i = next(it) % K10_ROUTES
+            return K.moe_decode(xs[i], *routes[i], w13, w2, *shared)
+
+        def plain():
+            i = next(it) % K10_ROUTES
+            return K.moe_decode_ref(xs[i], *routes[i], w13, w2, *shared)
+
+        distinct = sum(len(torch.unique(ids)) for ids, _ in routes) / K10_ROUTES
+        moved = (2 * 3 * d * (distinct * f + fs) + nbytes(xs[0], *routes[0], xs[0]))
+        ops = 2 * 3 * d * (rows * k * f + rows * fs)
+        bound_ms, bound_by = bound(moved, bf16=ops)
+        st = {"rows": rows, "max_ulps": worst, "exact_frac": equal / (K10_ROUTES * rows * d),
+              "distinct_experts": distinct, "max_abs_err": err,
+              "ms": cuda_ms(call), "plain_ms": cuda_ms(plain, n=5, warmup=1),
+              "device_ms": device_ms(call), "host_ms": host_ms(call),
+              "bound_ms": bound_ms, "bound_by": bound_by, "bound_mb": moved / 1e6}
+        st["share_of_bound"] = (None if st["device_ms"] is None
+                                else st["bound_ms"] / st["device_ms"])
+        out[rows] = st
+        print(f"moe_decode ({rows} rows of {d}, {e} experts of {f}, top {k}, shared {fs}): "
+              f"{worst:.2f} ulps from its twin ({st['exact_frac']:.4f} exact), "
+              f"{fmt_us(st['ms'])} (device {fmt_us(st['device_ms'])}, host "
+              f"{fmt_us(st['host_ms'])}, twin {fmt_us(st['plain_ms'])}), bound "
+              f"{fmt_us(bound_ms)} ({st['bound_mb']:.1f} MB, {distinct:.2f} distinct experts)",
+              flush=True)
+    return out
+
+
+def serve_dsv2lite(models, nar8, dev):
+    """Phase 8 (b): the ``mars5-dsv2lite`` AR (its widths and depth, bf16,
+    seeded random weights) as ``Mars5TTS``'s AR with the configuration's
+    options beside phase 4's int8 NAR, serving one deep-clone request of
+    ``serve``: K10 13 launches a decode step (one an expert layer, counted
+    from 0 just before the call; the step graphed), K7 and K2 none. Then
+    the same request again with the step eager and every K10 call held
+    against its twin within one ulp: its grid equal to the graphed run's."""
+    import torch
+    from mars5_tts_torch import Mars5TTS
+    from mars5_tts_torch.models import ar as A
+    from mars5_tts_torch.models import ar_decode as AD
+    from mars5_tts_torch.models.ar import CodecLM
+    from mars5_tts_torch.models.layers import init_params_
+    from mars5_tts_torch.ops.kernels import moe_decode as K
+
+    cfg, opts = dsv2lite_config()
+    with torch.device("meta"):
+        ar = CodecLM(cfg).to(torch.bfloat16)
+    ar = ar.to_empty(device=dev)
+    init_params_(ar, own_generator(dev, 41),
+                 embedding_names=("embed.", "ref_chunked_emb.", "spk_identity_emb."))
+    ar.requires_grad_(False).eval()
+    common = {k: models[k] for k in ("texttok", "speechtok", "encodec", "vocos")}
+    tts = Mars5TTS.from_params(ar, nar8, **common, **opts)
+    experts = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    want = {"moe_decode": lambda n: (experts * n, experts * n), "decode_attention": (0, 0),
+            "fused_decode_layers": (0, 0), "head4_logits": (0, 0)}
+    req = ("The quick brown fox jumps over the lazy dog.", "A reference voice.", 11)
+    torch.cuda.reset_peak_memory_stats(dev)
+    label = f"dsv2lite AR ({cfg.n_layers} layers, bf16, graphed) + int8 NAR"
+    rec = serve(tts, label, *req, want)
+    grid = torch.as_tensor(tts.last_grid).clone()
+    held = {"calls": 0, "elements_differ": 0, "max_ulps": 0.0}
+    real = A.moe_decode
+
+    def hold(x, ids, w, *weights, load=None):
+        y = real(x, ids, w, *weights, load=load)
+        ref = K.moe_decode_ref(x, ids, w, *weights)
+        held["calls"] += 1
+        held["elements_differ"] += int((y != ref).sum())
+        held["max_ulps"] = max(held["max_ulps"], k10_ulps(y, ref))
+        return y
+
+    A.moe_decode, AD.LatentCache.graphed = hold, False
+    try:
+        eager = serve(tts, label.replace("graphed", "eager, K10 held"), *req, want)
+    finally:
+        A.moe_decode, AD.LatentCache.graphed = real, True
+    if held["max_ulps"] > 1.0:
+        raise RuntimeError(f"{label}: a K10 call {held['max_ulps']:.2f} ulps from its twin")
+    if held["calls"] != eager["launches"]["moe_decode"]:
+        raise RuntimeError(f"{label}: {held['calls']} K10 calls held, "
+                           f"{eager['launches']['moe_decode']} launched")
+    if not torch.equal(torch.as_tensor(tts.last_grid), grid):
+        raise RuntimeError(f"{label}: the eager step's grid differs from the graphed step's")
+    out = {"graphed": rec, "eager_held": {**held, "ar_ms_per_token": eager["ar_ms_per_token"]},
+           "k10_launches_per_decode_step": experts}
+    print(f"{label}: {held['calls']} K10 calls held against the twin (max "
+          f"{held['max_ulps']:.2f} ulps, {held['elements_differ']} elements differ); "
+          f"graphed {rec['ar_ms_per_token']:.2f} ms/token, eager "
+          f"{eager['ar_ms_per_token']:.2f}", flush=True)
+    del tts, ar
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

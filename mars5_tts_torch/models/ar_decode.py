@@ -25,6 +25,15 @@ those of its solo run. ``ar_generate``, ``ar_generate_batched``, the
 quantized engine and the serving pools all run one loop,
 ``decode_loop``.
 
+A DeepSeek-V2 backbone (``cfg.attention == "mla"``) keeps a ``LatentCache``
+in place of the ring of keys and values: each position's normed latent and
+its roped shared key, with the same row operations. Its decode step runs
+latent attention in the absorbed form over the ring's slots
+(``MLAttention.absorbed``) and its experts through kernel K10, which reads
+the routing on the device; the routed slots are tallied per layer and
+expert on the device (``expert_load``), with no sync. On the card the step
+is one CUDA graph a cache (``LatentGraph``).
+
 ``ar_generate_nocache`` is the reference's ``use_kv_cache=False``: every
 step runs the full prefill over the token buffer and samples at each row's
 cursor.
@@ -41,11 +50,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops.kernels.decode_attention import decode_attention
-from ..ops.rope import rope_angles
+from ..ops.kernels import moe_decode as moe_decode_kernel
+from ..ops.kernels.decode_attention import decode_attention, ring_valid
 from ..ops.sampling import (apply_typical_p, early_eos_penalty, filter_topk_subset_rows,
                             freq_presence_penalty, mask_vocab_window, sample_from_logprobs,
                             top_k_top_p_filter)
+from ..utils import cuda_graphs
 from ..utils.device import ints_on_device
 from ..utils.profiling import span
 from .ar import CodecLM, CodecLMConfig
@@ -207,6 +217,108 @@ class RingCache:
         self.v[:, b] = row.v[:, 0]
 
 
+class LatentCache:
+    """Latent attention's per-layer rings of B rows: each position's normed
+    latent and roped shared key side by side, (L, B, W, R + rope) in
+    ``ckv``, with ``RingCache``'s row operations (``write_prompt`` takes a
+    prefill's per-layer (c, k_pe)). On the card its decode steps replay one
+    CUDA graph (``LatentGraph``, made at the first step) unless ``graphed``
+    is False."""
+
+    graphed = True
+
+    def __init__(self, n_layers: int, batch: int, window: int, rank: int, rope_dim: int,
+                 dtype, device):
+        self.window, self.rank = window, rank
+        self.ckv = torch.zeros((n_layers, batch, window, rank + rope_dim), dtype=dtype,
+                               device=device)
+        self.graph = None
+
+    def write_prompt(self, row: int, states) -> None:
+        """A prefill's per-layer (c, k_pe), each (1, P + 1, .), into slots
+        [0, P + 1) of ``row``."""
+        for li, (c, k_pe) in enumerate(states):
+            self.ckv[li, row, : c.shape[1]] = torch.cat([c[0], k_pe[0]], dim=-1)
+
+    def take_row(self, j: int) -> "LatentCache":
+        """A one-row copy of row ``j`` (with no graph)."""
+        out = LatentCache.__new__(LatentCache)
+        out.window, out.rank, out.graph = self.window, self.rank, None
+        out.ckv = self.ckv[:, j:j + 1].clone()
+        return out
+
+    def put_row(self, b: int, row: "LatentCache") -> None:
+        """Overwrite row ``b``'s rings whole with the one-row ``row``'s, in
+        place (a graph made on this cache stays valid)."""
+        self.ckv[:, b] = row.ckv[:, 0]
+
+
+class LatentGraph:
+    """One CUDA graph of ``latent_step`` over a cache's rows: static inputs
+    (the rows' embedded tokens and positions), the graph, its output (the
+    logits, rewritten by each replay) and its memory pool, dropped after the
+    graph (``utils/cuda_graphs``, as ``models/nar_graphs``). Made by ``decode_step_latent``
+    at a cache's first step on the card: that step runs eagerly on the side
+    stream (the warm-up capture needs), then the step is captured; every
+    later step copies its inputs in and replays, the same kernels on the
+    same shapes as the eager step. K10's ``launch_count`` counts the kernel
+    calls run: a capture adds none, a replay one an expert layer."""
+
+    def __init__(self, model: CodecLM, cache: LatentCache, x, pos_t):
+        self.x, self.pos = torch.empty_like(x), torch.empty_like(pos_t)
+        self.k10_calls = sum(model.cfg.is_moe_layer(i) for i in range(model.cfg.n_layers))
+        pool = cuda_graphs.new_pool()
+        n0 = moe_decode_kernel.launch_count
+        with cuda_graphs.on_side_stream(x.device):
+            self.graph, self.out = cuda_graphs.capture(
+                lambda: latent_step(model, self.x, self.pos, cache), pool)
+        moe_decode_kernel.launch_count = n0
+        self.pool = pool
+
+    def replay(self, x, pos_t):
+        self.x.copy_(x)
+        self.pos.copy_(pos_t)
+        self.graph.replay()
+        moe_decode_kernel.launch_count += self.k10_calls
+        return self.out
+
+
+def make_cache(cfg: CodecLMConfig, batch: int, window: int, dtype, device,
+               n_heads: int | None = None) -> RingCache:
+    """The empty rings of ``cfg``'s block for ``batch`` rows: a ``LatentCache``
+    for latent attention, else a ``RingCache`` of ``n_heads`` heads (default
+    ``cfg.n_kv_heads``; a tensor-parallel rank's own)."""
+    if cfg.attention == "mla":
+        return LatentCache(cfg.n_layers, batch, window, cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                           dtype, device)
+    return RingCache(cfg.n_layers, batch, window, n_heads or cfg.n_kv_heads, cfg.head_dim,
+                     dtype, device)
+
+
+def expert_load(model: CodecLM):
+    """The model's (n_layers, E) int32 tally of routed decode slots on its
+    device, made at first use (None for a model without experts): K10 adds
+    one a slot, so no step waits for it; zero it before a call and read it
+    after (``expert_load_summary``)."""
+    cfg = model.cfg
+    if not cfg.n_routed_experts:
+        return None
+    if model.expert_load is None:
+        model.expert_load = torch.zeros((cfg.n_layers, cfg.n_routed_experts), dtype=torch.int32,
+                                        device=model.embed.weight.device)
+    return model.expert_load
+
+
+def expert_load_summary(model: CodecLM):
+    """{"max", "mean"}: each expert layer's largest and mean tally of routed
+    decode slots (one read of the tally), or None without experts."""
+    load = expert_load(model)
+    if load is None:
+        return None
+    t = load[model.cfg.first_k_dense:].cpu().double()
+    return {"max": t.max(dim=1).values.tolist(), "mean": t.mean(dim=1).tolist()}
+
+
 @dataclass
 class DecodeState:
     """The resumable decode state of B rows (the JAX ``DecodeState``):
@@ -304,7 +416,10 @@ def decode_step(model: CodecLM, tokens, pos, cache: RingCache):
     returns f32 logits (B, V) and writes each row's k/v into its slot
     ``pos % window``. A tensor-parallel copy (``parallel.tp.shard_module``)
     runs its own heads (K7 over its own rings) and reduces, looks up and
-    gathers where its modules' ``tp`` says."""
+    gathers where its modules' ``tp`` says. A ``LatentCache`` takes
+    ``decode_step_latent``."""
+    if isinstance(cache, LatentCache):
+        return decode_step_latent(model, tokens, pos, cache)
     cfg = model.cfg
     dev = cache.k.device
     rows = torch.arange(len(tokens), device=dev)
@@ -313,17 +428,65 @@ def decode_step(model: CodecLM, tokens, pos, cache: RingCache):
         x = torch.stack([model.embed.weight[int(t)] for t in tokens])[:, None]
     else:
         x = model.embed_ids(ints_on_device(tokens, dev))[:, None]
-    cos, sin = rope_angles(pos_t, cfg.head_dim)
+    cos, sin = model.ar.rope(pos_t)
     cos, sin = cos[:, None, None], sin[:, None, None]        # (B, 1, 1, D/2)
     slots = torch.remainder(pos_t.long(), cache.window)
     top = max(np.asarray(pos).reshape(-1).tolist())        # sizes K7's clusters
+    load = expert_load(model)
     for li, layer in enumerate(model.ar.layers):
         q, k, v = layer.qkv(x, cos, sin)
         attn = decode_attention(q[:, 0], cache.k[li], cache.v[li], pos_t, k[:, 0], v[:, 0],
                                 max_pos=top)
         cache.k[li, rows, slots] = k[:, 0]
         cache.v[li, rows, slots] = v[:, 0]
-        x = layer.finish(x, attn[:, None])
+        x = layer.finish(x, attn[:, None], True, None if load is None else load[li])
+    return model.ar.head(x)[:, 0].float()
+
+
+@torch.no_grad()
+def decode_step_latent(model: CodecLM, tokens, pos, cache: LatentCache):
+    """``decode_step`` of a latent-attention backbone (``latent_step``): on
+    the card its first step runs eagerly and makes the cache's CUDA graph,
+    and every later step replays it (``LatentGraph``)."""
+    dev = cache.ckv.device
+    x = torch.stack([model.embed.weight[int(t)] for t in tokens])
+    pos_t = ints_on_device(pos, dev, torch.int32)
+    if dev.type != "cuda" or not cache.graphed:
+        return latent_step(model, x, pos_t, cache)
+    if cache.graph is None:
+        with cuda_graphs.on_side_stream(dev):
+            out = latent_step(model, x, pos_t, cache)
+        cache.graph = LatentGraph(model, cache, x, pos_t)
+        return out
+    return cache.graph.replay(x, pos_t)
+
+
+def latent_step(model: CodecLM, x, pos_t, cache: LatentCache):
+    """One decode token a row of a latent-attention backbone, every shape
+    fixed by the cache and nothing read back (a CUDA graph captures it):
+    x (B, D) the rows' embedded tokens at positions ``pos_t`` (B,) int32 on
+    the device. Each layer writes the rows' latent and roped key into slot
+    ``pos % window``, then attends in the absorbed form over the whole
+    ring, its invalid slots masked (the current token's own slot is
+    valid); expert layers run K10, tallying into ``expert_load``. Returns
+    f32 logits (B, V)."""
+    w = cache.window
+    rows = torch.arange(x.shape[0], device=x.device)
+    cos, sin = model.ar.rope(pos_t)
+    cos, sin = cos[:, None, None], sin[:, None, None]        # (B, 1, 1, rope/2)
+    slots = torch.remainder(pos_t.long(), w)
+    bias = torch.zeros((x.shape[0], 1, w), dtype=torch.float32, device=x.device).masked_fill(
+        ~ring_valid(pos_t, w, False)[:, None], float("-inf"))
+    load = expert_load(model)
+    x = x[:, None]
+    for li, layer in enumerate(model.ar.layers):
+        a = layer.attention
+        h = layer.attention_norm(x)
+        c, k_pe = a.latent(h, cos, sin)
+        cache.ckv[li, rows, slots] = torch.cat([c, k_pe], dim=-1)[:, 0]
+        q_nope, q_pe = a.queries(h, cos, sin)
+        attn = a.absorbed(q_nope[:, 0], q_pe[:, 0], cache.ckv[li], bias)
+        x = layer.finish(x, attn[:, None], True, None if load is None else load[li])
     return model.ar.head(x)[:, 0].float()
 
 
@@ -346,7 +509,8 @@ def prefill_rows(model: CodecLM, prompts, spk_codes_list, window: int):
     (a padded batch sums over other lengths and rounds otherwise now and
     then; the JAX engine pads every row to one 64-wide bucket). Returns (the
     (B, V) f32 logits at each row's last prompt token, one list of
-    per-layer (k, v), each (1, P_i + 1, H, D), a row)."""
+    per-layer (k, v), each (1, P_i + 1, H, D), or (c, k_pe) of latent
+    attention, a row)."""
     if max(len(p) for p in prompts) + 1 > window:
         raise ValueError(f"prompt {max(len(p) for p in prompts)}+1 exceeds cache window "
                          f"{window}")
@@ -394,8 +558,8 @@ def prefill_state(model: CodecLM, s: ArSampling, prompts, spk_codes_list, unifor
     with span("ar.prefill"):
         logits, kvs = prefill_rows(model, prompts, spk_codes_list, window)
         k0 = kvs[0][0][0]                           # (1, P + 1, H, D): H this rank's heads
-        cache = RingCache(cfg.n_layers, len(prompts), window, k0.shape[2], cfg.head_dim,
-                          k0.dtype, logits.device)
+        cache = make_cache(cfg, len(prompts), window, k0.dtype, logits.device,
+                           n_heads=k0.shape[2])
         for r, kv in enumerate(kvs):
             cache.write_prompt(r, kv)
         state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
@@ -460,8 +624,7 @@ def make_parked_state(cfg: CodecLMConfig, s: ArSampling, bs: int, dtype, device)
     row keeps decoding at its frozen position and appends nothing."""
     window = min(cfg.sliding_window, s.max_len + 1)
     return DecodeState(**parked_fields(s, bs, cfg.n_vocab, device),
-                       cache=RingCache(cfg.n_layers, bs, window, cfg.n_kv_heads, cfg.head_dim,
-                                       dtype, device))
+                       cache=make_cache(cfg, bs, window, dtype, device))
 
 
 @torch.no_grad()

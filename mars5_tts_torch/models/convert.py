@@ -92,9 +92,26 @@ def infer_nar_config(sd, nhead: int = 16) -> ResidualTransformerConfig:
         hidden_dim=int(sd["tfm.encoder.layers.0.activation.W.weight"].shape[0]))
 
 
+def mla_rope_rows(cfg: CodecLMConfig):
+    """(wq's, wkv_a's) row orders of latent attention that take each head's
+    interleaved ``q_pe`` rows and the shared ``k_pe`` rows to half-split."""
+    rope, r = cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    q = np.arange(cfg.n_heads * cfg.head_dim).reshape(cfg.n_heads, cfg.head_dim)
+    q[:, cfg.qk_nope_head_dim:] = q[:, cfg.qk_nope_head_dim:][:, _rope_perm(rope, rope)]
+    return q.reshape(-1), np.concatenate([np.arange(r), r + _rope_perm(rope, rope)])
+
+
 def codeclm_port_state_dict(sd, cfg: CodecLMConfig) -> dict:
-    """Reference CodecLM state dict -> the port's (wq/wk rows half-split)."""
+    """Reference CodecLM state dict -> the port's (wq/wk rows half-split;
+    latent attention's rope rows of wq and wkv_a likewise)."""
     out = {k: _np(v) for k, v in sd.items()}
+    if cfg.attention == "mla":
+        q_rows, kv_rows = mla_rope_rows(cfg)
+        for i in range(cfg.n_layers):
+            pre = f"ar.layers.{i}.attention."
+            out[pre + "wq.weight"] = out[pre + "wq.weight"][q_rows]
+            out[pre + "wkv_a.weight"] = out[pre + "wkv_a.weight"][kv_rows]
+        return out
     for i in range(cfg.n_layers):
         for w in ("wq", "wk"):
             key = f"ar.layers.{i}.attention.{w}.weight"

@@ -45,12 +45,12 @@ them as they were, and a replay adds what its segments launch.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 
 from ..ops.kernels import mha, nar_fused
+from ..utils import cuda_graphs
 from ..utils.profiling import span
 
 # graphed decoder calls in this process (reset with reset_counts)
@@ -61,8 +61,6 @@ graph_replays = 0
 _COUNTERS = ((mha, "launch_count"), (mha, "int8_launch_count"),
              (nar_fused, "fused_linear_launches"), (nar_fused, "fused_linear_grouped_launches"),
              (nar_fused, "fused_ffn_launches"), (nar_fused, "fused_ffn_grouped_launches"))
-
-_side_streams: dict = {}
 
 
 def reset_counts() -> None:
@@ -77,37 +75,6 @@ def _counts() -> list:
 def _set_counts(values) -> None:
     for (m, n), v in zip(_COUNTERS, values):
         setattr(m, n, v)
-
-
-@contextlib.contextmanager
-def _on_side_stream(device):
-    """Runs the block on this process's side stream of ``device``, ordered
-    after the current stream's work and before its later work. One stream
-    a device: cuBLAS keeps a workspace for each stream it runs on."""
-    idx = torch.cuda.current_device() if device.index is None else device.index
-    if idx not in _side_streams:
-        _side_streams[idx] = torch.cuda.Stream(idx)
-    side, cur = _side_streams[idx], torch.cuda.current_stream(idx)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        yield
-    cur.wait_stream(side)
-
-
-def _new_pool():
-    return torch.cuda.MemPool()
-
-
-def _capture(fn, pool):
-    """(the CUDA graph of ``fn()`` on the current stream, in ``pool``, and
-    fn's output, which each replay rewrites)."""
-    graph = torch.cuda.CUDAGraph()
-    graph.capture_begin(pool=pool.id, capture_error_mode="thread_local")
-    try:
-        out = fn()
-    finally:
-        graph.capture_end()
-    return graph, out
 
 
 def _run(fns, h):
@@ -203,9 +170,9 @@ class DecoderGraphs:
             else:
                 fns.append(fn)
         segments.append((fns, None))
-        with _on_side_stream(geo.memory.device):
+        with cuda_graphs.on_side_stream(geo.memory.device):
             if self._pool is None:
-                self._pool = _new_pool()
+                self._pool = cuda_graphs.new_pool()
             h = None
             for fns, ffn in segments:
                 geo.ins.append(h)
@@ -215,7 +182,8 @@ class DecoderGraphs:
             with span("nar.graph_capture"):
                 for (fns, ffn), h_in in zip(segments, geo.ins):
                     before = _counts()
-                    graph, out = _capture(functools.partial(_run, fns, h_in), self._pool)
+                    graph, out = cuda_graphs.capture(functools.partial(_run, fns, h_in),
+                                                    self._pool)
                     geo.launches.append([b - a for a, b in zip(before, _counts())])
                     _set_counts(before)
                     geo.graphs.append(graph)

@@ -127,7 +127,8 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
     W8A8). key_padding_mask (B, Lk) bool, True = ignore. Attention with at
     least ``KERNEL_SELF_ATTN_MIN_LEN`` queries and Lq == Lk, or any Lk with
     ``cross_k1`` (JAX ``MARS5_CROSS_PALLAS``), takes kernel K1's route
-    (``kernel_route``: CUDA tensors), in its int8 mode with ``qattn`` (JAX
+    (``kernel_route``: CUDA tensors) where the head dim is K1's 64 (a
+    DeepSeek-V2 AR's speaker encoder has heads of 128), in its int8 mode with ``qattn`` (JAX
     ``MARS5_QATTN``) when the in-projection is quantized; plain ``sdpa``
     otherwise, its scores rounded as ``scores_bf16`` says. A DTensor in-projection (tensor-parallel training) is
     projected a third at a time. ``tp`` (``parallel.tp.TensorParallel``,
@@ -157,7 +158,8 @@ def torch_mha(in_w, in_b, out_w, out_b, q_in, kv_in, nhead: int,
     q = q.reshape(b, lq, e // hd, hd)
     k = k.reshape(b, lk, e // hd, hd)
     v = v.reshape(b, lk, e // hd, hd)
-    if lq >= KERNEL_SELF_ATTN_MIN_LEN and (lq == lk or cross_k1) and kernel_route(q):
+    if (lq >= KERNEL_SELF_ATTN_MIN_LEN and (lq == lk or cross_k1) and hd == mha_kernel.HEAD_DIM
+            and kernel_route(q)):
         out = mha_kernel.mha(q, k, v, key_padding_mask,
                              quantized=qattn and is_quantized(in_w))
     else:

@@ -32,6 +32,7 @@ LIBRARIES = {
     "decode_layer": ("decode_layer.cu", "gemv_s8.cuh", "hopper.cuh", "warp_mma.cuh"),
     "head4": ("head4.cu", "gemv_s8.cuh", "warp_mma.cuh"),
     "decode_attention": ("decode_attention.cu", "warp_mma.cuh"),
+    "moe_decode": ("moe_decode.cu", "warp_mma.cuh"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

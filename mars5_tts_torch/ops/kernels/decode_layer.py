@@ -117,6 +117,10 @@ def make_dims(cfg, max_len: int, wbits: int = 8, batch: int = 1) -> FusedDims:
         raise ValueError(f"wbits must be 8 or 4, got {wbits}")
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"the fused decode batch must be in [1, {MAX_BATCH}], got {batch}")
+    if getattr(cfg, "attention", "mha") != "mha" or getattr(cfg, "n_routed_experts", 0):
+        raise ValueError("the fused decode step (K2) runs the MARS5 block, multi-head "
+                         "attention and a dense SwiGLU; an AR with latent attention or "
+                         "experts runs on ar_backend='bf16'")
     if cfg.dim != cfg.n_heads * cfg.head_dim or cfg.n_kv_heads != cfg.n_heads:
         raise ValueError("the fused decode step needs dim = n_heads * head_dim "
                          "and n_kv_heads = n_heads")

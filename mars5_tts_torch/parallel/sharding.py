@@ -84,7 +84,12 @@ def _nar_rule(name: str):
 
 
 def codeclm_specs(model: nn.Module, tp_size: int) -> dict:
-    """{parameter name: tp placement} of a ``CodecLM``."""
+    """{parameter name: tp placement} of a ``CodecLM``; tp > 1 shards the
+    MARS5 block's heads and FFN, and refuses a block with latent attention
+    or experts."""
+    if tp_size > 1 and not model.cfg.is_mha:
+        raise ValueError("tensor parallelism shards the MARS5 block (multi-head attention, a "
+                         "dense SwiGLU); an AR with latent attention or experts runs at tp 1")
     return _specs(model, _ar_rule, tp_size)
 
 

@@ -69,7 +69,8 @@ from .diffusion.multinomial import MultinomialDiffusion
 from .hub import load_checkpoint, load_tokenizers
 from .models.ar import CodecLM, CodecLMConfig
 from .models.ar_decode import (ArSampling, ar_generate, ar_generate_batched,
-                               ar_generate_nocache, ar_vocab_window)
+                               ar_generate_nocache, ar_vocab_window, expert_load,
+                               expert_load_summary)
 from .models.ar_decode_fused import ar_generate_fused, ar_generate_fused_batched, prepare_fused
 from .models.convert import (infer_codeclm_config, infer_nar_config, load_codeclm,
                              load_nar)
@@ -189,6 +190,10 @@ class Mars5TTS:
             raise ValueError(f"unknown ar_backend {ar_backend!r}")
         if head4 and ar_backend != "fused4":
             raise ValueError("head4=True needs ar_backend='fused4'")
+        if not codeclm.cfg.is_mha and ar_backend != "bf16":
+            raise ValueError(f"ar_backend={ar_backend!r} runs the MARS5 block only (K2, K8); "
+                             "an AR with latent attention or experts runs on "
+                             "ar_backend='bf16'")
         if codeclm.is_quantized and ar_backend != "bf16":
             raise ValueError("a quantize_codeclm AR runs on ar_backend='bf16'; the fused "
                              "backends pack the unquantized weights")
@@ -271,6 +276,18 @@ class Mars5TTS:
             self._mega_pack = build_mega_pack(self.codecnar.tfm.decoder)
         return self._mega_pack
 
+    def _reset_expert_load(self):
+        load = expert_load(self.codeclm)
+        if load is not None:
+            load.zero_()
+
+    def _report_expert_load(self):
+        """``last_timing["ar_expert_load"]``: each expert layer's largest and
+        mean count of routed decode slots in the call (an AR with experts)."""
+        summary = expert_load_summary(self.codeclm)
+        if summary is not None:
+            self.last_timing["ar_expert_load"] = summary
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -317,7 +334,8 @@ class Mars5TTS:
         their sum (``total_s``), ``audio_s``, the trimmed audio's seconds,
         ``rtf``, the total over ``audio_s``, and ``grid_audio_s``, the seconds
         of the served grid before the trim: its frames x the vocoder's hop /
-        24,000.
+        24,000; an AR with experts adds ``ar_expert_load`` (each expert
+        layer's largest and mean count of routed decode slots).
         """
         if max_retries:
             for attempt in range(max_retries + 1):
@@ -352,6 +370,7 @@ class Mars5TTS:
             self.last_timing = timer.report(audio_seconds=len(audio) / self.sr)
             self.last_timing["grid_audio_s"] = (len(self.last_grid) * self.vocos.cfg.hop_length
                                                 / self.sr)
+            self._report_expert_load()
             return gen_codes, audio
 
     def _sampling(self, cfg: InferenceConfig, n_phones_gen: int) -> ArSampling:
@@ -437,6 +456,7 @@ class Mars5TTS:
             first_codec_idx = prompt.shape[-1] - n_speech_inp + 1
 
         with timer.stage("ar_generate"):
+            self._reset_expert_load()
             sampling = self._sampling(cfg, round(cfg.eos_estimated_gen_length_factor
                                                  * len(text)))
             max_len = sampling.max_len
@@ -526,6 +546,7 @@ class Mars5TTS:
                     est_lens.append(round(cfg.eos_estimated_gen_length_factor * len(text)))
 
             with timer.stage("ar_generate"):
+                self._reset_expert_load()
                 sampling = self._sampling(cfg, max(est_lens))
                 spk_list = [c[0].T for c in row_codec]
                 if self.ar_backend != "bf16" and cfg.use_kv_cache and 2 <= n <= 8:
@@ -583,6 +604,7 @@ class Mars5TTS:
             self.last_timing = timer.report(
                 audio_seconds=sum(len(w) for _, w in results) / self.sr)
             self.last_timing["grid_audio_s"] = sum(out_lens) * hop / self.sr
+            self._report_expert_load()
             return results
 
     @classmethod

@@ -88,7 +88,8 @@ def train_rank(rank: int, world: int, device: str, dp: int, tp: int, steps: int,
     paths = {}
     for name, cfg in (("ar", ar_cfg), ("nar", nar_cfg)):
         paths[name] = str(Path(out) / f"mars5_{name}_tiny.pt")
-        save_checkpoint(paths[name], trees[name], config=dataclasses.asdict(cfg))
+        save_checkpoint(paths[name], trees[name],
+                        config=cfg.to_dict() if name == "ar" else dataclasses.asdict(cfg))
     return {"losses": losses, "seconds": seconds, "paths": paths}
 
 

@@ -1858,3 +1858,128 @@ def test_graphed_trajectory_bitwise_eager(dev, monkeypatch):
     again = run()
     assert torch.equal(again[0], eager[0]) and again[2] == (2, T - 2)
     assert torch.cuda.memory_reserved(dev) == reserved
+
+
+# ------------------------------------------------------------ K10
+
+def _moe_case(rows, dev, seed, e=64, f=1408, d=2048, k=6, fs=2816):
+    """DeepSeek-V2-Lite's widths: routed experts (E, 2F, D) / (E, D, F), the
+    shared pair (Fs, D) / (D, Fs), rows routed by a softmax over E."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape, fan):
+        return ((torch.rand(shape, generator=g, device=dev) * 2 - 1) * fan ** -0.5).to(
+            torch.bfloat16)
+
+    x = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
+    gate = u(e, d, fan=d)
+    p = torch.softmax(x.float() @ gate.float().t(), dim=-1)
+    w, ids = torch.topk(p, k, dim=-1)
+    return (x, ids.to(torch.int32), w, u(e, 2 * f, d, fan=d), u(e, d, f, fan=f),
+            u(fs, d, fan=d), u(fs, d, fan=d), u(d, fs, fan=fs))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_moe_decode_kernel_matches_twin(dev, rows):
+    """K10 against its twin on the card at 1-8 rows, within one bf16 ulp
+    (bitwise but where an f64 sum in another order crosses an f32 rounding
+    boundary), with the same expert-load tally; one launch a call."""
+    from mars5_tts_torch.ops.kernels import moe_decode as K
+
+    args = _moe_case(rows, dev, seed=rows)
+    loads = [torch.zeros(64, dtype=torch.int32, device=dev) for _ in range(2)]
+    n0 = K.launch_count
+    got = K.moe_decode(*args, load=loads[0])
+    torch.cuda.synchronize()
+    assert K.launch_count == n0 + 1
+    want = K.moe_decode_ref(*args, load=loads[1])
+    assert torch.equal(loads[0], loads[1])
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= K.one_ulp(got, want)).all()), err.max().item()
+    assert float((got != want).float().mean()) < 0.01
+    with pytest.raises(ValueError):
+        K.moe_decode(args[0].float(), *args[1:])
+
+
+def _latent_ar(dev):
+    """A DeepSeek-V2-shaped AR on the card (dim 256, so K10 takes it) and a
+    two-row latent ring after its prefill."""
+    from mars5_tts_torch.models import ar_decode as AD
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+
+    cfg = CodecLMConfig(n_vocab=1400, dim=256, n_heads=4, n_kv_heads=4, head_dim=48,
+                        n_layers=3, hidden_dim=512, sliding_window=4096, norm_eps=1e-6,
+                        spk_hidden_dim=512, attention="mla", kv_lora_rank=64,
+                        qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+                        rope_factor=40.0, rope_mscale=0.707, rope_mscale_all_dim=0.707,
+                        n_routed_experts=8, n_shared_experts=2, n_experts_per_tok=2,
+                        moe_hidden_dim=64, first_k_dense=1)
+    m = CodecLM(cfg).init_(torch.Generator().manual_seed(0)).to(dev, torch.bfloat16).eval()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 1283, 30), rng.integers(0, 1283, 21)]
+    _, states = AD.prefill_rows(m, prompts, [rng.integers(0, 1024, (40, 8))] * 2, 4096)
+    cache = AD.make_cache(cfg, 2, 200, torch.bfloat16, dev)
+    for r, st in enumerate(states):
+        cache.write_prompt(r, st)
+    return m, cache
+
+
+@pytest.mark.parametrize("graphed", [True, False])
+@torch.no_grad()
+def test_latent_decode_step_has_no_host_sync(dev, monkeypatch, graphed):
+    """A DeepSeek-V2-shaped AR's decode step on the card (latent ring, K10),
+    replaying its CUDA graph or eager, runs with
+    ``torch.cuda.set_sync_debug_mode("error")`` on: nothing in it waits for
+    the device; the token readback is the decode loop's, outside the step."""
+    from mars5_tts_torch.models import ar_decode as AD
+    from mars5_tts_torch.ops.kernels import moe_decode as K
+
+    monkeypatch.setattr(AD.LatentCache, "graphed", graphed)
+    m, cache = _latent_ar(dev)
+    pos = np.array([31, 22])
+    AD.decode_step(m, np.array([5, 6]), pos, cache)        # first use: tables, the graph
+    assert (cache.graph is not None) == graphed
+    n0 = K.launch_count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(1, 4):
+            out = AD.decode_step(m, np.array([7, 8]), pos + i, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out).all()
+    assert K.launch_count == n0 + 3 * 2            # one a step and expert layer
+    assert int(AD.expert_load(m)[1:].sum()) == 4 * 2 * 2 * 2
+
+
+@torch.no_grad()
+def test_latent_graph_replays_the_eager_step(dev, monkeypatch):
+    """Ten decode steps of two rows replaying the step's CUDA graph give the
+    eager steps' logits and rings bit for bit."""
+    from mars5_tts_torch.models import ar_decode as AD
+
+    runs = []
+    for graphed in (False, True):
+        monkeypatch.setattr(AD.LatentCache, "graphed", graphed)
+        m, cache = _latent_ar(dev)
+        outs = [AD.decode_step(m, np.array([7 + i, 9 + i]), np.array([31 + i, 22 + i]),
+                               cache).clone() for i in range(10)]
+        runs.append((torch.stack(outs), cache.ckv.clone()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@torch.no_grad()
+def test_speaker_encoder_heads_of_128_skip_k1(dev):
+    """A 601-token speaker encoder at 16 heads of 128 (the DeepSeek-V2 AR's)
+    runs on the card without K1; the MARS5 AR's 24 heads of 64 take it."""
+    from mars5_tts_torch.models.layers import TransformerEncoder
+    from mars5_tts_torch.ops.kernels import mha as K1
+
+    for dim, heads, launches in ((2048, 16, 0), (1536, 24, 2)):
+        enc = TransformerEncoder(dim, heads, 6144, 2).to(dev, torch.bfloat16).eval()
+        n0 = K1.launch_count
+        out = enc(torch.randn(1, 601, dim, device=dev, dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert K1.launch_count - n0 == launches

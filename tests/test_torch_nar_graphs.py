@@ -73,12 +73,13 @@ def holders(monkeypatch):
 def _on_cpu(monkeypatch):
     """The holder takes CPU calls, with the stand-in capture."""
     from mars5_tts_torch.models import nar_graphs as G
+    from mars5_tts_torch.utils import cuda_graphs
 
     monkeypatch.setattr(G.DecoderGraphs, "takes",
                         lambda self, dec, x, mega, options: self.graphable(dec, mega, options))
-    monkeypatch.setattr(G, "_capture", _fake_capture)
-    monkeypatch.setattr(G, "_new_pool", lambda: None)
-    monkeypatch.setattr(G, "_on_side_stream", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_graphs, "capture", _fake_capture)
+    monkeypatch.setattr(cuda_graphs, "new_pool", lambda: None)
+    monkeypatch.setattr(cuda_graphs, "on_side_stream", lambda device: contextlib.nullcontext())
 
 
 def _run(nar, batch, dsh, options=None, **kw):
@@ -209,3 +210,23 @@ def test_graphable_predicate(case):
         assert DecoderGraphs.graphable(dec, mega, options) == (case == "graphed")
         assert not DecoderGraphs().takes(dec, torch.zeros(1, 4, 8, dtype=torch.long), mega,
                                          options)
+
+
+@pytest.mark.parametrize("free_gb,idle_gb,emptied", [(0.1, 30.0, True), (12.0, 30.0, True),
+                                                    (60.0, 2.0, False), (3.0, 2.0, False)])
+def test_new_pool_empties_the_cache_when_the_card_is_full(monkeypatch, free_gb, idle_gb,
+                                                          emptied):
+    """A capture allocates only from its own pool: where the card has less
+    free than the default pool's cache holds idle (8 rows' encoder memory
+    left cached), a new pool first empties that cache, and not otherwise."""
+    from mars5_tts_torch.utils import cuda_graphs as C
+
+    calls = []
+    gib = 2 ** 30
+    monkeypatch.setattr(C.torch.cuda, "mem_get_info", lambda *a: (int(free_gb * gib), 80 * gib))
+    monkeypatch.setattr(C.torch.cuda, "memory_reserved", lambda *a: int((20 + idle_gb) * gib))
+    monkeypatch.setattr(C.torch.cuda, "memory_allocated", lambda *a: 20 * gib)
+    monkeypatch.setattr(C.torch.cuda, "empty_cache", lambda: calls.append("empty"))
+    monkeypatch.setattr(C.torch.cuda, "MemPool", lambda: "pool")
+    assert C.new_pool() == "pool"
+    assert calls == (["empty"] if emptied else [])

@@ -517,8 +517,9 @@ def test_k1_refuses_autograd_on_its_cuda_route(monkeypatch):
     to linearize): on its CUDA route ``mha`` raises when autograd records
     and q, k or v needs a gradient, never falling back to the twin. Driven
     on the CPU by taking the kernel route (``kernel_route``, the 512-query
-    threshold) and the CUDA branch of the wrapper (``takes_twin``); under
-    ``no_grad`` the call goes past the refusal to the device check."""
+    threshold, K1's head dim set to the tiny NAR's 16) and the CUDA branch of
+    the wrapper (``takes_twin``); under ``no_grad`` the call goes past the
+    refusal to the device check."""
     import mars5_tts_torch.ops.attention as PA
     from mars5_tts_torch.models.convert import load_nar, nar_reference_state_dict
     from mars5_tts_torch.models.nar import ResidualTransformerConfig
@@ -527,6 +528,7 @@ def test_k1_refuses_autograd_on_its_cuda_route(monkeypatch):
     monkeypatch.setattr(PA, "KERNEL_SELF_ATTN_MIN_LEN", 8)
     monkeypatch.setattr(PA, "kernel_route", lambda _t: True)
     monkeypatch.setattr(K, "takes_twin", lambda _q: False)
+    monkeypatch.setattr(K, "HEAD_DIM", 16)      # the route takes K1's head dim only
     cfgs, params = tiny_models()
     pcfg = port_config(cfgs["nar"], ResidualTransformerConfig)
     nar = load_nar(nar_reference_state_dict(params["nar"], pcfg), pcfg, trainable=True)

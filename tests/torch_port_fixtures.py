@@ -129,7 +129,7 @@ def write_checkpoints(tmpdir, seed: int = 0):
     ar_path = os.path.join(str(tmpdir), "mars5_ar.safetensors")
     nar_path = os.path.join(str(tmpdir), "mars5_nar.safetensors")
     save_checkpoint(ar_path, codeclm_reference_state_dict(params["ar"], ar_cfg), vocab,
-                    config=dataclasses.asdict(ar_cfg))
+                    config=ar_cfg.to_dict())
     save_checkpoint(nar_path, nar_reference_state_dict(params["nar"], nar_cfg), vocab,
                     config=dataclasses.asdict(nar_cfg))
     return ar_path, nar_path
@@ -163,7 +163,7 @@ def write_port_files(tmpdir, fused: bool = False, seed: int = 0) -> dict:
         ("ar", "mars5_ar.safetensors"), ("nar", "mars5_nar.safetensors"),
         ("encodec", "encodec.npz"), ("vocos", "vocos.npz"), ("ref", "ref.wav"))}
     save_checkpoint(paths["ar"], codeclm_reference_state_dict(ar_params, ar_cfg), vocab,
-                    config=dataclasses.asdict(ar_cfg))
+                    config=ar_cfg.to_dict())
     save_checkpoint(paths["nar"], nar_reference_state_dict(params["nar"], nar_cfg), vocab,
                     config=dataclasses.asdict(nar_cfg))
     save_pytree_npz(paths["encodec"], params["encodec"])
