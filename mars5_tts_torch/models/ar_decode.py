@@ -23,7 +23,13 @@ like the JAX engine, every decode step runs all rows (a done or parked row
 at its frozen position); rows never read each other, so a row's tokens are
 those of its solo run. ``ar_generate``, ``ar_generate_batched``, the
 quantized engine and the serving pools all run one loop,
-``decode_loop``.
+``decode_loop``. The sampler works on the device alone: each state keeps
+the fields a step reads on the device too (``DeviceState``), the logit
+pipeline, the draw and the bookkeeping update them there, and the host's
+fields follow from one readback of the drawn tokens a step. On the card
+the quantized engine's step (``models/ar_decode_fused.FusedStep``) and the
+latent-attention step (``LatentStep``) replay one CUDA graph a step
+(``models/ar_graphs``); every other route runs the same sampler eagerly.
 
 A DeepSeek-V2 backbone (``cfg.attention == "mla"``) keeps a ``LatentCache``
 in place of the ring of keys and values: each position's normed latent and
@@ -31,8 +37,7 @@ its roped shared key, with the same row operations. Its decode step runs
 latent attention in the absorbed form over the ring's slots
 (``MLAttention.absorbed``) and its experts through kernel K10, which reads
 the routing on the device; the routed slots are tallied per layer and
-expert on the device (``expert_load``), with no sync. On the card the step
-is one CUDA graph a cache (``LatentGraph``).
+expert on the device (``expert_load``), with no sync.
 
 ``ar_generate_nocache`` is the reference's ``use_kv_cache=False``: every
 step runs the full prefill over the token buffer and samples at each row's
@@ -45,19 +50,18 @@ generated token consuming ``uniforms[k, i]``, or one drawn from a seeded
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..ops.kernels import moe_decode as moe_decode_kernel
 from ..ops.kernels.decode_attention import decode_attention, ring_valid
-from ..ops.sampling import (apply_typical_p, early_eos_penalty, filter_topk_subset_rows,
+from ..ops.sampling import (apply_typical_p, early_eos_table, filter_topk_subset_rows,
                             freq_presence_penalty, mask_vocab_window, sample_from_logprobs,
                             top_k_top_p_filter)
-from ..utils import cuda_graphs
 from ..utils.device import ints_on_device
 from ..utils.profiling import span
+from . import ar_graphs
 from .ar import CodecLM, CodecLMConfig
 
 
@@ -99,8 +103,8 @@ class RowSampling:
     """Per-row sampling values of B rows, each a (B,) host array (the JAX
     ``RowSampling``): a row's top_k is at most the pool's extraction width
     (``ArSampling.top_k``); top_p >= 1 and typical_p > 0.999 leave those
-    filters off for the row. The values the logit pipeline reads on the
-    device are copied there once per device (``on``)."""
+    filters off for the row. A state's ``DeviceState`` holds the values the
+    logit pipeline reads."""
 
     temperature: np.ndarray
     top_k: np.ndarray
@@ -111,22 +115,6 @@ class RowSampling:
     penalty_window: np.ndarray
     eos_penalty_decay: np.ndarray
     eos_penalty_factor: np.ndarray
-    _device: dict = field(default_factory=dict, repr=False, compare=False)
-
-    def on(self, device) -> dict:
-        """The device values: temperature, alpha_frequency, alpha_presence
-        (B, 1) f32, top_k (B,) int64, top_p, typical_p (B,) f32."""
-        device = torch.device(device)
-        if device not in self._device:
-            def f32(a):
-                return torch.tensor(np.asarray(a, np.float32), device=device)
-            self._device[device] = {
-                "temperature": f32(self.temperature)[:, None],
-                "alpha_frequency": f32(self.alpha_frequency)[:, None],
-                "alpha_presence": f32(self.alpha_presence)[:, None],
-                "top_k": torch.tensor(np.asarray(self.top_k, np.int64), device=device),
-                "top_p": f32(self.top_p), "typical_p": f32(self.typical_p)}
-        return self._device[device]
 
 
 def rows_from_sampling(s: ArSampling, bs: int, overrides: dict | None = None,
@@ -152,36 +140,42 @@ def insert_rows_sampling(pool: RowSampling, row: RowSampling, b: int) -> RowSamp
     return RowSampling(**vals)
 
 
-def filter_logits(logits, s: ArSampling, counts, n_gen, est_len, rows: RowSampling):
-    """The per-step logit pipeline over rows, each with its own ``rows``
-    values: penalties (rows past their second generated token), vocab
-    window, early-EOS, temperature, top-k/top-p/typical-p, window again,
-    log-softmax. logits (B, V) f32; counts (B, V); n_gen and est_len (B,)
-    host arrays."""
-    dv = rows.on(logits.device)
-    penalize = np.asarray(n_gen) > 1
-    if penalize.any():
-        pen = freq_presence_penalty(logits, counts, dv["alpha_frequency"],
-                                    dv["alpha_presence"])
-        logits = pen if penalize.all() else torch.where(
-            ints_on_device(penalize, logits.device, torch.bool)[:, None], pen, logits)
-    logits = mask_vocab_window(logits, s.valid_start, s.valid_end)
-    logits = early_eos_penalty(logits, n_gen, est_len, rows.eos_penalty_decay,
-                               rows.eos_penalty_factor, s.eos_idx)
-    logits = logits / dv["temperature"]
+def filter_blocks(s: ArSampling, rows: RowSampling) -> tuple:
+    """What of the top-k stage ``filter_logits`` runs, from the host values:
+    with an extraction width (``s.top_k > 0``) whether some row needs its
+    own top-k, top-p, typical-p block (a block no row needs is skipped);
+    without one, the top_p and typical mass every row shares. Fixed for a
+    call or a pool's rows, and part of a decode graph's key."""
     if s.top_k > 0:
-        # a block no row needs is skipped (the host values say which)
-        logits = filter_topk_subset_rows(
-            logits, s.top_k, dv["top_k"] if (rows.top_k < s.top_k).any() else None,
-            dv["top_p"] if (rows.top_p < 1.0).any() else None,
-            dv["typical_p"] if (rows.typical_p <= 0.999).any() else None)
+        return (bool((rows.top_k < s.top_k).any()), bool((rows.top_p < 1.0).any()),
+                bool((rows.typical_p <= 0.999).any()))
+    # the full-vocabulary filters take one top_p and typical_p for all rows
+    if len(set(rows.top_p.tolist())) > 1 or len(set(rows.typical_p.tolist())) > 1:
+        raise ValueError("per-row top_p / typical_p need a top-k extraction width "
+                         "(ArSampling.top_k > 0)")
+    return float(rows.top_p[0]), float(rows.typical_p[0])
+
+
+def filter_logits(logits, s: ArSampling, counts, dev: "DeviceState", blocks: tuple):
+    """The per-step logit pipeline over rows, each with its own sampling
+    values, on the device alone: penalties (rows past their second
+    generated token), vocab window, early-EOS (each row's modifier at its
+    generated count), temperature, top-k/top-p/typical-p (``blocks``, from
+    ``filter_blocks``), window again, log-softmax. logits (B, V) f32;
+    counts (B, V); ``dev`` the state's ``DeviceState``."""
+    pen = freq_presence_penalty(logits, counts, dev.alpha_frequency, dev.alpha_presence)
+    logits = torch.where((dev.n_gen > 1)[:, None], pen, logits)
+    logits = mask_vocab_window(logits, s.valid_start, s.valid_end)
+    logits[:, s.eos_idx].sub_(dev.eos_modifier[dev.rows, dev.n_gen])
+    logits = logits / dev.temperature
+    if s.top_k > 0:
+        k_on, p_on, typical_on = blocks
+        logits = filter_topk_subset_rows(logits, s.top_k, dev.top_k if k_on else None,
+                                         dev.top_p if p_on else None,
+                                         dev.typical_p if typical_on else None)
     else:
-        # the full-vocabulary filters take one top_p and typical_p for all rows
-        if len(set(rows.top_p.tolist())) > 1 or len(set(rows.typical_p.tolist())) > 1:
-            raise ValueError("per-row top_p / typical_p need a top-k extraction width "
-                             "(ArSampling.top_k > 0)")
-        logits = apply_typical_p(top_k_top_p_filter(logits, 0, float(rows.top_p[0])),
-                                 float(rows.typical_p[0]))
+        top_p, typical = blocks
+        logits = apply_typical_p(top_k_top_p_filter(logits, 0, top_p), typical)
     logits = mask_vocab_window(logits, s.valid_start, s.valid_end)
     return torch.log_softmax(logits, dim=-1)
 
@@ -221,18 +215,14 @@ class LatentCache:
     """Latent attention's per-layer rings of B rows: each position's normed
     latent and roped shared key side by side, (L, B, W, R + rope) in
     ``ckv``, with ``RingCache``'s row operations (``write_prompt`` takes a
-    prefill's per-layer (c, k_pe)). On the card its decode steps replay one
-    CUDA graph (``LatentGraph``, made at the first step) unless ``graphed``
-    is False."""
-
-    graphed = True
+    prefill's per-layer (c, k_pe)). On the card the decode loop replays its
+    steps as CUDA graphs (``LatentStep``)."""
 
     def __init__(self, n_layers: int, batch: int, window: int, rank: int, rope_dim: int,
                  dtype, device):
         self.window, self.rank = window, rank
         self.ckv = torch.zeros((n_layers, batch, window, rank + rope_dim), dtype=dtype,
                                device=device)
-        self.graph = None
 
     def write_prompt(self, row: int, states) -> None:
         """A prefill's per-layer (c, k_pe), each (1, P + 1, .), into slots
@@ -241,9 +231,9 @@ class LatentCache:
             self.ckv[li, row, : c.shape[1]] = torch.cat([c[0], k_pe[0]], dim=-1)
 
     def take_row(self, j: int) -> "LatentCache":
-        """A one-row copy of row ``j`` (with no graph)."""
+        """A one-row copy of row ``j``."""
         out = LatentCache.__new__(LatentCache)
-        out.window, out.rank, out.graph = self.window, self.rank, None
+        out.window, out.rank = self.window, self.rank
         out.ckv = self.ckv[:, j:j + 1].clone()
         return out
 
@@ -251,36 +241,6 @@ class LatentCache:
         """Overwrite row ``b``'s rings whole with the one-row ``row``'s, in
         place (a graph made on this cache stays valid)."""
         self.ckv[:, b] = row.ckv[:, 0]
-
-
-class LatentGraph:
-    """One CUDA graph of ``latent_step`` over a cache's rows: static inputs
-    (the rows' embedded tokens and positions), the graph, its output (the
-    logits, rewritten by each replay) and its memory pool, dropped after the
-    graph (``utils/cuda_graphs``, as ``models/nar_graphs``). Made by ``decode_step_latent``
-    at a cache's first step on the card: that step runs eagerly on the side
-    stream (the warm-up capture needs), then the step is captured; every
-    later step copies its inputs in and replays, the same kernels on the
-    same shapes as the eager step. K10's ``launch_count`` counts the kernel
-    calls run: a capture adds none, a replay one an expert layer."""
-
-    def __init__(self, model: CodecLM, cache: LatentCache, x, pos_t):
-        self.x, self.pos = torch.empty_like(x), torch.empty_like(pos_t)
-        self.k10_calls = sum(model.cfg.is_moe_layer(i) for i in range(model.cfg.n_layers))
-        pool = cuda_graphs.new_pool()
-        n0 = moe_decode_kernel.launch_count
-        with cuda_graphs.on_side_stream(x.device):
-            self.graph, self.out = cuda_graphs.capture(
-                lambda: latent_step(model, self.x, self.pos, cache), pool)
-        moe_decode_kernel.launch_count = n0
-        self.pool = pool
-
-    def replay(self, x, pos_t):
-        self.x.copy_(x)
-        self.pos.copy_(pos_t)
-        self.graph.replay()
-        moe_decode_kernel.launch_count += self.k10_calls
-        return self.out
 
 
 def make_cache(cfg: CodecLMConfig, batch: int, window: int, dtype, device,
@@ -319,14 +279,74 @@ def expert_load_summary(model: CodecLM):
     return {"max": t.max(dim=1).values.tolist(), "mean": t.mean(dim=1).tolist()}
 
 
+class DeviceState:
+    """A ``DecodeState``'s fields on the device, which a decode step reads
+    and writes with no host work: each row's last token, cursor, generated
+    count, penalty window and top-k (``ints``, (5, B) int64), temperature
+    and penalty weights ((B, 1) f32), top-p and typical mass (``floats``),
+    done flag, token history (B, max_len) int64, early-EOS modifier at each
+    generated count (B, max_len + 1) f32, 0 past the row's estimate
+    (``early_eos_table``), and ``out`` (B, 2) int64, the step's one
+    readback: each row's drawn token and whether it had no finite logprob.
+    ``load`` writes them from the host's fields in place, so a graph made on
+    them stays valid; ``buffer`` keeps a route's static tensors."""
+
+    INTS = ("tok", "cur", "n_gen", "penalty_window", "top_k")
+    FLOATS = ("temperature", "alpha_frequency", "alpha_presence", "top_p", "typical_p")
+
+    def __init__(self, batch: int, max_len: int, device):
+        self.ints = torch.zeros((len(self.INTS), batch), dtype=torch.int64, device=device)
+        self.floats = torch.zeros((len(self.FLOATS), batch), dtype=torch.float32,
+                                  device=device)
+        for name, row in zip(self.INTS, self.ints):
+            setattr(self, name, row)
+        for name, row in zip(self.FLOATS, self.floats):
+            setattr(self, name, row if name in ("top_p", "typical_p") else row[:, None])
+        self.done = torch.zeros(batch, dtype=torch.bool, device=device)
+        self.hist = torch.zeros((batch, max_len), dtype=torch.int64, device=device)
+        self.eos_modifier = torch.zeros((batch, max_len + 1), dtype=torch.float32, device=device)
+        self.out = torch.zeros((batch, 2), dtype=torch.int64, device=device)
+        self.rows = torch.arange(batch, device=device)
+        self._buffers = {}
+
+    def load(self, st: "DecodeState", rows: RowSampling) -> None:
+        """Every field from ``st``'s host fields and the rows' sampling
+        values: a few host-to-device copies and the early-EOS table on the
+        host, once a decode loop."""
+        last = st.tokens[np.arange(st.batch), np.maximum(st.cur - 1, 0)]
+        ints = np.stack([last, st.cur, st.n_gen, rows.penalty_window, rows.top_k])
+        self.ints.copy_(torch.from_numpy(ints.astype(np.int64)))
+        self.floats.copy_(torch.from_numpy(np.stack([np.asarray(getattr(rows, n), np.float32)
+                                                     for n in self.FLOATS])))
+        self.done.copy_(torch.from_numpy(np.asarray(st.done, bool)))
+        self.hist.copy_(torch.from_numpy(np.asarray(st.tokens, np.int64)))
+        n = self.eos_modifier.shape[1] - 1
+        self.eos_modifier.copy_(torch.stack([
+            early_eos_table(int(e), float(d), float(f), n)
+            for e, d, f in zip(st.est_len, rows.eos_penalty_decay, rows.eos_penalty_factor)]))
+
+    def buffer(self, name: str, shape: tuple, dtype) -> torch.Tensor:
+        """The static tensor ``name`` of a route (zeros at first use)."""
+        t = self._buffers.get(name)
+        if t is None:
+            t = self._buffers[name] = torch.zeros(shape, dtype=dtype, device=self.rows.device)
+        return t
+
+
 @dataclass
 class DecodeState:
     """The resumable decode state of B rows (the JAX ``DecodeState``):
     tokens (B, max_len) (prompt then generated), cursor, generated count,
     early-EOS estimate and done flag, each (B,), on the host; penalty counts
     (B, V) int32 and the uniforms (max_len, B) f32 on the device; the
-    rows' cache (``RingCache``, or the quantized engine's ``FusedCache``);
-    and ``steps``, the decode steps run on it so far."""
+    rows' cache (``RingCache``, ``LatentCache``, or the quantized engine's
+    ``FusedCache``); ``steps``, the decode steps run on it so far; ``dev``,
+    the fields a step reads on the device (``DeviceState``, made at the
+    first draw and loaded from the host fields at each decode loop); and
+    ``graphs``, its decode steps' CUDA graphs (``models/ar_graphs``). The
+    host fields mirror the device's: each step's readback updates them by
+    the same rules, so code between loops reads and writes them (a pool's
+    inserts) and the next loop loads them."""
 
     tokens: np.ndarray
     cur: np.ndarray
@@ -337,6 +357,8 @@ class DecodeState:
     uniforms: torch.Tensor
     cache: object
     steps: int = 0
+    dev: DeviceState | None = None
+    graphs: object = None
 
     @property
     def batch(self) -> int:
@@ -349,56 +371,143 @@ class DecodeState:
                 for i in range(self.batch)]
 
 
-def sample_update(state: DecodeState, logits, s: ArSampling, rows: RowSampling) -> None:
-    """Sample one token a row from ``logits`` (B, V), row i's k-th generated
-    token consuming ``uniforms[min(k, max_len - 1), i]``, and advance each
-    live row's state in place (the JAX ``_sample_and_update``). Spans: the
-    draw (``ar.sample``), then its readback, where the host waits for the
-    device (``ar.readback``)."""
-    st = state
-    b = st.batch
-    idx = np.arange(b)
-    with span("ar.sample"):
-        logprobs = filter_logits(logits, s, st.counts, st.n_gen, st.est_len, rows)
-        k = np.minimum(st.n_gen, s.max_len - 1)
-        u = torch.stack([st.uniforms[int(k[i]), i] for i in range(b)])
-        drawn = sample_from_logprobs(logprobs, u)
+def load_device_state(state: DecodeState, s: ArSampling, rows: RowSampling) -> tuple:
+    """Loads ``state.dev`` (made at first use) from the host fields and
+    ``rows``; returns the rows' ``filter_blocks``."""
+    blocks = filter_blocks(s, rows)
+    if state.dev is None:
+        state.dev = DeviceState(state.batch, state.tokens.shape[1], state.counts.device)
+    state.dev.load(state, rows)
+    return blocks
+
+
+def draw(state: DecodeState, logits, s: ArSampling, blocks: tuple) -> None:
+    """Sample one token a row from ``logits`` (B, V) and advance each live
+    row's device state (``state.dev``, the counts) in place, on the device
+    alone: row i's k-th generated token consumes ``uniforms[min(k, max_len
+    - 1), i]``; ``dev.out`` gets the drawn tokens and the rows with no
+    finite logprob. The rules are the JAX ``_sample_and_update``'s: a live
+    row appends its token unless it is EOS or the row is full, the counts
+    add it and drop the token leaving the row's penalty window, and EOS or
+    a full row ends it."""
+    dev = state.dev
+    logprobs = filter_logits(logits, s, state.counts, dev, blocks)
+    u = state.uniforms[dev.n_gen.clamp_max(s.max_len - 1), dev.rows]
+    drawn = sample_from_logprobs(logprobs, u)
+    dev.out[:, 0] = drawn
+    dev.out[:, 1] = ~torch.isfinite(logprobs).any(dim=-1)
+    tok = drawn.clamp(0, logits.shape[-1] - 1)     # a dead row raises at the readback
+    active = ~dev.done
+    appends = active & (tok != s.eos_idx) & (dev.cur < s.max_len)
+    at = dev.cur.clamp_max(s.max_len - 1)
+    dev.hist[dev.rows, at] = torch.where(appends, tok, dev.hist[dev.rows, at])
+    evict_pos = dev.cur - dev.penalty_window          # the token leaving the window
+    evict = appends & (dev.n_gen + 1 > dev.penalty_window) & (evict_pos >= 0)
+    evict_tok = dev.hist[dev.rows, evict_pos.clamp(0, s.max_len - 1)]
+    counts = state.counts
+    counts.scatter_add_(1, tok[:, None], appends.to(counts.dtype)[:, None])
+    counts.scatter_add_(1, evict_tok[:, None], -evict.to(counts.dtype)[:, None])
+    dev.cur += appends
+    dev.n_gen += appends
+    dev.done |= (active & (tok == s.eos_idx)) | (dev.cur >= s.max_len)
+    dev.tok.copy_(dev.hist[dev.rows, (dev.cur - 1).clamp_min(0)])
+
+
+def read_back(state: DecodeState, s: ArSampling) -> None:
+    """The step's one readback (the span ``ar.readback``, where the host
+    waits for the device): the drawn tokens, from which the host fields
+    follow by ``draw``'s rules. A row with no finite logprob raises."""
     with span("ar.readback"):
-        tok = drawn.cpu().numpy()
+        out = state.dev.out.cpu().numpy()
+    if out[:, 1].any():
+        raise ValueError("sample_from_logprobs: a row has no finite logprob")
+    st, tok = state, out[:, 0]
+    idx = np.arange(st.batch)
     active = ~st.done
     appends = active & (tok != s.eos_idx) & (st.cur < s.max_len)
     at = np.minimum(st.cur, s.max_len - 1)
     st.tokens[idx, at] = np.where(appends, tok, st.tokens[idx, at])
-    pw = rows.penalty_window
-    evict_pos = st.cur - pw                     # the token leaving the window
-    evict = appends & (st.n_gen + 1 > pw) & (evict_pos >= 0)
-    evict_tok = st.tokens[idx, np.clip(evict_pos, 0, s.max_len - 1)]
-    # host ints index the counts, one small op a row: an index tensor would
-    # cost a host-to-device copy a step
-    for i in np.flatnonzero(appends):
-        st.counts[int(i), int(tok[i])] += 1
-    for i in np.flatnonzero(evict):
-        st.counts[int(i), int(evict_tok[i])] -= 1
     st.cur = st.cur + appends
     st.n_gen = st.n_gen + appends
     st.done = st.done | (active & (tok == s.eos_idx)) | (st.cur >= s.max_len)
 
 
+def sample_update(state: DecodeState, logits, s: ArSampling, rows: RowSampling) -> None:
+    """Sample one token a row from ``logits`` (B, V) and advance each live
+    row's state in place (``draw``, then ``read_back``), the device state
+    first loaded from the host fields. Spans: the draw (``ar.sample``), then
+    its readback (``ar.readback``)."""
+    blocks = load_device_state(state, s, rows)
+    with span("ar.sample"):
+        draw(state, logits, s, blocks)
+    read_back(state, s)
+
+
+class EagerStep:
+    """A decode step ``fn(tokens (B,), positions (B,)) -> (B, V) f32 logits``
+    fed each row's last token and cursor from the host fields: never
+    graphed."""
+
+    name, direct, graphable = "eager", None, False
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def body(self, state: DecodeState):
+        idx = np.arange(state.batch)
+        return self.fn(state.tokens[idx, np.maximum(state.cur - 1, 0)], state.cur)
+
+    def feed(self, state: DecodeState) -> None:
+        pass
+
+
 def decode_loop(state: DecodeState, s: ArSampling, rows: RowSampling, step,
                 n_steps: int | None = None) -> DecodeState:
-    """Decode steps until every row is done, or at most ``n_steps``: each
-    step ``step(tokens (B,), positions (B,))`` feeds every row's last token
-    at its cursor through the model (writing its K/V into ``state.cache``)
-    and returns the next (B, V) f32 logits, which ``sample_update`` samples.
-    Returns ``state``, advanced in place. Each step is the span ``ar.step``,
-    its ``step`` call ``ar.forward``."""
-    idx = np.arange(state.batch)
+    """Decode steps until every row is done, or at most ``n_steps``; returns
+    ``state``, advanced in place. ``step`` feeds every row's last token at
+    its cursor through the model, writing its K/V into ``state.cache``: a
+    route (``LatentStep``, ``models/ar_decode_fused.FusedStep``: ``direct``,
+    the part a step runs as direct calls, or None; ``body``, the rest, which
+    returns the (B, V) f32 logits from the device state; ``feed``, which
+    readies the next step's input after a draw), or ``step(tokens (B,),
+    positions (B,))`` returning the logits (``EagerStep``). ``draw`` samples
+    them and ``read_back`` updates the host fields. Where ``ar_graphs.takes``
+    the route, ``body``, the draw and ``feed`` replay one CUDA graph a step.
+    Each step is the span ``ar.step``: the forward ``ar.forward`` (a
+    graphed step with no direct part is one replay there), the draw
+    ``ar.sample`` (with a graphed ``body``), then ``ar.readback``."""
+    route = step if hasattr(step, "body") else EagerStep(step)
+    blocks = load_device_state(state, s, rows)
+    route.feed(state)
+    graphed = ar_graphs.takes(state, route)
+    if graphed and state.graphs is None:
+        state.graphs = ar_graphs.StepGraphs(state.counts.device)
+    key = (route.name, blocks, s)
+
+    def rest():
+        draw(state, route.body(state), s, blocks)
+        route.feed(state)
+
     i = 0
     while not state.done.all() and (n_steps is None or i < n_steps):
         with span("ar.step"):
-            with span("ar.forward"):
-                logits = step(state.tokens[idx, np.maximum(state.cur - 1, 0)], state.cur)
-            sample_update(state, logits, s, rows)
+            if not graphed:
+                with span("ar.forward"):
+                    if route.direct is not None:
+                        route.direct(state)
+                    logits = route.body(state)
+                with span("ar.sample"):
+                    draw(state, logits, s, blocks)
+                    route.feed(state)
+            elif route.direct is None:
+                with span("ar.forward"):
+                    state.graphs.run(key, rest)
+            else:
+                with span("ar.forward"):
+                    route.direct(state)
+                with span("ar.sample"):
+                    state.graphs.run(key, rest)
+            read_back(state, s)
         i += 1
     state.steps += i
     return state
@@ -445,20 +554,38 @@ def decode_step(model: CodecLM, tokens, pos, cache: RingCache):
 
 @torch.no_grad()
 def decode_step_latent(model: CodecLM, tokens, pos, cache: LatentCache):
-    """``decode_step`` of a latent-attention backbone (``latent_step``): on
-    the card its first step runs eagerly and makes the cache's CUDA graph,
-    and every later step replays it (``LatentGraph``)."""
-    dev = cache.ckv.device
+    """``decode_step`` of a latent-attention backbone (``latent_step``) on
+    host tokens and positions, eager (the decode loop runs ``LatentStep``)."""
     x = torch.stack([model.embed.weight[int(t)] for t in tokens])
-    pos_t = ints_on_device(pos, dev, torch.int32)
-    if dev.type != "cuda" or not cache.graphed:
-        return latent_step(model, x, pos_t, cache)
-    if cache.graph is None:
-        with cuda_graphs.on_side_stream(dev):
-            out = latent_step(model, x, pos_t, cache)
-        cache.graph = LatentGraph(model, cache, x, pos_t)
-        return out
-    return cache.graph.replay(x, pos_t)
+    return latent_step(model, x, ints_on_device(pos, cache.ckv.device, torch.int32), cache)
+
+
+class LatentStep:
+    """A latent-attention backbone's decode step as ``decode_loop`` runs it:
+    each row's last token embedded and its cursor taken from the device
+    state, then ``latent_step``, all on the device: on the card the step
+    and its draw are one CUDA graph replay (``models/ar_graphs``)."""
+
+    name, direct, graphable = "latent", None, True
+
+    def __init__(self, model: CodecLM, cache: LatentCache):
+        self.model, self.cache = model, cache
+
+    def body(self, state: DecodeState):
+        dev = state.dev
+        return latent_step(self.model, self.model.embed.weight[dev.tok],
+                           dev.cur.to(torch.int32), self.cache)
+
+    def feed(self, state: DecodeState) -> None:
+        pass
+
+
+def model_step(model: CodecLM, cache):
+    """``decode_loop``'s step of ``model`` on ``cache``: ``LatentStep`` on a
+    ``LatentCache``, else ``decode_step`` on the host's tokens."""
+    if isinstance(cache, LatentCache):
+        return LatentStep(model, cache)
+    return lambda t, pos: decode_step(model, t, pos, cache)
 
 
 def latent_step(model: CodecLM, x, pos_t, cache: LatentCache):
@@ -585,7 +712,7 @@ def decode_chunk(model: CodecLM, s: ArSampling, state: DecodeState, n_steps: int
     independently, so chunked decoding gives each row the tokens of one
     uninterrupted run."""
     return decode_loop(state, s, rows or rows_from_sampling(s, state.batch),
-                       lambda t, pos: decode_step(model, t, pos, state.cache), n_steps)
+                       model_step(model, state.cache), n_steps)
 
 
 def extract_row(state: DecodeState, j: int) -> DecodeState:
@@ -649,7 +776,7 @@ def ar_generate_batched(model: CodecLM, prompts, spk_codes_list, *, sampling: Ar
     rows = rows or rows_from_sampling(s, len(prompts))
     u = uniform_stream(uniforms, generator, seed, s.max_len, len(prompts), dev)
     state = prefill_state(model, s, prompts, spk_codes_list, u, est_lens, rows)
-    return sample_rows(state, s, rows, lambda t, pos: decode_step(model, t, pos, state.cache))
+    return sample_rows(state, s, rows, model_step(model, state.cache))
 
 
 def ar_generate(model: CodecLM, prompt, spk_codes, *, sampling: ArSampling,

@@ -10,10 +10,13 @@ slots with per-position scales. Every step then
 runs each row's last token: embed -> bf16 -> kernel K2
 (``ops/kernels/decode_layer.fused_decode_layers``, all rows in one call, the
 weight stream shared) -> final RMSNorm of the bf16-rounded rows -> output
-head -> the shared sampling loop of ``models/ar_decode``, and each row's new
-K/V rows are quantized into its slot ``position % window``. The head is the
+head -> the shared sampler of ``models/ar_decode``, and each row's new K/V
+rows are quantized into its slot ``position % window``. The head is the
 weight-only int8 product (``ops/quant.linear_q8``) or, with ``head4``,
-kernel K8 (``ops/kernels/head4.head4_logits``).
+kernel K8 (``ops/kernels/head4.head4_logits``). The decode loop runs the
+step as ``FusedStep``: K2 a direct call on the host's positions, and on the
+card everything after it, the draw and the next step's embedding one CUDA
+graph replay (``models/ar_graphs``).
 
 Unlike the JAX engine, the prompts are not padded to buckets and a short
 batch is not padded with parked rows (both only fit XLA's static shapes):
@@ -42,6 +45,7 @@ from ..ops.kernels.decode_layer import (MAX_BATCH, FusedDims, build_fused_pack,
 from ..ops.kernels.head4 import head4_logits, pack_head4
 from ..ops.norms import rms_norm
 from ..ops.quant import linear_q8, quantize_weight
+from ..utils.device import ints_on_device
 from ..utils.profiling import span
 from .ar import CodecLM, CodecLMConfig
 from .ar_decode import (ArSampling, DecodeState, RowSampling, decode_loop, extract_row,
@@ -118,16 +122,17 @@ class FusedCache:
         self.scales[:, row, 0, :p] = ks
         self.scales[:, row, 1, :p] = vs
 
-    def write_rows(self, slots, k, v) -> None:
-        """Quantize (L, B, d) K/V rows into each row's slot ``slots`` (B host
-        ints; indexing with them needs no host-to-device copy)."""
+    def write_slots(self, pos, k, v) -> None:
+        """Quantize (L, B, d) K/V rows into each row's slot ``pos % window``,
+        ``pos`` (B,) int64 on the device (nothing read back, so a decode
+        graph captures it)."""
         k8, ks = quantize_kv_rows(k)
         v8, vs = quantize_kv_rows(v)
-        for r, slot in enumerate(int(x) for x in slots):
-            self.k[:, r, slot] = k8[:, r]
-            self.v[:, r, slot] = v8[:, r]
-            self.scales[:, r, 0, slot] = ks[:, r]
-            self.scales[:, r, 1, slot] = vs[:, r]
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        slots = pos % self.k.shape[2]
+        self.k[:, rows, slots] = k8
+        self.v[:, rows, slots] = v8
+        self.scales.permute(1, 3, 0, 2)[rows, slots] = torch.stack([ks, vs], -1).transpose(0, 1)
 
     def take_row(self, j: int) -> "FusedCache":
         """A one-row copy of row ``j``: its rings and scales."""
@@ -146,14 +151,61 @@ class FusedCache:
 
 def fused_step(fp, dims: FusedDims, cfg, tokens, pos, cache: FusedCache):
     """One token of each row (``tokens`` and ``pos``: an int each, or B ints)
-    -> (B, V) f32 logits; each row's K/V go to its slot pos % window."""
+    -> (B, V) f32 logits, eager: ``FusedStep``'s layers and head on host
+    values; each row's K/V go to its slot pos % window."""
+    step = FusedStep(fp, dims, cfg, cache)
     pos = np.atleast_1d(np.asarray(pos, np.int64))
-    x = torch.stack([fp["embed"][int(t)] for t in np.atleast_1d(tokens)]).to(torch.bfloat16)
-    h, k_new, v_new = fused_decode_layers(fp, x, pos, cache.k, cache.v, cache.scales,
-                                          dims=dims, norm_eps=cfg.norm_eps)
-    logits = final_logits(fp, h, cfg)
-    cache.write_rows(pos % dims.window, k_new, v_new)
-    return logits
+    dev = fp["embed"].device
+    x = fp["embed"][ints_on_device(np.atleast_1d(tokens), dev)].to(torch.bfloat16)
+    return step.head(*step.layers(x, pos), ints_on_device(pos, dev))
+
+
+class FusedStep:
+    """The quantized engine's decode step as ``decode_loop`` runs it, on
+    static tensors of the state (``DeviceState.buffer``): K2 on the input
+    rows at the host's cursors (``direct``), then the final norm and the
+    head, and each row's K/V quantized into its slot at the device's cursor
+    (``body``); after the draw, the next step's input rows embedded from the
+    device's last tokens (``feed``). On the card ``body``, the draw and
+    ``feed`` replay one CUDA graph a step (``models/ar_graphs``), while K2
+    stays a direct call: it plans its attention split on the host's
+    positions, and is counted call by call."""
+
+    name, graphable = "fused", True
+
+    def __init__(self, fp, dims: FusedDims, cfg, cache: FusedCache):
+        self.fp, self.dims, self.cfg, self.cache = fp, dims, cfg, cache
+
+    def _static(self, state: DecodeState):
+        """The input rows (B, d) bf16, then K2's outputs h (B, d), k_new and
+        v_new (L, B, d) f32."""
+        dev, b, L, d = state.dev, state.batch, self.dims.n_layers, self.dims.dim
+        return (dev.buffer("x", (b, d), torch.bfloat16), dev.buffer("h", (b, d), torch.float32),
+                dev.buffer("k", (L, b, d), torch.float32), dev.buffer("v", (L, b, d), torch.float32))
+
+    def layers(self, x, pos, out=None):
+        """K2 on input rows ``x`` at host positions ``pos``: (h, k_new, v_new),
+        into ``out`` where given."""
+        return fused_decode_layers(self.fp, x, pos, self.cache.k, self.cache.v,
+                                   self.cache.scales, dims=self.dims, norm_eps=self.cfg.norm_eps,
+                                   out=out)
+
+    def head(self, h, k_new, v_new, pos):
+        """The logits of K2's ``h``; the K/V rows quantized into the slots of
+        ``pos`` (B,) on the device."""
+        logits = final_logits(self.fp, h, self.cfg)
+        self.cache.write_slots(pos, k_new, v_new)
+        return logits
+
+    def direct(self, state: DecodeState) -> None:
+        x, *out = self._static(state)
+        self.layers(x, state.cur, out)
+
+    def body(self, state: DecodeState):
+        return self.head(*self._static(state)[1:], state.dev.cur)
+
+    def feed(self, state: DecodeState) -> None:
+        self._static(state)[0].copy_(self.fp["embed"][state.dev.tok])
 
 
 @torch.no_grad()
@@ -204,7 +256,7 @@ def decode_chunk_fused(fp, dims: FusedDims, cfg, s: ArSampling, state: DecodeSta
     quantized engine, one K2 call a step for all rows (fewer steps when
     every row is done)."""
     return decode_loop(state, s, rows or rows_from_sampling(s, state.batch),
-                       lambda t, pos: fused_step(fp, dims, cfg, t, pos, state.cache), n_steps)
+                       FusedStep(fp, dims, cfg, state.cache), n_steps)
 
 
 @torch.no_grad()
@@ -221,8 +273,7 @@ def ar_generate_fused_batched(codeclm: CodecLM, fp, dims: FusedDims, prompts,
     rows = rows or rows_from_sampling(s, b)
     u = uniform_stream(uniforms, generator, seed, s.max_len, b, fp["embed"].device)[:, :b]
     state = prefill_fused(codeclm, dims, s, prompts, spk_codes_list, u, est_lens, rows)
-    return sample_rows(state, s, rows,
-                       lambda t, pos: fused_step(fp, dims, codeclm.cfg, t, pos, state.cache))
+    return sample_rows(state, s, rows, FusedStep(fp, dims, codeclm.cfg, state.cache))
 
 
 def ar_generate_fused(codeclm: CodecLM, fp, dims: FusedDims, prompt, spk_codes, *,

@@ -604,10 +604,11 @@ def check_pack(fp, dims: FusedDims) -> None:
 
 
 def fused_decode_layers(fp, x, pos, cache_k, cache_v, kv_scales, *,
-                        dims: FusedDims, norm_eps: float = 1e-5):
+                        dims: FusedDims, norm_eps: float = 1e-5, out=None):
     """K2: one decode token of each of B rows through every layer -> (h (B, d)
     f32, k_new (L, B, d) f32, v_new (L, B, d) f32); arguments as
-    ``fused_step_ref``.
+    ``fused_step_ref``, and ``out``, the three tensors to write them into
+    (a decode graph's static inputs), or None for new ones.
 
     CPU tensors take ``fused_step_ref``. CUDA tensors launch the kernel and
     raise on what it does not take: x bf16 (B, d) with 1 <= B <= 8,
@@ -616,8 +617,13 @@ def fused_decode_layers(fp, x, pos, cache_k, cache_v, kv_scales, *,
     ``build_fused_pack`` makes it. The step is one cooperative launch: if
     its grid cannot be resident at once, the launch fails and this raises."""
     if x.device.type == "cpu":
-        return fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, dims=dims,
-                              norm_eps=norm_eps)
+        got = fused_step_ref(fp, x, pos, cache_k, cache_v, kv_scales, dims=dims,
+                             norm_eps=norm_eps)
+        if out is None:
+            return got
+        for o, t in zip(out, got):
+            o.copy_(t)
+        return tuple(out)
     L, d, f = dims.n_layers, dims.dim, dims.hidden
     B = x.shape[0]
     if dims.head_dim != HEAD_DIM:
@@ -645,9 +651,15 @@ def fused_decode_layers(fp, x, pos, cache_k, cache_v, kv_scales, *,
     chunk, n_chunks = attention_split(plan.grid, B, dims.n_heads, slots)
     layout = scratch_layout(dims, B, w_pad, plan.grid, n_chunks)
     offsets = (ctypes.c_longlong * len(SCRATCH_REGIONS))(*(layout[k] for k in SCRATCH_REGIONS))
-    h = torch.empty((B, d), dtype=torch.float32, device=x.device)
-    k_new = torch.empty((L, B, d), dtype=torch.float32, device=x.device)
-    v_new = torch.empty_like(k_new)
+    if out is None:
+        h = torch.empty((B, d), dtype=torch.float32, device=x.device)
+        k_new = torch.empty((L, B, d), dtype=torch.float32, device=x.device)
+        v_new = torch.empty_like(k_new)
+    else:
+        h, k_new, v_new = out
+        _need(h, torch.float32, (B, d), "out h")
+        _need(k_new, torch.float32, (L, B, d), "out k_new")
+        _need(v_new, torch.float32, (L, B, d), "out v_new")
     scratch = torch.empty(layout["bytes"], dtype=torch.uint8, device=x.device)
     fn = _lib().mars5_fused_decode
     build.call(x.device, fn, dims.wbits, B, L, d, f, dims.n_heads, dims.window, w_pad,

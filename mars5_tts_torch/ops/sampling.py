@@ -51,6 +51,20 @@ def early_eos_penalty(logits, n_generated, estimated_gen_length, decay, factor,
     return logits
 
 
+def early_eos_table(estimated_gen_length: int, decay: float, factor: float, n: int):
+    """(n + 1,) f32: what ``early_eos_penalty`` subtracts from a row's EOS
+    logit at each generated count 0..n, 0 past ``estimated_gen_length``, each
+    value bit for bit its own. The base sits in a strided view: PyTorch's CPU
+    ``pow`` then takes its scalar path for every element, as for the
+    one-element tensor of ``early_eos_penalty`` (its vectorized path rounds
+    otherwise)."""
+    k = np.arange(n + 1)
+    pen = torch.empty(2 * (n + 1), dtype=torch.float32)[::2]
+    pen.copy_(torch.from_numpy(np.maximum(estimated_gen_length - k, 1).astype(np.float32)))
+    modifier = float(factor) * pen ** float(decay)
+    return torch.where(torch.from_numpy(k <= estimated_gen_length), modifier, 0.0)
+
+
 def mask_vocab_window(logits, valid_start: int, valid_end: int):
     """-inf outside ``[valid_start - 1, valid_end)`` (the reference's slicing,
     which leaves index ``valid_start - 1`` allowed)."""
@@ -187,7 +201,8 @@ def sample_from_logprobs(logprobs, u):
     The float cumsum can wobble inside a run of zero-probability entries, so
     the raw index is snapped to the first live (finite) index at or after it,
     or the last live index when it ran past the end. A row with no live
-    entry raises.
+    entry raises, but not while a CUDA graph captures the draw (the check
+    reads the device): there such a row draws -1, and the caller checks.
     """
     cdf = torch.cumsum(torch.exp(logprobs), dim=-1)
     r = u[..., None] * cdf[..., -1:]
@@ -195,7 +210,8 @@ def sample_from_logprobs(logprobs, u):
     v = logprobs.shape[-1]
     idx = torch.arange(v, device=logprobs.device)
     live = torch.isfinite(logprobs)
-    if not bool(live.any(dim=-1).all()):
+    capturing = logprobs.is_cuda and torch.cuda.is_current_stream_capturing()
+    if not capturing and not bool(live.any(dim=-1).all()):
         raise ValueError("sample_from_logprobs: a row has no finite logprob")
     at_or_after = torch.where(live & (idx >= raw[..., None]), idx, v).amin(dim=-1)
     last_live = torch.where(live, idx, -1).amax(dim=-1)

@@ -1,7 +1,7 @@
 """The capture policy the port's CUDA graphs share (``models/nar_graphs``'
-decoder segments and ``models/ar_decode``'s latent decode step): a side
-stream to capture on, a memory pool a holder drops after its graphs, and
-the capture itself."""
+decoder segments and ``models/ar_graphs``' decode steps): a side stream to
+capture on, a memory pool a holder drops after its graphs, and the capture
+itself."""
 
 from __future__ import annotations
 

@@ -1924,49 +1924,132 @@ def _latent_ar(dev):
     return m, cache
 
 
+def _latent_state(m, cache, s):
+    """A decode state over ``_latent_ar``'s two rows, their first tokens
+    drawn."""
+    from mars5_tts_torch.models import ar_decode as AD
+
+    u = torch.rand((s.max_len, 2), generator=torch.Generator(device=cache.ckv.device
+                                                             ).manual_seed(1),
+                   device=cache.ckv.device)
+    st = AD.new_state([np.arange(30), np.arange(21)], s, m.cfg.n_vocab, u, cache)
+    logits = torch.randn((2, m.cfg.n_vocab), device=cache.ckv.device,
+                         generator=torch.Generator(device=cache.ckv.device).manual_seed(2))
+    AD.sample_update(st, logits, s, AD.rows_from_sampling(s, 2))
+    return st
+
+
+def _latent_sampling():
+    from mars5_tts_torch.models.ar_decode import ArSampling
+
+    return ArSampling(n_phones_gen=20, eos_idx=0, valid_start=258, valid_end=1283, max_len=150)
+
+
+def _latent_probe(m, cache):
+    """A ``LatentStep`` that keeps each logits tensor its body returns: the
+    eager step's, then, once captured, the graph's static output, which each
+    replay rewrites."""
+    from mars5_tts_torch.models import ar_decode as AD
+
+    class Probe(AD.LatentStep):
+        def body(self, state):
+            out = super().body(state)
+            self.outs.append(out)
+            return out
+
+    step = Probe(m, cache)
+    step.outs = []
+    return step
+
+
 @pytest.mark.parametrize("graphed", [True, False])
 @torch.no_grad()
 def test_latent_decode_step_has_no_host_sync(dev, monkeypatch, graphed):
-    """A DeepSeek-V2-shaped AR's decode step on the card (latent ring, K10),
-    replaying its CUDA graph or eager, runs with
-    ``torch.cuda.set_sync_debug_mode("error")`` on: nothing in it waits for
-    the device; the token readback is the decode loop's, outside the step."""
-    from mars5_tts_torch.models import ar_decode as AD
+    """A DeepSeek-V2-shaped AR's decode step on the card (latent ring, K10)
+    runs with ``torch.cuda.set_sync_debug_mode("error")`` on: graphed, every
+    step of the decode loop is one replay of the forward and the draw, and
+    nothing but the loop's load of the device state and each step's token
+    readback waits for the device; eager, ``decode_step`` on host tokens
+    waits for nothing. Either way the logits are finite and K10's
+    ``ar_expert_load`` tally holds every routed slot of every step."""
+    from mars5_tts_torch.models import ar_decode as AD, ar_graphs as G
     from mars5_tts_torch.ops.kernels import moe_decode as K
 
-    monkeypatch.setattr(AD.LatentCache, "graphed", graphed)
     m, cache = _latent_ar(dev)
-    pos = np.array([31, 22])
-    AD.decode_step(m, np.array([5, 6]), pos, cache)        # first use: tables, the graph
-    assert (cache.graph is not None) == graphed
+    if not graphed:
+        pos = np.array([31, 22])
+        AD.decode_step(m, np.array([5, 6]), pos, cache)     # first use: tables
+        n0 = K.launch_count
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(1, 4):
+                out = AD.decode_step(m, np.array([7, 8]), pos + i, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(out).all()
+        assert K.launch_count == n0 + 3 * 2            # one a step and expert layer
+        assert int(AD.expert_load(m)[1:].sum()) == 4 * 2 * 2 * 2
+        return
+
+    def quiet(fn):
+        def run(*a):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return run
+
+    s = _latent_sampling()
+    st = _latent_state(m, cache, s)
+    rows = AD.rows_from_sampling(s, 2)
+    step = _latent_probe(m, cache)
+    AD.decode_loop(st, s, rows, step, n_steps=2)            # eager, then captured
+    G.reset_counts()
     n0 = K.launch_count
+    monkeypatch.setattr(AD, "load_device_state", quiet(AD.load_device_state))
+    monkeypatch.setattr(AD, "read_back", quiet(AD.read_back))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for i in range(1, 4):
-            out = AD.decode_step(m, np.array([7, 8]), pos + i, cache)
+        AD.decode_loop(st, s, rows, step, n_steps=3)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert torch.isfinite(out).all()
-    assert K.launch_count == n0 + 3 * 2            # one a step and expert layer
-    assert int(AD.expert_load(m)[1:].sum()) == 4 * 2 * 2 * 2
+    assert (G.graph_captures, G.graph_replays) == (0, 3)
+    assert K.launch_count == n0 + 3 * 2
+    assert torch.isfinite(step.outs[-1]).all()             # the last replay's logits
+    # 2 + 3 forwards of 2 rows, 2 expert layers, top-2
+    assert int(AD.expert_load(m)[1:].sum()) == 5 * 2 * 2 * 2
 
 
 @torch.no_grad()
 def test_latent_graph_replays_the_eager_step(dev, monkeypatch):
-    """Ten decode steps of two rows replaying the step's CUDA graph give the
-    eager steps' logits and rings bit for bit."""
-    from mars5_tts_torch.models import ar_decode as AD
+    """Ten decode steps of two rows through the decode loop, the forward and
+    the draw one CUDA graph replay a step, give the eager steps' logits,
+    tokens, counts and rings bit for bit; one capture, nine replays."""
+    from mars5_tts_torch.models import ar_decode as AD, ar_graphs as G
 
-    runs = []
+    runs, takes = [], G.takes
     for graphed in (False, True):
-        monkeypatch.setattr(AD.LatentCache, "graphed", graphed)
+        monkeypatch.setattr(G, "takes", takes if graphed else (lambda state, route: False))
+        G.reset_counts()
         m, cache = _latent_ar(dev)
-        outs = [AD.decode_step(m, np.array([7 + i, 9 + i]), np.array([31 + i, 22 + i]),
-                               cache).clone() for i in range(10)]
-        runs.append((torch.stack(outs), cache.ckv.clone()))
+        s = _latent_sampling()
+        st = _latent_state(m, cache, s)
+        rows = AD.rows_from_sampling(s, 2)
+        step, logits = _latent_probe(m, cache), []
+        for _ in range(10):         # a step a loop: each step's logits read after it
+            n = len(step.outs)
+            AD.decode_loop(st, s, rows, step, n_steps=1)
+            logits.append(step.outs[min(n, len(step.outs) - 1)].clone())
+        runs.append((torch.stack(logits), st.tokens.copy(), st.counts.clone(),
+                     cache.ckv.clone()))
+        assert (G.graph_captures, G.graph_replays) == ((1, 9) if graphed else (0, 0))
     assert torch.equal(runs[0][0], runs[1][0])
-    assert torch.equal(runs[0][1], runs[1][1])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2], runs[1][2])
+    assert torch.equal(runs[0][3], runs[1][3])
 
 
 @torch.no_grad()
@@ -1983,3 +2066,220 @@ def test_speaker_encoder_heads_of_128_skip_k1(dev):
         torch.cuda.synchronize()
         assert torch.isfinite(out).all()
         assert K1.launch_count - n0 == launches
+
+
+def _released_ar(dev, seed=5):
+    """The MARS5 AR at its released widths (1536, 24 heads of 64, SwiGLU
+    3584, 24,000 ids) with two layers, bf16 on the card."""
+    import dataclasses
+
+    from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
+
+    cfg = dataclasses.replace(CodecLMConfig.mars5(24_000), n_layers=2)
+    with torch.device(dev):
+        return CodecLM(cfg).init_(torch.Generator(device=dev).manual_seed(seed)).to(
+            torch.bfloat16).eval()
+
+
+def _fused_run(model, fp, dims, prompts, spks, s, u, est, rows=None, graphed=True):
+    """A quantized batched call, graphed or eager: (its rows' (tokens,
+    n_gen), the decode state, the counters' and K2's / K8's counts)."""
+    from mars5_tts_torch.models import ar_decode as AD, ar_decode_fused as F, ar_graphs as G
+    from mars5_tts_torch.ops.kernels import decode_layer as D, head4 as H
+
+    states, loop, takes = [], AD.decode_loop, G.takes
+    AD.decode_loop = lambda st, *a, **k: states.append(st) or loop(st, *a, **k)
+    G.takes = takes if graphed else (lambda state, route: False)
+    G.reset_counts()
+    n0 = (D.launch_count, H.launch_count)
+    try:
+        out = F.ar_generate_fused_batched(model, fp, dims, prompts, spks, sampling=s,
+                                          uniforms=u, est_lens=est, rows=rows)
+    finally:
+        AD.decode_loop, G.takes = loop, takes
+    torch.cuda.synchronize()
+    return out, states[-1], (G.graph_captures, G.graph_replays,
+                             D.launch_count - n0[0], H.launch_count - n0[1])
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("wbits,head4", [(8, False), (4, False), (4, True)])
+@torch.no_grad()
+def test_graphed_fused_step_bitwise_eager(dev, wbits, head4, rows):
+    """The quantized engine's graphed decode step (K2 direct, the rest one
+    replay a step) at the released widths, W8 and W4, the int8 head and K8,
+    1-8 rows: every token, the penalty counts and the int8 rings bitwise the
+    eager loop's; one capture, a replay at every later step, one K2 call a
+    step (and one K8)."""
+    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+
+    model = _released_ar(dev)
+    r = np.random.default_rng(rows)
+    spks = [r.integers(0, 1024, (n, 8)) for n in r.integers(20, 40, rows)]
+    prompts = [np.concatenate([r.integers(0, 258, n), k[:12, 0] + 258])
+               for n, k in zip(r.integers(5, 30, rows), spks)]
+    s = ArSampling(n_phones_gen=30, eos_idx=0, valid_start=258, valid_end=1283,
+                   max_len=max(len(p) for p in prompts) + 60)
+    u = r.random((s.max_len, rows)).astype(np.float32)
+    est = list(r.integers(0, 60, rows))
+    fp, dims = prepare_fused(model, s.max_len, wbits, head4=head4, batch=rows)
+    got = [_fused_run(model, fp, dims, prompts, spks, s, u, est, graphed=g) for g in (True, False)]
+    (graphed, st_g, n_g), (eager, st_e, n_e) = got
+    for (tg, ng), (te, ne) in zip(graphed, eager):
+        np.testing.assert_array_equal(tg, te)
+        assert ng == ne
+    assert torch.equal(st_g.counts, st_e.counts)
+    assert torch.equal(st_g.cache.k, st_e.cache.k) and torch.equal(st_g.cache.v, st_e.cache.v)
+    assert torch.equal(st_g.cache.scales, st_e.cache.scales)
+    steps = st_g.steps
+    assert n_g == (1, steps - 1, steps, steps if head4 else 0)
+    assert n_e == (0, 0, steps, steps if head4 else 0)
+
+
+@torch.no_grad()
+def test_graphed_fused_run_with_a_mid_run_eos(dev):
+    """Four rows of 300 tokens at the released widths (W4, int8 head), each
+    with its own sampling values: EOS is a token the rows draw (found by a
+    first run with EOS outside the vocabulary window, its early-EOS factor
+    0), so rows end mid-run at its first draw while the others decode on;
+    graphed, every row equals the eager loop's and its solo run's."""
+    import dataclasses
+
+    from mars5_tts_torch.models.ar_decode import (ROW_FIELDS, ArSampling, RowSampling,
+                                                  rows_from_sampling)
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+
+    model = _released_ar(dev, seed=11)
+    r = np.random.default_rng(11)
+    spks = [r.integers(0, 1024, (30, 8)) for _ in range(4)]
+    prompts = [np.concatenate([r.integers(0, 258, 12), k[:10, 0] + 258]) for k in spks]
+    s = ArSampling(n_phones_gen=0, eos_idx=0, eos_penalty_factor=0.0, valid_start=258,
+                   valid_end=1283, max_len=max(len(p) for p in prompts) + 300)
+    over = [{"top_k": 40, "penalty_window": 20}, {"top_p": 0.5}, {"typical_p": 0.8},
+            {"temperature": 1.1, "penalty_window": 0}]
+    rows = RowSampling(**{n: np.concatenate([getattr(rows_from_sampling(s, 1, o), n)
+                                             for o in over]) for n in ROW_FIELDS})
+    u = r.random((s.max_len, 4)).astype(np.float32)
+    fp, dims = prepare_fused(model, s.max_len, 4, batch=4)
+    first, _, _ = _fused_run(model, fp, dims, prompts, spks, s, u, [0] * 4, rows)
+    gen = first[0][0][len(prompts[0]):]
+    seen = {}
+    for i, t in enumerate(gen):
+        seen.setdefault(int(t), i)
+    eos = min(seen, key=lambda t: abs(seen[t] - 150))
+    s = dataclasses.replace(s, eos_idx=eos)
+    (graphed, st, n_g), (eager, _, _) = [
+        _fused_run(model, fp, dims, prompts, spks, s, u, [0] * 4, rows, graphed=g)
+        for g in (True, False)]
+    assert n_g[:2] == (1, st.steps - 1)
+    lens = [n for _, n in graphed]
+    assert min(lens) < 300 and min(lens) < max(lens), lens
+    dims1 = dataclasses.replace(dims, batch=1)
+    for i, ((tg, ng), (te, ne)) in enumerate(zip(graphed, eager)):
+        np.testing.assert_array_equal(tg, te, err_msg=f"row {i}")
+        assert ng == ne
+        one = RowSampling(**{n: getattr(rows, n)[i:i + 1] for n in ROW_FIELDS})
+        (solo, n_solo), = _fused_run(model, fp, dims1, [prompts[i]], [spks[i]], s,
+                                     u[:, i:i + 1], [0], one)[0]
+        np.testing.assert_array_equal(tg, solo, err_msg=f"row {i} solo")
+
+
+@torch.no_grad()
+def test_graphed_latent_route_bitwise_eager_at_one_row(dev, monkeypatch):
+    """The DeepSeek-V2-shaped AR through ``ar_generate`` at one row, its
+    step and draw one replay: the eager loop's tokens; one capture, a replay
+    at every later step, K10's count the eager run's."""
+    from mars5_tts_torch.models import ar_decode as AD, ar_graphs as G
+    from mars5_tts_torch.ops.kernels import moe_decode as K
+
+    m, _ = _latent_ar(dev)
+    r = np.random.default_rng(3)
+    prompt, spk = r.integers(0, 1283, 30), r.integers(0, 1024, (40, 8))
+    s = AD.ArSampling(n_phones_gen=40, eos_idx=0, valid_start=258, valid_end=1283, max_len=130)
+    u = r.random(s.max_len).astype(np.float32)
+    runs = []
+    takes = G.takes
+    for graphed in (True, False):
+        monkeypatch.setattr(G, "takes", takes if graphed else (lambda state, route: False))
+        G.reset_counts()
+        n0 = K.launch_count
+        tok, n = AD.ar_generate(m, prompt, spk, sampling=s, uniforms=u)
+        runs.append((tok, n, G.graph_captures, G.graph_replays, K.launch_count - n0))
+    (tg, ng, cg, rg, kg), (te, ne, ce, re_, ke) = runs
+    np.testing.assert_array_equal(tg, te)
+    steps = ng - (len(tg) >= s.max_len)
+    assert ng == ne and (cg, rg, ce, re_) == (1, steps - 1, 0, 0)
+    assert kg == ke >= 2 * steps                # the replays count their K10 calls
+
+
+@torch.no_grad()
+def test_graphed_fused_pool_rows_equal_solo_runs(dev):
+    """A four-row ``FusedContinuousBatcher`` (W4) over six requests at the
+    released widths: graphed, each request's tokens equal its solo graphed
+    ``ar_generate_fused`` run; the pool captures once for all its quanta (its
+    inserts write the device state in place), K2 once a step."""
+    import dataclasses
+
+    from mars5_tts_torch.models import ar_graphs as G
+    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+
+    model = _released_ar(dev, seed=7)
+    r = np.random.default_rng(7)
+    s = ArSampling(n_phones_gen=30, eos_idx=1282, valid_start=258, valid_end=1283, max_len=120)
+    reqs = [Request(prompt=r.integers(0, 1283, n), spk_codes=r.integers(0, 1024, (20, 8)),
+                    uniforms=r.random(120).astype(np.float32)) for n in (10, 50, 20, 45, 30, 15)]
+    pool = FusedContinuousBatcher(model, s, batch_size=4, wbits=4, chunk_steps=16,
+                                  prompt_buckets=(32, 64), spk_bucket=32)
+    for q in reqs:
+        pool.submit(q)
+    G.reset_counts()
+    n0 = D.launch_count
+    pool.run()
+    assert D.launch_count - n0 == pool.steps_run and pool.chunks_run > 2
+    assert (G.graph_captures, G.graph_replays) == (1, pool.steps_run - 1)
+    dims1 = dataclasses.replace(pool.dims, batch=1)
+    for i, q in enumerate(reqs):
+        ref, n = ar_generate_fused(model, pool.fp, dims1, q.prompt, q.spk_codes, sampling=s,
+                                   uniforms=q.uniforms)
+        np.testing.assert_array_equal(q.tokens, ref, err_msg=f"request {i}")
+        assert q.n_gen == n
+
+
+@torch.no_grad()
+def test_graphed_fused_step_launches(dev):
+    """A traced one-row call at the released widths (W4, int8 head): each
+    replayed decode step (``mars5.ar.step`` without a capture in it) makes
+    at most 20 launch calls of its own thread: K2's wrapper and K2 (the
+    eager step made 116)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused, prepare_fused
+
+    model = _released_ar(dev)
+    r = np.random.default_rng(2)
+    prompt, spk = r.integers(0, 1283, 40), r.integers(0, 1024, (30, 8))
+    s = ArSampling(n_phones_gen=100, eos_idx=0, valid_start=258, valid_end=1283, max_len=140)
+    fp, dims = prepare_fused(model, s.max_len, 4)
+    u = r.random(s.max_len).astype(np.float32)
+    ar_generate_fused(model, fp, dims, prompt, spk, sampling=s, uniforms=u)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ar_generate_fused(model, fp, dims, prompt, spk, sampling=s, uniforms=u)
+    evs = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CPU]
+
+    def spans(name):
+        return [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in evs if e.name() == name]
+
+    captures = spans("mars5.ar.graph_capture")
+    steps = [(a, b) for a, b in spans("mars5.ar.step")
+             if not any(a <= c < b for c, _ in captures)]
+    launches = np.sort([e.start_ns() for e in evs
+                        if e.name().startswith(("cudaLaunch", "cuLaunch"))])
+    per = [np.searchsorted(launches, b) - np.searchsorted(launches, a) for a, b in steps]
+    assert len(captures) == 1 and len(steps) > 50
+    assert max(per) <= 20, per
