@@ -77,10 +77,10 @@
    segments, the streamed PCM one vocode of the emitted grid within atol
    2e-5, rtol 1e-4, the time to the first chunk); ``synthesize_longform``
    over a two-chunk text (the crossfade's length); a
-   ``FusedContinuousBatcher`` of 4 rows (fused4, chunks of 64 steps, prompt
-   buckets 64 and 576) over three shallow and three deep requests on
+   ``ContinuousBatcher`` of 4 rows on the fused4 engine (chunks of 64 steps,
+   prompt buckets 64 and 576) over three shallow and three deep requests on
    injected streams (K2 once a pool step, every row's tokens its solo
-   ``ar_generate_fused`` run's, tokens a second beside the solo runs'); a
+   ``ar_generate`` run's, tokens a second beside the solo runs'); a
    ``NarWaveScheduler`` wave of the three deep rows (T = 200 on the
    generator path, then T = 8 on injected streams, each wave row bit for
    bit its one-row wave); ``use_kv_cache=False`` on the bf16 AR (ms a token,
@@ -1929,8 +1929,7 @@ def serve_paths(models, dev):
 
     import mars5_tts_torch.pipeline as pipeline
     from mars5_tts_torch import Mars5TTS
-    for name in ("ar_generate", "ar_generate_fused", "ar_generate_batched",
-                 "ar_generate_fused_batched"):
+    for name in ("ar_generate", "ar_generate_batched"):
         setattr(pipeline, name, record_ar(getattr(pipeline, name)))
     ar, nar = models["ar"], models.pop("nar")
     ar_layers = ar.cfg.n_layers
@@ -2223,22 +2222,21 @@ def check_longform(tts, seed):
 
 
 def check_pool(tts, seed):
-    """``FusedContinuousBatcher`` (fused4, 4 rows, chunks of 64 steps, prompt
-    buckets 64 and 576) over six requests, three shallow and three deep
-    (the 7 s reference), on injected streams: K2 launched once a pool step,
-    every row's tokens equal to its solo ``ar_generate_fused`` run on the
-    pool's pack and stream, tokens a second of the pool and of the solo runs.
+    """``ContinuousBatcher`` on the fused4 engine (4 rows, chunks of 64 steps,
+    prompt buckets 64 and 576) over six requests, three shallow and three
+    deep (the 7 s reference), on injected streams: K2 launched once a pool
+    step, every row's tokens equal to its solo ``ar_generate`` run on the
+    pool's engine and stream, tokens a second of the pool and of the solo runs.
     The pool's ``max_len`` (one for all rows, as in the JAX pool) is the deep
     prompts' plus ``GEN_FRAMES``: a deep row generates at most
     ``GEN_FRAMES`` tokens, a shallow one up to ``max_len`` less its prompt.
     Returns (the record, the deep requests with their prompts' parts)."""
-    import dataclasses
-
     import numpy as np
     import torch
     from mars5_tts_torch import InferenceConfig
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
-    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+    from mars5_tts_torch.models.ar_decode import ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
     ref = reference_voice(tts, seed)
     codes = tts.encode_reference(ref).cpu().numpy()
@@ -2253,9 +2251,10 @@ def check_pool(tts, seed):
     rng = np.random.default_rng(seed)
     streams = [rng.random(sampling.max_len).astype(np.float32) for _ in reqs]
     t0 = time.perf_counter()
-    pool = FusedContinuousBatcher(tts.codeclm, sampling, batch_size=POOL_ROWS, wbits=4,
-                                  chunk_steps=POOL_CHUNK, prompt_buckets=POOL_BUCKETS,
-                                  spk_bucket=POOL_BUCKETS[-1])
+    engine = FusedEngine(*prepare_fused(tts.codeclm, sampling.max_len, 4, batch=POOL_ROWS))
+    pool = ContinuousBatcher(tts.codeclm, sampling, engine=engine, batch_size=POOL_ROWS,
+                             chunk_steps=POOL_CHUNK, prompt_buckets=POOL_BUCKETS,
+                             spk_bucket=POOL_BUCKETS[-1])
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     submitted = [pool.submit(Request(prompt=p, spk_codes=spk, uniforms=u))
@@ -2266,10 +2265,9 @@ def check_pool(tts, seed):
     torch.cuda.synchronize()
     pool_s = time.perf_counter() - t0
     launches = counts()
-    dims1 = dataclasses.replace(pool.dims, batch=1)
     t0 = time.perf_counter()
-    solo = [ar_generate_fused(tts.codeclm, pool.fp, dims1, p, spk, sampling=sampling,
-                              uniforms=u) for (p, _, _), u in zip(reqs, streams)]
+    solo = [ar_generate(tts.codeclm, p, spk, sampling=sampling, uniforms=u, engine=engine)
+            for (p, _, _), u in zip(reqs, streams)]
     torch.cuda.synchronize()
     solo_s = time.perf_counter() - t0
     equal = [bool(np.array_equal(r.tokens, t)) and r.n_gen == n
@@ -2281,7 +2279,7 @@ def check_pool(tts, seed):
            "k2_launches": launches["fused_decode_layers"], "rows_equal_solo": equal,
            "pool_s": pool_s, "solo_s": solo_s, "pack_s": pack_s,
            "pool_tokens_per_s": tokens / pool_s, "solo_tokens_per_s": tokens / solo_s}
-    print(f"FusedContinuousBatcher (fused4, {POOL_ROWS} rows, chunks of {POOL_CHUNK}, buckets "
+    print(f"ContinuousBatcher (fused4, {POOL_ROWS} rows, chunks of {POOL_CHUNK}, buckets "
           f"{POOL_BUCKETS}): prompts {rec['prompt_lens']}, tokens {rec['n_gen']} in "
           f"{pool.steps_run} pool steps ({pool.chunks_run} quanta, prefills by bucket "
           f"{pool.prefills_by_bucket}), K2 launched {rec['k2_launches']} times; rows equal to "
@@ -2289,19 +2287,19 @@ def check_pool(tts, seed):
           f"s) against {rec['solo_tokens_per_s']:.1f} for the six solo runs ({solo_s:.3f} s); "
           f"the pool's pack built in {pack_s:.2f} s", flush=True)
     if rec["k2_launches"] != pool.steps_run:
-        raise RuntimeError("FusedContinuousBatcher: K2 launches differ from the pool's steps")
+        raise RuntimeError("fused4 pool: K2 launches differ from the pool's steps")
     if not all(equal):
-        raise RuntimeError("FusedContinuousBatcher: a row's tokens differ from its solo run")
+        raise RuntimeError("fused4 pool: a row's tokens differ from its solo run")
     if min(pool.prefills_by_bucket.values()) == 0:
-        raise RuntimeError("FusedContinuousBatcher: a prompt bucket took no prefill")
+        raise RuntimeError("fused4 pool: a prompt bucket took no prefill")
     deep = [(r, nar_text, fci) for r, (_, nar_text, fci), (_, d) in zip(submitted, reqs, texts)
             if d]
 
     def rerun():
         """A fresh pool with the same requests queued; returns its run."""
-        again = FusedContinuousBatcher(tts.codeclm, sampling, batch_size=POOL_ROWS, wbits=4,
-                                       chunk_steps=POOL_CHUNK, prompt_buckets=POOL_BUCKETS,
-                                       spk_bucket=POOL_BUCKETS[-1])
+        again = ContinuousBatcher(tts.codeclm, sampling, engine=engine, batch_size=POOL_ROWS,
+                                  chunk_steps=POOL_CHUNK, prompt_buckets=POOL_BUCKETS,
+                                  spk_bucket=POOL_BUCKETS[-1])
         for (p, _, _), u in zip(reqs, streams):
             again.submit(Request(prompt=p, spk_codes=spk, uniforms=u))
         return again.run
@@ -2481,7 +2479,7 @@ def serve_serving(models, nar8, records, dev):
     ``nar8``: the deploy configuration through ``tts()`` on the default route
     and with ``nar_mega=True`` (each beside phase 4's request on its route,
     from ``records``, for the NAR ms a step), ``stream_tts``,
-    ``synthesize_longform``, ``FusedContinuousBatcher``, ``NarWaveScheduler``
+    ``synthesize_longform``, the fused4 ``ContinuousBatcher``, ``NarWaveScheduler``
     and ``use_kv_cache=False``. Each part's launch counts are reset before
     it and read after it. Returns the records."""
     import torch
@@ -2518,7 +2516,7 @@ def serve_serving(models, nar8, records, dev):
     recs["stream"] = check_stream(tts, first, 15)
     recs["longform"] = check_longform(tts, 16)
     recs["pool"], deep, c_codes = check_pool(tts, 17)
-    recs["head_rows"] = check_head_rows(tts._get_fused(AR_MAX_LEN)[0], ar.cfg, dev)
+    recs["head_rows"] = check_head_rows(tts._ar_engine(AR_MAX_LEN).fp, ar.cfg, dev)
     recs["waves"] = check_waves(tts, deep, c_codes)
     del tts
     pipeline.ar_generate_nocache = record_ar(pipeline.ar_generate_nocache)

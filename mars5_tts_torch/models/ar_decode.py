@@ -21,15 +21,20 @@ is resumable: ``prefill_row`` builds a row with its first token sampled,
 pool of free (done) rows. A done row appends nothing and stops counting;
 like the JAX engine, every decode step runs all rows (a done or parked row
 at its frozen position); rows never read each other, so a row's tokens are
-those of its solo run. ``ar_generate``, ``ar_generate_batched``, the
-quantized engine and the serving pools all run one loop,
-``decode_loop``. The sampler works on the device alone: each state keeps
-the fields a step reads on the device too (``DeviceState``), the logit
-pipeline, the draw and the bookkeeping update them there, and the host's
-fields follow from one readback of the drawn tokens a step. On the card
-the quantized engine's step (``models/ar_decode_fused.FusedStep``) and the
-latent-attention step (``LatentStep``) replay one CUDA graph a step
-(``models/ar_graphs``); every other route runs the same sampler eagerly.
+those of its solo run.
+
+The decode engine is chosen once, as an object, and every entry point here
+takes it: ``ModelEngine``, the model as loaded (``engine=None``), or the
+quantized engine of ``models/ar_decode_fused`` (``FusedEngine``). An engine
+answers which cache B rows hold, which step route runs it, and how many
+rows and which window it takes; the one loop, ``decode_loop``, runs the
+route (``Route``) it gives. The sampler works on the device alone: each
+state keeps the fields a step reads on the device too (``DeviceState``),
+the logit pipeline, the draw and the bookkeeping update them there, and the
+host's fields follow from one readback of the drawn tokens a step. On the
+card the quantized engine's step (``FusedStep``) and the latent-attention
+step (``LatentStep``) replay one CUDA graph a step (``models/ar_graphs``);
+the bf16 ring's step (``RingStep``) runs the same sampler eagerly.
 
 A DeepSeek-V2 backbone (``cfg.attention == "mla"``) keeps a ``LatentCache``
 in place of the ring of keys and values: each position's normed latent and
@@ -40,8 +45,8 @@ the routing on the device; the routed slots are tallied per layer and
 expert on the device (``expert_load``), with no sync.
 
 ``ar_generate_nocache`` is the reference's ``use_kv_cache=False``: every
-step runs the full prefill over the token buffer and samples at each row's
-cursor.
+step (``NoCacheStep``) runs the full prefill over the token buffer and
+samples at the row's cursor.
 
 Randomness is an explicit (max_len, rows) stream of uniforms, row i's k-th
 generated token consuming ``uniforms[k, i]``, or one drawn from a seeded
@@ -443,40 +448,33 @@ def sample_update(state: DecodeState, logits, s: ArSampling, rows: RowSampling) 
     read_back(state, s)
 
 
-class EagerStep:
-    """A decode step ``fn(tokens (B,), positions (B,)) -> (B, V) f32 logits``
-    fed each row's last token and cursor from the host fields: never
-    graphed."""
+class Route:
+    """A decode step as ``decode_loop`` runs it, feeding every row's last
+    token at its cursor through the model and writing its K/V into the
+    state's cache: ``direct(state)``, the part a step runs as direct calls,
+    or None; ``body(state)``, the rest, which returns the (B, V) f32 logits;
+    ``feed(state)``, which readies the next step's input after a draw.
+    Where ``graphable`` (and ``ar_graphs.takes`` the route), ``body``, the
+    draw and ``feed`` replay one CUDA graph a step, keyed by ``name``. The
+    base has no direct part, feeds nothing and is never graphed."""
 
-    name, direct, graphable = "eager", None, False
-
-    def __init__(self, fn):
-        self.fn = fn
+    name, direct, graphable = "route", None, False
 
     def body(self, state: DecodeState):
-        idx = np.arange(state.batch)
-        return self.fn(state.tokens[idx, np.maximum(state.cur - 1, 0)], state.cur)
+        raise NotImplementedError
 
     def feed(self, state: DecodeState) -> None:
         pass
 
 
-def decode_loop(state: DecodeState, s: ArSampling, rows: RowSampling, step,
+def decode_loop(state: DecodeState, s: ArSampling, rows: RowSampling, route: Route,
                 n_steps: int | None = None) -> DecodeState:
-    """Decode steps until every row is done, or at most ``n_steps``; returns
-    ``state``, advanced in place. ``step`` feeds every row's last token at
-    its cursor through the model, writing its K/V into ``state.cache``: a
-    route (``LatentStep``, ``models/ar_decode_fused.FusedStep``: ``direct``,
-    the part a step runs as direct calls, or None; ``body``, the rest, which
-    returns the (B, V) f32 logits from the device state; ``feed``, which
-    readies the next step's input after a draw), or ``step(tokens (B,),
-    positions (B,))`` returning the logits (``EagerStep``). ``draw`` samples
-    them and ``read_back`` updates the host fields. Where ``ar_graphs.takes``
-    the route, ``body``, the draw and ``feed`` replay one CUDA graph a step.
-    Each step is the span ``ar.step``: the forward ``ar.forward`` (a
-    graphed step with no direct part is one replay there), the draw
-    ``ar.sample`` (with a graphed ``body``), then ``ar.readback``."""
-    route = step if hasattr(step, "body") else EagerStep(step)
+    """Decode steps of ``route`` until every row is done, or at most
+    ``n_steps``; returns ``state``, advanced in place. ``draw`` samples each
+    step's logits and ``read_back`` updates the host fields. Each step is
+    the span ``ar.step``: the forward ``ar.forward`` (a graphed step with no
+    direct part is one replay there), the draw ``ar.sample`` (with a graphed
+    ``body``), then ``ar.readback``."""
     blocks = load_device_state(state, s, rows)
     route.feed(state)
     graphed = ar_graphs.takes(state, route)
@@ -511,12 +509,6 @@ def decode_loop(state: DecodeState, s: ArSampling, rows: RowSampling, step,
         i += 1
     state.steps += i
     return state
-
-
-def sample_rows(state: DecodeState, s: ArSampling, rows: RowSampling, step) -> list:
-    """Run ``state`` to completion (``decode_loop``); returns one (sequence
-    incl. the prompt and without the closing EOS, n_generated) per row."""
-    return decode_loop(state, s, rows, step).results()
 
 
 @torch.no_grad()
@@ -560,13 +552,29 @@ def decode_step_latent(model: CodecLM, tokens, pos, cache: LatentCache):
     return latent_step(model, x, ints_on_device(pos, cache.ckv.device, torch.int32), cache)
 
 
-class LatentStep:
+class RingStep(Route):
+    """The bf16 ring's decode step as ``decode_loop`` runs it: ``decode_step``
+    on each row's last token and cursor from the host fields, since K7 sizes
+    its clusters from the host's positions; never graphed."""
+
+    name = "ring"
+
+    def __init__(self, model: CodecLM, cache: RingCache):
+        self.model, self.cache = model, cache
+
+    def body(self, state: DecodeState):
+        idx = np.arange(state.batch)
+        return decode_step(self.model, state.tokens[idx, np.maximum(state.cur - 1, 0)],
+                           state.cur, self.cache)
+
+
+class LatentStep(Route):
     """A latent-attention backbone's decode step as ``decode_loop`` runs it:
     each row's last token embedded and its cursor taken from the device
     state, then ``latent_step``, all on the device: on the card the step
     and its draw are one CUDA graph replay (``models/ar_graphs``)."""
 
-    name, direct, graphable = "latent", None, True
+    name, graphable = "latent", True
 
     def __init__(self, model: CodecLM, cache: LatentCache):
         self.model, self.cache = model, cache
@@ -576,16 +584,32 @@ class LatentStep:
         return latent_step(self.model, self.model.embed.weight[dev.tok],
                            dev.cur.to(torch.int32), self.cache)
 
-    def feed(self, state: DecodeState) -> None:
-        pass
+
+class ModelEngine:
+    """The decode engine of the model as loaded, every entry point's
+    default: a ``RingCache`` run by ``RingStep`` (K7 on the card), or for
+    latent attention (``cfg.attention == "mla"``) a ``LatentCache`` run by
+    ``LatentStep``; any number of rows, a window of ``min(sliding_window,
+    max_len + 1)`` slots. ``models/ar_decode_fused.FusedEngine``, the
+    quantized engine, answers the same three questions."""
+
+    def fit(self, cfg: CodecLMConfig, s: ArSampling, rows: int, pool: bool = False) -> int:
+        """The window of a cache of ``rows`` rows under ``s`` (``pool``: the
+        rows are a serving pool's); raises ValueError where the engine cannot
+        take them."""
+        return min(cfg.sliding_window, s.max_len + 1)
+
+    def cache(self, cfg: CodecLMConfig, rows: int, window: int, dtype, device,
+              n_heads: int | None = None):
+        """The empty cache of ``rows`` rows (``make_cache``)."""
+        return make_cache(cfg, rows, window, dtype, device, n_heads)
+
+    def step(self, model: CodecLM, cache) -> Route:
+        """The route that steps ``model`` on ``cache``."""
+        return (LatentStep if model.cfg.attention == "mla" else RingStep)(model, cache)
 
 
-def model_step(model: CodecLM, cache):
-    """``decode_loop``'s step of ``model`` on ``cache``: ``LatentStep`` on a
-    ``LatentCache``, else ``decode_step`` on the host's tokens."""
-    if isinstance(cache, LatentCache):
-        return LatentStep(model, cache)
-    return lambda t, pos: decode_step(model, t, pos, cache)
+MODEL_ENGINE = ModelEngine()
 
 
 def latent_step(model: CodecLM, x, pos_t, cache: LatentCache):
@@ -674,19 +698,23 @@ def new_state(prompts, s: ArSampling, n_vocab: int, uniforms, cache,
 
 @torch.no_grad()
 def prefill_state(model: CodecLM, s: ArSampling, prompts, spk_codes_list, uniforms,
-                  est_lens=None, rows: RowSampling | None = None) -> DecodeState:
+                  est_lens=None, rows: RowSampling | None = None,
+                  engine=None) -> DecodeState:
     """Prefill ``prompts`` (each row at its own length, ``prefill_rows``)
-    into a bf16 ring of B rows and sample each row's first token: a
-    ready-to-decode state. ``uniforms`` (max_len, B) on the model's device;
-    ``rows`` default ``rows_from_sampling(s, B)``. The span ``ar.prefill``."""
+    into the cache ``engine`` (default ``MODEL_ENGINE``) keeps for B rows and
+    sample each row's first token: a ready-to-decode state. A bf16 ring
+    takes the prefill's dtype and heads (a tensor-parallel rank's own).
+    ``uniforms`` (max_len, B) on the model's device; ``rows`` default
+    ``rows_from_sampling(s, B)``. The span ``ar.prefill``."""
+    engine = engine or MODEL_ENGINE
     cfg = model.cfg
     prompts = [np.asarray(p, np.int64) for p in prompts]
-    window = min(cfg.sliding_window, s.max_len + 1)
+    window = engine.fit(cfg, s, len(prompts))
     with span("ar.prefill"):
         logits, kvs = prefill_rows(model, prompts, spk_codes_list, window)
         k0 = kvs[0][0][0]                           # (1, P + 1, H, D): H this rank's heads
-        cache = make_cache(cfg, len(prompts), window, k0.dtype, logits.device,
-                           n_heads=k0.shape[2])
+        cache = engine.cache(cfg, len(prompts), window, k0.dtype, logits.device,
+                             n_heads=k0.shape[2])
         for r, kv in enumerate(kvs):
             cache.write_prompt(r, kv)
         state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
@@ -695,24 +723,24 @@ def prefill_state(model: CodecLM, s: ArSampling, prompts, spk_codes_list, unifor
 
 
 def prefill_row(model: CodecLM, s: ArSampling, prompt, spk_codes, uniforms, est_len=None,
-                rows: RowSampling | None = None) -> DecodeState:
+                rows: RowSampling | None = None, engine=None) -> DecodeState:
     """One request's prefill for a serving pool: a one-row state with its
     first token sampled (``insert_row`` puts it into a pool). ``uniforms``
     (max_len,) or (max_len, 1) on the model's device; ``rows`` (one row)
     carries the request's own sampling values."""
     return prefill_state(model, s, [prompt], [spk_codes], uniforms.reshape(-1, 1),
-                         None if est_len is None else [est_len], rows)
+                         None if est_len is None else [est_len], rows, engine)
 
 
 @torch.no_grad()
-def decode_chunk(model: CodecLM, s: ArSampling, state: DecodeState, n_steps: int,
-                 rows: RowSampling | None = None) -> DecodeState:
-    """At most ``n_steps`` decode steps of every row of ``state`` (fewer when
-    every row is done): a serving pool's scheduling quantum. Rows decode
-    independently, so chunked decoding gives each row the tokens of one
-    uninterrupted run."""
+def decode_chunk(model: CodecLM, s: ArSampling, state: DecodeState, n_steps: int | None,
+                 rows: RowSampling | None = None, engine=None) -> DecodeState:
+    """At most ``n_steps`` decode steps of every row of ``state`` on
+    ``engine``'s route (fewer when every row is done; None: until then): a
+    serving pool's scheduling quantum. Rows decode independently, so
+    chunked decoding gives each row the tokens of one uninterrupted run."""
     return decode_loop(state, s, rows or rows_from_sampling(s, state.batch),
-                       model_step(model, state.cache), n_steps)
+                       (engine or MODEL_ENGINE).step(model, state.cache), n_steps)
 
 
 def extract_row(state: DecodeState, j: int) -> DecodeState:
@@ -727,7 +755,7 @@ def extract_row(state: DecodeState, j: int) -> DecodeState:
 
 def insert_row(state: DecodeState, row: DecodeState, b: int) -> DecodeState:
     """Write the one-row ``row`` into slot ``b`` of ``state``, in place: every
-    field, the slot's rings whole. Returns ``state``."""
+    field, the slot's rings (and scales) whole. Returns ``state``."""
     for name in ("tokens", "cur", "n_gen", "est_len", "done"):
         getattr(state, name)[b] = getattr(row, name)[0]
     state.counts[b] = row.counts[0]
@@ -736,31 +764,31 @@ def insert_row(state: DecodeState, row: DecodeState, b: int) -> DecodeState:
     return state
 
 
-def parked_fields(s: ArSampling, bs: int, n_vocab: int, device) -> dict:
-    """Every field of a state of ``bs`` free rows but its cache: done, at
-    cursor 0, zero tokens, counts and uniforms."""
-    return dict(tokens=np.zeros((bs, s.max_len), np.int64), cur=np.zeros(bs, np.int64),
-                n_gen=np.zeros(bs, np.int64), est_len=np.zeros(bs, np.int64),
-                done=np.ones(bs, bool),
-                counts=torch.zeros((bs, n_vocab), dtype=torch.int32, device=device),
-                uniforms=torch.zeros((s.max_len, bs), dtype=torch.float32, device=device))
-
-
-def make_parked_state(cfg: CodecLMConfig, s: ArSampling, bs: int, dtype, device) -> DecodeState:
-    """A state of ``bs`` free rows (all done) for a serving pool: a parked
-    row keeps decoding at its frozen position and appends nothing."""
-    window = min(cfg.sliding_window, s.max_len + 1)
-    return DecodeState(**parked_fields(s, bs, cfg.n_vocab, device),
-                       cache=make_cache(cfg, bs, window, dtype, device))
+def make_parked_state(cfg: CodecLMConfig, s: ArSampling, bs: int, dtype, device,
+                      engine=None) -> DecodeState:
+    """A state of ``bs`` free rows (all done, at cursor 0, zero tokens,
+    counts and uniforms) for a serving pool, its cache ``engine``'s (a bf16
+    ring of ``dtype``): a parked row keeps decoding at its frozen position
+    and appends nothing."""
+    engine = engine or MODEL_ENGINE
+    window = engine.fit(cfg, s, bs, pool=True)
+    return DecodeState(tokens=np.zeros((bs, s.max_len), np.int64), cur=np.zeros(bs, np.int64),
+                       n_gen=np.zeros(bs, np.int64), est_len=np.zeros(bs, np.int64),
+                       done=np.ones(bs, bool),
+                       counts=torch.zeros((bs, cfg.n_vocab), dtype=torch.int32, device=device),
+                       uniforms=torch.zeros((s.max_len, bs), dtype=torch.float32, device=device),
+                       cache=engine.cache(cfg, bs, window, dtype, device))
 
 
 @torch.no_grad()
 def ar_generate_batched(model: CodecLM, prompts, spk_codes_list, *, sampling: ArSampling,
                         uniforms=None, generator: torch.Generator | None = None,
-                        seed: int = 0, est_lens=None, rows: RowSampling | None = None):
+                        seed: int = 0, est_lens=None, rows: RowSampling | None = None,
+                        engine=None):
     """Complete each of ``prompts`` (1-D token ids) conditioned on its
-    ``spk_codes_list`` entry (S_i, 8). Returns one (np.ndarray sequence incl.
-    the prompt and without the closing EOS, n_generated) per row.
+    ``spk_codes_list`` entry (S_i, 8) on ``engine`` (default
+    ``MODEL_ENGINE``). Returns one (np.ndarray sequence incl. the prompt and
+    without the closing EOS, n_generated) per row.
 
     ``uniforms`` (max_len, B): row i's k-th generated token consumes
     ``uniforms[k, i]``; without it the stream is drawn on the model's device
@@ -772,21 +800,40 @@ def ar_generate_batched(model: CodecLM, prompts, spk_codes_list, *, sampling: Ar
     own tokens overwrite them.
     """
     s = sampling
-    dev = model.embed.weight.device
-    rows = rows or rows_from_sampling(s, len(prompts))
-    u = uniform_stream(uniforms, generator, seed, s.max_len, len(prompts), dev)
-    state = prefill_state(model, s, prompts, spk_codes_list, u, est_lens, rows)
-    return sample_rows(state, s, rows, model_step(model, state.cache))
+    b = len(prompts)
+    rows = rows or rows_from_sampling(s, b)
+    u = uniform_stream(uniforms, generator, seed, s.max_len, b, model.embed.weight.device)
+    state = prefill_state(model, s, prompts, spk_codes_list, u[:, :b], est_lens, rows, engine)
+    return decode_chunk(model, s, state, None, rows, engine).results()
 
 
 def ar_generate(model: CodecLM, prompt, spk_codes, *, sampling: ArSampling,
-                uniforms=None, generator: torch.Generator | None = None, seed: int = 0):
+                uniforms=None, generator: torch.Generator | None = None, seed: int = 0,
+                engine=None):
     """Complete one ``prompt`` (1-D token ids) conditioned on ``spk_codes``
     (S, 8): ``ar_generate_batched`` with one row, the k-th generated token
     consuming ``uniforms[k]``. Returns (np.ndarray sequence incl. the prompt
     and without the closing EOS, n_generated)."""
     return ar_generate_batched(model, [prompt], [spk_codes], sampling=sampling,
-                               uniforms=uniforms, generator=generator, seed=seed)[0]
+                               uniforms=uniforms, generator=generator, seed=seed,
+                               engine=engine)[0]
+
+
+class NoCacheStep(Route):
+    """``ar_generate_nocache``'s step: the full prefill over the one row's
+    (1, max_len) token buffer (the banded sliding-window mask; causality
+    leaves the cursor's logits to the tokens before it), the logits at its
+    cursor."""
+
+    name = "nocache"
+
+    def __init__(self, model: CodecLM, spk_vec):
+        self.model, self.spk_vec = model, spk_vec
+
+    def body(self, state: DecodeState):
+        buf = torch.as_tensor(state.tokens, device=self.spk_vec.device)
+        all_logits, _ = self.model.prefill(buf, self.spk_vec)
+        return all_logits[:, int(state.cur[0])].float()
 
 
 @torch.no_grad()
@@ -794,22 +841,14 @@ def ar_generate_nocache(model: CodecLM, prompt, spk_codes, *, sampling: ArSampli
                         uniforms=None, generator: torch.Generator | None = None,
                         seed: int = 0):
     """``ar_generate`` without a cache (the reference's ``use_kv_cache=False``):
-    every step runs the full prefill over the (1, max_len) token buffer (the
-    banded sliding-window mask; causality leaves the cursor's logits to the
-    tokens before it) and samples at the cursor. The same API and uniform
-    stream as ``ar_generate``."""
+    every step runs the full prefill and samples at the cursor
+    (``NoCacheStep``). The same API and uniform stream as ``ar_generate``."""
     s = sampling
     dev = model.embed.weight.device
     u = uniform_stream(uniforms, generator, seed, s.max_len, 1, dev)
     spk = torch.as_tensor(np.asarray(spk_codes, np.int64), device=dev)[None]
-    spk_vec = model.spk_embedding(spk)
     state = new_state([np.asarray(prompt, np.int64)], s, model.cfg.n_vocab, u, None)
     rows = rows_from_sampling(s, 1)
-
-    def logits_at_cursor():
-        buf = torch.as_tensor(state.tokens, device=dev)
-        all_logits, _ = model.prefill(buf, spk_vec)
-        return all_logits[:, int(state.cur[0])].float()
-
-    sample_update(state, logits_at_cursor(), s, rows)
-    return sample_rows(state, s, rows, lambda t, pos: logits_at_cursor())[0]
+    step = NoCacheStep(model, model.spk_embedding(spk))
+    sample_update(state, step.body(state), s, rows)
+    return decode_loop(state, s, rows, step).results()[0]

@@ -1,13 +1,16 @@
 """Quantized AR decode engine over one or more rows, ``ar_backend="fused"``
 (W8A8) and ``"fused4"`` (W4A8) (counterpart of
-``mars5_tts_tpu/models/ar_decode_fused.py``: ``ar_generate_fused`` and
-``ar_generate_fused_batched``).
+``mars5_tts_tpu/models/ar_decode_fused.py``).
 
-Each row's prompt is prefilled through the model as loaded
-(``CodecLM.prefill``, one row at a time, as in ``models/ar_decode``); its K/V
-rows are quantized per position into the row's int8 ring of ``window``
-slots with per-position scales. Every step then
-runs each row's last token: embed -> bf16 -> kernel K2
+``FusedEngine`` is the engine object the entry points of
+``models/ar_decode`` take (``ar_generate``, ``ar_generate_batched``,
+``prefill_state``, ``make_parked_state``, ``decode_chunk``, and a serving
+pool's ``ContinuousBatcher(engine=)``): it holds ``prepare_fused``'s pack
+and dims, so a caller chooses it once. Each row's prompt is prefilled
+through the model as loaded (``CodecLM.prefill``, one row at a time); its
+K/V rows are quantized per position into the row's int8 ring of
+``window`` slots with per-position scales (``FusedCache``). Every step
+then runs each row's last token: embed -> bf16 -> kernel K2
 (``ops/kernels/decode_layer.fused_decode_layers``, all rows in one call, the
 weight stream shared) -> final RMSNorm of the bf16-rounded rows -> output
 head -> the shared sampler of ``models/ar_decode``, and each row's new K/V
@@ -20,14 +23,7 @@ graph replay (``models/ar_graphs``).
 
 Unlike the JAX engine, the prompts are not padded to buckets and a short
 batch is not padded with parked rows (both only fit XLA's static shapes):
-the engine runs exactly the rows it is given, at most ``dims.batch``.
-
-The rows share the decode loop and resumable state of ``models/ar_decode``
-(``DecodeState`` with a ``FusedCache``): ``prefill_fused`` is the batched
-prefill, ``decode_chunk_fused`` runs at most n steps of a pool (one K2 call
-a step for all its rows), ``make_parked_state_fused`` is a pool of free
-rows and ``extract_fused_row`` / ``insert_fused_row`` move a row between
-states, an insert overwriting the slot's int8 rings and scales whole. A
+the engine runs exactly the rows it is given, at most ``dims.batch``. A
 row's tokens do not depend on the rows beside it: K2's per-row sums are
 integer or f64 sums whatever the batch, and the int8 head runs at
 ``HEAD_ROWS`` rows whatever the batch (cuBLAS picks the head's f32 GEMM
@@ -46,11 +42,8 @@ from ..ops.kernels.head4 import head4_logits, pack_head4
 from ..ops.norms import rms_norm
 from ..ops.quant import linear_q8, quantize_weight
 from ..utils.device import ints_on_device
-from ..utils.profiling import span
 from .ar import CodecLM, CodecLMConfig
-from .ar_decode import (ArSampling, DecodeState, RowSampling, decode_loop, extract_row,
-                        insert_row, new_state, parked_fields, prefill_rows, rows_from_sampling,
-                        sample_rows, sample_update, uniform_stream)
+from .ar_decode import ArSampling, DecodeState, Route
 
 
 @torch.no_grad()
@@ -160,7 +153,7 @@ def fused_step(fp, dims: FusedDims, cfg, tokens, pos, cache: FusedCache):
     return step.head(*step.layers(x, pos), ints_on_device(pos, dev))
 
 
-class FusedStep:
+class FusedStep(Route):
     """The quantized engine's decode step as ``decode_loop`` runs it, on
     static tensors of the state (``DeviceState.buffer``): K2 on the input
     rows at the host's cursors (``direct``), then the final norm and the
@@ -208,80 +201,34 @@ class FusedStep:
         self._static(state)[0].copy_(self.fp["embed"][state.dev.tok])
 
 
-@torch.no_grad()
-def prefill_fused(codeclm: CodecLM, dims: FusedDims, s: ArSampling, prompts, spk_codes_list,
-                  uniforms, est_lens=None, rows: RowSampling | None = None) -> DecodeState:
-    """The batched prefill into the quantized engine's state: each prompt
-    through the model as loaded at its own length (``prefill_rows``), its
-    K/V quantized into its row of a ``FusedCache`` of B = len(prompts) rows,
-    each row's first token sampled. ``uniforms`` (max_len, B) on the
-    device; ``rows`` default ``rows_from_sampling(s, B)``. The span
-    ``ar.prefill``."""
-    cfg = codeclm.cfg
-    b = len(prompts)
-    if not 1 <= b <= dims.batch:
-        raise ValueError(f"{b} prompts for an engine of {dims.batch} rows")
-    if dims.window < min(cfg.sliding_window, s.max_len + 1):
-        raise ValueError(f"the pack's window {dims.window} is too short for max_len "
-                         f"{s.max_len}")
-    prompts = [np.asarray(p, np.int64) for p in prompts]
-    with span("ar.prefill"):
-        logits, kvs = prefill_rows(codeclm, prompts, spk_codes_list, dims.window)
-        cache = FusedCache(dims, logits.device, b)
-        for r, kv in enumerate(kvs):
-            cache.write_prompt(r, kv)
-        state = new_state(prompts, s, cfg.n_vocab, uniforms, cache, est_lens)
-        sample_update(state, logits, s, rows or rows_from_sampling(s, b))
-    return state
+class FusedEngine:
+    """The quantized decode engine (module docstring) on ``prepare_fused``'s
+    ``fp, dims``, with ``models/ar_decode.ModelEngine``'s three answers: a
+    ``FusedCache``, stepped by ``FusedStep``, for 1 to ``dims.batch`` rows
+    (a serving pool's: 2 to 8; one row is ``ar_generate``'s) whose max_len
+    the pack's window covers."""
 
+    def __init__(self, fp, dims: FusedDims):
+        self.fp, self.dims = fp, dims
 
-def make_parked_state_fused(cfg: CodecLMConfig, dims: FusedDims, s: ArSampling,
-                            device) -> DecodeState:
-    """A state of ``dims.batch`` free rows (all done) on the quantized
-    engine, for a serving pool."""
-    return DecodeState(**parked_fields(s, dims.batch, cfg.n_vocab, device),
-                       cache=FusedCache(dims, device, dims.batch))
+    def fit(self, cfg: CodecLMConfig, s: ArSampling, rows: int, pool: bool = False) -> int:
+        """The pack's window, once the engine is known to take ``rows`` rows
+        (``pool``: a serving pool's) under ``s``; else ValueError."""
+        if pool and not 2 <= rows <= MAX_BATCH:
+            raise ValueError(f"fused pool batch_size must be in [2, {MAX_BATCH}]")
+        if not 1 <= rows <= self.dims.batch:
+            raise ValueError(f"{rows} prompts for an engine of {self.dims.batch} rows")
+        if self.dims.window < min(cfg.sliding_window, s.max_len + 1):
+            raise ValueError(f"the pack's window {self.dims.window} is too short for max_len "
+                             f"{s.max_len}")
+        return self.dims.window
 
+    def cache(self, cfg: CodecLMConfig, rows: int, window: int, dtype, device,
+              n_heads: int | None = None) -> FusedCache:
+        """The empty int8 rings of ``rows`` rows (of the pack's window, whatever
+        the prefill's dtype and heads)."""
+        return FusedCache(self.dims, device, rows)
 
-# a row moves between quantized states as between bf16 ones: the FusedCache
-# copies and overwrites its rings and scales whole
-extract_fused_row = extract_row
-insert_fused_row = insert_row
-
-
-@torch.no_grad()
-def decode_chunk_fused(fp, dims: FusedDims, cfg, s: ArSampling, state: DecodeState,
-                       n_steps: int, rows: RowSampling | None = None) -> DecodeState:
-    """At most ``n_steps`` decode steps of every row of ``state`` on the
-    quantized engine, one K2 call a step for all rows (fewer steps when
-    every row is done)."""
-    return decode_loop(state, s, rows or rows_from_sampling(s, state.batch),
-                       FusedStep(fp, dims, cfg, state.cache), n_steps)
-
-
-@torch.no_grad()
-def ar_generate_fused_batched(codeclm: CodecLM, fp, dims: FusedDims, prompts,
-                              spk_codes_list, *, sampling: ArSampling, uniforms=None,
-                              generator: torch.Generator | None = None, seed: int = 0,
-                              est_lens=None, rows: RowSampling | None = None):
-    """Generation of up to ``dims.batch`` rows through the quantized engine,
-    one K2 call a step for all rows; the API, uniform stream and per-row
-    state of ``models/ar_decode.ar_generate_batched``. ``fp, dims`` come from
-    ``prepare_fused`` with ``max_len >= sampling.max_len``."""
-    s = sampling
-    b = len(prompts)
-    rows = rows or rows_from_sampling(s, b)
-    u = uniform_stream(uniforms, generator, seed, s.max_len, b, fp["embed"].device)[:, :b]
-    state = prefill_fused(codeclm, dims, s, prompts, spk_codes_list, u, est_lens, rows)
-    return sample_rows(state, s, rows, FusedStep(fp, dims, codeclm.cfg, state.cache))
-
-
-def ar_generate_fused(codeclm: CodecLM, fp, dims: FusedDims, prompt, spk_codes, *,
-                      sampling: ArSampling, uniforms=None,
-                      generator: torch.Generator | None = None, seed: int = 0):
-    """One row through the quantized engine (``ar_generate_fused_batched``
-    with one row); the API and the uniform stream of
-    ``models/ar_decode.ar_generate``."""
-    return ar_generate_fused_batched(codeclm, fp, dims, [prompt], [spk_codes],
-                                     sampling=sampling,
-                                     uniforms=uniforms, generator=generator, seed=seed)[0]
+    def step(self, model: CodecLM, cache: FusedCache) -> FusedStep:
+        """The route that steps ``model``'s pack on ``cache``."""
+        return FusedStep(self.fp, self.dims, model.cfg, cache)

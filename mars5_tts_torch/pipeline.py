@@ -71,7 +71,7 @@ from .models.ar import CodecLM, CodecLMConfig
 from .models.ar_decode import (ArSampling, ar_generate, ar_generate_batched,
                                ar_generate_nocache, ar_vocab_window, expert_load,
                                expert_load_summary)
-from .models.ar_decode_fused import ar_generate_fused, ar_generate_fused_batched, prepare_fused
+from .models.ar_decode_fused import FusedEngine, prepare_fused
 from .models.convert import (infer_codeclm_config, infer_nar_config, load_codeclm,
                              load_nar)
 from .models.encodec import EncodecConfig, EncodecEncoder, encodec_from_pytree
@@ -252,11 +252,13 @@ class Mars5TTS:
         self.last_grid = None
         self._last_ar_runaway = False
 
-    def _get_fused(self, max_len: int, batch: int = 1):
-        """The quantized decode pack and dims for ``max_len``, built at first
-        use and kept per ``max_len``; the weights are packed once and shared.
-        The pack does not depend on ``batch``: batched callers get it with
-        dims for their rows."""
+    def _ar_engine(self, max_len: int, rows: int = 1):
+        """The AR decode engine of a call of ``rows`` rows up to ``max_len``:
+        None (the model as loaded) on ``ar_backend="bf16"``, else the
+        quantized engine with dims for the rows. Its pack is built at first
+        use and kept per ``max_len``, the weights packed once and shared."""
+        if self.ar_backend == "bf16":
+            return None
         if max_len not in self._fused_cache:
             wbits = 4 if self.ar_backend == "fused4" else 8
             if self._fused_cache:
@@ -267,7 +269,7 @@ class Mars5TTS:
                                          int4_mse=self.int4_mse)
             self._fused_cache[max_len] = (fp, dims)
         fp, dims = self._fused_cache[max_len]
-        return fp, dataclasses.replace(dims, batch=batch)
+        return FusedEngine(fp, dataclasses.replace(dims, batch=rows))
 
     def _get_mega(self):
         """The K9 operand bundle of the int8 NAR decoder, built at the first
@@ -463,13 +465,10 @@ class Mars5TTS:
             if not cfg.use_kv_cache:        # the JAX package's routing: the bf16 model
                 ar_codes, _ = ar_generate_nocache(self.codeclm, prompt, codes_np[0].T,
                                                   sampling=sampling, seed=seed)
-            elif self.ar_backend == "bf16":
-                ar_codes, _ = ar_generate(self.codeclm, prompt, codes_np[0].T,
-                                          sampling=sampling, seed=seed)
             else:
-                fp, dims = self._get_fused(max_len)
-                ar_codes, _ = ar_generate_fused(self.codeclm, fp, dims, prompt,
-                                                codes_np[0].T, sampling=sampling, seed=seed)
+                ar_codes, _ = ar_generate(self.codeclm, prompt, codes_np[0].T,
+                                          sampling=sampling, seed=seed,
+                                          engine=self._ar_engine(max_len))
             self._last_ar_runaway = len(ar_codes) >= max_len - 1
             if self._last_ar_runaway:
                 logging.warning("[autoregressive generation] output length = %d -- "
@@ -549,14 +548,11 @@ class Mars5TTS:
                 self._reset_expert_load()
                 sampling = self._sampling(cfg, max(est_lens))
                 spk_list = [c[0].T for c in row_codec]
-                if self.ar_backend != "bf16" and cfg.use_kv_cache and 2 <= n <= 8:
-                    fp, dims = self._get_fused(sampling.max_len, batch=n)
-                    outs = ar_generate_fused_batched(self.codeclm, fp, dims, prompts, spk_list,
-                                                     sampling=sampling, seed=seed,
-                                                     est_lens=est_lens)
-                else:
-                    outs = ar_generate_batched(self.codeclm, prompts, spk_list, sampling=sampling,
-                                               seed=seed, est_lens=est_lens)
+                # the JAX tts_batch's routing: the bf16 engine at 1 row, above 8 and uncached
+                engine = (self._ar_engine(sampling.max_len, n)
+                          if cfg.use_kv_cache and 2 <= n <= 8 else None)
+                outs = ar_generate_batched(self.codeclm, prompts, spk_list, sampling=sampling,
+                                           seed=seed, est_lens=est_lens, engine=engine)
 
             with timer.stage("parse_ar"):
                 rows = []

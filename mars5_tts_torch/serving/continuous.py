@@ -18,8 +18,10 @@ request may override its sampling values (``Request.sampling``), top_k up
 to the pool's extraction width ``max_top_k``. Without ``Request.uniforms``
 a request draws from ``torch.Generator(device).manual_seed(seed)``.
 
-``FusedContinuousBatcher`` runs the pool on the quantized engine (kernel K2,
-one call a decode step for all rows) with W8A8 or W4A8 weights.
+The pool runs on the engine it is given (``models/ar_decode``): the model
+as loaded by default, or the quantized engine
+(``models/ar_decode_fused.FusedEngine``, kernel K2 one call a decode step
+for all rows, W8A8 or W4A8 weights, 2 to 8 rows).
 """
 
 from __future__ import annotations
@@ -32,11 +34,9 @@ import numpy as np
 import torch
 
 from ..models.ar import CodecLM
-from ..models.ar_decode import (ROW_FIELDS, ArSampling, RowSampling, decode_chunk,
-                                extract_row, insert_row, insert_rows_sampling,
+from ..models.ar_decode import (MODEL_ENGINE, ROW_FIELDS, ArSampling, RowSampling,
+                                decode_chunk, extract_row, insert_row, insert_rows_sampling,
                                 make_parked_state, prefill_state, rows_from_sampling)
-from ..models.ar_decode_fused import (decode_chunk_fused, extract_fused_row, insert_fused_row,
-                                      make_parked_state_fused, prefill_fused, prepare_fused)
 
 
 @dataclass
@@ -56,19 +56,23 @@ class Request:
 
 
 class ContinuousBatcher:
-    """A fixed pool of rows over the bf16 AR engine (``model`` as loaded).
+    """A fixed pool of rows over the AR ``engine`` (default ``MODEL_ENGINE``,
+    ``model`` as loaded). On the quantized engine every decode step is one
+    K2 call for the whole pool, parked rows included.
 
     The pool shares one ``ArSampling`` (vocab window, EOS id, ``max_len``;
     its top-k extraction width is ``max_top_k``), while each request's row
     carries its own sampling values."""
 
-    def __init__(self, model: CodecLM, sampling: ArSampling, *, batch_size: int = 4,
-                 chunk_steps: int = 64, prompt_buckets: Sequence[int] = (64,),
-                 spk_bucket: int = 64, max_top_k: int | None = None):
+    def __init__(self, model: CodecLM, sampling: ArSampling, *, engine=None,
+                 batch_size: int = 4, chunk_steps: int = 64,
+                 prompt_buckets: Sequence[int] = (64,), spk_bucket: int = 64,
+                 max_top_k: int | None = None):
+        self.engine = engine or MODEL_ENGINE
+        window = self.engine.fit(model.cfg, sampling, batch_size, pool=True)
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self.model, self.cfg = model, model.cfg
         self.device = model.embed.weight.device
-        window = min(self.cfg.sliding_window, sampling.max_len + 1)
         if self.prompt_buckets[-1] + 1 > window:
             raise ValueError(f"prompt bucket {self.prompt_buckets[-1]}+1 exceeds window "
                              f"{window}")
@@ -78,28 +82,14 @@ class ContinuousBatcher:
         self.batch_size = batch_size
         self.chunk_steps = chunk_steps
         self.spk_bucket = spk_bucket
-        self.state = self._make_state()
+        self.state = make_parked_state(self.cfg, self.s, batch_size, model.embed.weight.dtype,
+                                       self.device, self.engine)
         self.rows = rows_from_sampling(sampling, batch_size, cap_top_k=self.max_top_k)
         self.queue: list[Request] = []
         self.active: dict[int, Request] = {}
         self.completed: list[Request] = []
         self.chunks_run = 0
         self.prefills_by_bucket: dict[int, int] = {b: 0 for b in self.prompt_buckets}
-
-    # ------------------------------------------- the engine's part (overridden
-    # by FusedContinuousBatcher; the scheduling is shared)
-    def _make_state(self):
-        return make_parked_state(self.cfg, self.s, self.batch_size,
-                                 self.model.embed.weight.dtype, self.device)
-
-    def _do_prefill(self, prompts, spks, u, rows):
-        return prefill_state(self.model, self.s, prompts, spks, u, rows=rows)
-
-    def _insert(self, batch, j: int, slot: int) -> None:
-        insert_row(self.state, extract_row(batch, j), slot)
-
-    def _decode(self) -> None:
-        decode_chunk(self.model, self.s, self.state, self.chunk_steps, self.rows)
 
     # -------------------------------------------------------------- lifecycle
     def _bucket_for(self, n: int) -> int:
@@ -142,11 +132,12 @@ class ContinuousBatcher:
             rows = RowSampling(**{n: np.concatenate([getattr(r, n) for r in row_list])
                                   for n in ROW_FIELDS})
             u = torch.stack([self._uniforms(req) for _, req in group], dim=1)
-            batch = self._do_prefill([np.asarray(req.prompt) for _, req in group],
-                                     [np.asarray(req.spk_codes) for _, req in group], u, rows)
+            batch = prefill_state(self.model, self.s, [np.asarray(req.prompt) for _, req in group],
+                                  [np.asarray(req.spk_codes) for _, req in group], u, rows=rows,
+                                  engine=self.engine)
             self.prefills_by_bucket[bucket] += 1
             for j, (slot, req) in enumerate(group):
-                self._insert(batch, j, slot)
+                insert_row(self.state, extract_row(batch, j), slot)
                 self.rows = insert_rows_sampling(self.rows, row_list[j], slot)
                 req._row = slot
                 self.active[slot] = req
@@ -166,7 +157,7 @@ class ContinuousBatcher:
         self._admit()
         if not self.active:
             return bool(self.queue)
-        self._decode()
+        decode_chunk(self.model, self.s, self.state, self.chunk_steps, self.rows, self.engine)
         self.chunks_run += 1
         self._harvest()
         return bool(self.active or self.queue)
@@ -184,31 +175,3 @@ class ContinuousBatcher:
         """Decode steps the pool has run (each one step of every row)."""
         return self.state.steps
 
-
-class FusedContinuousBatcher(ContinuousBatcher):
-    """The pool on the quantized engine: ``wbits`` 8 (W8A8) or 4 (W4A8), its
-    pack built here (``prepare_fused``) for ``batch_size`` rows, 2 to 8
-    (one row is ``ar_generate_fused``'s). Every decode step is one K2 call
-    for the whole pool, parked rows included; a request's tokens are those
-    of its solo ``ar_generate_fused`` run on the same pack and stream."""
-
-    def __init__(self, model: CodecLM, sampling: ArSampling, *, batch_size: int = 8,
-                 wbits: int = 4, **kw):
-        if not 2 <= batch_size <= 8:
-            raise ValueError("fused pool batch_size must be in [2, 8]")
-        self.wbits = wbits
-        self.fp, self.dims = prepare_fused(model, sampling.max_len, wbits, batch=batch_size)
-        super().__init__(model, sampling, batch_size=batch_size, **kw)
-
-    def _make_state(self):
-        return make_parked_state_fused(self.cfg, self.dims, self.s, self.device)
-
-    def _do_prefill(self, prompts, spks, u, rows):
-        return prefill_fused(self.model, self.dims, self.s, prompts, spks, u, rows=rows)
-
-    def _insert(self, batch, j: int, slot: int) -> None:
-        insert_fused_row(self.state, extract_fused_row(batch, j), slot)
-
-    def _decode(self) -> None:
-        decode_chunk_fused(self.fp, self.dims, self.cfg, self.s, self.state, self.chunk_steps,
-                           self.rows)

@@ -50,8 +50,8 @@ import torch.distributed as dist
 from torch import nn
 
 from ..diffusion.engine import perform_simple_inference
-from ..models.ar_decode import (ArSampling, RowSampling, ROW_FIELDS, model_step,
-                                prefill_state, rows_from_sampling, sample_rows)
+from ..models.ar_decode import (ArSampling, RowSampling, ROW_FIELDS, decode_chunk,
+                                prefill_state, rows_from_sampling)
 from ..parallel.mesh import make_mesh
 from ..parallel.sharding import codeclm_specs, nar_specs
 from ..parallel.tp import TensorParallel, shard_module
@@ -79,8 +79,9 @@ class ShardedARDecoder:
     across ``dp``, the bf16 model's heads, FFN and vocabulary across ``tp``
     (``model`` is left whole; each rank holds a copy of its shards). At tp
     1 the tokens are those of ``ar_generate_batched`` over the whole batch,
-    bit for bit, and its steps run as that call's do (``model_step``: on
-    the card a latent-attention model's step is one CUDA graph replay)."""
+    bit for bit, and its steps run as that call's do (the model's own
+    engine: on the card a latent-attention model's step is one CUDA graph
+    replay)."""
 
     def __init__(self, model: nn.Module, sampling: ArSampling, *, mesh=None, tp: int = 1):
         self.mesh, self.dp, self.rank, self.tp = _mesh_of(mesh, tp)
@@ -125,7 +126,7 @@ class ShardedARDecoder:
                               torch.as_tensor(u[:, lo:hi].copy(), device=dev), est[lo:hi],
                               local_rows)
         state.done |= np.arange(lo, hi) >= n_req           # a pad row is done
-        out = sample_rows(state, s, local_rows, model_step(self.model, state.cache))
+        out = decode_chunk(self.model, s, state, None, local_rows).results()
         gathered = [None] * self.dp
         dist.all_gather_object(gathered, out, group=self.mesh.get_group("dp"))
         return [r for part in gathered for r in part][:n_req]

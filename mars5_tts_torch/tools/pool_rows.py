@@ -7,9 +7,9 @@ Builds the released-width AR (26 x 1536, 24,000 ids) with random weights
 from a seed and runs six requests (three 30-token prompts and three
 560-token ones, each with a 525-frame speaker reference and a stream of
 its own; the EOS id lies outside the sampling window, so every row runs to
-``max_len`` = 560 + ``--gen``) through a fused4 ``FusedContinuousBatcher``
-of ``--rows`` rows (chunks of 64 steps, prompt buckets 64 and 576), and
-each request through ``ar_generate_fused`` on the pool's pack. Three
+``max_len`` = 560 + ``--gen``) through a ``ContinuousBatcher`` of
+``--rows`` rows on the fused4 engine (chunks of 64 steps, prompt buckets 64
+and 576), and each request through ``ar_generate`` on the pool's pack. Three
 passes, each timed on the host clock:
 
 * ``cold``: the process's first pool, so the first K2 call builds the
@@ -48,10 +48,10 @@ def main() -> int:
 
     from mars5_tts_torch.models import ar_decode_fused as F
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
-    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
     from mars5_tts_torch.ops.kernels import build
     from mars5_tts_torch.ops.norms import rms_norm
-    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -80,8 +80,9 @@ def main() -> int:
     streams = [rng.random(s.max_len).astype(np.float32) for _ in lens]
 
     def pool_pass():
-        pool = FusedContinuousBatcher(ar, s, batch_size=args.rows, wbits=4, chunk_steps=64,
-                                      prompt_buckets=(64, 576), spk_bucket=576)
+        engine = F.FusedEngine(*F.prepare_fused(ar, s.max_len, 4, batch=args.rows))
+        pool = ContinuousBatcher(ar, s, engine=engine, batch_size=args.rows, chunk_steps=64,
+                                 prompt_buckets=(64, 576), spk_bucket=576)
         reqs = [pool.submit(Request(prompt=p, spk_codes=spk, uniforms=u))
                 for p, u in zip(prompts, streams)]
         t0 = time.perf_counter()
@@ -90,9 +91,9 @@ def main() -> int:
         return pool, reqs, time.perf_counter() - t0
 
     def solo_pass(pool):
-        dims1 = dataclasses.replace(pool.dims, batch=1)
+        solo = F.FusedEngine(pool.engine.fp, dataclasses.replace(pool.engine.dims, batch=1))
         t0 = time.perf_counter()
-        out = [F.ar_generate_fused(ar, pool.fp, dims1, p, spk, sampling=s, uniforms=u)
+        out = [ar_generate(ar, p, spk, sampling=s, uniforms=u, engine=solo)
                for p, u in zip(prompts, streams)]
         sync()
         return out, time.perf_counter() - t0

@@ -84,8 +84,7 @@ def main() -> int:
 
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
     from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate_batched
-    from mars5_tts_torch.models.ar_decode_fused import (FusedCache, ar_generate_fused_batched,
-                                                        prepare_fused)
+    from mars5_tts_torch.models.ar_decode_fused import FusedCache, FusedEngine, prepare_fused
     from mars5_tts_torch.ops.kernels.decode_layer import fused_decode_layers
 
     dev = torch.device(args.device)
@@ -110,16 +109,14 @@ def main() -> int:
     s = ArSampling(n_phones_gen=100, eos_idx=eos, valid_start=n_text, valid_end=eos,
                    max_len=600 + args.tokens)
 
-    fp = dims = None
-    if args.engine == "bf16":
-        def run():
-            return ar_generate_batched(ar, prompts, spks, sampling=s, seed=1)
-    else:
+    fp = dims = engine = None
+    if args.engine != "bf16":
         fp, dims = prepare_fused(ar, s.max_len, 8 if args.engine == "fused" else 4,
                                  head4=args.engine == "fused4-head4", batch=args.rows)
+        engine = FusedEngine(fp, dims)
 
-        def run():
-            return ar_generate_fused_batched(ar, fp, dims, prompts, spks, sampling=s, seed=1)
+    def run():
+        return ar_generate_batched(ar, prompts, spks, sampling=s, seed=1, engine=engine)
 
     run()
     sync()

@@ -131,13 +131,14 @@ def test_dead_row_raises_through_the_decode_loop(monkeypatch, where):
         monkeypatch.setattr(AD, "sample_from_logprobs",
                             lambda lp, u: torch.full(u.shape, -1, dtype=torch.int64))
 
-    def step(tokens, pos):
-        logits = torch.zeros((2, cfg.n_vocab))
-        logits[1] = float("-inf")
-        return logits
+    class Dead(AD.Route):
+        def body(self, state):
+            logits = torch.zeros((2, cfg.n_vocab))
+            logits[1] = float("-inf")
+            return logits
 
     with pytest.raises(ValueError, match="no finite logprob"):
-        AD.decode_loop(state, s, AD.rows_from_sampling(s, 2), step)
+        AD.decode_loop(state, s, AD.rows_from_sampling(s, 2), Dead())
 
 
 # ------------------------------------------------------------ the graphs
@@ -198,11 +199,11 @@ def test_graphed_fused_rows_equal_eager_and_solo(stand_in, monkeypatch, wbits):
     monkeypatch.setattr(F, "fused_decode_layers", lambda *a, **k: k2.append(1) or real(*a, **k))
     loop = AD.decode_loop
     monkeypatch.setattr(AD, "decode_loop", lambda st, *a, **k: states.append(st) or loop(st, *a, **k))
-    monkeypatch.setattr(F, "decode_loop", AD.decode_loop)
+    engine = F.FusedEngine(fp, dims)
 
-    def run(**kw):
-        return F.ar_generate_fused_batched(model, fp, dims, prompts, spks, sampling=s,
-                                           uniforms=us, rows=rows, est_lens=[3, 0, 20, 9], **kw)
+    def run():
+        return AD.ar_generate_batched(model, prompts, spks, sampling=s, uniforms=us, rows=rows,
+                                      est_lens=[3, 0, 20, 9], engine=engine)
 
     graphed = run()
     steps = states[-1].steps
@@ -215,35 +216,38 @@ def test_graphed_fused_rows_equal_eager_and_solo(stand_in, monkeypatch, wbits):
     for i, ((tg, ng), (te, ne)) in enumerate(zip(graphed, eager)):
         np.testing.assert_array_equal(tg, te, err_msg=f"row {i}")
         assert ng == ne
-        one = F.ar_generate_fused_batched(
-            model, fp, dataclasses.replace(dims, batch=1), [prompts[i]], [spks[i]], sampling=s,
-            uniforms=us[:, i], est_lens=[[3, 0, 20, 9][i]],
-            rows=AD.RowSampling(**{n: getattr(rows, n)[i:i + 1] for n in AD.ROW_FIELDS}))
+        one = AD.ar_generate_batched(
+            model, [prompts[i]], [spks[i]], sampling=s, uniforms=us[:, i],
+            est_lens=[[3, 0, 20, 9][i]],
+            rows=AD.RowSampling(**{n: getattr(rows, n)[i:i + 1] for n in AD.ROW_FIELDS}),
+            engine=F.FusedEngine(fp, dataclasses.replace(dims, batch=1)))
         np.testing.assert_array_equal(tg, one[0][0], err_msg=f"row {i} solo")
 
 
 def test_graphed_fused_pool_keeps_its_graph_across_inserts(stand_in):
-    """A four-row ``FusedContinuousBatcher`` over six requests: its inserts
-    write the device state in place, so one capture serves the pool, every
-    other step replays, and each request's tokens are its solo run's."""
+    """A four-row ``ContinuousBatcher`` on the quantized engine over six
+    requests: its inserts write the device state in place, so one capture
+    serves the pool, every other step replays, and each request's tokens
+    are its solo run's."""
     from tests.test_torch_serving import _fused_requests
 
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
-    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+    from mars5_tts_torch.models.ar_decode import ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
-    model, _, _, s, *_ = _fused(4)
+    model, fp, dims, s, *_ = _fused(4)
     prompts, spks, us = _fused_requests(3)
     prompts, spks, us = prompts + prompts[:1], spks + spks[:1], us + us[-1:]
-    pool = FusedContinuousBatcher(model, s, batch_size=4, wbits=4, chunk_steps=5,
-                                  prompt_buckets=(8, 20), spk_bucket=32)
+    engine = FusedEngine(fp, dims)
+    pool = ContinuousBatcher(model, s, engine=engine, batch_size=4, chunk_steps=5,
+                             prompt_buckets=(8, 20), spk_bucket=32)
     reqs = [pool.submit(Request(prompt=p, spk_codes=k, uniforms=u))
             for p, k, u in zip(prompts, spks, us)]
     pool.run()
     assert pool.chunks_run > 2
     assert (stand_in.graph_captures, stand_in.graph_replays) == (1, pool.steps_run - 1)
-    dims1 = dataclasses.replace(pool.dims, batch=1)
     for i, (req, p, k, u) in enumerate(zip(reqs, prompts, spks, us)):
-        ref, n_ref = ar_generate_fused(model, pool.fp, dims1, p, k, sampling=s, uniforms=u)
+        ref, n_ref = ar_generate(model, p, k, sampling=s, uniforms=u, engine=engine)
         np.testing.assert_array_equal(req.tokens, ref, err_msg=f"request {i}")
         assert req.n_gen == n_ref
     assert stand_in.graph_captures == 1 + len(reqs)      # one a solo call
@@ -252,11 +256,13 @@ def test_graphed_fused_pool_keeps_its_graph_across_inserts(stand_in):
 def test_nothing_is_captured_off_the_card():
     """On the CPU every route runs eagerly: no holder, no capture."""
     from mars5_tts_torch.models import ar_graphs as G
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused_batched
+    from mars5_tts_torch.models.ar_decode import ar_generate_batched
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
 
     G.reset_counts()
     model, fp, dims, s, prompts, spks, us, _ = _fused(4)
-    out = ar_generate_fused_batched(model, fp, dims, prompts, spks, sampling=s, uniforms=us)
+    out = ar_generate_batched(model, prompts, spks, sampling=s, uniforms=us,
+                              engine=FusedEngine(fp, dims))
     assert len(out) == 4 and (G.graph_captures, G.graph_replays) == (0, 0)
 
 

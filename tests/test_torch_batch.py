@@ -316,18 +316,18 @@ def test_tts_batch_routes_rows_as_the_jax_package(monkeypatch):
     (one K2 twin call a step), 1 and 9 rows the bf16 one."""
     import mars5_tts_torch.pipeline as PP
     from mars5_tts_torch import InferenceConfig
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
 
     calls = []
 
-    def record(fn, name):
+    def record(fn):
         def run(*a, **k):
-            calls.append((name, len(a[3] if name == "fused" else a[1])))
+            calls.append(("fused" if isinstance(k.get("engine"), FusedEngine) else "bf16",
+                          len(a[1])))
             return fn(*a, **k)
         return run
 
-    monkeypatch.setattr(PP, "ar_generate_batched", record(PP.ar_generate_batched, "bf16"))
-    monkeypatch.setattr(PP, "ar_generate_fused_batched",
-                        record(PP.ar_generate_fused_batched, "fused"))
+    monkeypatch.setattr(PP, "ar_generate_batched", record(PP.ar_generate_batched))
     tts = _port_tts(ar=fused_ar(), ar_backend="fused4")
     ref = _refs(8 * 40)[0]
     cfg = InferenceConfig(timesteps=2, generate_max_len_override=90, trim_db=200)
@@ -336,7 +336,52 @@ def test_tts_batch_routes_rows_as_the_jax_package(monkeypatch):
                              seed=1)
         assert len(outs) == n and all(np.isfinite(w).all() for _, w in outs)
     assert calls == [("bf16", 1), ("fused", 3), ("bf16", 9)]
-    fp, dims = tts._get_fused(90, batch=3)
+    engine = tts._ar_engine(90, 3)
+    fp, dims = engine.fp, engine.dims
     assert dims.batch == 3 and fp is tts._fused_cache[90][0]
     assert tts._fused_cache[90][1].batch == 1
     assert dataclasses.replace(dims, batch=1) == tts._fused_cache[90][1]
+
+
+@pytest.mark.parametrize("entry", ["tts", "tts_batch"])
+@pytest.mark.parametrize("ar_backend", ["bf16", "fused4"])
+def test_one_ar_call_a_request_and_k2_through_its_module(monkeypatch, ar_backend, entry):
+    """The names the benchmark reads the program through
+    (``portbench/record.py``): a ``tts`` or ``tts_batch`` call reaches
+    exactly one ``ar_generate*`` callable of ``pipeline``'s namespace, which
+    returns a (sequence, n_generated) tuple, or a list of them; on the
+    quantized engine every decode step calls K2 as
+    ``models/ar_decode_fused.fused_decode_layers``, so a patch of that
+    module's global counts it, and on the bf16 engine nothing calls it."""
+    import mars5_tts_torch.pipeline as PP
+    from mars5_tts_torch import InferenceConfig
+    from mars5_tts_torch.models import ar_decode_fused as F
+
+    calls, k2 = [], []
+
+    def record(fn, name):
+        def run(*a, sampling, **k):
+            out = fn(*a, sampling=sampling, **k)
+            calls.append((name, sampling.max_len, out))
+            return out
+        return run
+
+    for name in sorted(vars(PP)):
+        if name.startswith("ar_generate") and callable(getattr(PP, name)):
+            monkeypatch.setattr(PP, name, record(getattr(PP, name), name))
+    real = F.fused_decode_layers
+    monkeypatch.setattr(F, "fused_decode_layers", lambda *a, **k: k2.append(1) or real(*a, **k))
+    tts = _port_tts(ar=fused_ar(), ar_backend=ar_backend)
+    ref = _refs(8 * 40)[0]
+    cfg = InferenceConfig(timesteps=2, generate_max_len_override=90, trim_db=200)
+    if entry == "tts":
+        tts.tts("hi there", ref, ref_transcript="ok", cfg=cfg, seed=1)
+    else:
+        tts.tts_batch(["hi there", "a line"], ref, ref_transcript="ok", cfg=cfg, seed=1)
+    (name, max_len, out), = calls
+    rows = out if isinstance(out, list) else [out]
+    assert (name, len(rows)) == (("ar_generate", 1) if entry == "tts" else
+                                 ("ar_generate_batched", 2))
+    assert all(isinstance(r, tuple) and len(r) == 2 for r in rows)
+    steps = max(n - (len(seq) >= max_len) for seq, n in rows)
+    assert steps > 0 and len(k2) == (steps if ar_backend == "fused4" else 0)

@@ -547,9 +547,9 @@ def test_fused_engine_on_gpu(dev):
     import copy
 
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
-    from mars5_tts_torch.models.ar_decode import ArSampling
-    from mars5_tts_torch.models.ar_decode_fused import (FusedCache, ar_generate_fused,
-                                                        fused_step, prepare_fused)
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import (FusedCache, FusedEngine, fused_step,
+                                                        prepare_fused)
     from mars5_tts_torch.ops.kernels import decode_layer as D, head4 as H
 
     cfg = CodecLMConfig(n_vocab=1283, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
@@ -565,7 +565,8 @@ def test_fused_engine_on_gpu(dev):
     u = r.random(s.max_len).astype(np.float32)
     fp, dims = prepare_fused(gpu, s.max_len, 4, head4=True)
     n0 = (D.launch_count, H.launch_count)
-    tokens, n_gen = ar_generate_fused(gpu, fp, dims, prompt, spk, sampling=s, uniforms=u)
+    tokens, n_gen = ar_generate(gpu, prompt, spk, sampling=s, uniforms=u,
+                                engine=FusedEngine(fp, dims))
     steps = n_gen - (len(tokens) >= s.max_len)
     assert (D.launch_count - n0[0], H.launch_count - n0[1]) == (steps, steps)
     gen = tokens[len(prompt):]
@@ -948,7 +949,7 @@ def test_batched_ar_engines_on_gpu(dev):
 
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
     from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate_batched
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused_batched, prepare_fused
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
     from mars5_tts_torch.ops.kernels import decode_attention as A, decode_layer as D, head4 as H
 
     cfg = CodecLMConfig(n_vocab=1283, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
@@ -976,8 +977,8 @@ def test_batched_ar_engines_on_gpu(dev):
     gpu16 = copy.deepcopy(cpu).to(torch.bfloat16).to(dev)
     fp, dims = prepare_fused(gpu16, s.max_len, 4, head4=True, batch=3)
     n0 = (D.launch_count, H.launch_count, A.launch_count)
-    outs = ar_generate_fused_batched(gpu16, fp, dims, prompts, spks, sampling=s, uniforms=u,
-                                     est_lens=est)
+    outs = ar_generate_batched(gpu16, prompts, spks, sampling=s, uniforms=u, est_lens=est,
+                               engine=FusedEngine(fp, dims))
     steps = max(n - (len(t) >= s.max_len) for t, n in outs)
     assert (D.launch_count - n0[0], H.launch_count - n0[1], A.launch_count - n0[2]) == (
         steps, steps, 0)
@@ -1367,16 +1368,14 @@ def test_fused_final_logits_do_not_depend_on_the_batch(dev):
 
 
 def test_fused_pool_rows_equal_solo_runs_on_gpu(dev):
-    """A three-row ``FusedContinuousBatcher`` (W4, K2 one call a step) over
-    five requests in two buckets: each request's tokens equal its solo
-    ``ar_generate_fused`` run on the pool's pack and stream."""
-    import dataclasses
-
+    """A three-row ``ContinuousBatcher`` on the quantized engine (W4, K2 one
+    call a step) over five requests in two buckets: each request's tokens
+    equal its solo ``ar_generate`` run on the pool's engine and stream."""
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
-    from mars5_tts_torch.models.ar_decode import ArSampling
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
     from mars5_tts_torch.ops.kernels import decode_layer as D
-    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
     cfg = CodecLMConfig(n_vocab=1283, dim=256, n_heads=4, n_kv_heads=4, head_dim=64,
                         n_layers=2, hidden_dim=1024, sliding_window=3000, n_spk_layers=1,
@@ -1387,17 +1386,17 @@ def test_fused_pool_rows_equal_solo_runs_on_gpu(dev):
     s = ArSampling(n_phones_gen=30, eos_idx=1282, valid_start=258, valid_end=1283, max_len=90)
     reqs = [Request(prompt=r.integers(0, 1283, n), spk_codes=r.integers(0, 1024, (20, 8)),
                     uniforms=r.random(90).astype(np.float32)) for n in (10, 50, 20, 45, 30)]
-    pool = FusedContinuousBatcher(model, s, batch_size=3, wbits=4, chunk_steps=8,
-                                  prompt_buckets=(32, 64), spk_bucket=32)
+    engine = FusedEngine(*prepare_fused(model, s.max_len, 4, batch=3))
+    pool = ContinuousBatcher(model, s, engine=engine, batch_size=3, chunk_steps=8,
+                             prompt_buckets=(32, 64), spk_bucket=32)
     for q in reqs:
         pool.submit(q)
     n0 = D.launch_count
     pool.run()
     assert D.launch_count - n0 == pool.steps_run
-    dims1 = dataclasses.replace(pool.dims, batch=1)
     for q in reqs:
-        ref, n = ar_generate_fused(model, pool.fp, dims1, q.prompt, q.spk_codes, sampling=s,
-                                   uniforms=q.uniforms)
+        ref, n = ar_generate(model, q.prompt, q.spk_codes, sampling=s, uniforms=q.uniforms,
+                             engine=engine)
         np.testing.assert_array_equal(q.tokens, ref)
         assert q.n_gen == n
 
@@ -2093,8 +2092,8 @@ def _fused_run(model, fp, dims, prompts, spks, s, u, est, rows=None, graphed=Tru
     G.reset_counts()
     n0 = (D.launch_count, H.launch_count)
     try:
-        out = F.ar_generate_fused_batched(model, fp, dims, prompts, spks, sampling=s,
-                                          uniforms=u, est_lens=est, rows=rows)
+        out = AD.ar_generate_batched(model, prompts, spks, sampling=s, uniforms=u, est_lens=est,
+                                     rows=rows, engine=F.FusedEngine(fp, dims))
     finally:
         AD.decode_loop, G.takes = loop, takes
     torch.cuda.synchronize()
@@ -2215,25 +2214,24 @@ def test_graphed_latent_route_bitwise_eager_at_one_row(dev, monkeypatch):
 
 @torch.no_grad()
 def test_graphed_fused_pool_rows_equal_solo_runs(dev):
-    """A four-row ``FusedContinuousBatcher`` (W4) over six requests at the
-    released widths: graphed, each request's tokens equal its solo graphed
-    ``ar_generate_fused`` run; the pool captures once for all its quanta (its
-    inserts write the device state in place), K2 once a step."""
-    import dataclasses
-
+    """A four-row ``ContinuousBatcher`` on the quantized engine (W4) over six
+    requests at the released widths: graphed, each request's tokens equal
+    its solo graphed ``ar_generate`` run; the pool captures once for all its
+    quanta (its inserts write the device state in place), K2 once a step."""
     from mars5_tts_torch.models import ar_graphs as G
-    from mars5_tts_torch.models.ar_decode import ArSampling
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
     from mars5_tts_torch.ops.kernels import decode_layer as D
-    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
     model = _released_ar(dev, seed=7)
     r = np.random.default_rng(7)
     s = ArSampling(n_phones_gen=30, eos_idx=1282, valid_start=258, valid_end=1283, max_len=120)
     reqs = [Request(prompt=r.integers(0, 1283, n), spk_codes=r.integers(0, 1024, (20, 8)),
                     uniforms=r.random(120).astype(np.float32)) for n in (10, 50, 20, 45, 30, 15)]
-    pool = FusedContinuousBatcher(model, s, batch_size=4, wbits=4, chunk_steps=16,
-                                  prompt_buckets=(32, 64), spk_bucket=32)
+    engine = FusedEngine(*prepare_fused(model, s.max_len, 4, batch=4))
+    pool = ContinuousBatcher(model, s, engine=engine, batch_size=4, chunk_steps=16,
+                             prompt_buckets=(32, 64), spk_bucket=32)
     for q in reqs:
         pool.submit(q)
     G.reset_counts()
@@ -2241,10 +2239,9 @@ def test_graphed_fused_pool_rows_equal_solo_runs(dev):
     pool.run()
     assert D.launch_count - n0 == pool.steps_run and pool.chunks_run > 2
     assert (G.graph_captures, G.graph_replays) == (1, pool.steps_run - 1)
-    dims1 = dataclasses.replace(pool.dims, batch=1)
     for i, q in enumerate(reqs):
-        ref, n = ar_generate_fused(model, pool.fp, dims1, q.prompt, q.spk_codes, sampling=s,
-                                   uniforms=q.uniforms)
+        ref, n = ar_generate(model, q.prompt, q.spk_codes, sampling=s, uniforms=q.uniforms,
+                             engine=engine)
         np.testing.assert_array_equal(q.tokens, ref, err_msg=f"request {i}")
         assert q.n_gen == n
 
@@ -2258,18 +2255,18 @@ def test_graphed_fused_step_launches(dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mars5_tts_torch.models.ar_decode import ArSampling
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused, prepare_fused
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
 
     model = _released_ar(dev)
     r = np.random.default_rng(2)
     prompt, spk = r.integers(0, 1283, 40), r.integers(0, 1024, (30, 8))
     s = ArSampling(n_phones_gen=100, eos_idx=0, valid_start=258, valid_end=1283, max_len=140)
-    fp, dims = prepare_fused(model, s.max_len, 4)
+    engine = FusedEngine(*prepare_fused(model, s.max_len, 4))
     u = r.random(s.max_len).astype(np.float32)
-    ar_generate_fused(model, fp, dims, prompt, spk, sampling=s, uniforms=u)
+    ar_generate(model, prompt, spk, sampling=s, uniforms=u, engine=engine)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ar_generate_fused(model, fp, dims, prompt, spk, sampling=s, uniforms=u)
+        ar_generate(model, prompt, spk, sampling=s, uniforms=u, engine=engine)
     evs = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CPU]
 
     def spans(name):

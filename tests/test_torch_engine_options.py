@@ -347,7 +347,7 @@ def _deploy_pipelines(monkeypatch, nar_backend):
     u_ar = np.random.default_rng(9).random(4096).astype(np.float32)
     grids = {}
     monkeypatch.setattr(JF, "ar_generate_fused", _ar_uniforms(JF.ar_generate_fused, u_ar))
-    monkeypatch.setattr(PP, "ar_generate_fused", _ar_uniforms(PP.ar_generate_fused, u_ar))
+    monkeypatch.setattr(PP, "ar_generate", _ar_uniforms(PP.ar_generate, u_ar))
     monkeypatch.setattr(JP, "perform_simple_inference",
                         _nar_draws(JP.perform_simple_inference, grids, "jax", ("key",), steps))
     monkeypatch.setattr(PP, "perform_simple_inference",
@@ -505,7 +505,7 @@ def test_tts_without_kv_cache_runs_the_nocache_engine(monkeypatch, ar_backend):
     monkeypatch.setattr(PP, "ar_generate_nocache",
                         lambda *a, **k: calls.append(1) or nocache(*a, **k))
     monkeypatch.setattr(JP, "ar_generate_nocache", _ar_uniforms(JA.ar_generate_nocache, u))
-    for name in ("ar_generate", "ar_generate_fused"):
+    for name in ("ar_generate", "ar_generate_batched"):
         monkeypatch.setattr(PP, name, lambda *a, **k: pytest.fail("a cached AR engine ran"))
     cfg, params = fused_ar()
     cfgs, tiny = tiny_models()

@@ -11,8 +11,8 @@ the kernel and the engine, a 256-wide AR for the pipeline).
 * ``fused_step_ref`` against ``fused_step_emulation`` (W8, W4, before and
   after the ring wraps): h atol 1e-5, k/v atol 1e-6, the JAX kernel tests'
   bound; once against the Pallas kernel in interpret mode.
-* ``ar_generate_fused`` token-identical to the JAX engine under shared
-  uniforms; ``Mars5TTS(ar_backend="fused4", nar_backend="int8")`` gives the JAX
+* ``ar_generate`` on the quantized engine (``FusedEngine``) token-identical
+  to the JAX engine under shared uniforms; ``Mars5TTS(ar_backend="fused4", nar_backend="int8")`` gives the JAX
   pipeline's AR tokens and its grid within the W8A8 NAR's 4%-of-cells bound
   (``tests/test_torch_diffusion_tail.py``).
 """
@@ -437,7 +437,7 @@ def test_generation_token_identical_to_jax(wbits):
     from mars5_tts_tpu.models import ar_decode as JA
     from mars5_tts_tpu.models.ar_decode_fused import ar_generate_fused as j_generate
     from mars5_tts_torch.models import ar_decode as PA
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
 
     params = jax.tree.map(jnp.asarray, models()[0])
     fp, jdims = jax_fused(wbits)
@@ -451,8 +451,8 @@ def test_generation_token_identical_to_jax(wbits):
         u = rng.random(MAX_LEN).astype(np.float32)
         tok_j, n_j = j_generate(params, fp, CFG, jdims, prompt, spk,
                                 sampling=JA.ArSampling(**SAMPLING), uniforms=u, interpret=None)
-        tok_p, n_p = ar_generate_fused(models()[1], pfp, dims, prompt, spk,
-                                       sampling=PA.ArSampling(**SAMPLING), uniforms=u)
+        tok_p, n_p = PA.ar_generate(models()[1], prompt, spk, sampling=PA.ArSampling(**SAMPLING),
+                                    uniforms=u, engine=FusedEngine(pfp, dims))
         np.testing.assert_array_equal(tok_p, tok_j, err_msg=f"seed {seed}")
         assert n_p == n_j and n_p > 0
 
@@ -493,6 +493,7 @@ def test_mars5tts_quantized_ar_int8_matches_jax_pipeline(monkeypatch, ar_backend
     import mars5_tts_tpu.pipeline as JP
     import mars5_tts_torch.pipeline as PP
     from mars5_tts_tpu.config import InferenceConfig
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
 
     monkeypatch.setenv("MARS5_FUSED_INTERPRET", "emu")
     monkeypatch.setenv("MARS5_NAR_FUSED_INTERPRET", "1")
@@ -500,8 +501,10 @@ def test_mars5tts_quantized_ar_int8_matches_jax_pipeline(monkeypatch, ar_backend
     u_ar = np.random.default_rng(9).random(4096).astype(np.float32)
     grids = {}
 
-    def ar_with_uniforms(fn):
+    def ar_with_uniforms(fn, quantized=False):
         def run(*a, sampling, seed=0, **k):
+            if quantized and not isinstance(k.get("engine"), FusedEngine):
+                pytest.fail("bf16 AR engine ran")
             return fn(*a, sampling=sampling, uniforms=u_ar[:sampling.max_len], **k)
         return run
 
@@ -516,13 +519,12 @@ def test_mars5tts_quantized_ar_int8_matches_jax_pipeline(monkeypatch, ar_backend
         return run
 
     monkeypatch.setattr(JF, "ar_generate_fused", ar_with_uniforms(JF.ar_generate_fused))
-    monkeypatch.setattr(PP, "ar_generate_fused", ar_with_uniforms(PP.ar_generate_fused))
+    monkeypatch.setattr(PP, "ar_generate", ar_with_uniforms(PP.ar_generate, quantized=True))
     monkeypatch.setattr(JP, "perform_simple_inference",
                         nar_with_draws(JP.perform_simple_inference, "jax",
                                        ("key", "gen_bucket", "text_bucket")))
     monkeypatch.setattr(PP, "perform_simple_inference",
                         nar_with_draws(PP.perform_simple_inference, "port", ("generator",)))
-    monkeypatch.setattr(PP, "ar_generate", lambda *a, **k: pytest.fail("bf16 AR engine ran"))
 
     cfg, params = fused_ar()
     cfgs, tiny = tiny_models()
@@ -548,6 +550,7 @@ def test_mars5tts_quantized_ar_int8_matches_jax_pipeline(monkeypatch, ar_backend
 def test_backend_arguments(monkeypatch):
     import mars5_tts_torch.pipeline as PP
     from mars5_tts_tpu.config import InferenceConfig
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
 
     for bad in ("int8", "fused8", "bf16 "):
         with pytest.raises(ValueError):
@@ -555,7 +558,14 @@ def test_backend_arguments(monkeypatch):
     for backend in ("bf16", "fused"):
         with pytest.raises(ValueError):
             _port_tts(ar_backend=backend, head4=True)
-    monkeypatch.setattr(PP, "ar_generate", lambda *a, **k: pytest.fail("bf16 AR engine ran"))
+    ar = PP.ar_generate
+
+    def quantized_only(*a, engine=None, **k):
+        if not isinstance(engine, FusedEngine):
+            pytest.fail("bf16 AR engine ran")
+        return ar(*a, engine=engine, **k)
+
+    monkeypatch.setattr(PP, "ar_generate", quantized_only)
     tts = _port_tts(ar_backend="fused4", head4=True)
     ref = (np.random.default_rng(5).standard_normal(8 * 40) * 0.1).astype(np.float32)
     for max_len in (60, 61):
@@ -576,7 +586,7 @@ def _batched_case(seed):
 
 def _batched_engines(wbits, seed, monkeypatch, eager=False):
     """(JAX tokens, port tokens, port one-row tokens) of ``_batched_case``:
-    ``ar_generate_fused_batched`` of both packages (the JAX engine in
+    the batched quantized engine of both packages (the JAX engine in
     emulation, jitted unless ``eager``) under one (max_len, 3) stream, the
     port's step with the JAX RoPE angles and self-score sum."""
     import dataclasses
@@ -584,8 +594,7 @@ def _batched_engines(wbits, seed, monkeypatch, eager=False):
     from mars5_tts_tpu.models import ar_decode as JA
     from mars5_tts_tpu.models.ar_decode_fused import ar_generate_fused_batched as j_generate
     from mars5_tts_torch.models import ar_decode as PA
-    from mars5_tts_torch.models.ar_decode_fused import (ar_generate_fused,
-                                                        ar_generate_fused_batched)
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
     from mars5_tts_torch.ops.kernels import decode_layer as D
 
     monkeypatch.setattr(D, "_self_scores", _jax_self_scores)
@@ -600,11 +609,12 @@ def _batched_engines(wbits, seed, monkeypatch, eager=False):
         outs_j = j_generate(params, fp, CFG, dataclasses.replace(jdims, batch=3), prompts, spks,
                             uniforms=u, est_lens=est, sampling=JA.ArSampling(**SAMPLING),
                             interpret=None)
-    outs_p = ar_generate_fused_batched(models()[1], pfp, dataclasses.replace(dims, batch=3),
-                                       prompts, spks, uniforms=u, est_lens=est,
-                                       sampling=PA.ArSampling(**SAMPLING))
-    solo = [ar_generate_fused(models()[1], pfp, dims, prompts[i], spks[i], uniforms=u[:, i],
-                              sampling=PA.ArSampling(**{**SAMPLING, "n_phones_gen": est[i]}))
+    outs_p = PA.ar_generate_batched(models()[1], prompts, spks, uniforms=u, est_lens=est,
+                                    sampling=PA.ArSampling(**SAMPLING),
+                                    engine=FusedEngine(pfp, dataclasses.replace(dims, batch=3)))
+    solo = [PA.ar_generate(models()[1], prompts[i], spks[i], uniforms=u[:, i],
+                           sampling=PA.ArSampling(**{**SAMPLING, "n_phones_gen": est[i]}),
+                           engine=FusedEngine(pfp, dims))
             for i in range(3)]
     return outs_j, outs_p, solo
 

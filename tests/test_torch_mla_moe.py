@@ -177,12 +177,13 @@ def _reference_tokens(p, c, prompt, spk, s, u, est_len):
                       est_lens=[est_len])
     rows = AD.rows_from_sampling(s, 1)
 
-    def logits():
-        return R.forward(p, c, torch.as_tensor(st.tokens[0, :st.cur[0]]),
-                         torch.as_tensor(spk))[-1][None]
+    class Reference(AD.Route):
+        def body(self, state):
+            return R.forward(p, c, torch.as_tensor(state.tokens[0, :state.cur[0]]),
+                             torch.as_tensor(spk))[-1][None]
 
-    AD.sample_update(st, logits(), s, rows)
-    return AD.sample_rows(st, s, rows, lambda t, pos: logits())[0]
+    AD.sample_update(st, Reference().body(st), s, rows)
+    return AD.decode_loop(st, s, rows, Reference()).results()[0]
 
 
 @pytest.mark.parametrize("entry", ["tts", "tts_batch"])
@@ -267,15 +268,14 @@ def test_quantized_routes_refuse_the_block(kw):
 
 
 def test_k2_dims_and_fused_pool_refuse_the_block():
-    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
     from mars5_tts_torch.ops.kernels.decode_layer import make_dims
-    from mars5_tts_torch.serving.continuous import FusedContinuousBatcher
 
     m, _, _ = _model()
     with pytest.raises(ValueError, match="K2"):
         make_dims(m.cfg, 100)
     with pytest.raises(ValueError, match="K2"):
-        FusedContinuousBatcher(m, ArSampling(max_len=100), batch_size=2)
+        prepare_fused(m, 100, 4, batch=2)        # a quantized pool's engine
 
 
 def test_tensor_parallelism_refuses_the_block():

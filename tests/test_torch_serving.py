@@ -5,10 +5,11 @@ JAX package's ``serving/`` at tiny geometry:
   to its own solo run on the same stream (one bucket, mixed buckets,
   per-request sampling, top_k above the pool default), its refusals, and
   the resumable state (parked rows, row moves);
-* ``FusedContinuousBatcher`` (the K2 twin): rows identical to their solo
-  ``ar_generate_fused`` runs at W8 and W4, one K2 call a pool step, and to
-  the JAX ``FusedContinuousBatcher(interpret=None)`` at W8 where the two
-  packages' solo engines agree;
+* ``ContinuousBatcher`` on the quantized engine (``FusedEngine``, the K2
+  twin): rows identical to their solo ``ar_generate`` runs on the engine at
+  W8 and W4, one K2 call a pool step, and to the JAX
+  ``FusedContinuousBatcher(interpret=None)`` at W8 where the two packages'
+  solo engines agree;
 * NAR waves: wave rows grid-identical to their solo runs under injected
   uniforms (the JAX ``tests/test_nar_waves.py`` cases, mixed voices
   included), through the engine and through ``NarWaveScheduler``, and to
@@ -117,8 +118,11 @@ def test_pool_rows_equal_jax_pool_and_solo_runs(case):
 
 
 def test_request_top_k_above_pool_default_and_refusals():
+    from tests.test_torch_fused_decode import SAMPLING, models, port_fused
+
     from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
-    from mars5_tts_torch.serving import ContinuousBatcher, FusedContinuousBatcher, Request
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
     cfg, params, model = tiny_ar()
     s = ArSampling(**POOL_SAMPLING)                       # top_k 10
@@ -140,7 +144,8 @@ def test_request_top_k_above_pool_default_and_refusals():
         ContinuousBatcher(model, s, prompt_buckets=(8, 64))   # the window is 49 slots
     for rows in (1, 9):
         with pytest.raises(ValueError, match=r"\[2, 8\]"):
-            FusedContinuousBatcher(model, s, batch_size=rows)
+            ContinuousBatcher(models()[1], ArSampling(**SAMPLING),
+                              engine=FusedEngine(*port_fused(8)), batch_size=rows)
 
 
 def test_parked_rows_and_row_moves():
@@ -185,15 +190,15 @@ def _fused_requests(seed):
 @pytest.mark.parametrize("wbits", [8, 4])
 def test_fused_pool_rows_equal_solo_runs(wbits, monkeypatch):
     """Five requests, two buckets, through a three-row pool on the K2 twin (the
-    ring wraps: window 24): each row's tokens are its solo
-    ``ar_generate_fused`` run's on the pool's pack and stream, and the pool
-    runs one K2 call a step for all its rows."""
+    ring wraps: window 24): each row's tokens are its solo ``ar_generate``
+    run's on the pool's engine and stream, and the pool runs one K2 call a
+    step for all its rows."""
     from tests.test_torch_fused_decode import CFG, SAMPLING, models
 
-    from mars5_tts_torch.models.ar_decode import ArSampling
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
     from mars5_tts_torch.ops.kernels import decode_layer as D
-    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
     calls = []
     k2 = D.fused_decode_layers
@@ -202,16 +207,16 @@ def test_fused_pool_rows_equal_solo_runs(wbits, monkeypatch):
     model = models()[1]
     s = ArSampling(**SAMPLING)
     prompts, spks, us = _fused_requests(wbits)
-    pool = FusedContinuousBatcher(model, s, batch_size=3, wbits=wbits, chunk_steps=6,
-                                  prompt_buckets=(8, 20), spk_bucket=32)
+    engine = FusedEngine(*prepare_fused(model, s.max_len, wbits, batch=3))
+    pool = ContinuousBatcher(model, s, engine=engine, batch_size=3, chunk_steps=6,
+                             prompt_buckets=(8, 20), spk_bucket=32)
     reqs = [pool.submit(Request(prompt=p, spk_codes=k, uniforms=u))
             for p, k, u in zip(prompts, spks, us)]
     pool.run()
     assert calls == [3] * pool.steps_run and pool.chunks_run > 1
     assert min(pool.prefills_by_bucket.values()) > 0
-    dims1 = dataclasses.replace(pool.dims, batch=1)
     for i, (req, p, k, u) in enumerate(zip(reqs, prompts, spks, us)):
-        ref, n_ref = ar_generate_fused(model, pool.fp, dims1, p, k, sampling=s, uniforms=u)
+        ref, n_ref = ar_generate(model, p, k, sampling=s, uniforms=u, engine=engine)
         np.testing.assert_array_equal(req.tokens, ref, err_msg=f"request {i}")
         assert req.n_gen == n_ref
     assert CFG.sliding_window < max(len(p) for p in prompts) + max(r.n_gen for r in reqs)
@@ -232,18 +237,19 @@ def test_fused_pool_equals_jax_fused_pool(monkeypatch):
     from mars5_tts_tpu.models.ar_decode_fused import ar_generate_fused as j_solo
     from mars5_tts_tpu.serving.continuous import FusedContinuousBatcher as JPool
     from mars5_tts_tpu.serving.continuous import Request as JRequest
-    from mars5_tts_torch.models.ar_decode import ArSampling
-    from mars5_tts_torch.models.ar_decode_fused import ar_generate_fused
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
+    from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
     from mars5_tts_torch.ops.kernels import decode_layer as D
-    from mars5_tts_torch.serving import FusedContinuousBatcher, Request
+    from mars5_tts_torch.serving import ContinuousBatcher, Request
 
     monkeypatch.setattr(D, "_self_scores", _jax_self_scores)
     monkeypatch.setattr(D, "rope_flat", _jax_rope_flat)
     prompts, spks, us = _fused_requests(3)
-    kw = dict(batch_size=3, wbits=8, chunk_steps=6, prompt_buckets=(8, 20), spk_bucket=32)
+    kw = dict(batch_size=3, chunk_steps=6, prompt_buckets=(8, 20), spk_bucket=32)
     params = jax.tree.map(jnp.asarray, models()[0])
-    jpool = JPool(params, CFG, JS(**SAMPLING), interpret=None, **kw)
-    pool = FusedContinuousBatcher(models()[1], ArSampling(**SAMPLING), **kw)
+    jpool = JPool(params, CFG, JS(**SAMPLING), interpret=None, wbits=8, **kw)
+    engine = FusedEngine(*prepare_fused(models()[1], SAMPLING["max_len"], 8, batch=3))
+    pool = ContinuousBatcher(models()[1], ArSampling(**SAMPLING), engine=engine, **kw)
     for p, k, u in zip(prompts, spks, us):
         jpool.submit(JRequest(prompt=p, spk_codes=k, uniforms=u))
         pool.submit(Request(prompt=p, spk_codes=k, uniforms=u))
@@ -251,12 +257,11 @@ def test_fused_pool_equals_jax_fused_pool(monkeypatch):
     pool.run()
     got = {tuple(r.prompt): r for r in pool.completed}
     want = {tuple(r.prompt): r for r in jpool.completed}
-    dims1 = dataclasses.replace(pool.dims, batch=1)
     differ = []
     for i, (p, k, u) in enumerate(zip(prompts, spks, us)):
         r, jr = got[tuple(p)], want[tuple(p)]
-        solo, _ = ar_generate_fused(models()[1], pool.fp, dims1, p, k,
-                                    sampling=ArSampling(**SAMPLING), uniforms=u)
+        solo, _ = ar_generate(models()[1], p, k, sampling=ArSampling(**SAMPLING), uniforms=u,
+                              engine=engine)
         jsolo, _ = j_solo(params, jax_fused(8)[0], CFG, jax_fused(8)[1], p, k,
                           sampling=JS(**SAMPLING), uniforms=u, interpret=None)
         np.testing.assert_array_equal(r.tokens, solo, err_msg=f"request {i} port solo")
@@ -283,7 +288,7 @@ def test_fused_engines_part_by_one_int8_rounding(monkeypatch):
     from mars5_tts_tpu.models.ar import codeclm_prefill, spk_embedding
     from mars5_tts_tpu.ops.pallas.decode_layer import quantize_kv_rows as j_quant
     from mars5_tts_torch.models import ar_decode_fused as F
-    from mars5_tts_torch.models.ar_decode import ArSampling
+    from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate, prefill_rows
     from mars5_tts_torch.ops.kernels import decode_layer as D
 
     monkeypatch.setattr(D, "_self_scores", _jax_self_scores)
@@ -294,8 +299,8 @@ def test_fused_engines_part_by_one_int8_rounding(monkeypatch):
     fp, dims = F.prepare_fused(model, MAX_LEN, 8)
     prompts, spks, us = _fused_requests(3)
     p, spk = prompts[0], spks[0]
-    tokens, _ = F.ar_generate_fused(model, fp, dims, p, spk, sampling=ArSampling(**SAMPLING),
-                                    uniforms=us[0])
+    tokens, _ = ar_generate(model, p, spk, sampling=ArSampling(**SAMPLING), uniforms=us[0],
+                            engine=F.FusedEngine(fp, dims))
 
     # the JAX solo run's prefill: prompt padded to 23, speaker codes to 32
     pb, n_layers, d = min(64, dims.window - 1), jdims.n_layers, jdims.dim
@@ -312,7 +317,7 @@ def test_fused_engines_part_by_one_int8_rounding(monkeypatch):
           .at[:, 1, :pb + 1].set(vs))
     # the port's own prefill, unpadded, quantizes to the same int8 K/V
     own = F.FusedCache(dims, torch.device("cpu"))
-    own.write_prompt(0, F.prefill_rows(model, [p], [spk], dims.window)[1][0])
+    own.write_prompt(0, prefill_rows(model, [p], [spk], dims.window)[1][0])
     n = len(p) + 1
     assert np.array_equal(own.k[:, 0, :n].numpy(), np.asarray(k8[:, :n]))
     assert np.array_equal(own.v[:, 0, :n].numpy(), np.asarray(v8[:, :n]))
