@@ -1471,6 +1471,7 @@ def counts():
 
 
 def reset_counts():
+    from mars5_tts_torch.models import ar_decode as AD
     from mars5_tts_torch.ops.kernels import (decode_attention as A, decode_layer as L,
                                              diffusion_tail as D, head4 as H, mha as K,
                                              moe_decode as E, nar_fused as F, nar_mega as M)
@@ -1482,6 +1483,7 @@ def reset_counts():
     M.reset_launch_count()
     A.reset_launch_count()
     E.reset_launch_count()
+    AD.reset_counts()
 
 
 AR_RUNS = []
@@ -1507,9 +1509,15 @@ def decode_steps(rows, max_len):
 
 def check_launches(label, launches, want, steps):
     """Each kernel's launches within ``want`` (name -> (low, high), or a
-    function of the decode steps giving it)."""
+    function of the decode steps launched giving it: ``steps`` and the step
+    a pipelined AR loop launches past an EOS that ends its one run,
+    ``ar_decode.discarded_steps`` since ``reset_counts``)."""
+    from mars5_tts_torch.models import ar_decode as AD
+
+    if AD.discarded_steps > 1:
+        raise RuntimeError(f"{label}: {AD.discarded_steps} AR steps thrown away in one run")
     for name, v in want.items():
-        lo, hi = v(steps) if callable(v) else v
+        lo, hi = v(steps + AD.discarded_steps) if callable(v) else v
         if not lo <= launches[name] <= hi:
             raise RuntimeError(f"{label}: {name} launched {launches[name]} times, "
                                f"expected {lo}..{hi}")

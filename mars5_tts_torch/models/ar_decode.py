@@ -34,7 +34,11 @@ the logit pipeline, the draw and the bookkeeping update them there, and the
 host's fields follow from one readback of the drawn tokens a step. On the
 card the quantized engine's step (``FusedStep``) and the latent-attention
 step (``LatentStep``) replay one CUDA graph a step (``models/ar_graphs``);
-the bf16 ring's step (``RingStep``) runs the same sampler eagerly.
+the bf16 ring's step (``RingStep``) runs the same sampler eagerly. A route
+whose step reads its input from the device state (``Route.pipelined``: the
+quantized and the latent steps) runs one step ahead: the loop launches step
+i + 1 before it waits for step i's tokens, so the card has the next step
+queued while the host reads back and prepares it.
 
 A DeepSeek-V2 backbone (``cfg.attention == "mla"``) keeps a ``LatentCache``
 in place of the ring of keys and values: each position's normed latent and
@@ -294,7 +298,11 @@ class DeviceState:
     (``early_eos_table``), and ``out`` (B, 2) int64, the step's one
     readback: each row's drawn token and whether it had no finite logprob.
     ``load`` writes them from the host's fields in place, so a graph made on
-    them stays valid; ``buffer`` keeps a route's static tensors."""
+    them stays valid; ``buffer`` keeps a route's static tensors. ``post``
+    queues a copy of ``out`` into one of two host buffers (pinned on the
+    card, made with the state: the pinned pool does not grow in the loop)
+    and ``fetch`` waits for it, so a step's tokens can be read while the
+    next step runs."""
 
     INTS = ("tok", "cur", "n_gen", "penalty_window", "top_k")
     FLOATS = ("temperature", "alpha_frequency", "alpha_presence", "top_p", "typical_p")
@@ -311,6 +319,9 @@ class DeviceState:
         self.hist = torch.zeros((batch, max_len), dtype=torch.int64, device=device)
         self.eos_modifier = torch.zeros((batch, max_len + 1), dtype=torch.float32, device=device)
         self.out = torch.zeros((batch, 2), dtype=torch.int64, device=device)
+        pinned = self.out.is_cuda
+        self.host = torch.zeros((2, batch, 2), dtype=torch.int64, pin_memory=pinned)
+        self.copied = [torch.cuda.Event() for _ in range(2)] if pinned else None
         self.rows = torch.arange(batch, device=device)
         self._buffers = {}
 
@@ -329,6 +340,21 @@ class DeviceState:
         self.eos_modifier.copy_(torch.stack([
             early_eos_table(int(e), float(d), float(f), n)
             for e, d, f in zip(st.est_len, rows.eos_penalty_decay, rows.eos_penalty_factor)]))
+
+    def post(self, k: int) -> None:
+        """Queue the copy of ``out`` into host buffer ``k`` (0 or 1) behind
+        the work that wrote it, without waiting. The copy runs on the
+        current stream of ``out``'s card, which need not be the current
+        card, and the event is recorded there."""
+        self.host[k].copy_(self.out, non_blocking=True)
+        if self.copied is not None:
+            self.copied[k].record(torch.cuda.current_stream(self.out.device))
+
+    def fetch(self, k: int) -> np.ndarray:
+        """Host buffer ``k`` once its copy has landed (the host waits here)."""
+        if self.copied is not None:
+            self.copied[k].synchronize()
+        return self.host[k].numpy()
 
     def buffer(self, name: str, shape: tuple, dtype) -> torch.Tensor:
         """The static tensor ``name`` of a route (zeros at first use)."""
@@ -418,12 +444,13 @@ def draw(state: DecodeState, logits, s: ArSampling, blocks: tuple) -> None:
     dev.tok.copy_(dev.hist[dev.rows, (dev.cur - 1).clamp_min(0)])
 
 
-def read_back(state: DecodeState, s: ArSampling) -> None:
-    """The step's one readback (the span ``ar.readback``, where the host
-    waits for the device): the drawn tokens, from which the host fields
-    follow by ``draw``'s rules. A row with no finite logprob raises."""
+def read_back(state: DecodeState, s: ArSampling, k: int = 0) -> None:
+    """A step's one readback from host buffer ``k`` (``DeviceState.post``;
+    the span ``ar.readback``, where the host waits for the device): the
+    drawn tokens, from which the host fields follow by ``draw``'s rules. A
+    row with no finite logprob raises."""
     with span("ar.readback"):
-        out = state.dev.out.cpu().numpy()
+        out = state.dev.fetch(k)
     if out[:, 1].any():
         raise ValueError("sample_from_logprobs: a row has no finite logprob")
     st, tok = state, out[:, 0]
@@ -445,20 +472,24 @@ def sample_update(state: DecodeState, logits, s: ArSampling, rows: RowSampling) 
     blocks = load_device_state(state, s, rows)
     with span("ar.sample"):
         draw(state, logits, s, blocks)
+        state.dev.post(0)
     read_back(state, s)
 
 
 class Route:
     """A decode step as ``decode_loop`` runs it, feeding every row's last
     token at its cursor through the model and writing its K/V into the
-    state's cache: ``direct(state)``, the part a step runs as direct calls,
-    or None; ``body(state)``, the rest, which returns the (B, V) f32 logits;
-    ``feed(state)``, which readies the next step's input after a draw.
-    Where ``graphable`` (and ``ar_graphs.takes`` the route), ``body``, the
-    draw and ``feed`` replay one CUDA graph a step, keyed by ``name``. The
-    base has no direct part, feeds nothing and is never graphed."""
+    state's cache: ``direct(state, cur)``, the part a step runs as direct
+    calls at the host cursors ``cur`` (B,), or None; ``body(state)``, the
+    rest, which returns the (B, V) f32 logits; ``feed(state)``, which
+    readies the next step's input after a draw. Where ``graphable`` (and
+    ``ar_graphs.takes`` the route), ``body``, the draw and ``feed`` replay
+    one CUDA graph a step, keyed by ``name``. Where ``pipelined``, nothing
+    of the step but ``direct``'s cursors comes from the host fields, so the
+    loop launches it before the previous step is read back. The base has no
+    direct part, feeds nothing and is neither graphed nor pipelined."""
 
-    name, direct, graphable = "route", None, False
+    name, direct, graphable, pipelined = "route", None, False, False
 
     def body(self, state: DecodeState):
         raise NotImplementedError
@@ -467,46 +498,100 @@ class Route:
         pass
 
 
+# decode steps launched while the step before them was not yet read back,
+# and steps launched past the end of every row and thrown away (reset with
+# reset_counts)
+pipelined_steps = 0
+discarded_steps = 0
+
+
+def reset_counts() -> None:
+    """Zero this module's step counters and ``ar_graphs``'."""
+    global pipelined_steps, discarded_steps
+    pipelined_steps = discarded_steps = 0
+    ar_graphs.reset_counts()
+
+
+def launch_cursors(state: DecodeState, s: ArSampling, ahead: bool):
+    """The host cursors (B,) the next step runs at, or None where it would
+    append to no row. With a step in flight (``ahead``) they are taken past
+    it: a live row appends there unless it draws EOS, so it runs at
+    ``cur + 1``; a row that draws EOS runs one step at that position, its
+    result dropped; a row at ``max_len - 1`` is done after it either way."""
+    if not ahead:
+        return None if state.done.all() else state.cur
+    if (state.done | (state.cur + 1 >= s.max_len)).all():
+        return None
+    return np.where(state.done, state.cur, state.cur + 1)
+
+
 def decode_loop(state: DecodeState, s: ArSampling, rows: RowSampling, route: Route,
                 n_steps: int | None = None) -> DecodeState:
     """Decode steps of ``route`` until every row is done, or at most
-    ``n_steps``; returns ``state``, advanced in place. ``draw`` samples each
-    step's logits and ``read_back`` updates the host fields. Each step is
-    the span ``ar.step``: the forward ``ar.forward`` (a graphed step with no
-    direct part is one replay there), the draw ``ar.sample`` (with a graphed
-    ``body``), then ``ar.readback``."""
+    ``n_steps``; returns ``state``, advanced in place, with no step in
+    flight. ``draw`` samples each step's logits, its tokens are copied to
+    the host (``DeviceState.post``) and ``read_back`` updates the host
+    fields. A ``pipelined`` route runs one step ahead: step i + 1 is
+    launched at ``launch_cursors`` before step i is read back, and where
+    step i ends every row, step i + 1 is dropped (``discarded_steps``); it
+    counts in ``state.steps``, the steps launched. Each launch is the span
+    ``ar.step``: the forward ``ar.forward`` (a graphed step with no direct
+    part is one replay there), the draw ``ar.sample`` (with a graphed
+    ``body``), then ``ar.readback`` of the step before it, or of itself
+    where no step follows or the route is not pipelined."""
+    global pipelined_steps, discarded_steps
     blocks = load_device_state(state, s, rows)
     route.feed(state)
     graphed = ar_graphs.takes(state, route)
     if graphed and state.graphs is None:
         state.graphs = ar_graphs.StepGraphs(state.counts.device)
     key = (route.name, blocks, s)
+    dev = state.dev
 
     def rest():
         draw(state, route.body(state), s, blocks)
         route.feed(state)
 
-    i = 0
-    while not state.done.all() and (n_steps is None or i < n_steps):
+    def launch(cur, k: int) -> None:
+        """One step at host cursors ``cur``, its tokens posted to buffer k."""
+        if not graphed:
+            with span("ar.forward"):
+                if route.direct is not None:
+                    route.direct(state, cur)
+                logits = route.body(state)
+            with span("ar.sample"):
+                draw(state, logits, s, blocks)
+                route.feed(state)
+        elif route.direct is None:
+            with span("ar.forward"):
+                state.graphs.run(key, rest)
+        else:
+            with span("ar.forward"):
+                route.direct(state, cur)
+            with span("ar.sample"):
+                state.graphs.run(key, rest)
+        dev.post(k)
+
+    i, ahead = 0, None          # steps launched; the buffer of the step in flight
+    cur = launch_cursors(state, s, False) if n_steps is None or n_steps > 0 else None
+    while cur is not None:
         with span("ar.step"):
-            if not graphed:
-                with span("ar.forward"):
-                    if route.direct is not None:
-                        route.direct(state)
-                    logits = route.body(state)
-                with span("ar.sample"):
-                    draw(state, logits, s, blocks)
-                    route.feed(state)
-            elif route.direct is None:
-                with span("ar.forward"):
-                    state.graphs.run(key, rest)
-            else:
-                with span("ar.forward"):
-                    route.direct(state)
-                with span("ar.sample"):
-                    state.graphs.run(key, rest)
-            read_back(state, s)
-        i += 1
+            launch(cur, i % 2)
+            if ahead is not None:
+                pipelined_steps += 1
+                read_back(state, s, ahead)
+                if state.done.all():          # the step just launched is past every row's end
+                    discarded_steps += 1
+                    i += 1
+                    break
+            ahead, i = i % 2, i + 1
+            more = n_steps is None or i < n_steps
+            cur = launch_cursors(state, s, True) if more and route.pipelined else None
+            if cur is None:
+                read_back(state, s, ahead)
+                ahead = None
+                if more and not route.pipelined:
+                    cur = launch_cursors(state, s, False)
     state.steps += i
     return state
 
@@ -572,9 +657,10 @@ class LatentStep(Route):
     """A latent-attention backbone's decode step as ``decode_loop`` runs it:
     each row's last token embedded and its cursor taken from the device
     state, then ``latent_step``, all on the device: on the card the step
-    and its draw are one CUDA graph replay (``models/ar_graphs``)."""
+    and its draw are one CUDA graph replay (``models/ar_graphs``); pipelined,
+    since nothing of it comes from the host."""
 
-    name, graphable = "latent", True
+    name, graphable, pipelined = "latent", True, True
 
     def __init__(self, model: CodecLM, cache: LatentCache):
         self.model, self.cache = model, cache

@@ -19,7 +19,8 @@ weight-only int8 product (``ops/quant.linear_q8``) or, with ``head4``,
 kernel K8 (``ops/kernels/head4.head4_logits``). The decode loop runs the
 step as ``FusedStep``: K2 a direct call on the host's positions, and on the
 card everything after it, the draw and the next step's embedding one CUDA
-graph replay (``models/ar_graphs``).
+graph replay (``models/ar_graphs``), launched one step ahead of the
+readback (``decode_loop``).
 
 Unlike the JAX engine, the prompts are not padded to buckets and a short
 batch is not padded with parked rows (both only fit XLA's static shapes):
@@ -162,9 +163,13 @@ class FusedStep(Route):
     device's last tokens (``feed``). On the card ``body``, the draw and
     ``feed`` replay one CUDA graph a step (``models/ar_graphs``), while K2
     stays a direct call: it plans its attention split on the host's
-    positions, and is counted call by call."""
+    positions, and is counted call by call. Pipelined: K2 takes the cursors
+    ``decode_loop`` hands it, taken past a step still in flight (a row
+    that draws EOS there runs one dropped step at ``cur + 1``; K2's split,
+    sized by the largest position, does not change another row's bits), and
+    everything else comes from the device state."""
 
-    name, graphable = "fused", True
+    name, graphable, pipelined = "fused", True, True
 
     def __init__(self, fp, dims: FusedDims, cfg, cache: FusedCache):
         self.fp, self.dims, self.cfg, self.cache = fp, dims, cfg, cache
@@ -190,9 +195,9 @@ class FusedStep(Route):
         self.cache.write_slots(pos, k_new, v_new)
         return logits
 
-    def direct(self, state: DecodeState) -> None:
+    def direct(self, state: DecodeState, cur) -> None:
         x, *out = self._static(state)
-        self.layers(x, state.cur, out)
+        self.layers(x, cur, out)
 
     def body(self, state: DecodeState):
         return self.head(*self._static(state)[1:], state.dev.cur)

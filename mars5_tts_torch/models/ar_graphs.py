@@ -10,8 +10,9 @@ for most of each step. ``StepGraphs`` records everything after the
 step's direct calls as one CUDA graph over the decode state kept on the
 device (``models/ar_decode.DeviceState``): each step then issues its direct
 calls (K2, which reads the host's positions), replays the graph once and
-reads the drawn tokens back. The latent-attention step has no direct
-call: its forward and the draw are one replay.
+queues the copy of its drawn tokens, which the host reads back once the
+next step is queued (``decode_loop``). The latent-attention step has no
+direct call: its forward and the draw are one replay.
 
 At a geometry's first step (the key: the route, the filter blocks the rows
 need and the sampling settings; the rows are the state's) the holder runs

@@ -302,3 +302,37 @@ def test_dp_decoder_on_a_latent_cache_captures_once(stand_in, monkeypatch, tmp_p
     for (tg, ng), (te, ne) in zip(got, want):
         np.testing.assert_array_equal(tg, te)
         assert ng == ne
+
+
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_graphed_fused_steps_run_one_ahead(stand_in, monkeypatch, wbits):
+    """The stand-in graphs on the quantized route, launched one step ahead
+    of the readback: the tokens and counts of the same graphed route in
+    series (``FusedStep.pipelined`` patched False); one capture, a replay and
+    a K2 call at every later step launched, each but the first launched
+    ahead, at most one thrown away."""
+    from mars5_tts_torch.models import ar_decode as AD, ar_decode_fused as F
+
+    model, fp, dims, s, prompts, spks, us, _ = _fused(wbits)
+    k2, runs = [], []
+    real = F.fused_decode_layers
+    monkeypatch.setattr(F, "fused_decode_layers", lambda *a, **k: k2.append(1) or real(*a, **k))
+    for serial in (False, True):
+        with monkeypatch.context() as m:
+            if serial:
+                m.setattr(F.FusedStep, "pipelined", False)
+            AD.reset_counts()
+            k2.clear()
+            state = AD.prefill_state(model, s, prompts, spks, torch.as_tensor(us),
+                                     est_lens=[3, 0, 20, 9], engine=F.FusedEngine(fp, dims))
+            AD.decode_chunk(model, s, state, None, engine=F.FusedEngine(fp, dims))
+            runs.append((state, AD.pipelined_steps, AD.discarded_steps, len(k2),
+                         stand_in.graph_captures, stand_in.graph_replays))
+    (got, pipe, drop, n_k2, cap, rep), (want, pipe0, drop0, n_k20, cap0, rep0) = runs
+    for (tg, ng), (tw, nw) in zip(got.results(), want.results()):
+        np.testing.assert_array_equal(tg, tw)
+        assert ng == nw
+    assert torch.equal(got.counts, want.counts)
+    assert (pipe0, drop0, n_k20, cap0, rep0) == (0, 0, want.steps, 1, want.steps - 1)
+    assert drop <= 1 and got.steps == want.steps + drop
+    assert (pipe, n_k2, cap, rep) == (got.steps - 1, got.steps, 1, got.steps - 1)

@@ -546,6 +546,7 @@ def test_fused_engine_on_gpu(dev):
     first step's logits within the kernel bound of the CPU twins'."""
     import copy
 
+    from mars5_tts_torch.models import ar_decode as AD
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
     from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate
     from mars5_tts_torch.models.ar_decode_fused import (FusedCache, FusedEngine, fused_step,
@@ -565,9 +566,11 @@ def test_fused_engine_on_gpu(dev):
     u = r.random(s.max_len).astype(np.float32)
     fp, dims = prepare_fused(gpu, s.max_len, 4, head4=True)
     n0 = (D.launch_count, H.launch_count)
+    AD.reset_counts()
     tokens, n_gen = ar_generate(gpu, prompt, spk, sampling=s, uniforms=u,
                                 engine=FusedEngine(fp, dims))
-    steps = n_gen - (len(tokens) >= s.max_len)
+    # a step launched past an EOS that ends the call counts too
+    steps = n_gen - (len(tokens) >= s.max_len) + AD.discarded_steps
     assert (D.launch_count - n0[0], H.launch_count - n0[1]) == (steps, steps)
     gen = tokens[len(prompt):]
     assert n_gen > 0 and ((gen >= 257) & (gen < 1283)).all()
@@ -947,6 +950,7 @@ def test_batched_ar_engines_on_gpu(dev):
     engine runs K2 (and K8) once a step for all rows."""
     import copy
 
+    from mars5_tts_torch.models import ar_decode as AD
     from mars5_tts_torch.models.ar import CodecLM, CodecLMConfig
     from mars5_tts_torch.models.ar_decode import ArSampling, ar_generate_batched
     from mars5_tts_torch.models.ar_decode_fused import FusedEngine, prepare_fused
@@ -977,9 +981,10 @@ def test_batched_ar_engines_on_gpu(dev):
     gpu16 = copy.deepcopy(cpu).to(torch.bfloat16).to(dev)
     fp, dims = prepare_fused(gpu16, s.max_len, 4, head4=True, batch=3)
     n0 = (D.launch_count, H.launch_count, A.launch_count)
+    AD.reset_counts()
     outs = ar_generate_batched(gpu16, prompts, spks, sampling=s, uniforms=u, est_lens=est,
                                engine=FusedEngine(fp, dims))
-    steps = max(n - (len(t) >= s.max_len) for t, n in outs)
+    steps = max(n - (len(t) >= s.max_len) for t, n in outs) + AD.discarded_steps
     assert (D.launch_count - n0[0], H.launch_count - n0[1], A.launch_count - n0[2]) == (
         steps, steps, 0)
     for (t, n), p in zip(outs, prompts):
@@ -2201,13 +2206,14 @@ def test_graphed_latent_route_bitwise_eager_at_one_row(dev, monkeypatch):
     takes = G.takes
     for graphed in (True, False):
         monkeypatch.setattr(G, "takes", takes if graphed else (lambda state, route: False))
-        G.reset_counts()
+        AD.reset_counts()
         n0 = K.launch_count
         tok, n = AD.ar_generate(m, prompt, spk, sampling=s, uniforms=u)
         runs.append((tok, n, G.graph_captures, G.graph_replays, K.launch_count - n0))
     (tg, ng, cg, rg, kg), (te, ne, ce, re_, ke) = runs
     np.testing.assert_array_equal(tg, te)
-    steps = ng - (len(tg) >= s.max_len)
+    # the steps launched: one past an EOS that ends the call too
+    steps = ng - (len(tg) >= s.max_len) + AD.discarded_steps
     assert ng == ne and (cg, rg, ce, re_) == (1, steps - 1, 0, 0)
     assert kg == ke >= 2 * steps                # the replays count their K10 calls
 
@@ -2280,3 +2286,159 @@ def test_graphed_fused_step_launches(dev):
     per = [np.searchsorted(launches, b) - np.searchsorted(launches, a) for a, b in steps]
     assert len(captures) == 1 and len(steps) > 50
     assert max(per) <= 20, per
+
+
+def _series_and_pipelined(monkeypatch, cls, run):
+    """``run()`` (which returns a decode state) with ``cls.pipelined`` as it
+    is, then patched False (the series loop): each time (the state, the
+    host buffers its prefill made, ``pipelined_steps``, ``discarded_steps``,
+    the graph captures and replays, K2's and K10's launches)."""
+    from mars5_tts_torch.models import ar_decode as AD, ar_graphs as G
+    from mars5_tts_torch.ops.kernels import decode_layer as D, moe_decode as K
+
+    runs = []
+    for serial in (False, True):
+        with monkeypatch.context() as m:
+            if serial:
+                m.setattr(cls, "pipelined", False)
+            AD.reset_counts()
+            n0 = (D.launch_count, K.launch_count)
+            state, host = run()
+            torch.cuda.synchronize()
+            runs.append((state, host, AD.pipelined_steps, AD.discarded_steps, G.graph_captures,
+                         G.graph_replays, D.launch_count - n0[0], K.launch_count - n0[1]))
+    return runs
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@torch.no_grad()
+def test_pipelined_fused_route_bitwise_the_series_loop(dev, monkeypatch, rows):
+    """The graphed W4A8 route at the released widths, launched one step
+    ahead of its readback, against the same route in series: EOS forced
+    mid-run in the even rows, the odd ones capped; tokens, penalty counts
+    and the capped rows' rings bitwise; one capture a state; one K2 launch
+    a step, and one more only where an EOS ends the call; every step but
+    the first launched ahead; the pinned readback buffers the prefill made
+    kept to the end."""
+    from torch_port_fixtures import Forcing
+
+    from mars5_tts_torch.models import ar_decode as AD, ar_decode_fused as F
+
+    model = _released_ar(dev)
+    r = np.random.default_rng(rows + 20)
+    spks = [r.integers(0, 1024, (n, 8)) for n in r.integers(20, 40, rows)]
+    prompts = [np.concatenate([r.integers(0, 258, n), k[:12, 0] + 258])
+               for n, k in zip(r.integers(5, 30, rows), spks)]
+    s = AD.ArSampling(n_phones_gen=30, eos_idx=1282, valid_start=258, valid_end=1283,
+                      max_len=max(len(p) for p in prompts) + 80)
+    u = torch.as_tensor(r.random((s.max_len, rows)).astype(np.float32), device=dev)
+    at = [0 if b % 2 else 20 + 7 * b for b in range(rows)]
+    engine = Forcing(F.FusedEngine(*F.prepare_fused(model, s.max_len, 4, batch=rows)),
+                     s.eos_idx, at)
+
+    def run():
+        state = AD.prefill_state(model, s, prompts, spks, u, engine=engine)
+        host = state.dev.host
+        return AD.decode_chunk(model, s, state, None, engine=engine), host
+
+    (got, host, pipe, drop, cap, rep, k2, _), (want, _, pipe0, drop0, cap0, rep0, k20, _) = \
+        _series_and_pipelined(monkeypatch, F.FusedStep, run)
+    for b, ((tg, ng), (tw, nw)) in enumerate(zip(got.results(), want.results())):
+        np.testing.assert_array_equal(tg, tw, err_msg=f"row {b}")
+        assert ng == nw and (ng == at[b] if at[b] else got.cur[b] == s.max_len), b
+        if not at[b]:
+            for name in ("k", "v", "scales"):
+                assert torch.equal(getattr(got.cache, name)[:, b], getattr(want.cache, name)[:, b])
+    assert torch.equal(got.counts, want.counts)
+    assert (pipe0, drop0, cap0, rep0, k20) == (0, 0, 1, want.steps - 1, want.steps)
+    assert drop == (rows == 1) and got.steps == want.steps + drop
+    assert (pipe, cap, rep, k2) == (got.steps - 1, 1, got.steps - 1, got.steps)
+    assert got.dev.host is host and host.is_pinned()
+
+
+@pytest.mark.parametrize("end", ["eos", "cap"])
+@torch.no_grad()
+def test_pipelined_latent_route_bitwise_the_series_loop(dev, monkeypatch, end):
+    """The DeepSeek-V2-shaped AR's graphed latent route at one row, one step
+    ahead, against the same route in series: tokens, counts and the latent
+    ring bitwise (the step takes its cursor from the device, so even the
+    step thrown away past an EOS rewrites what its last step wrote); one
+    capture; K10 once an expert layer a step launched."""
+    from torch_port_fixtures import Forcing
+
+    from mars5_tts_torch.models import ar_decode as AD
+
+    m, _ = _latent_ar(dev)
+    r = np.random.default_rng(4)
+    prompt, spk = r.integers(0, 1283, 30), r.integers(0, 1024, (40, 8))
+    s = AD.ArSampling(n_phones_gen=40, eos_idx=1282, valid_start=258, valid_end=1283,
+                      max_len=130)
+    u = torch.as_tensor(r.random((s.max_len, 1)).astype(np.float32), device=dev)
+    engine = Forcing(AD.MODEL_ENGINE, s.eos_idx, [50 if end == "eos" else 0])
+
+    def run():
+        state = AD.prefill_state(m, s, [prompt], [spk], u, engine=engine)
+        host = state.dev.host
+        return AD.decode_chunk(m, s, state, None, engine=engine), host
+
+    (got, host, pipe, drop, cap, rep, _, k10), (want, _, pipe0, drop0, _, _, _, k100) = \
+        _series_and_pipelined(monkeypatch, AD.LatentStep, run)
+    np.testing.assert_array_equal(got.results()[0][0], want.results()[0][0])
+    assert got.n_gen[0] == want.n_gen[0] == (50 if end == "eos" else got.n_gen[0])
+    assert torch.equal(got.counts, want.counts) and torch.equal(got.cache.ckv, want.cache.ckv)
+    assert (pipe0, drop0) == (0, 0) and drop == (end == "eos")
+    assert got.steps == want.steps + drop and (pipe, cap, rep) == (got.steps - 1, 1, got.steps - 1)
+    assert k10 - k100 == 2 * drop and k100 >= 2 * want.steps   # two expert layers
+    assert got.dev.host is host and host.is_pinned()
+
+
+def test_readback_waits_for_a_state_on_another_card(dev):
+    """A decode state on the second card while the first is current: its
+    readback waits for the copy queued behind a long kernel there, so it
+    reads the tokens written after that kernel, never the zeros before."""
+    from mars5_tts_torch.models.ar_decode import DeviceState
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    state = DeviceState(2, 8, torch.device("cuda", 1))
+    with torch.cuda.device(1):
+        torch.cuda._sleep(2 * 10 ** 9)       # about a second of the second card's clock
+        state.out.fill_(7)
+    state.post(0)
+    assert torch.cuda.current_device() == 0
+    np.testing.assert_array_equal(state.fetch(0), np.full((2, 2), 7))
+    torch.cuda.synchronize(1)
+
+
+@pytest.mark.parametrize("rows", [2, 3, 8])
+@torch.no_grad()
+def test_k2_rows_do_not_depend_on_the_attention_split(dev, rows):
+    """K2 at the released widths (W4): the last row moved one position on,
+    so that ``attention_split``'s chunks change (it is sized by the largest
+    position), leaves every other row's h, k_new and v_new bitwise as they
+    were. A row that drew EOS runs its dropped step at cursor + 1, so it
+    cannot change the rows beside it."""
+    from mars5_tts_torch.models.ar import CodecLMConfig
+    from mars5_tts_torch.models.ar_decode_fused import prepare_fused
+    from mars5_tts_torch.ops.kernels import decode_layer as D
+
+    cfg = CodecLMConfig.mars5(24_000)
+    fp, dims = prepare_fused(_decode_model(cfg, dev, 4), 2000, 4)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    shape = (dims.n_layers, rows, dims.window, dims.dim)
+    (ck, ks), (cv, vs) = (D.quantize_kv_rows(torch.randn(shape, generator=g, device=dev) * 0.1)
+                          for _ in range(2))
+    kvs = torch.stack([ks, vs], dim=2).contiguous()
+    x = fp["embed"][torch.arange(rows, device=dev) * 5 + 11].to(torch.bfloat16)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for last in (639, 1151, 1663):
+        base = [100 + (last - 200) * b // rows for b in range(rows - 1)]
+        splits = [D.attention_split(sm, rows, dims.n_heads, min(p + 1, dims.window))
+                  for p in (last, last + 1)]
+        assert splits[0] != splits[1], (last, splits)
+        a, b_ = (D.fused_decode_layers(fp, x, base + [p], ck, cv, kvs, dims=dims,
+                                       norm_eps=cfg.norm_eps) for p in (last, last + 1))
+        torch.cuda.synchronize()
+        for ta, tb in zip(a, b_):
+            assert torch.equal(ta[..., : rows - 1, :], tb[..., : rows - 1, :]), (last, splits)

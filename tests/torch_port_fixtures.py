@@ -3,6 +3,9 @@
 Everything is built by the JAX package (``init_codeclm`` / ``init_nar`` /
 ``init_encodec`` / ``init_vocos``) from fixed seeds, then carried into the
 port, so each test feeds the same weights and inputs to both packages.
+Besides them, ``Forcing``: an AR engine wrapper that makes chosen rows draw
+EOS (or no finite logprob) at chosen steps, for the decode-loop tests on
+the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -196,3 +199,40 @@ def assert_adam_step_close(after: dict, ref_after: dict, grads: dict, ref_grads:
         bad = err > bound
         assert not bad.any(), (f"{n}: {int(bad.sum())} of {err.size} entries past their bound, "
                                f"worst {err[bad].max()} (bound there {bound[bad].max()})")
+
+
+class Forcing:
+    """``engine`` whose routes make row b draw EOS at its generated count
+    ``at[b]`` (0: never) and never elsewhere: there its logits put all the
+    mass on EOS, elsewhere none. From its generated count ``dead[b]`` on
+    (0: never) row b's logits are all -inf. The forcing reads the device
+    state alone, as a pipelined step must."""
+
+    def __init__(self, engine, eos: int, at, dead=None):
+        import torch
+
+        self.engine, self.eos, self.at = engine, eos, torch.as_tensor(at)
+        self.dead = torch.as_tensor(dead if dead is not None else [0] * len(at))
+
+    def fit(self, *a, **kw):
+        return self.engine.fit(*a, **kw)
+
+    def cache(self, *a, **kw):
+        return self.engine.cache(*a, **kw)
+
+    def step(self, model, cache):
+        import torch
+
+        route = self.engine.step(model, cache)
+        body = route.body
+        at, dead_at = (t.to(model.embed.weight.device) for t in (self.at, self.dead))
+
+        def forced(state):
+            logits = body(state)
+            n_gen = state.dev.n_gen
+            logits[:, self.eos] = torch.where(at == n_gen, 1e4, -1e4)
+            dead = (dead_at > 0) & (n_gen >= dead_at)
+            return logits.masked_fill(dead[:, None], float("-inf"))
+
+        route.body = forced
+        return route
